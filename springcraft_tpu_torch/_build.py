@@ -1,10 +1,11 @@
 """
 Build, load and call the port's hand-written CUDA kernels.
 
-All sources under ``csrc/`` compile with ``nvcc`` into ONE shared
-library with a plain C interface, named by a hash of the sources and
-flags and placed under ``build/kernels/`` at the root of the checkout
-(``.gitignore`` lists it).  The library is built on first use and
+Each source under ``csrc/`` compiles with its own ``nvcc``, all started
+together, and the objects link into ONE shared library with a plain C
+interface, named by a hash of the sources and flags and placed under
+``build/kernels/`` at the root of the checkout (``.gitignore`` lists
+it).  The library is built on first use and
 loaded with :mod:`ctypes`; every pointer and the stream pass as
 ``c_void_p``.  Each C entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; :func:`launch` passes PyTorch's
@@ -34,7 +35,8 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 #: Register/spill report, written to the build log beside the library.
 _REPORT_FLAGS = ("-Xptxas", "-v")
 
@@ -49,6 +51,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
     "sc_hessian_planes": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
+    "sc_hessian_xyz": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
+    "sc_kirchhoff": (_P, _P, _I, _I, _I, _F, _I, _P),
     # planes, scale_h, ts, out, batch, n, mp, stream
     "sc_regularize_stitch": (_P, _P, _P, _P, _I, _I, _I, _P),
     # panels, out, count, pb, stream
@@ -67,7 +73,7 @@ def library_path():
     for path in SOURCES + _HEADERS:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     return BUILD_DIR / f"springcraft_kernels_{digest.hexdigest()[:16]}.so"
 
 
@@ -87,16 +93,34 @@ def _nvcc():
 
 def _build(target):
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *_REPORT_FLAGS, "-I", str(_CSRC),
-           "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objects = [target.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, *_REPORT_FLAGS, "-I", str(_CSRC), "-c",
+                 "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    outputs = [proc.communicate()[0] for proc in procs]
+    tmp = target.with_name(f"{tag}.tmp")
+    link = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+    failed = [" ".join(cmd) for cmd, proc in zip(compiles, procs)
+              if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outputs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(" ".join(link))
     log = target.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log.write_text("".join(" ".join(cmd) + "\n" + out for cmd, out
+                           in zip(compiles + [link], outputs)))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}); see {log}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed: {failed[0]}; see {log}\n"
+                           + "".join(outputs))
     os.replace(tmp, target)
 
 

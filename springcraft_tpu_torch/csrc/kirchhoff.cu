@@ -1,0 +1,80 @@
+// GNM Kirchhoff matrices of a conformer batch, (B, n, 3) -> (B, n, n):
+// -k off the diagonal, the row sum of k on it.
+//
+// Replaces the TPU kernels
+// * springcraft_tpu/ops/pallas_kernels.py:766 `_kirchhoff_ensemble_kernel`
+//   (reached through `kirchhoff_pallas_ensemble`);
+// * springcraft_tpu/ops/pallas_kernels.py:413 `_kirchhoff_kernel` (reached
+//   through `kirchhoff_pallas`): the single structure runs at B = 1, and
+//   the JAX package's vmap of `kirchhoff_pallas` over an ensemble (its
+//   GNM pipelines for the analytic families) runs at B = chunk.
+// Analytic force-field families only.
+//
+// What bounds it on the H100: memory writes.  Each conformer writes n^2
+// floats (46 MB for a 128-conformer chunk at n = 300) and reads 12 n bytes
+// of coordinates; the arithmetic per pair is ~10 flops.
+//
+// Design, as in hessian_planes.cu: the TPU kernels carry the row sum across
+// a sequential column-tile grid and write the diagonal tile last; here one
+// WARP owns one whole row p of one conformer, its lanes sweep the columns
+// (one coalesced 128-byte store per step), the row sum stays in a register
+// and is reduced by warp shuffle, and lane 0 writes the diagonal.  No
+// cross-block reduction.  A block of 8 warps stages its conformer's
+// coordinates in shared memory (12 n bytes; the wrapper refuses n > 4096).
+
+#include <cuda_runtime.h>
+
+#include "spring.cuh"
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+__global__ void kirchhoff_kernel(const float* __restrict__ coords,
+                                 float* __restrict__ out, int n, int kind,
+                                 float cutoff_sq, int has_cutoff) {
+  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n]
+  const int b = blockIdx.y;
+  const float* c = coords + static_cast<size_t>(b) * n * 3;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    const int atom = i / 3;
+    xyz[(i - atom * 3) * n + atom] = c[i];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (p >= n) return;  // whole warp leaves together
+
+  const float px = xyz[p], py = xyz[n + p], pz = xyz[2 * n + p];
+  float* row = out + (static_cast<size_t>(b) * n + p) * n;
+  float acc = 0.0f;
+  for (int q = lane; q < n; q += 32) {
+    const float sq = springcraft::squared_distance(
+        __fsub_rn(px, xyz[q]), __fsub_rn(py, xyz[n + q]),
+        __fsub_rn(pz, xyz[2 * n + q]));
+    const float k = springcraft::masked_spring_constant(kind, sq, q != p,
+                                                        cutoff_sq, has_cutoff);
+    acc += k;
+    if (q != p) row[q] = -k;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) row[p] = acc;
+}
+
+}  // namespace
+
+extern "C" int sc_kirchhoff(const float* coords, float* out, int batch, int n,
+                            int kind, float cutoff_sq, int has_cutoff,
+                            void* stream) {
+  if (batch > 0 && n > 0) {
+    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
+    const size_t smem = 3 * static_cast<size_t>(n) * sizeof(float);
+    kirchhoff_kernel<<<grid, 32 * kWarpsPerBlock, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+        coords, out, n, kind, cutoff_sq, has_cutoff);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -128,21 +128,32 @@ def linear_response_displacement(covariance, force):
     return (covariance @ force.reshape(-1)).reshape(-1, 3)
 
 
-def prs_matrix(covariance, norm=True):
-    """Perturbation-response scanning matrix (reference
-    ``nma.py:511-523``)."""
-    n = covariance.shape[0] // 3
-    prs = covariance.square().reshape(n, 3, n, 3).sum(dim=(1, 3))
+def prs_matrix(covariance, norm=True, layout="atom"):
+    """Perturbation-response scanning matrix ``(..., n, n)`` of ANM
+    covariances ``(..., 3n, 3n)``, leading batch dimensions allowed
+    (reference ``nma.py:511-523``).  ``layout="xyz"`` folds an xyz-layout
+    covariance, as ``springcraft_tpu/parallel/pipeline.py:668-669``
+    does."""
+    n = covariance.shape[-1] // 3
+    batch = covariance.shape[:-2]
+    sq = covariance.square()
+    if layout == "atom":
+        prs = sq.reshape(batch + (n, 3, n, 3)).sum(dim=(-3, -1))
+    elif layout == "xyz":
+        prs = sq.reshape(batch + (3, n, 3, n)).sum(dim=(-4, -2))
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
     if norm:
-        prs = prs / torch.diagonal(prs)[:, None]
+        prs = prs / torch.diagonal(prs, dim1=-2, dim2=-1)[..., :, None]
     return prs
 
 
 def effector_sensor_profiles(prs):
-    """Row/column means of the PRS matrix without its diagonal
-    (reference ``nma.py:562-568``)."""
-    n = prs.shape[0]
-    diag = torch.diagonal(prs)
-    effector = (prs.sum(dim=1) - diag) / (n - 1)
-    sensor = (prs.sum(dim=0) - diag) / (n - 1)
+    """Row/column means of PRS matrices ``(..., n, n)`` without their
+    diagonal, leading batch dimensions allowed (reference
+    ``nma.py:562-568``)."""
+    n = prs.shape[-1]
+    diag = torch.diagonal(prs, dim1=-2, dim2=-1)
+    effector = (prs.sum(dim=-1) - diag) / (n - 1)
+    sensor = (prs.sum(dim=-2) - diag) / (n - 1)
     return effector, sensor

@@ -10,17 +10,20 @@ a connected network with orthonormal null basis ``T`` and any
 so the covariance comes from an SPD inverse.  Everything here is
 batched over a leading conformer axis (the JAX package vmaps).
 
-Two engines give the plane traces
-``traces[i, j] = sum_a pinv(H)[a n + i, a n + j]`` that the fluctuation
-observables consume:
+Two engines give the covariance ``pinv(M)`` (:func:`covariance_cholesky`,
+ANM and GNM) or, for an xyz-layout ANM Hessian, only its plane traces
+``traces[i, j] = sum_a pinv(H)[a n + i, a n + j]`` that MSF, B-factors
+and DCC consume (:func:`covariance_plane_traces`):
 
-* ``"blocked"`` — the divide-and-conquer inverse factor of
-  :mod:`.spd_linalg` (panel-inverse kernel at the leaves) and blockwise
-  Gram products; fed from the raw Hessian planes through the
-  regularize/stitch kernel on the main path
-  (:func:`covariance_plane_traces_from_planes`);
-* ``"cho_solve"`` — ``torch.linalg.cholesky`` plus a triangular solve,
-  any dtype: the port's own float64 reference.
+* ``"blocked"`` — the divide-and-conquer inverse factor ``G`` of
+  :mod:`.spd_linalg` (panel-inverse kernel at the leaves) and Gram
+  products of the column-scaled factor; the ANM ensemble pipeline feeds
+  it from the raw Hessian planes through the regularize/stitch kernel
+  (:func:`covariance_plane_traces_from_planes`,
+  :func:`covariance_cholesky_from_planes`);
+* ``"cho_solve"`` — ``torch.linalg.cholesky_ex`` plus a solve against
+  the identity, any dtype: the single-structure engine and the port's
+  own float64 reference.
 
 A network with a null space beyond ``T`` (disconnected, collinear) makes
 the regularized matrix singular; both engines then give non-finite
@@ -38,6 +41,8 @@ from .assembly_kernels import regularize_stitch
 __all__ = [
     "rigid_modes_anm",
     "null_mode_gnm",
+    "covariance_cholesky",
+    "covariance_cholesky_from_planes",
     "covariance_plane_traces",
     "covariance_plane_traces_from_planes",
 ]
@@ -142,14 +147,30 @@ def _regularize_equilibrated_planes(planes, n, t, masses=None):
     return regularize_stitch(planes, scale_h, ts, mp), scale, sigma
 
 
-def _w_parts_from_reg_blocked(reg, scale, m):
-    """Column-scaled top-level blocks ``(w11, w21, w22)`` of the inverse
-    factor of the identity-padded ``reg`` (``pinv(reg_unscaled) =
-    W^T W``); ``w21`` is ``None`` for single-leaf sizes."""
+def _padded_scale(scale, mp):
+    """``scale`` zero-padded to ``mp`` columns: the padding rows of the
+    identity-padded factor carry zeros in the first ``m`` columns, so
+    contracting over the full padded range downstream stays exact."""
+    m = scale.shape[-1]
+    return F.pad(scale, (0, mp - m)) if mp != m else scale
+
+
+def _w_from_reg_blocked(reg, scale):
+    """Column-scaled inverse factor ``W = G S`` ``(..., mp, mp)`` of the
+    identity-padded ``reg``, so that ``pinv(reg_unscaled) = W^T W``
+    (``S G^T G S = (G S)^T (G S)``)."""
+    g = spd_linalg.spd_inverse_factor(reg)
+    return g * _padded_scale(scale, g.shape[-1])[..., None, :]
+
+
+def _w_parts_from_reg_blocked(reg, scale):
+    """Column-scaled top-level blocks ``(w11, w21, w22)`` of
+    :func:`_w_from_reg_blocked`; ``w21`` is ``None`` for single-leaf
+    sizes."""
     g11, g21, g22 = spd_linalg.spd_inverse_factor_parts(reg)
     h = g11.shape[-1]
     mp = h if g21 is None else h + g22.shape[-1]
-    scale_p = F.pad(scale, (0, mp - m)) if mp != m else scale
+    scale_p = _padded_scale(scale, mp)
     if g21 is None:
         return g11 * scale_p[..., None, :], None, None
     return (g11 * scale_p[..., None, :h],
@@ -160,6 +181,25 @@ def _w_parts_from_reg_blocked(reg, scale, m):
 def _gram(w):
     """``w^T w`` over the last two axes."""
     return w.transpose(-1, -2) @ w
+
+
+def _gram_lower(w):
+    """``W^T W`` of a column-scaled lower-triangular ``W`` ``(..., mp,
+    mp)``, skipping its exact-zero upper region: the rows split at the
+    128-aligned ``h = (mp // 2) // 128 * 128``, and the top block's
+    columns ``>= h`` are zero, so its Gram fills only the leading
+    ``(h, h)`` block.  Only exact-zero terms are dropped."""
+    mp = w.shape[-2]
+    h = (mp // 2) // 128 * 128
+    if h < 128:
+        return _gram(w)
+    g_top = _gram(w[..., :h, :h])
+    return _gram(w[..., h:, :]) + F.pad(g_top, (0, mp - h, 0, mp - h))
+
+
+def _null_projector(t, sigma):
+    """Null-space term ``T T^T / sigma`` of the pseudo-inverse."""
+    return t @ t.transpose(-1, -2) / sigma
 
 
 def _null_correction(t, sigma, n):
@@ -219,8 +259,57 @@ def covariance_plane_traces_from_planes(planes, n, null_basis,
     t = null_basis.to(planes.dtype)
     reg, scale, sigma = _regularize_equilibrated_planes(
         planes, n, t, masses=masses)
-    parts = _w_parts_from_reg_blocked(reg, scale, 3 * n)
+    parts = _w_parts_from_reg_blocked(reg, scale)
     return _plane_traces_from_w_parts(parts, t, sigma, n)
+
+
+def covariance_cholesky_from_planes(planes, n, null_basis, masses=None):
+    """Blocked-engine pseudo-inverse covariance ``(B, 3n, 3n)`` (xyz
+    layout) straight from the raw Hessian planes ``(9, B, n, n)``.
+    Optional `masses` fold into the stitch's scale."""
+    t = null_basis.to(planes.dtype)
+    reg, scale, sigma = _regularize_equilibrated_planes(
+        planes, n, t, masses=masses)
+    m = 3 * n
+    w = _w_from_reg_blocked(reg, scale)
+    return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
+
+
+def _cholesky_factor(reg):
+    """Lower Cholesky factor of a batch of SPD matrices.  cholesky_ex
+    does not raise on a matrix that is not SPD: mark that factor NaN, as
+    the blocked engine's unclamped pivots do."""
+    chol, info = torch.linalg.cholesky_ex(reg)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(chol, float("nan")), chol)
+
+
+def covariance_cholesky(matrix, null_basis, inverse="cho_solve"):
+    """Pseudo-inverse ``(..., m, m)`` of PSD interaction matrices
+    ``(..., m, m)`` with a known orthonormal null basis ``(..., m, k)``
+    (the six rigid modes of an ANM Hessian, the constant mode of a GNM
+    Kirchhoff matrix; leading dimensions broadcast).
+
+    ``inverse="cho_solve"`` factors with ``torch.linalg.cholesky_ex`` and
+    solves against the identity (any dtype); ``inverse="blocked"`` runs
+    the divide-and-conquer inverse factor and the Gram of its
+    column-scaled form.
+    """
+    m = matrix.shape[-1]
+    t = null_basis.to(matrix.dtype)
+    if inverse == "blocked":
+        reg, scale, sigma = _regularize_equilibrated(
+            matrix, t, pad_to=spd_linalg.padded_size(m))
+        inv = _gram_lower(_w_from_reg_blocked(reg, scale))[..., :m, :m]
+    elif inverse == "cho_solve":
+        reg, scale, sigma = _regularize_equilibrated(matrix, t)
+        chol = _cholesky_factor(reg)
+        eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
+        inv = torch.cholesky_solve(eye.expand_as(chol), chol)
+        inv = inv * scale[..., :, None] * scale[..., None, :]
+    else:
+        raise ValueError(f"unknown inverse engine {inverse!r}")
+    return inv - _null_projector(t, sigma)
 
 
 def covariance_plane_traces(matrix, null_basis, inverse="cho_solve"):
@@ -240,16 +329,12 @@ def covariance_plane_traces(matrix, null_basis, inverse="cho_solve"):
     if inverse == "blocked":
         reg, scale, sigma = _regularize_equilibrated(
             matrix, t, pad_to=spd_linalg.padded_size(m))
-        parts = _w_parts_from_reg_blocked(reg, scale, m)
+        parts = _w_parts_from_reg_blocked(reg, scale)
         return _plane_traces_from_w_parts(parts, t, sigma, n)
     if inverse != "cho_solve":
         raise ValueError(f"unknown inverse engine {inverse!r}")
     reg, scale, sigma = _regularize_equilibrated(matrix, t)
-    # cholesky_ex does not raise on a non-SPD matrix: mark it NaN, as
-    # the blocked engine's unclamped pivots do
-    chol, info = torch.linalg.cholesky_ex(reg)
-    chol = torch.where((info != 0)[..., None, None],
-                       torch.full_like(chol, float("nan")), chol)
+    chol = _cholesky_factor(reg)
     eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
     w = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
     w = w * scale[..., None, :]

@@ -1,7 +1,8 @@
 """
 Batched divide-and-conquer inverse Cholesky factor of SPD matrices.
 
-Counterpart of ``springcraft_tpu/ops/pallas_linalg.py:270-623``.  The
+Counterpart of ``springcraft_tpu/ops/pallas_linalg.py:270-623``
+(:func:`spd_inverse_factor`, :func:`spd_inverse_factor_parts`).  The
 recursion keeps the JAX package's split points, padding and exact-zero
 block skips, so that both packages factor the SAME padded problem:
 
@@ -28,6 +29,7 @@ __all__ = [
     "LEAF",
     "panel_inverse_batched",
     "panel_inverse_plain",
+    "spd_inverse_factor",
     "spd_inverse_factor_parts",
     "padded_size",
 ]
@@ -107,15 +109,11 @@ def _choose_padding(m, base_max):
     return _round_up(m, 128)
 
 
-def spd_inverse_factor_parts(a):
-    """Top-split blocks ``(g11, g21, g22)`` of the inverse factor
-    ``G = [[g11, 0], [g21, g22]] = L^-1`` of the identity-padded SPD
-    batch ``a`` (``(..., m, m)``), so that ``A^-1 = (G^T G)[:m, :m]``;
-    ``g21`` and ``g22`` are ``None`` when the padded problem is a single
-    leaf."""
+def _identity_padded(a):
+    """The SPD batch ``a`` (``(..., m, m)``) as ``(b, mp, mp)``,
+    identity-padded to the recursion's size (exact: the pad decouples)."""
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., m, m), got {tuple(a.shape)}")
-    batch_shape = a.shape[:-2]
     m = a.shape[-1]
     a = a.reshape((-1, m, m))
     mp = padded_size(m)
@@ -123,8 +121,26 @@ def spd_inverse_factor_parts(a):
         a = F.pad(a, (0, mp - m, 0, mp - m))
         idx = torch.arange(m, mp, device=a.device)
         a[:, idx, idx] = 1.0
-    parts = _top_inverse_factor_parts(a)
-    return tuple(None if p is None else p.reshape(batch_shape + p.shape[-2:])
+    return a
+
+
+def spd_inverse_factor(a):
+    """Inverse factor ``G = L^-1`` ``(..., mp, mp)`` of the
+    identity-padded SPD batch ``a`` (``(..., m, m)``, ``mp =
+    padded_size(m)``), so that ``A^-1 = (G^T G)[:m, :m]``; the strict
+    upper triangle is exactly zero."""
+    g = _recursive_inverse_factor(_identity_padded(a))
+    return g.reshape(a.shape[:-2] + g.shape[-2:])
+
+
+def spd_inverse_factor_parts(a):
+    """Top-split blocks ``(g11, g21, g22)`` of :func:`spd_inverse_factor`,
+    ``G = [[g11, 0], [g21, g22]]``, without the final concatenation;
+    ``g21`` and ``g22`` are ``None`` when the padded problem is a single
+    leaf."""
+    parts = _top_inverse_factor_parts(_identity_padded(a))
+    return tuple(None if p is None else p.reshape(a.shape[:-2]
+                                                  + p.shape[-2:])
                  for p in parts)
 
 

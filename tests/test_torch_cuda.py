@@ -1,7 +1,9 @@
 """
 PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small and edge shapes, and the
-slice on CUDA against the float64 ``cho_solve`` engine.
+paths on CUDA (ANM plane traces, ANM covariance and PRS, GNM ensemble,
+single structures) against the float64 ``cho_solve`` engines, each with
+the launch counts of its own kernels.
 
 Marked ``cuda``: every test skips without an NVIDIA GPU.  This file
 imports neither JAX nor the JAX package, so it runs on a machine that
@@ -11,7 +13,7 @@ has only PyTorch (skip the JAX test configuration there)::
 
 Tolerances as in ``chip_smoke.py``: 1e-5 of max|x| for the assembly and
 the stitch, 2e-5 absolute for unit-scale panels, 1e-4 of max|x| for the
-float32 slice against float64.
+float32 paths against float64.
 """
 
 import numpy as np
@@ -67,6 +69,25 @@ def test_hessian_planes_kernel(cuda, kind, cutoff, b, n):
     torch.cuda.synchronize()
     assert got.shape == (9, b, n, n) and got.device == coords.device
     assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
+                                         ("hinsen", None), ("pfenm", 7.0)])
+@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776)])
+def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
+    params = getattr(sct, f"{kind}_params")(cutoff)
+    coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
+    for wrapper, plain in (
+            (assembly_kernels.kirchhoff_ensemble, assembly.kirchhoff_plain),
+            (assembly_kernels.hessian_xyz_ensemble,
+             assembly.hessian_xyz_plain)):
+        before = wrapper.launches
+        got = wrapper(coords, params)
+        assert wrapper.launches == before + 1
+        ref = plain(coords, params)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.device == coords.device
+        assert _rel(got, ref) <= 1e-5, wrapper.__name__
 
 
 @pytest.mark.parametrize("b,n,mp", [(3, 41, 128), (2, 32, 96),
@@ -131,6 +152,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         sct.ensemble_anm_fluctuations(coords, params, inverse="blocked",
                                       dtype=torch.float64)
+    for wrapper in (assembly_kernels.kirchhoff_ensemble,
+                    assembly_kernels.hessian_xyz_ensemble):
+        with pytest.raises(TypeError, match="float32"):
+            wrapper(coords.double(), params)
+        with pytest.raises(ValueError, match="exceeds"):
+            wrapper(torch.zeros(1, 4097, 3, device=cuda), params)
 
 
 @pytest.mark.parametrize("with_masses", [False, True])
@@ -143,8 +170,7 @@ def test_slice_on_cuda(cuda, with_masses):
     before = {k: w.launches for k, w in wrappers.items()}
     got = sct.ensemble_anm_fluctuations(coords, params, masses=masses,
                                         inverse="blocked", device="cuda")
-    for name, w in wrappers.items():
-        assert w.launches > before[name], name
+    _check_launches(wrappers, before, TRACE_PATH_KERNELS)
     chunked = sct.ensemble_anm_fluctuations(
         coords, params, masses=masses, inverse="blocked", chunk=2,
         device="cuda")
@@ -159,3 +185,62 @@ def test_slice_on_cuda(cuda, with_masses):
         assert _rel(got[key], ref[key]) <= 1e-4, key
         assert _rel(got[key], cpu[key].to(cuda)) <= 1e-4, key
         assert _rel(chunked[key], got[key]) <= 1e-6, key
+
+
+#: Kernels each path launches; the others stay at their count.
+TRACE_PATH_KERNELS = {"hessian_planes", "regularize_stitch", "panel_inverse"}
+PATHS = {
+    "anm_covariance": TRACE_PATH_KERNELS,
+    "gnm_ensemble": {"kirchhoff", "panel_inverse"},
+    "anm_single": {"hessian_xyz"},
+    "gnm_single": {"kirchhoff"},
+}
+
+
+def _check_launches(wrappers, before, kernels):
+    for name, w in wrappers.items():
+        if name in kernels:
+            assert w.launches > before[name], name
+        else:
+            assert w.launches == before[name], name
+
+
+def _run_path(path, coords, masses, params, dtype, device):
+    engine = "blocked" if dtype == torch.float32 else "cho_solve"
+    if path == "anm_covariance":
+        return sct.ensemble_anm_fluctuations(
+            coords, params, masses=masses, inverse=engine,
+            with_covariance=True, with_prs=True, dtype=dtype, device=device)
+    if path == "gnm_ensemble":
+        return sct.ensemble_gnm_fluctuations(
+            coords, params, masses=masses, inverse=engine, dtype=dtype,
+            device=device)
+    fn = sct.anm_fluctuations if path == "anm_single" else \
+        sct.gnm_fluctuations
+    kwargs = {"with_prs": True} if path == "anm_single" else {}
+    return fn(coords[0], params, masses=masses, dtype=dtype, device=device,
+              **kwargs)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_covariance_paths_on_cuda(cuda, path, with_masses):
+    coords = _coords(4, 100, seed=5, spread=34.0 * (1 / 3) ** (1 / 3))
+    masses = (np.linspace(0.8, 2.5, 100).astype(np.float32)
+              if with_masses else None)
+    params = sct.invariant_params(13.0)
+    wrappers = sct.kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = _run_path(path, coords, masses, params, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    _check_launches(wrappers, before, PATHS[path])
+    ref = _run_path(path, coords.astype(np.float64), None if masses is None
+                    else masses.astype(np.float64), params, torch.float64,
+                    "cuda")
+    cpu = _run_path(path, coords, masses, params, torch.float32, "cpu")
+    assert set(got) == set(ref) == set(cpu)
+    for key in got:
+        assert got[key].device.type == "cuda"
+        assert bool(torch.isfinite(got[key]).all()), key
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+        assert _rel(got[key], cpu[key].to(cuda)) <= 1e-4, key

@@ -42,6 +42,25 @@ def test_import_leaves_jax_out():
     assert proc.stdout.strip() == "[]"
 
 
+def test_entry_points_are_exported():
+    for name in ("anm_fluctuations", "gnm_fluctuations",
+                 "ensemble_anm_fluctuations", "ensemble_gnm_fluctuations",
+                 "kernel_wrappers"):
+        assert name in sct.__all__ and callable(getattr(sct, name))
+
+
+def test_every_c_entry_point_has_a_wrapper():
+    """Each kernel's C entry is named in the build's signatures, and
+    every shared-memory or grid limit a wrapper checks is its own."""
+    entries = set(_build._SIGNATURES) - {"sc_error_string"}
+    assert entries == {"sc_hessian_planes", "sc_hessian_xyz",
+                       "sc_kirchhoff", "sc_regularize_stitch",
+                       "sc_panel_inverse"}
+    sources = "".join(p.read_text() for p in _build.SOURCES)
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in sources, entry
+
+
 def test_float32_products_stay_full_precision():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -63,12 +82,14 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("springcraft_kernels_")
     assert {p.name for p in _build.SOURCES} >= {
-        "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu"}
+        "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
+        "kirchhoff.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
                                           "regularize_stitch",
-                                          "panel_inverse"}
+                                          "panel_inverse", "kirchhoff",
+                                          "hessian_xyz"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
 

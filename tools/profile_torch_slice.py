@@ -6,7 +6,8 @@ Runs the headline configuration of ``chip_smoke.py`` (1024 conformers of
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. the device time of each stage on one 128-conformer chunk (CUDA-event
-   means), and of one panel-inverse launch;
+   means), and of one panel-inverse launch, for the plane-trace path, for
+   the path with the covariance and PRS, and for the GNM ensemble;
 3. a ``torch.profiler`` trace of one 1024-conformer call: the wall time,
    the union of the kernels' intervals (the device's busy share under
    the profiler) and the kernels with the most device time;
@@ -65,7 +66,7 @@ def stage_times(dev, params, reps):
     scale, sigma, scale_h, ts = rigid.stitch_inputs(planes, bases)
     mp = spd_linalg.padded_size(3 * n)
     reg = assembly_kernels.regularize_stitch(planes, scale_h, ts, mp)
-    parts = rigid._w_parts_from_reg_blocked(reg, scale, 3 * n)
+    parts = rigid._w_parts_from_reg_blocked(reg, scale)
     traces = rigid._plane_traces_from_w_parts(parts, bases, sigma, n)
     leaves = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     stages = {
@@ -81,7 +82,7 @@ def stage_times(dev, params, reps):
         "4 inverse factor (nodes + K3 leaves)":
             lambda: spd_linalg.spd_inverse_factor_parts(reg),
         "4+ inverse factor and column scaling":
-            lambda: rigid._w_parts_from_reg_blocked(reg, scale, 3 * n),
+            lambda: rigid._w_parts_from_reg_blocked(reg, scale),
         "5 plane-trace Grams":
             lambda: rigid._plane_traces_from_w_parts(parts, bases, sigma, n),
         "6 observables":
@@ -90,15 +91,51 @@ def stage_times(dev, params, reps):
             lambda: spd_linalg.panel_inverse_batched(leaves),
         "whole chunk": lambda: run(c, params),
     }
+    m = 3 * n
+    w = rigid._w_from_reg_blocked(reg, scale)
+    cov = rigid._gram_lower(w)[..., :m, :m] - rigid._null_projector(bases,
+                                                                     sigma)
+    stages.update({
+        "C4 full inverse factor and column scaling":
+            lambda: rigid._w_from_reg_blocked(reg, scale),
+        "C5 covariance Gram (_gram_lower) and null-space term":
+            lambda: (rigid._gram_lower(w)[..., :m, :m]
+                     - rigid._null_projector(bases, sigma)),
+        "C6 observables with PRS":
+            lambda: pipeline._anm_cov_observables(cov, n, True, True),
+        "C whole chunk with the covariance and PRS":
+            lambda: run(c, params, with_covariance=True, with_prs=True),
+    })
+    kirchhoffs = assembly_kernels.kirchhoff_ensemble(c, params)
+    t = rigid.null_mode_gnm(n, device=c.device)
+    greg, gscale, gsigma = rigid._regularize_equilibrated(
+        kirchhoffs, t, pad_to=spd_linalg.padded_size(n))
+    gw = rigid._w_from_reg_blocked(greg, gscale)
+    gcov = rigid._gram_lower(gw)[..., :n, :n] - rigid._null_projector(
+        t, gsigma)
+    stages.update({
+        "G1 K4 kirchhoff": lambda: assembly_kernels.kirchhoff_ensemble(
+            c, params),
+        "G2 regularize (plain)": lambda: rigid._regularize_equilibrated(
+            kirchhoffs, t, pad_to=spd_linalg.padded_size(n)),
+        "G3 inverse factor and column scaling":
+            lambda: rigid._w_from_reg_blocked(greg, gscale),
+        "G4 covariance Gram and null-space term":
+            lambda: (rigid._gram_lower(gw)[..., :n, :n]
+                     - rigid._null_projector(t, gsigma)),
+        "G5 observables": lambda: pipeline._gnm_cov_observables(gcov, True),
+        "G whole chunk": lambda: sct.ensemble_gnm_fluctuations(
+            c, params, inverse="blocked", device="cuda"),
+    })
     for name, fn in stages.items():
         print(f"stage {name}: {cs.cuda_ms(fn, reps=reps):.4f} ms",
               flush=True)
 
 
-def run(x, params, chunk=cs.CHUNK):
+def run(x, params, chunk=cs.CHUNK, **kwargs):
     return sct.ensemble_anm_fluctuations(
         x, params, inverse="blocked", with_dcc=True, dtype=torch.float32,
-        chunk=chunk, device="cuda")
+        chunk=chunk, device="cuda", **kwargs)
 
 
 def profiled_call(dev, params, out):
