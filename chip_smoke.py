@@ -13,20 +13,31 @@ Phases:
    (into ``build/kernels/``, one ``nvcc`` per source, all at once), with
    the compiler's register and spill report;
 3. each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the shapes its paths give it, timed with CUDA events;
+   tensors, at the shapes its paths give it, timed with CUDA events (the
+   two banded kernels on the band of the first chunk's Hessians, the
+   bisection also on the single structure's band, their slow plain
+   versions timed over one call);
 4. the paths, each driven once from zero launch counts and required to
    have launched its own kernels (``PATH_KERNELS``), with finiteness
-   checks and a float32 result held against the port's float64
-   ``cho_solve`` engine on the card:
+   checks and a float32 result held against the port's float64 engines
+   on the card:
 
    * ``ensemble_anm_fluctuations`` plane traces (the main path) and
      with the covariance and PRS, over 1024 conformers of 300 residues
      in chunks of 128 (invariant force field, 13 A cutoff), first chunk
-     against float64;
+     against float64 ``cho_solve``;
    * ``ensemble_gnm_fluctuations`` at the same size;
    * ``anm_fluctuations`` (with PRS) and ``gnm_fluctuations`` on one
      structure of 1776 residues (the CA count of the repository's 7cal
-     test structure) at protein density.
+     test structure) at protein density;
+   * the spectral pipelines on the same conformers:
+     ``ensemble_anm_spectral`` and ``ensemble_gnm_spectral`` (20 modes,
+     32 halvings, as the JAX package's benchmark), ``ensemble_anm_banded``
+     and ``ensemble_gnm_banded``, and ``anm_spectral`` / ``gnm_spectral``
+     on the 1776-residue structure; eigenvalues against float64
+     ``torch.linalg.eigh`` (``ensemble_anm``), covariance observables
+     against float64 ``cho_solve``, eigenvectors and mode shapes through
+     their residuals and orthonormality.
 
 Then one JSON line with the kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with
@@ -67,6 +78,15 @@ KERNELS = {
     "hessian_xyz": (
         "springcraft_tpu_torch/csrc/hessian_planes.cu",
         "springcraft_tpu/ops/pallas_kernels.py:191", 1e-5),
+    "banded_bisect": (
+        "springcraft_tpu_torch/csrc/banded_bisect.cu",
+        "springcraft_tpu/ops/spectrum.py:1132", 1e-5),
+    # eigenvectors are free up to sign: held by residuals and overlaps
+    # (EIGVEC_*), the tolerance here bounds the sign-aligned difference
+    # on well-separated eigenvalues
+    "banded_eigvec": (
+        "springcraft_tpu_torch/csrc/banded_eigvec.cu",
+        "springcraft_tpu/ops/spectrum.py:770", 1e-4),
 }
 #: Path -> the kernels it must launch.
 PATH_KERNELS = {
@@ -76,7 +96,24 @@ PATH_KERNELS = {
     "gnm_ensemble": ("kirchhoff", "panel_inverse"),
     "anm_single": ("hessian_xyz",),
     "gnm_single": ("kirchhoff",),
+    "anm_spectral_ensemble": ("hessian_xyz", "panel_inverse",
+                              "banded_bisect"),
+    "anm_banded_ensemble": ("hessian_xyz", "banded_bisect",
+                            "banded_eigvec"),
+    "gnm_spectral_ensemble": ("kirchhoff", "panel_inverse",
+                              "banded_bisect"),
+    "gnm_banded_ensemble": ("kirchhoff", "banded_bisect", "banded_eigvec"),
+    "anm_spectral_single": ("hessian_xyz", "banded_bisect"),
+    "gnm_spectral_single": ("kirchhoff", "banded_bisect"),
 }
+#: Spectral settings of the JAX package's benchmark (bench.py:328-331).
+N_MODES = 20
+N_ITER_BISECT = 32
+#: Subspace iterations of the GNM mode shapes.  The benchmark has no GNM
+#: spectral setting, and the default 16 leaves the 20th Kirchhoff mode at
+#: N=300 with a residual of 1.9e-3 ||K|| even in float64 (its lowest
+#: spectrum is flatter than the Hessian's); 32 reach 3e-5.
+GNM_ITER_MODES = 32
 #: Path outputs against the float64 reference: max|x - ref| / max|ref|,
 #: the bound the JAX package holds its float32 Pallas path to.
 SLICE_TOL = 1e-4
@@ -84,6 +121,21 @@ SLICE_TOL = 1e-4
 #: of a 5328-dimensional matrix, held to 1e-3 (MSF, B-factors and DCC
 #: keep SLICE_TOL, against the ~1e-5 of the repository's 7cal check).
 SINGLE_COV_TOL = 1e-3
+#: Eigenvectors and mode shapes: ||H u - lambda u|| / ||H||_2 and
+#: max |U U^T - I|, the JAX package's own float32 bounds
+#: (tests/test_ops.py:561-574).
+RESIDUAL_TOL = 5e-4
+ORTHO_TOL = 1e-3
+#: K11 against its plain version: median band-space residual over ||B||
+#: (tests/test_ops.py:577-604), the kernel's largest residual (every
+#: column of both routes measured below 1e-4 ||B|| on the H100), and
+#: |u_kernel . u_plain| on every eigenvalue whose gaps to both neighbours
+#: exceed EIGVEC_GAP of the spectrum's span: inside a cluster any two
+#: roundings may return different vectors.
+EIGVEC_RESIDUAL_TOL = 1e-3
+EIGVEC_MAX_RESIDUAL = 1e-4
+EIGVEC_OVERLAP_TOL = 1e-3
+EIGVEC_GAP = 1e-3
 
 
 def check(cond, message):
@@ -121,6 +173,21 @@ def cuda_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """``(fn(), device ms)`` of one call, from CUDA events: for the plain
+    versions whose Python loops take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_errors(got, ref):
     diff = float((got.double() - ref.double()).abs().max())
     return diff, diff / float(ref.double().abs().max())
@@ -142,12 +209,15 @@ def build_kernels():
     t0 = time.perf_counter()
     _build.load()
     seconds = time.perf_counter() - t0
-    # ptxas -v: per kernel, its name, then its spills, then its registers
+    # ptxas -v: per kernel, its name, then its spills, then its registers;
+    # a template's window width W follows its name
     report, name, spills = [], "?", ""
     for line in (_build.build_log() or "").splitlines():
-        found = re.search(r"entry function .*?([a-z_]+_kernel)", line)
+        found = re.search(r"entry function .*?([a-z_]+_kernel)(ILi(\d+)E)?",
+                          line)
         if found:
-            name = found.group(1)
+            name = found.group(1) + (f"<{found.group(3)}>"
+                                     if found.group(3) else "")
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -218,7 +288,113 @@ def kernel_parity(coords, single, params):
         record("hessian_xyz",
                lambda c=c: assembly_kernels.hessian_xyz_ensemble(c, params),
                lambda c=c: assembly.hessian_xyz_plain(c, params))
+    banded_parity(coords, single, params, results)
     return results
+
+
+def bisect_parity(diags, n_iter, results):
+    """K10 against its plain version on band diagonals `diags` ``(B, w,
+    n)``, the plain version (a Python loop over the band) timed over one
+    call; returns the kernel's eigenvalues and ``(lo, hi)``."""
+    import torch
+
+    from springcraft_tpu_torch.ops import spectrum
+
+    batch, w, n = diags.shape
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+
+    def bisect():
+        return spectrum.banded_bisect(feed, lo, hi, n_iter)
+
+    vals = bisect()
+    ref, plain_ms = timed_once(
+        lambda: spectrum.banded_bisect_plain(feed, lo, hi, n_iter))
+    check(bool(torch.isfinite(vals).all()), "banded_bisect: non-finite")
+    err, rel = max_errors(vals, ref)
+    tol = KERNELS["banded_bisect"][2]
+    check(rel <= tol, f"banded_bisect {(batch, w, n)}: max rel err "
+          f"{rel:.3e} > {tol:g}")
+    ms = cuda_ms(bisect, reps=5)
+    print(f"parity banded_bisect {(batch, w, n)} (feed "
+          f"{4 * w * (n + w) / 1024:.1f} KB), {n_iter} halvings: max abs err "
+          f"{err:.3e}, max rel err {rel:.3e} (tol {tol:g}); kernel {ms:.4f} "
+          f"ms (5 calls), plain {plain_ms:.4f} ms (1 call)", flush=True)
+    results.setdefault("banded_bisect", []).append(
+        ((batch, w, n), err, ms, plain_ms))
+    return vals, lo, hi
+
+
+def banded_parity(coords, single, params, results):
+    """K10 and K11 against their plain versions on the band of the chunk's
+    Hessians ``(128, 9, 900)``, K10 also on the single structure's
+    ``(1, 9, 5328)``, whose 188 KB feed takes the kernel's opt-in
+    shared-memory branch; the plain versions, Python loops over the band,
+    are timed over one call each."""
+    import torch
+
+    from springcraft_tpu_torch.ops import assembly_kernels, spectrum
+
+    diags = spectrum.band_reduce(
+        assembly_kernels.hessian_xyz_ensemble(coords, params), 8)
+    batch, n = diags.shape[0], diags.shape[-1]
+    vals, lo, hi = bisect_parity(diags, N_ITER_BISECT, results)
+    # the single structure's path runs the default 40 halvings
+    bisect_parity(spectrum.band_reduce(
+        assembly_kernels.hessian_xyz_ensemble(single, params), 8), 40,
+        results)
+
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+
+    def eigvec(fn):
+        # the path's chunks of 256 shifts
+        return torch.cat([fn(feed, shifts[:, c:c + 256].contiguous(), c,
+                             floor, 2, 1.0) for c in range(0, n, 256)], -1)
+
+    x = eigvec(spectrum.banded_eigvec)
+    x_plain, plain_ms = timed_once(
+        lambda: eigvec(spectrum.banded_eigvec_plain))
+    check(bool(torch.isfinite(x).all()), "banded_eigvec: non-finite")
+    band = torch.zeros((batch, n, n), device=diags.device)
+    for d in range(diags.shape[1]):
+        idx = torch.arange(n - d, device=diags.device)
+        band[:, idx, idx + d] = diags[:, d, :n - d]
+        band[:, idx + d, idx] = diags[:, d, :n - d]
+    norm = vals.abs().amax(dim=1)[:, None]
+    medians, largest = {}, {}
+    for label, u in (("kernel", x), ("plain", x_plain)):
+        res = torch.linalg.vector_norm(band @ u - u * vals[:, None, :],
+                                       dim=1) / norm
+        medians[label], largest[label] = float(res.median()), float(res.max())
+        check(medians[label] <= EIGVEC_RESIDUAL_TOL,
+              f"banded_eigvec {label}: median residual "
+              f"{medians[label]:.3e} > {EIGVEC_RESIDUAL_TOL:g} ||B||")
+    check(largest["kernel"] <= EIGVEC_MAX_RESIDUAL,
+          f"banded_eigvec: largest residual {largest['kernel']:.3e} > "
+          f"{EIGVEC_MAX_RESIDUAL:g} ||B|| (plain {largest['plain']:.3e})")
+    gaps = torch.diff(vals, dim=1)
+    big = float("inf") * torch.ones_like(vals[:, :1])
+    gap = torch.minimum(torch.cat([big, gaps], 1), torch.cat([gaps, big], 1))
+    apart = gap > EIGVEC_GAP * (hi - lo)[:, None]
+    overlap = (x * x_plain).sum(dim=1).abs()[apart]
+    sign = torch.sign((x * x_plain).sum(dim=1, keepdim=True))
+    diff = (x - sign * x_plain).abs().amax(dim=1)[apart]
+    worst, err = float(1 - overlap.min()), float(diff.max())
+    tol = KERNELS["banded_eigvec"][2]
+    check(worst <= EIGVEC_OVERLAP_TOL and err <= tol,
+          f"banded_eigvec: 1 - |overlap| {worst:.3e}, sign-aligned max "
+          f"abs err {err:.3e} on separated eigenvalues")
+    ms = cuda_ms(lambda: eigvec(spectrum.banded_eigvec), reps=5)
+    print(f"parity banded_eigvec {tuple(x.shape)}, w 9, 2 solves, chunks of "
+          f"256 shifts: median residual kernel {medians['kernel']:.3e}, "
+          f"plain {medians['plain']:.3e} ||B|| (tol "
+          f"{EIGVEC_RESIDUAL_TOL:g}), largest kernel "
+          f"{largest['kernel']:.3e}, plain {largest['plain']:.3e} ||B|| "
+          f"(tol {EIGVEC_MAX_RESIDUAL:g}); on {int(apart.sum())} of "
+          f"{apart.numel()} separated eigenvalues 1 - |u_k . u_p| <= "
+          f"{worst:.3e} (tol {EIGVEC_OVERLAP_TOL:g}), sign-aligned max abs "
+          f"err {err:.3e} (tol {tol:g}); kernel {ms:.4f} ms (5 calls, 4 "
+          f"launches each), plain {plain_ms:.4f} ms (1 call)", flush=True)
+    results["banded_eigvec"] = [((batch, n, n), err, ms, plain_ms)]
 
 
 def drive(path, fn):
@@ -327,6 +503,176 @@ def single_path(path, run, coord, shapes, tols, card):
     return launches
 
 
+def float64_references(model, coords, params):
+    """Float64 references of `coords` ``(B, n, 3)`` on the card: the dense
+    ``torch.linalg.eigh`` route merged with the ``cho_solve`` covariance
+    observables (which replace its MSF, B-factors and DCC), and the
+    matrices themselves."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.parallel import pipeline
+
+    x = torch.as_tensor(coords, dtype=torch.float64, device="cuda")
+    if model == "anm":
+        eig = sct.ensemble_anm(x, params, with_dcc=True, dtype=x.dtype)
+        cov = sct.ensemble_anm_fluctuations(x, params, inverse="cho_solve",
+                                            dtype=x.dtype)
+        matrices = pipeline._build_hessians_batched(x, params, None)
+    else:
+        eig = sct.ensemble_gnm(x, params, with_dcc=True, dtype=x.dtype)
+        cov = sct.ensemble_gnm_fluctuations(x, params, inverse="cho_solve",
+                                            dtype=x.dtype)
+        matrices = pipeline._build_kirchhoffs_batched(x, params, None)
+    return {**eig, **cov}, matrices
+
+
+def eigen_errors(vals, vecs, matrices, norm):
+    """Largest ``||M u - lambda u|| / ||M||_2`` over the rows `vecs` ``(B,
+    k, m)`` and largest ``|U U^T - I|``, in float64."""
+    import torch
+
+    u = vecs.double().transpose(-1, -2)
+    res = torch.linalg.vector_norm(
+        matrices @ u - u * vals.double()[..., None, :], dim=-2) / norm
+    eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+    return float(res.max()), float((vecs.double() @ u - eye).abs().max())
+
+
+def check_spectral(label, out, ref, matrices, n_trivial, tols):
+    """Every output of a spectral path against the float64 references:
+    values within their tolerance of max|ref| (frequencies past the
+    `n_trivial` null modes, whose frequencies are square roots of
+    rounding noise; ``mode_values`` against the lowest non-trivial
+    eigenvalues), eigenvectors and mode shapes by their residuals and
+    orthonormality."""
+    scale = ref["eig_values"].abs().amax(dim=-1)
+    errs = {}
+    for key, value in out.items():
+        if key.endswith("_vectors"):
+            continue
+        if key == "mode_values":
+            lowest = ref["eig_values"][..., n_trivial:n_trivial
+                                       + value.shape[-1]]
+            errs[key] = max_errors(value, lowest)[0] / float(scale.max())
+        elif key == "frequencies":
+            errs[key] = max_errors(value[..., n_trivial:],
+                                   ref[key][..., n_trivial:])[1]
+        else:
+            errs[key] = max_errors(value, ref[key])[1]
+        tol = tols.get(key, SLICE_TOL)
+        check(errs[key] <= tol, f"{label} {key}: max rel err "
+              f"{errs[key]:.3e} > {tol:g} vs float64")
+    line = ", ".join(f"{key} {err:.3e}" for key, err in errs.items())
+    for vals, vecs in (("eig_values", "eig_vectors"),
+                       ("mode_values", "mode_vectors")):
+        if vecs in out:
+            res, orth = eigen_errors(out[vals], out[vecs], matrices,
+                                     scale[:, None])
+            check(res <= RESIDUAL_TOL and orth <= ORTHO_TOL,
+                  f"{label} {vecs}: residual {res:.3e} (tol "
+                  f"{RESIDUAL_TOL:g} ||M||), orthonormality {orth:.3e} (tol "
+                  f"{ORTHO_TOL:g})")
+            line += (f"; {vecs} residual {res:.3e} ||M|| (tol "
+                     f"{RESIDUAL_TOL:g}), orthonormality {orth:.3e} (tol "
+                     f"{ORTHO_TOL:g})")
+    print(f"{label} vs float64 (max rel err, tol {SLICE_TOL:g} unless "
+          f"stated): {line}", flush=True)
+
+
+def spectral_ensemble_path(path, run, conformers, shapes, refs, n_trivial,
+                           card, repeats):
+    """Drive a spectral ensemble path over `conformers` in chunks, hold
+    its first chunk against the float64 references `refs` and print its
+    rate; returns the launches."""
+    out, seconds, launches = drive(path, lambda: run(conformers))
+    check_outputs(path, out, shapes)
+    check_spectral(f"{path} (first chunk)",
+                   {key: value[:CHUNK] for key, value in out.items()},
+                   *refs, n_trivial, {})
+    del out
+    rates = [len(conformers) / s for s in
+             [seconds] + [timed(lambda: run(conformers))
+                          for _ in range(repeats)]]
+    print(f"{path} rate: {len(conformers)} conformers x N="
+          f"{conformers.shape[1]} in chunks of {CHUNK}: "
+          + ", ".join(f"{r:.1f}" for r in rates)
+          + f" solves/s (first run counted, then {repeats} repeats) on "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def spectral_single_path(path, run, coord, shapes, model, params,
+                         n_trivial, tols, card):
+    """Drive a single-structure spectral path in float32, hold it against
+    the float64 references and print the time per structure."""
+    out, seconds, launches = drive(path, lambda: run(coord))
+    check_outputs(path, out, shapes)
+    check_spectral(path, {key: value[None] for key, value in out.items()},
+                   *float64_references(model, coord[None], params),
+                   n_trivial, tols)
+    del out
+    again = timed(lambda: run(coord))
+    print(f"{path}: N={coord.shape[0]} float32, {seconds * 1e3:.1f} ms "
+          f"per structure (first call), {again * 1e3:.1f} ms (second) on "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def spectral_paths(conformers, single, params, card):
+    """Drive the six spectral paths; returns ``{path: launches}``."""
+    import springcraft_tpu_torch as sct
+
+    n_conf, n = conformers.shape[:2]
+    m = 3 * n
+    covariance = {"msf": (n_conf, n), "bfactor": (n_conf, n),
+                  "dcc": (n_conf, n, n)}
+    modes = {"mode_values": (n_conf, N_MODES)}
+    spectral = dict(n_modes=N_MODES, n_iter_bisect=N_ITER_BISECT,
+                    chunk=CHUNK, device="cuda")
+    banded = dict(with_dcc=True, chunk=CHUNK, device="cuda")
+    launches = {}
+    for model, dim, n_trivial, options in (
+            ("anm", m, 6, {}), ("gnm", n, 1,
+                                {"n_iter_modes": GNM_ITER_MODES})):
+        refs = float64_references(model, conformers[:CHUNK], params)
+        eigen = {"eig_values": (n_conf, dim), "frequencies": (n_conf, dim)}
+        launches[f"{model}_spectral_ensemble"] = spectral_ensemble_path(
+            f"{model}_spectral_ensemble",
+            lambda c, fn=getattr(sct, f"ensemble_{model}_spectral"),
+            options=options: fn(c, params, **spectral, **options),
+            conformers, {**covariance, **eigen, **modes,
+                         "covariance": (n_conf, dim, dim),
+                         "mode_vectors": (n_conf, N_MODES, dim)},
+            refs, n_trivial, card, repeats=2)
+        launches[f"{model}_banded_ensemble"] = spectral_ensemble_path(
+            f"{model}_banded_ensemble",
+            lambda c, fn=getattr(sct, f"ensemble_{model}_banded"):
+                fn(c, params, **banded),
+            conformers, {**covariance, **eigen,
+                         "eig_vectors": (n_conf, dim, dim)},
+            refs, n_trivial, card, repeats=1)
+        del refs
+
+    n1 = single.shape[0]
+    one = {"msf": (n1,), "bfactor": (n1,), "dcc": (n1, n1)}
+    launches["anm_spectral_single"] = spectral_single_path(
+        "anm_spectral_single",
+        lambda c: sct.anm_spectral(c, params, n_modes=N_MODES,
+                                   device="cuda"),
+        single, {**one, "covariance": (3 * n1, 3 * n1),
+                 "eig_values": (3 * n1,), "frequencies": (3 * n1,),
+                 "mode_values": (N_MODES,), "mode_vectors": (N_MODES, 3 * n1)},
+        "anm", params, 6, {"covariance": SINGLE_COV_TOL}, card)
+    launches["gnm_spectral_single"] = spectral_single_path(
+        "gnm_spectral_single",
+        lambda c: sct.gnm_spectral(c, params, device="cuda"),
+        single, {**one, "covariance": (n1, n1), "eig_values": (n1,),
+                 "frequencies": (n1,)},
+        "gnm", params, 1, {"covariance": SINGLE_COV_TOL}, card)
+    return launches
+
+
 def paths(conformers, single, params, card):
     """Drive every path once; returns ``{path: launches}``."""
     import torch
@@ -338,6 +684,7 @@ def paths(conformers, single, params, card):
               "dcc": (n_conf, n, n)}
 
     def anm(coords, **kwargs):
+        kwargs.setdefault("with_covariance", False)
         return sct.ensemble_anm_fluctuations(coords, params, device="cuda",
                                              **kwargs)
 
@@ -377,6 +724,7 @@ def paths(conformers, single, params, card):
         lambda c, **kw: sct.gnm_fluctuations(c, params, device="cuda",
                                              **kw),
         single, {**single_traces, "covariance": (m, m)}, cov_tols, card)
+    launches.update(spectral_paths(conformers, single, params, card))
     return launches
 
 

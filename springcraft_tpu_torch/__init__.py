@@ -9,7 +9,12 @@ eigendecomposition — over conformer ensembles
 and for one structure (:func:`anm_fluctuations`,
 :func:`gnm_fluctuations`), with the covariance and PRS — for the analytic
 force fields, with hand-written CUDA kernels for Hopper (``csrc/``) on
-its paths.
+its paths; and the spectral pipelines — eigenvalues, frequencies and
+mode shapes from a two-stage banded eigensolver
+(:func:`ensemble_anm_spectral`, :func:`ensemble_anm_banded`, their GNM
+twins, :func:`anm_spectral`, :func:`gnm_spectral`) beside the dense
+``torch.linalg.eigh`` route (:func:`ensemble_anm`, :func:`anm_observables`
+and their GNM twins).
 
 Importing the package turns TF32 off for float32 matrix products (see
 :mod:`.utils.config`).
@@ -18,9 +23,15 @@ Importing the package turns TF32 off for float32 matrix products (see
 from .utils import config  # noqa: F401  (pins float32 precision)
 from .ops.ffparams import (FFParams, from_numpy_params, hinsen_params,
                            invariant_params, pfenm_params)
-from .parallel.pipeline import (anm_fluctuations,
+from .parallel.pipeline import (anm_fluctuations, anm_observables,
+                                anm_spectral, ensemble_anm,
+                                ensemble_anm_banded,
                                 ensemble_anm_fluctuations,
-                                ensemble_gnm_fluctuations, gnm_fluctuations)
+                                ensemble_anm_spectral, ensemble_gnm,
+                                ensemble_gnm_banded,
+                                ensemble_gnm_fluctuations,
+                                ensemble_gnm_spectral, gnm_fluctuations,
+                                gnm_observables, gnm_spectral)
 from .utils.config import resolve_device, synchronize
 
 __all__ = [
@@ -33,6 +44,16 @@ __all__ = [
     "gnm_fluctuations",
     "ensemble_anm_fluctuations",
     "ensemble_gnm_fluctuations",
+    "anm_observables",
+    "gnm_observables",
+    "ensemble_anm",
+    "ensemble_gnm",
+    "anm_spectral",
+    "gnm_spectral",
+    "ensemble_anm_spectral",
+    "ensemble_gnm_spectral",
+    "ensemble_anm_banded",
+    "ensemble_gnm_banded",
     "resolve_device",
     "synchronize",
     "kernel_wrappers",
@@ -46,6 +67,7 @@ def kernel_wrappers():
                                        hessian_xyz_ensemble,
                                        kirchhoff_ensemble, regularize_stitch)
     from .ops.spd_linalg import panel_inverse_batched
+    from .ops.spectrum import banded_bisect, banded_eigvec
 
     return {
         "hessian_planes": hessian_planes_ensemble,
@@ -53,4 +75,6 @@ def kernel_wrappers():
         "panel_inverse": panel_inverse_batched,
         "kirchhoff": kirchhoff_ensemble,
         "hessian_xyz": hessian_xyz_ensemble,
+        "banded_bisect": banded_bisect,
+        "banded_eigvec": banded_eigvec,
     }

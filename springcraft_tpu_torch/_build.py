@@ -46,6 +46,7 @@ _HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 #: C entry points and their argument types.
 _SIGNATURES = {
@@ -59,6 +60,12 @@ _SIGNATURES = {
     "sc_regularize_stitch": (_P, _P, _P, _P, _I, _I, _I, _P),
     # panels, out, count, pb, stream
     "sc_panel_inverse": (_P, _P, _I, _I, _P),
+    # feed, lo, hi, out, batch, n, w, n_iter, stream
+    "sc_banded_bisect": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # feed, shifts, pivot_floor, l_scratch, d_scratch, x_scratch, out,
+    # batch, n, w, n_shifts, idx0, n_solves, seed, stream
+    "sc_banded_eigvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _D, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

@@ -34,14 +34,14 @@ N_A = 6.02214076e23
 
 
 def fold_modes(sq_vectors, num_dim=3, layout="atom"):
-    """Fold squared mode vectors ``(m, 3n)`` to ``(m, n)`` (reference
-    ``nma.py:148-150``; identity for GNM, ``num_dim=1``)."""
+    """Fold squared mode vectors ``(..., m, 3n)`` to ``(..., m, n)``
+    (reference ``nma.py:148-150``; identity for GNM, ``num_dim=1``)."""
     if num_dim == 1:
         return sq_vectors
-    m = sq_vectors.shape[0]
+    lead = sq_vectors.shape[:-1]
     if layout == "atom":
-        return sq_vectors.reshape(m, -1, num_dim).sum(dim=-1)
-    return sq_vectors.reshape(m, num_dim, -1).sum(dim=-2)
+        return sq_vectors.reshape(lead + (-1, num_dim)).sum(dim=-1)
+    return sq_vectors.reshape(lead + (num_dim, -1)).sum(dim=-2)
 
 
 def frequencies_from_eigenvalues(eig_values, n_trivial):
@@ -62,11 +62,11 @@ def mean_square_fluctuation(eig_values, eig_vectors, mode_indices,
                             num_dim=3, layout="atom", tem=None,
                             tem_factors=K_B):
     """MSF per node over the selected modes (reference
-    ``nma.py:108-184``)."""
-    vals = eig_values[mode_indices]
-    vecs = eig_vectors[mode_indices]
+    ``nma.py:108-184``); leading batch dimensions allowed."""
+    vals = eig_values[..., mode_indices]
+    vecs = eig_vectors[..., mode_indices, :]
     folded = fold_modes(vecs.square(), num_dim=num_dim, layout=layout)
-    msf = (folded / vals[:, None]).sum(dim=0)
+    msf = (folded / vals[..., None]).sum(dim=-2)
     return msf * temperature_scaling(tem, tem_factors)
 
 
@@ -78,15 +78,17 @@ def bfactor_from_msf(msf):
 def dcc_from_modes(eig_values, eig_vectors, mode_indices, num_dim=3,
                    layout="atom"):
     """Unnormalized DCC ``sum_k u_k u_k^T / lambda_k`` over a mode
-    subset (reference ``nma.py:337-347``)."""
-    vals = eig_values[mode_indices]
-    vecs = eig_vectors[mode_indices]
-    m = vecs.shape[0]
+    subset (reference ``nma.py:337-347``); leading batch dimensions
+    allowed."""
+    vals = eig_values[..., mode_indices]
+    vecs = eig_vectors[..., mode_indices, :]
+    lead = vecs.shape[:-1]
     if layout == "atom":
-        modes = vecs.reshape(m, -1, num_dim)
+        modes = vecs.reshape(lead + (-1, num_dim))
     else:
-        modes = vecs.reshape(m, num_dim, -1).permute(0, 2, 1)
-    return torch.einsum("kid,kjd,k->ij", modes, modes, 1.0 / vals)
+        modes = vecs.reshape(lead + (num_dim, -1)).transpose(-1, -2)
+    return torch.einsum("...kid,...kjd,...k->...ij", modes, modes,
+                        1.0 / vals)
 
 
 def dcc_from_covariance_anm(covariance):

@@ -1,8 +1,10 @@
 """
-Fluctuation NMA from coordinates, without an eigendecomposition.
+NMA pipelines from coordinates to observables.
 
-Counterpart of ``springcraft_tpu/parallel/pipeline.py:40-46, 199-265,
-605-701, 704-748, 797-847, 854-931``:
+Counterpart of ``springcraft_tpu/parallel/pipeline.py``.
+
+**Fluctuations without an eigendecomposition** (``:40-46, 199-265,
+605-701, 704-748, 797-847, 854-931``):
 
 * :func:`ensemble_anm_fluctuations` and :func:`ensemble_gnm_fluctuations`
   go over a conformer ensemble with the ``"blocked"`` engine (the main
@@ -30,7 +32,25 @@ points assemble dense matrices with the kernels in float32
 (``hessian_planes.cu``'s xyz-layout store, ``kirchhoff.cu``) and with
 their plain versions in any other dtype — the JAX package's rule
 (``_resolve_use_pallas``: the kernels are float32-only) — then factor
-with ``torch.linalg``.
+with ``torch.linalg``.  ``inverse="auto"`` takes ``"blocked"`` for
+float32 on CUDA and ``"cho_solve"`` otherwise (``:785-794``, the TPU read
+as CUDA).
+
+**Spectral pipelines** (``:74-196, 268-598, 1003-1032``), over dense
+Hessians or Kirchhoff matrices from the same assembly:
+
+* :func:`ensemble_anm_spectral`, :func:`ensemble_gnm_spectral`,
+  :func:`anm_spectral`, :func:`gnm_spectral` — all eigenvalues by the
+  two-stage banded solver (band reduction, bisection kernel
+  ``banded_bisect.cu``), the covariance observables from the Cholesky
+  covariance, and optionally the lowest mode shapes by subspace iteration
+  on that covariance;
+* :func:`ensemble_anm_banded`, :func:`ensemble_gnm_banded` — the full
+  eigensystem from the two-stage solver (plus the inverse-iteration kernel
+  ``banded_eigvec.cu``), then the mode observables;
+* :func:`anm_observables`, :func:`gnm_observables`, :func:`ensemble_anm`,
+  :func:`ensemble_gnm` — the same observables from ``torch.linalg.eigh``:
+  the dense baseline, and in float64 the reference.
 
 The JAX package maps chunks inside one device program to pay a relay's
 per-call dispatch floor once; here chunks exist only to bound device
@@ -42,7 +62,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import nma_core, rigid
+from ..ops import modes, nma_core, rigid, spectrum
 from ..ops.assembly import hessian_xyz_plain, kirchhoff_plain
 from ..ops.assembly_kernels import (hessian_planes_ensemble,
                                     hessian_xyz_ensemble,
@@ -55,6 +75,16 @@ __all__ = [
     "gnm_fluctuations",
     "ensemble_anm_fluctuations",
     "ensemble_gnm_fluctuations",
+    "anm_observables",
+    "gnm_observables",
+    "ensemble_anm",
+    "ensemble_gnm",
+    "anm_spectral",
+    "gnm_spectral",
+    "ensemble_anm_spectral",
+    "ensemble_gnm_spectral",
+    "ensemble_anm_banded",
+    "ensemble_gnm_banded",
 ]
 
 _ENGINES = ("blocked", "cho_solve")
@@ -151,10 +181,17 @@ def _gnm_chunk(coords, params, masses, inverse, with_dcc):
     return _gnm_cov_observables(cov, with_dcc)
 
 
-def _check_engine(inverse):
+def _resolve_inverse(inverse, coords):
+    """The covariance engine: ``"auto"`` is ``"blocked"`` for float32 on
+    CUDA (the kernels' dtype and device) and ``"cho_solve"`` otherwise,
+    decided from the prepared coordinates before any work."""
+    if inverse == "auto":
+        return ("blocked" if coords.dtype == torch.float32
+                and coords.device.type == "cuda" else "cho_solve")
     if inverse not in _ENGINES:
-        raise ValueError(f"inverse must be one of {_ENGINES}, got "
-                         f"{inverse!r}")
+        raise ValueError(f"inverse must be 'auto' or one of {_ENGINES}, "
+                         f"got {inverse!r}")
+    return inverse
 
 
 def _check_prs(with_covariance, with_prs):
@@ -200,10 +237,17 @@ def _run_chunked(run, coords, chunk):
     return out
 
 
-def ensemble_anm_fluctuations(coords, params, masses=None, *, inverse,
-                              with_covariance=False, with_dcc=True,
-                              dtype=torch.float32, chunk=None,
-                              device=None, with_prs=False, prep="planes"):
+def _single(run, coord):
+    """``run`` on one structure ``(n, 3)`` as a batch of one, without the
+    batch axis in its outputs."""
+    return {key: value[0] for key, value in run(coord[None]).items()}
+
+
+def ensemble_anm_fluctuations(coords, params, masses=None, *,
+                              inverse="auto", with_covariance=True,
+                              with_dcc=True, dtype=torch.float32,
+                              chunk=None, device=None, with_prs=False,
+                              prep="planes"):
     """Fast-covariance ANM fluctuation observables of a conformer
     ensemble.
 
@@ -217,15 +261,16 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *, inverse,
         to carry one across from the JAX package).
     masses : Tensor or ndarray, shape=(n,), optional
         Mass-weights the Hessian (``W H W``, ``W = diag(1/sqrt(m))``).
-    inverse : {"blocked", "cho_solve"}
+    inverse : {"auto", "blocked", "cho_solve"}
         ``"blocked"``: the main path through the port's kernels
         (float32 on CUDA).  ``"cho_solve"``: dense assembly, Cholesky
         and a solve against the identity in any dtype — the float64
-        reference.
+        reference.  ``"auto"``: ``"blocked"`` for float32 on CUDA, else
+        ``"cho_solve"``.
     with_covariance : bool
-        Also return the ``(B, 3n, 3n)`` covariance (xyz layout).  The
-        default ``False`` computes only the ``(B, n, n)`` plane traces,
-        the cheaper main path (the JAX package defaults to ``True``).
+        Also return the ``(B, 3n, 3n)`` covariance (xyz layout), as the
+        JAX package does by default.  ``False`` computes only the
+        ``(B, n, n)`` plane traces, the cheaper main path.
     with_dcc : bool
         Also return the normalized DCC ``(B, n, n)``.
     dtype : torch.dtype
@@ -251,24 +296,25 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *, inverse,
         raise NotImplementedError(
             f"prep={prep!r} needs the assembly-fused stitch kernel K7, "
             f"which is not ported yet (ROADMAP.md, kernel table)")
-    _check_engine(inverse)
     _check_prs(with_covariance, with_prs)
     coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
                              with_dcc, with_prs), coords, chunk)
 
 
-def ensemble_gnm_fluctuations(coords, params, masses=None, *, inverse,
-                              with_dcc=True, dtype=torch.float32,
-                              chunk=None, device=None):
+def ensemble_gnm_fluctuations(coords, params, masses=None, *,
+                              inverse="auto", with_dcc=True,
+                              dtype=torch.float32, chunk=None, device=None):
     """GNM twin of :func:`ensemble_anm_fluctuations`: covariance
     ``(B, n, n)``, ``msf``, ``bfactor`` and, with `with_dcc`, ``dcc``
     of each conformer's Kirchhoff matrix, whose null space is the
     (mass-scaled) constant mode.  ``inverse="blocked"`` runs the kernels
-    (float32 on CUDA); ``"cho_solve"`` runs in any dtype."""
-    _check_engine(inverse)
+    (float32 on CUDA); ``"cho_solve"`` runs in any dtype; ``"auto"``
+    picks as :func:`ensemble_anm_fluctuations` does."""
     coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc), coords,
         chunk)
@@ -285,9 +331,9 @@ def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     assembled by the Hessian kernel."""
     _check_prs(with_covariance, with_prs)
     coord, masses = _prepare(coord, params, masses, dtype, device, 2)
-    out = _anm_chunk(coord[None], params, masses, "cho_solve",
-                     with_covariance, with_dcc, with_prs)
-    return {key: value[0] for key, value in out.items()}
+    return _single(lambda c: _anm_chunk(c, params, masses, "cho_solve",
+                                        with_covariance, with_dcc,
+                                        with_prs), coord)
 
 
 def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
@@ -295,5 +341,257 @@ def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     """GNM twin of :func:`anm_fluctuations`: covariance ``(n, n)``,
     ``msf``, ``bfactor`` and ``dcc`` of one structure."""
     coord, masses = _prepare(coord, params, masses, dtype, device, 2)
-    out = _gnm_chunk(coord[None], params, masses, "cho_solve", with_dcc)
-    return {key: value[0] for key, value in out.items()}
+    return _single(lambda c: _gnm_chunk(c, params, masses, "cho_solve",
+                                        with_dcc), coord)
+
+
+# ---------------------------------------------------------------------------
+# Eigensystem observables: dense eigh and the two-stage banded solver
+# ---------------------------------------------------------------------------
+
+
+def _eigensystem_observables(vals, vecs, n_trivial, num_dim, *, with_dcc,
+                             with_covariance, n_modes, tem, tem_factors):
+    """Observables of eigensystems ``vals`` ``(B, m)``, ``vecs`` ``(B, m,
+    m)`` (modes in rows, xyz layout) with `n_trivial` null modes left
+    out (``pipeline.py:121-158`` for ANM, ``:289-315`` for GNM)."""
+    m = vals.shape[-1]
+    if n_modes is not None and not 0 < n_modes <= m - n_trivial:
+        raise ValueError(f"n_modes={n_modes} must be in "
+                         f"[1, {m - n_trivial}]")
+    stop = m if n_modes is None else n_trivial + n_modes
+    idx = torch.arange(n_trivial, stop, device=vals.device)
+    msf = nma_core.mean_square_fluctuation(
+        vals, vecs, idx, num_dim=num_dim, layout="xyz", tem=tem,
+        tem_factors=tem_factors)
+    out = {
+        "eig_values": vals,
+        "eig_vectors": vecs,
+        "frequencies": nma_core.frequencies_from_eigenvalues(vals,
+                                                             n_trivial),
+        "msf": msf,
+        "bfactor": nma_core.bfactor_from_msf(msf),
+    }
+    if with_dcc:
+        out["dcc"] = nma_core.normalize_dcc(nma_core.dcc_from_modes(
+            vals, vecs, idx, num_dim=num_dim, layout="xyz"))
+    if with_covariance:
+        inv_vals = torch.zeros_like(vals)
+        inv_vals[..., idx] = 1.0 / vals[..., idx]
+        out["covariance"] = torch.einsum("...ki,...k,...kj->...ij", vecs,
+                                         inv_vals, vecs)
+    return out
+
+
+def _dense_eigh(matrices):
+    """``torch.linalg.eigh`` with the modes in rows."""
+    vals, vecs = torch.linalg.eigh(matrices)
+    return vals, vecs.transpose(-1, -2)
+
+
+def _banded_eigh(bandwidth, n_iter_bisect):
+    return lambda matrices: spectrum.eigh_banded(
+        matrices, bandwidth=bandwidth, n_iter=n_iter_bisect)
+
+
+def _anm_eigen_chunk(coords, params, masses, solver, options):
+    vals, vecs = solver(_build_hessians_batched(coords, params, masses))
+    return _eigensystem_observables(vals, vecs, 6, 3, **options)
+
+
+def _gnm_eigen_chunk(coords, params, masses, solver, options):
+    vals, vecs = solver(_build_kirchhoffs_batched(coords, params, masses))
+    return _eigensystem_observables(vals, vecs, 1, 1, with_covariance=False,
+                                    **options)
+
+
+def anm_observables(coord, params, masses=None, *, with_dcc=False,
+                    with_covariance=False, n_modes=None,
+                    dtype=torch.float32, tem=None,
+                    tem_factors=nma_core.K_B, device=None):
+    """
+    ANM of one structure ``(n, 3)`` by a dense ``torch.linalg.eigh`` of
+    its (mass-weighted) xyz-layout Hessian, the six trivial modes left
+    out of the observables.
+
+    Returns
+    -------
+    dict with ``eig_values`` ``(3n,)``, ``eig_vectors`` ``(3n, 3n)``
+    (modes in rows, xyz layout), ``frequencies``, ``msf``, ``bfactor``
+    and, as asked for, ``dcc`` and ``covariance``; `n_modes` restricts
+    the observables to the lowest non-trivial modes.
+    """
+    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
+                   n_modes=n_modes, tem=tem, tem_factors=tem_factors)
+    return _single(lambda c: _anm_eigen_chunk(c, params, masses,
+                                              _dense_eigh, options), coord)
+
+
+def gnm_observables(coord, params, masses=None, *, with_dcc=False,
+                    n_modes=None, dtype=torch.float32, tem=None,
+                    tem_factors=nma_core.K_B, device=None):
+    """GNM twin of :func:`anm_observables` over the Kirchhoff matrix
+    (one trivial mode, no ``covariance``)."""
+    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
+                   tem_factors=tem_factors)
+    return _single(lambda c: _gnm_eigen_chunk(c, params, masses,
+                                              _dense_eigh, options), coord)
+
+
+def ensemble_anm(coords, params, masses=None, *, with_dcc=False,
+                 with_covariance=False, n_modes=None, dtype=torch.float32,
+                 tem=None, tem_factors=nma_core.K_B, chunk=None,
+                 device=None):
+    """:func:`anm_observables` over a conformer ensemble ``(B, n, 3)``
+    (batched ``eigh``); `chunk` and `device` as in
+    :func:`ensemble_anm_fluctuations`."""
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
+                   n_modes=n_modes, tem=tem, tem_factors=tem_factors)
+    return _run_chunked(lambda c: _anm_eigen_chunk(
+        c, params, masses, _dense_eigh, options), coords, chunk)
+
+
+def ensemble_gnm(coords, params, masses=None, *, with_dcc=False,
+                 n_modes=None, dtype=torch.float32, tem=None,
+                 tem_factors=nma_core.K_B, chunk=None, device=None):
+    """:func:`gnm_observables` over a conformer ensemble ``(B, n, 3)``."""
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
+                   tem_factors=tem_factors)
+    return _run_chunked(lambda c: _gnm_eigen_chunk(
+        c, params, masses, _dense_eigh, options), coords, chunk)
+
+
+def ensemble_anm_banded(coords, params, masses=None, *, with_dcc=False,
+                        with_covariance=False, n_modes=None,
+                        dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
+                        tem=None, tem_factors=nma_core.K_B, chunk=None,
+                        device=None):
+    """
+    :func:`ensemble_anm` with the full eigensystem from the two-stage
+    banded solver (:func:`.ops.spectrum.eigh_banded`, no dense ``eigh``):
+    in float32 with ``bandwidth <= 8`` its bisection and inverse-iteration
+    kernels run on CUDA.  Same outputs; float32 accuracy is that of an
+    iterative solver, about 1e-5 relative residuals after the built-in
+    polish and windowed Rayleigh-Ritz.
+    """
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
+                   n_modes=n_modes, tem=tem, tem_factors=tem_factors)
+    solver = _banded_eigh(bandwidth, n_iter_bisect)
+    return _run_chunked(lambda c: _anm_eigen_chunk(
+        c, params, masses, solver, options), coords, chunk)
+
+
+def ensemble_gnm_banded(coords, params, masses=None, *, with_dcc=False,
+                        n_modes=None, dtype=torch.float32, bandwidth=8,
+                        n_iter_bisect=40, tem=None, tem_factors=nma_core.K_B,
+                        chunk=None, device=None):
+    """GNM twin of :func:`ensemble_anm_banded` over the Kirchhoff
+    matrices."""
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
+                   tem_factors=tem_factors)
+    solver = _banded_eigh(bandwidth, n_iter_bisect)
+    return _run_chunked(lambda c: _gnm_eigen_chunk(
+        c, params, masses, solver, options), coords, chunk)
+
+
+# ---------------------------------------------------------------------------
+# Spectral pipelines: banded eigenvalues + the Cholesky covariance
+# ---------------------------------------------------------------------------
+
+
+def _anm_spectral_chunk(coords, params, masses, inverse, n_modes, with_dcc,
+                        bandwidth, n_iter_bisect, n_iter_modes):
+    hessians = _build_hessians_batched(coords, params, masses)
+    bases = rigid.rigid_modes_anm(coords, masses=masses)
+    cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse)
+    vals = spectrum.eigvalsh_banded(hessians, bandwidth=bandwidth,
+                                    n_iter=n_iter_bisect)
+    out = {"eig_values": vals,
+           "frequencies": nma_core.frequencies_from_eigenvalues(vals, 6),
+           **_anm_cov_observables(cov, coords.shape[1], with_dcc, False)}
+    if n_modes is not None:
+        # subspace iteration on the covariance in hand: products only
+        out["mode_values"], out["mode_vectors"] = \
+            modes.modes_from_covariance(cov, hessians, bases, k=n_modes,
+                                        n_iter=n_iter_modes)
+    return out
+
+
+def _gnm_spectral_chunk(coords, params, masses, inverse, n_modes, with_dcc,
+                        bandwidth, n_iter_bisect, n_iter_modes):
+    kirchhoffs = _build_kirchhoffs_batched(coords, params, masses)
+    basis = rigid.null_mode_gnm(coords.shape[1], masses=masses,
+                                dtype=coords.dtype, device=coords.device)
+    cov = rigid.covariance_cholesky(kirchhoffs, basis, inverse=inverse)
+    vals = spectrum.eigvalsh_banded(kirchhoffs, bandwidth=bandwidth,
+                                    n_iter=n_iter_bisect)
+    out = {"eig_values": vals,
+           "frequencies": nma_core.frequencies_from_eigenvalues(vals, 1),
+           **_gnm_cov_observables(cov, with_dcc)}
+    if n_modes is not None:
+        out["mode_values"], out["mode_vectors"] = \
+            modes.modes_from_covariance(cov, kirchhoffs, basis, k=n_modes,
+                                        n_iter=n_iter_modes)
+    return out
+
+
+def ensemble_anm_spectral(coords, params, masses=None, *, n_modes=None,
+                          with_dcc=True, dtype=torch.float32, bandwidth=8,
+                          n_iter_bisect=40, n_iter_modes=16, inverse="auto",
+                          chunk=None, device=None):
+    """
+    Spectral ANM of a conformer ensemble without a dense ``eigh``
+    (``pipeline.py:416-492``): all eigenvalues and frequencies from the
+    two-stage banded solver (bisection kernel on CUDA in float32), the
+    covariance, MSF, B-factors and DCC from the regularized Cholesky
+    covariance (`inverse` as in :func:`ensemble_anm_fluctuations`), and
+    with `n_modes` the lowest non-trivial ``mode_values`` ``(B, k)`` and
+    ``mode_vectors`` ``(B, k, 3n)`` by subspace iteration on that
+    covariance.  Needs a connected network.
+    """
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    inverse = _resolve_inverse(inverse, coords)
+    return _run_chunked(lambda c: _anm_spectral_chunk(
+        c, params, masses, inverse, n_modes, with_dcc, bandwidth,
+        n_iter_bisect, n_iter_modes), coords, chunk)
+
+
+def ensemble_gnm_spectral(coords, params, masses=None, *, n_modes=None,
+                          with_dcc=True, dtype=torch.float32, bandwidth=8,
+                          n_iter_bisect=40, n_iter_modes=16, inverse="auto",
+                          chunk=None, device=None):
+    """GNM twin of :func:`ensemble_anm_spectral` over the Kirchhoff
+    matrices (``pipeline.py:535-598``)."""
+    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    inverse = _resolve_inverse(inverse, coords)
+    return _run_chunked(lambda c: _gnm_spectral_chunk(
+        c, params, masses, inverse, n_modes, with_dcc, bandwidth,
+        n_iter_bisect, n_iter_modes), coords, chunk)
+
+
+def anm_spectral(coord, params, masses=None, *, n_modes=None, with_dcc=True,
+                 dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
+                 n_iter_modes=24, device=None):
+    """:func:`ensemble_anm_spectral` for one structure ``(n, 3)``, with the
+    Cholesky engine (``pipeline.py:347-413``)."""
+    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    return _single(lambda c: _anm_spectral_chunk(
+        c, params, masses, "cho_solve", n_modes, with_dcc, bandwidth,
+        n_iter_bisect, n_iter_modes), coord)
+
+
+def gnm_spectral(coord, params, masses=None, *, with_dcc=True,
+                 dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
+                 device=None):
+    """GNM twin of :func:`anm_spectral`, without mode shapes
+    (``pipeline.py:495-532``)."""
+    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    return _single(lambda c: _gnm_spectral_chunk(
+        c, params, masses, "cho_solve", None, with_dcc, bandwidth,
+        n_iter_bisect, None), coord)

@@ -2,8 +2,8 @@
 PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small and edge shapes, and the
 paths on CUDA (ANM plane traces, ANM covariance and PRS, GNM ensemble,
-single structures) against the float64 ``cho_solve`` engines, each with
-the launch counts of its own kernels.
+single structures, the spectral pipelines) against the float64 engines,
+each with the launch counts of its own kernels.
 
 Marked ``cuda``: every test skips without an NVIDIA GPU.  This file
 imports neither JAX nor the JAX package, so it runs on a machine that
@@ -11,9 +11,12 @@ has only PyTorch (skip the JAX test configuration there)::
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances as in ``chip_smoke.py``: 1e-5 of max|x| for the assembly and
-the stitch, 2e-5 absolute for unit-scale panels, 1e-4 of max|x| for the
-float32 paths against float64.
+Tolerances as in ``chip_smoke.py``: 1e-5 of max|x| for the assembly, the
+stitch and the bisection, 2e-5 absolute for unit-scale panels, 1e-4 of
+max|x| for the float32 paths against float64; eigenvectors by their
+residuals (5e-4 of the matrix norm after refinement, a median of 1e-3
+of the band's norm straight from inverse iteration) and orthonormality
+(1e-3).
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ torch = pytest.importorskip("torch")
 
 import springcraft_tpu_torch as sct  # noqa: E402
 from springcraft_tpu_torch.ops import assembly, assembly_kernels  # noqa: E402
-from springcraft_tpu_torch.ops import rigid, spd_linalg  # noqa: E402
+from springcraft_tpu_torch.ops import rigid, spd_linalg, spectrum  # noqa: E402
+from springcraft_tpu_torch.parallel import pipeline  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -169,17 +173,20 @@ def test_slice_on_cuda(cuda, with_masses):
     wrappers = sct.kernel_wrappers()
     before = {k: w.launches for k, w in wrappers.items()}
     got = sct.ensemble_anm_fluctuations(coords, params, masses=masses,
-                                        inverse="blocked", device="cuda")
+                                        inverse="blocked",
+                                        with_covariance=False, device="cuda")
     _check_launches(wrappers, before, TRACE_PATH_KERNELS)
     chunked = sct.ensemble_anm_fluctuations(
-        coords, params, masses=masses, inverse="blocked", chunk=2,
-        device="cuda")
+        coords, params, masses=masses, inverse="blocked",
+        with_covariance=False, chunk=2, device="cuda")
     ref = sct.ensemble_anm_fluctuations(
         coords.astype(np.float64), params,
         masses=None if masses is None else masses.astype(np.float64),
-        inverse="cho_solve", dtype=torch.float64, device="cuda")
+        inverse="cho_solve", with_covariance=False, dtype=torch.float64,
+        device="cuda")
     cpu = sct.ensemble_anm_fluctuations(coords, params, masses=masses,
-                                        inverse="blocked", device="cpu")
+                                        inverse="blocked",
+                                        with_covariance=False, device="cpu")
     for key in ("msf", "bfactor", "dcc"):
         assert got[key].device.type == "cuda"
         assert _rel(got[key], ref[key]) <= 1e-4, key
@@ -244,3 +251,222 @@ def test_covariance_paths_on_cuda(cuda, path, with_masses):
         assert bool(torch.isfinite(got[key]).all()), key
         assert _rel(got[key], ref[key]) <= 1e-4, key
         assert _rel(got[key], cpu[key].to(cuda)) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# The banded eigensolver kernels (K10, K11) and the spectral paths
+# ---------------------------------------------------------------------------
+
+
+def _band_diags(b, n, w, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(b, n, n, generator=gen)
+    return spectrum.band_reduce((a + a.transpose(1, 2)).to(device) / 2,
+                                w - 1)
+
+
+def _dense_band(diags):
+    b, w, n = diags.shape
+    band = torch.zeros((b, n, n), dtype=diags.dtype, device=diags.device)
+    for d in range(w):
+        idx = torch.arange(n - d, device=diags.device)
+        band[:, idx, idx + d] = diags[:, d, :n - d]
+        band[:, idx + d, idx] = diags[:, d, :n - d]
+    return band
+
+
+@pytest.mark.parametrize("w", [2, 5, 9])
+@pytest.mark.parametrize("b,n", [(3, 40), (2, 130)])
+def test_banded_bisect_kernel(cuda, w, b, n):
+    diags = _band_diags(b, n, w, cuda, seed=n + w)
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    before = spectrum.banded_bisect.launches
+    got = spectrum.banded_bisect(feed, lo, hi, 40)
+    assert spectrum.banded_bisect.launches == before + 1
+    ref = spectrum.banded_bisect_plain(feed, lo, hi, 40)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    exact = torch.linalg.eigvalsh(_dense_band(diags.double()))
+    assert _rel(got, exact) <= 1e-5
+
+
+def test_banded_bisect_kernel_reads_device_memory_past_shared(cuda):
+    """A feed over the per-block shared-memory limit (n = 6500 at w = 9)
+    is read from device memory."""
+    n = 6500
+    diags = torch.zeros(1, 9, n, device=cuda)
+    diags[:, 0] = torch.linspace(-3.0, 3.0, n, device=cuda)
+    diags[:, 1:] = 0.1 * torch.randn(1, 8, n, device=cuda,
+                                     generator=torch.Generator(cuda)
+                                     .manual_seed(0))
+    got = spectrum.banded_bisect(*spectrum.bisect_inputs(diags), 40)
+    exact = torch.linalg.eigvalsh(_dense_band(diags.double()))
+    assert _rel(got, exact) <= 1e-5
+
+
+def test_banded_kernels_stage_a_feed_past_48_kb(cuda):
+    """A feed between the 48 KB default and the opt-in limit (n = 1500 at
+    w = 9, 54 KB) is staged in shared memory raised per kernel: both
+    kernels against their plain versions (the bisection over 16 halvings,
+    the inverse iteration on 15 shifts across the spectrum)."""
+    n = 1500
+    diags = torch.zeros(1, 9, n, device=cuda)
+    diags[:, 0] = torch.linspace(-3.0, 3.0, n, device=cuda)
+    diags[:, 1:] = 0.1 * torch.randn(1, 8, n, device=cuda,
+                                     generator=torch.Generator(cuda)
+                                     .manual_seed(1))
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    got = spectrum.banded_bisect(feed, lo, hi, 16)
+    ref = spectrum.banded_bisect_plain(feed, lo, hi, 16)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    vals = spectrum.banded_bisect(feed, lo, hi, 40)
+    exact = torch.linalg.eigvalsh(_dense_band(diags.double()))
+    assert _rel(vals, exact) <= 1e-5
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    cols = slice(0, n, 100)
+    pick = shifts[:, cols].contiguous()
+    x = spectrum.banded_eigvec(feed, pick, 0, floor, 2, 1.0)
+    x_plain = spectrum.banded_eigvec_plain(feed, pick, 0, floor, 2, 1.0)
+    torch.cuda.synchronize()
+    assert x.shape == (1, n, 15) and bool(torch.isfinite(x).all())
+    overlap = (x * x_plain).sum(dim=1).abs()
+    assert float(overlap.min()) >= 1 - 1e-3
+    band = _dense_band(diags)
+    res = torch.linalg.vector_norm(band @ x - x * vals[:, None, cols], dim=1)
+    assert float(res.max()) <= 1e-4 * float(vals.abs().max())
+
+
+@pytest.mark.parametrize("w", [2, 5, 9])
+@pytest.mark.parametrize("b,n", [(3, 40), (2, 300)])
+def test_banded_eigvec_kernel(cuda, w, b, n):
+    diags = _band_diags(b, n, w, cuda, seed=n + w)
+    vals = spectrum.banded_bisect(*spectrum.bisect_inputs(diags), 40)
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    before = spectrum.banded_eigvec.launches
+    got = spectrum.banded_eigvec(feed, shifts, 0, floor, 2, 1.0)
+    assert spectrum.banded_eigvec.launches == before + 1
+    ref = spectrum.banded_eigvec_plain(feed, shifts, 0, floor, 2, 1.0)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, n) and bool(torch.isfinite(got).all())
+    band = _dense_band(diags)
+    norm = vals.abs().amax(dim=1)[:, None]
+    for u in (got, ref):
+        res = torch.linalg.vector_norm(band @ u - u * vals[:, None, :],
+                                       dim=1) / norm
+        assert float(res.median()) <= 1e-3
+    gaps = torch.diff(vals, dim=1)
+    apart = torch.minimum(gaps[:, :-1], gaps[:, 1:]) > 1e-2 * norm
+    overlap = (got * ref).sum(dim=1).abs()[:, 1:-1][apart]
+    assert float(overlap.min()) >= 1 - 1e-3
+
+
+def test_banded_kernels_refuse_what_they_do_not_take(cuda):
+    diags = _band_diags(2, 30, 9, cuda, seed=0)
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    with pytest.raises(TypeError, match="float32"):
+        spectrum.banded_bisect(feed.double(), lo.double(), hi.double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        spectrum.banded_bisect(feed.transpose(1, 2).contiguous()
+                               .transpose(1, 2), lo, hi, 8)
+    wide = _band_diags(2, 30, 11, cuda, seed=0)
+    with pytest.raises(ValueError, match="exceeds"):
+        spectrum.banded_bisect(*spectrum.bisect_inputs(wide), 8)
+    vals = spectrum.banded_bisect(feed, lo, hi, 40)
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    with pytest.raises(TypeError, match="float32"):
+        spectrum.banded_eigvec(feed, shifts.double(), 0, floor, 2, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        spectrum.banded_eigvec(feed, shifts.t().contiguous().t(), 0, floor,
+                               2, 1.0)
+    with pytest.raises(ValueError, match="device"):
+        spectrum.banded_eigvec(feed, shifts.cpu(), 0, floor, 2, 1.0)
+
+
+def test_banded_kernel_route(cuda):
+    """Float32 with bandwidth <= 8 launches the kernels; float64 and wider
+    bands take the plain versions."""
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn(2, 60, 60, generator=gen)
+    a = ((a + a.transpose(1, 2)) / 2).to(cuda)
+    wrappers = sct.kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    vals = spectrum.eigvalsh_banded(a, bandwidth=8)
+    _check_launches(wrappers, before, {"banded_bisect"})
+    before = {k: w.launches for k, w in wrappers.items()}
+    vals_full, vecs = spectrum.eigh_banded(a, bandwidth=4)
+    _check_launches(wrappers, before, {"banded_bisect", "banded_eigvec"})
+    exact = torch.linalg.eigvalsh(a.double())
+    assert _rel(vals, exact) <= 1e-5 and _rel(vals_full, exact) <= 1e-5
+    before = {k: w.launches for k, w in wrappers.items()}
+    spectrum.eigh_banded(a.double(), bandwidth=8)
+    spectrum.eigvalsh_banded(a, bandwidth=12)
+    _check_launches(wrappers, before, set())
+
+
+#: Kernels of each spectral path (chip_smoke.py's PATH_KERNELS).
+SPECTRAL_PATHS = {
+    "ensemble_anm_spectral": {"hessian_xyz", "panel_inverse",
+                              "banded_bisect"},
+    "ensemble_anm_banded": {"hessian_xyz", "banded_bisect", "banded_eigvec"},
+    "ensemble_gnm_spectral": {"kirchhoff", "panel_inverse", "banded_bisect"},
+    "ensemble_gnm_banded": {"kirchhoff", "banded_bisect", "banded_eigvec"},
+    "anm_spectral": {"hessian_xyz", "banded_bisect"},
+    "gnm_spectral": {"kirchhoff", "banded_bisect"},
+}
+
+
+@pytest.mark.parametrize("path", sorted(SPECTRAL_PATHS))
+def test_spectral_paths_on_cuda(cuda, path):
+    coords = _coords(4, 100, seed=7, spread=34.0 * (1 / 3) ** (1 / 3))
+    params = sct.invariant_params(13.0)
+    model = "anm" if "anm" in path else "gnm"
+    n_trivial = 6 if model == "anm" else 1
+    kwargs = {"n_modes": 5} if path.endswith("_spectral") \
+        and path != "gnm_spectral" else {}
+    if "banded" in path:
+        kwargs["with_dcc"] = True
+    x = coords if path.startswith("ensemble") else coords[0]
+    wrappers = sct.kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = getattr(sct, path)(x, params, device="cuda", **kwargs)
+    torch.cuda.synchronize()
+    _check_launches(wrappers, before, SPECTRAL_PATHS[path])
+    cpu = getattr(sct, path)(x, params, device="cpu", **kwargs)
+    x64 = torch.as_tensor(coords if path.startswith("ensemble")
+                          else coords[:1], dtype=torch.float64, device=cuda)
+    eig = getattr(sct, f"ensemble_{model}")(x64, params, with_dcc=True,
+                                            dtype=torch.float64)
+    cov = getattr(sct, f"ensemble_{model}_fluctuations")(
+        x64, params, inverse="cho_solve", dtype=torch.float64)
+    ref = {**eig, **cov}
+    build = (pipeline._build_hessians_batched if model == "anm"
+             else pipeline._build_kirchhoffs_batched)
+    matrices = build(x64, params, None)
+    if not path.startswith("ensemble"):
+        got = {key: value[None] for key, value in got.items()}
+        cpu = {key: value[None] for key, value in cpu.items()}
+    assert set(got) == set(cpu)
+    norm = ref["eig_values"].abs().amax(dim=-1)
+    for key, value in got.items():
+        assert value.device.type == cuda.type
+        assert bool(torch.isfinite(value).all()), key
+        if key.endswith("_vectors"):
+            vals = got["eig_values" if key == "eig_vectors"
+                       else "mode_values"].double()
+            u = value.double().transpose(-1, -2)
+            res = torch.linalg.vector_norm(matrices @ u - u * vals[:, None],
+                                           dim=-2) / norm[:, None]
+            assert float(res.max()) <= 5e-4, key
+            eye = torch.eye(u.shape[-1], dtype=u.dtype, device=cuda)
+            assert float((value.double() @ u - eye).abs().max()) <= 1e-3
+        elif key == "mode_values":
+            lowest = ref["eig_values"][:, n_trivial:n_trivial + 5]
+            assert float((value.double() - lowest).abs().max()
+                         / norm.max()) <= 1e-4
+        elif key == "frequencies":
+            assert _rel(value[:, n_trivial:],
+                        ref[key][:, n_trivial:]) <= 1e-4
+        else:
+            assert _rel(value, ref[key]) <= 1e-4, key
+            assert _rel(value, cpu[key].to(cuda)) <= 1e-4, key

@@ -45,6 +45,10 @@ def test_import_leaves_jax_out():
 def test_entry_points_are_exported():
     for name in ("anm_fluctuations", "gnm_fluctuations",
                  "ensemble_anm_fluctuations", "ensemble_gnm_fluctuations",
+                 "anm_observables", "gnm_observables", "ensemble_anm",
+                 "ensemble_gnm", "anm_spectral", "gnm_spectral",
+                 "ensemble_anm_spectral", "ensemble_gnm_spectral",
+                 "ensemble_anm_banded", "ensemble_gnm_banded",
                  "kernel_wrappers"):
         assert name in sct.__all__ and callable(getattr(sct, name))
 
@@ -55,7 +59,8 @@ def test_every_c_entry_point_has_a_wrapper():
     entries = set(_build._SIGNATURES) - {"sc_error_string"}
     assert entries == {"sc_hessian_planes", "sc_hessian_xyz",
                        "sc_kirchhoff", "sc_regularize_stitch",
-                       "sc_panel_inverse"}
+                       "sc_panel_inverse", "sc_banded_bisect",
+                       "sc_banded_eigvec"}
     sources = "".join(p.read_text() for p in _build.SOURCES)
     for entry in entries:
         assert f'extern "C" int {entry}(' in sources, entry
@@ -83,13 +88,14 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.name.startswith("springcraft_kernels_")
     assert {p.name for p in _build.SOURCES} >= {
         "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
-        "kirchhoff.cu"}
+        "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
                                           "regularize_stitch",
                                           "panel_inverse", "kirchhoff",
-                                          "hessian_xyz"}
+                                          "hessian_xyz", "banded_bisect",
+                                          "banded_eigvec"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
 

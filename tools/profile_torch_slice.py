@@ -8,15 +8,22 @@ Runs the headline configuration of ``chip_smoke.py`` (1024 conformers of
 2. the device time of each stage on one 128-conformer chunk (CUDA-event
    means), and of one panel-inverse launch, for the plane-trace path, for
    the path with the covariance and PRS, and for the GNM ensemble;
-3. a ``torch.profiler`` trace of one 1024-conformer call: the wall time,
-   the union of the kernels' intervals (the device's busy share under
-   the profiler) and the kernels with the most device time;
-4. the rate and peak device memory at several chunk sizes (three calls
-   each).
+3. the same for the spectral pipelines (``--reps-spectral`` calls each):
+   ``ensemble_anm_spectral`` with the JAX package's benchmark settings
+   (20 modes, 32 halvings) and ``ensemble_anm_banded``;
+4. ``torch.profiler`` traces of one 1024-conformer call of the main path
+   and of one 128-conformer chunk of ``ensemble_anm_spectral``: the wall
+   time, the union of the kernels' intervals (the device's busy share
+   under the profiler) and the kernels with the most device time (a
+   banded chunk, with the window refinement's per-matrix QR launches, is
+   more than the profiler digests in minutes);
+5. the main path's rate and peak device memory at several chunk sizes
+   (three calls each).
 
-The table and the Chrome trace go to ``--out``.
+The tables and the Chrome traces go to ``--out``.
 
 Usage:  python tools/profile_torch_slice.py [--out DIR] [--reps N]
+            [--reps-spectral N]
 """
 
 import argparse
@@ -33,8 +40,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 import springcraft_tpu_torch as sct  # noqa: E402
-from springcraft_tpu_torch.ops import (assembly_kernels, rigid,  # noqa: E402
-                                       spd_linalg)
+from springcraft_tpu_torch.ops import (assembly_kernels, modes,  # noqa: E402
+                                       rigid, spd_linalg, spectrum)
 from springcraft_tpu_torch.parallel import pipeline  # noqa: E402
 
 CHUNKS = (64, 128, 256, 512, 1024)
@@ -133,30 +140,87 @@ def stage_times(dev, params, reps):
 
 
 def run(x, params, chunk=cs.CHUNK, **kwargs):
+    kwargs.setdefault("with_covariance", False)
     return sct.ensemble_anm_fluctuations(
         x, params, inverse="blocked", with_dcc=True, dtype=torch.float32,
         chunk=chunk, device="cuda", **kwargs)
 
 
-def profiled_call(dev, params, out):
+def spectral_stage_times(dev, params, reps):
+    """Stages of one chunk of ``ensemble_anm_spectral`` and of
+    ``ensemble_anm_banded``, each timed over `reps` calls."""
+    c = dev[:cs.CHUNK].contiguous()
+    h = pipeline._build_hessians_batched(c, params, None)
+    bases = rigid.rigid_modes_anm(c)
+    cov = rigid.covariance_cholesky(h, bases, inverse="blocked")
+    diags, v_all, t_all = spectrum.band_reduce_with_reflectors(h, 8)
+    vals = spectrum.banded_eigenvalues(diags, cs.N_ITER_BISECT)
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    n = shifts.shape[-1]
+
+    def inverse_iteration():
+        return torch.cat([spectrum.banded_eigvec(
+            feed, shifts[:, c0:c0 + 256].contiguous(), c0, floor, 2, 1.0)
+            for c0 in range(0, n, 256)], -1)
+
+    x = inverse_iteration()
+    u_band = spectrum._windowed_mgs(x, 8)
+    u = spectrum.back_transform(v_all, t_all, u_band)
+    min_gap = 0.01 * (vals[:, -1] - vals[:, 0])
+    polished = spectrum._perturbative_polish(h, u, vals, min_gap)
+    stages = {
+        "S1 K5 hessian_xyz": lambda: pipeline._build_hessians_batched(
+            c, params, None),
+        "S2 covariance (rigid bases, blocked Cholesky with K3)":
+            lambda: rigid.covariance_cholesky(
+                h, rigid.rigid_modes_anm(c), inverse="blocked"),
+        "S3 band reduction": lambda: spectrum.band_reduce(h, 8),
+        f"S4 K10 banded_bisect ({cs.N_ITER_BISECT} halvings)":
+            lambda: spectrum.banded_eigenvalues(diags, cs.N_ITER_BISECT),
+        f"S5 modes_from_covariance (k {cs.N_MODES}, 16 iterations)":
+            lambda: modes.modes_from_covariance(cov, h, bases, k=cs.N_MODES),
+        "S whole chunk": lambda: sct.ensemble_anm_spectral(
+            c, params, n_modes=cs.N_MODES, n_iter_bisect=cs.N_ITER_BISECT,
+            device="cuda"),
+        "B1 band reduction with reflectors":
+            lambda: spectrum.band_reduce_with_reflectors(h, 8),
+        "B2 K10 banded_bisect (40 halvings)":
+            lambda: spectrum.banded_eigenvalues(diags, 40),
+        "B3 K11 banded_eigvec (shift chunks of 256)": inverse_iteration,
+        "B4 windowed Gram-Schmidt": lambda: spectrum._windowed_mgs(x, 8),
+        "B5 back-transform": lambda: spectrum.back_transform(v_all, t_all,
+                                                             u_band),
+        "B6 one perturbative polish":
+            lambda: spectrum._perturbative_polish(h, u, vals, min_gap),
+        "B7 window refinement (QR, projection, eigh)":
+            lambda: spectrum._window_refine(h, polished, vals, 32),
+        "B whole chunk": lambda: sct.ensemble_anm_banded(
+            c, params, with_dcc=True, device="cuda"),
+    }
+    for name, fn in stages.items():
+        print(f"stage {name}: {cs.cuda_ms(fn, reps=reps):.4f} ms",
+              flush=True)
+
+
+def profiled_call(label, fn, out):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(dev, params)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_path = os.path.join(out, "trace_main_path.json")
+    trace_path = os.path.join(out, f"trace_{label}.json")
     prof.export_chrome_trace(trace_path)
-    with open(os.path.join(out, "profile_table.txt"), "w") as fh:
+    with open(os.path.join(out, f"profile_table_{label}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                            row_limit=60))
     busy_us, per_kernel = busy_intervals(trace_path)
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
-    print(f"profiled call: wall {wall_ms:.2f} ms, kernels busy "
+    print(f"profiled {label}: wall {wall_ms:.2f} ms, kernels busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / 1e3 / wall_ms:.3f} of the "
           f"wall, under the profiler), {launches} cudaLaunchKernel",
           flush=True)
@@ -188,6 +252,8 @@ def main():
                         help="directory for the trace and the table")
     parser.add_argument("--reps", type=int, default=10,
                         help="calls per stage timing")
+    parser.add_argument("--reps-spectral", type=int, default=3,
+                        help="calls per stage timing of the spectral paths")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -201,7 +267,12 @@ def main():
     run(dev, params)
     torch.cuda.synchronize()
     stage_times(dev, params, args.reps)
-    profiled_call(dev, params, args.out)
+    spectral_stage_times(dev, params, args.reps_spectral)
+    profiled_call("main_path", lambda: run(dev, params), args.out)
+    chunk = dev[:cs.CHUNK].contiguous()
+    profiled_call("anm_spectral_chunk", lambda: sct.ensemble_anm_spectral(
+        chunk, params, n_modes=cs.N_MODES, n_iter_bisect=cs.N_ITER_BISECT,
+        device="cuda"), args.out)
     chunk_sweep(dev, params)
     print(card, flush=True)
     return 0
