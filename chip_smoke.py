@@ -37,9 +37,25 @@ Phases:
      on the 1776-residue structure; eigenvalues against float64
      ``torch.linalg.eigh`` (``ensemble_anm``), covariance observables
      against float64 ``cho_solve``, eigenvectors and mode shapes through
-     their residuals and orthonormality.
+     their residuals and orthonormality;
+   * the matrix-free paths (``bench.py:656-868``): random atoms at protein
+     density (seed 4), invariant field at 13 A, float32 —
+     ``lowest_modes_matfree`` (14 modes, degree 96, 10 outer iterations,
+     tol 2e-4; K13) at n = 30,000, twice; ``dcc_rows_matfree`` on 8 sites
+     (24 CG columns) and ``linear_response_matfree`` on 4 forces (K13);
+     ``lowest_modes_matfree_gnm`` (10 modes, tol 5e-4; K14) at 30,000; the
+     cutoff-free ``pfenm`` family's ``lowest_modes_matfree`` (K12) at
+     n = 10,000; each mode set through its float64 residuals and
+     orthonormality, each CG solution through its float64 true residual,
+     and at n = 3,000 the eigenvalues against float64
+     ``torch.linalg.eigvalsh`` and the covariance columns against float64
+     ``covariance_cholesky``; the peak device memory of each path.
 
-Then one JSON line with the kernels' numbers, and last
+Then one JSON line with the kernels' numbers (each kernel's time beside
+its bound — the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s in float32, 34 TFLOP/s in float64, counted on
+this run's inputs — its plain version's time and, where one PyTorch call
+computes the same function, that call's time), and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with
 a traceback and a non-zero exit; without a CUDA device it stops before
 building anything.
@@ -88,6 +104,17 @@ KERNELS = {
         "springcraft_tpu_torch/csrc/banded_eigvec.cu",
         "springcraft_tpu/ops/spectrum.py:770", 1e-4),
 }
+KERNELS.update({
+    "hessian_apply_dense": (
+        "springcraft_tpu_torch/csrc/matfree_hessian.cu",
+        "springcraft_tpu/ops/matfree.py:385", 1e-5),
+    "hessian_apply_sparse": (
+        "springcraft_tpu_torch/csrc/matfree_hessian.cu",
+        "springcraft_tpu/ops/matfree.py:807", 1e-5),
+    "kirchhoff_apply_sparse": (
+        "springcraft_tpu_torch/csrc/matfree_kirchhoff.cu",
+        "springcraft_tpu/ops/matfree.py:964", 1e-5),
+})
 #: Path -> the kernels it must launch.
 PATH_KERNELS = {
     "anm_traces": ("hessian_planes", "regularize_stitch", "panel_inverse"),
@@ -105,7 +132,44 @@ PATH_KERNELS = {
     "gnm_banded_ensemble": ("kirchhoff", "banded_bisect", "banded_eigvec"),
     "anm_spectral_single": ("hessian_xyz", "banded_bisect"),
     "gnm_spectral_single": ("kirchhoff", "banded_bisect"),
+    "anm_matfree_modes": ("hessian_apply_sparse",),
+    "anm_matfree_solve": ("hessian_apply_sparse",),
+    "gnm_matfree_modes": ("kirchhoff_apply_sparse",),
+    "anm_matfree_modes_dense": ("hessian_apply_dense",),
 }
+#: The matrix-free section of the JAX package's benchmark
+#: (bench.py:656-705): atoms at protein density, seed 4, invariant 13 A;
+#: 14 modes (10 wanted + 4 buffer), degree 96, 10 outer iterations.
+N_MATFREE = 30_000
+#: The cutoff-free operator is O(n^2) per apply: its path runs at 10,000
+#: atoms (30,000 dimensions; the dense float32 Hessian would be 3.6 GB).
+N_MATFREE_DENSE = 10_000
+#: The float64 anchor: small enough for a dense float64 eigh.
+N_ANCHOR = 3_000
+MATFREE_SEED = 4
+MATFREE_CUTOFF = 13.0
+MATFREE_MODES, MATFREE_WANTED, MATFREE_TOL = 14, 10, 2e-4
+GNM_MATFREE_MODES, GNM_MATFREE_TOL = 10, 5e-4
+#: Columns of X in the kernels' parity checks: the Chebyshev block of both
+#: mode paths, k + max(k, 8, 48 - k) = 48.
+MATFREE_BLOCK = 48
+#: Float64 relative residuals |M u - lambda u| / lambda and |U U^T - I| of
+#: the returned float32 modes; the CG solutions' float64 true residual
+#: |H x - P b| / |P b| (tol 1e-6 on the float32 recurrence).
+MATFREE_RESIDUAL_TOL = 1e-3
+MATFREE_ORTHO_TOL = 1e-3
+CG_TRUE_RESIDUAL_TOL = 1e-3
+#: The anchor: eigenvalues relative to float64 eigvalsh, covariance columns
+#: within this of max|ref|.
+ANCHOR_RTOL = 1e-4
+#: One H100 SXM (from NVIDIA's data sheet):
+#: HBM bytes/s, float32 FLOP/s outside the tensor cores; float64 FLOP/s
+#: outside the tensor cores from the same data sheet.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+#: Where the matrix-free phases put their tensors.
+DEVICE = "cuda"
 #: Spectral settings of the JAX package's benchmark (bench.py:328-331).
 N_MODES = 20
 N_ITER_BISECT = 32
@@ -228,74 +292,136 @@ def build_kernels():
           + " | ".join(report), flush=True)
 
 
+def bound(nbytes, flops, rate=F32_FLOPS):
+    """``(ms, "bytes" or "operations")``: the least time of a function
+    that moves `nbytes` (each input read once, each output written once)
+    and does `flops` at `rate`."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def entry(shape, err, ms, plain_ms, work, library_ms=None):
+    """One parity record: shape, errors, times, the bound of `work`
+    ``(bytes, flops[, rate])``."""
+    bound_ms, bound_by = bound(*work)
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
+           reps=TIMING_REPS, plain_reps=TIMING_REPS, label=""):
+    """Hold `kernel_fn` against `plain_fn` on the same CUDA tensors, time
+    both (and `library_fn`, one PyTorch call of the same function) with
+    CUDA events, and append the record to ``results[name]``; returns the
+    plain output."""
+    import torch
+
+    got, ref = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err, rel = max_errors(got, ref)
+    check(rel <= KERNELS[name][2],
+          f"{name}: max rel err {rel:.3e} > {KERNELS[name][2]:g}")
+    ms, plain_ms = cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, plain_reps)
+    library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
+    rec = entry(got.shape, err, ms, plain_ms, work, library_ms)
+    print(f"parity {name} {tuple(got.shape)}{label}: max abs err {err:.3e}, "
+          f"max rel err {rel:.3e} (tol {KERNELS[name][2]:g}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+          + ("none" if library_ms is None else f"{library_ms:.4f} ms"),
+          flush=True)
+    results.setdefault(name, []).append(rec)
+    return ref
+
+
 def kernel_parity(coords, single, params):
     """Each kernel against its plain version at its paths' shapes
     (`coords` a ``(128, 300)`` chunk, `single` a ``(1, 1776)``
-    structure); returns ``{name: [(shape, max_abs_err, ms, plain_ms),
-    ...]}``, the first shape being the one the JSON line reports."""
+    structure); returns ``{name: [record, ...]}``, the first record being
+    the one the JSON line reports.  The bounds count 4-byte floats; the
+    assembly's operations (about 30 flops a pair for the Hessian planes,
+    10 for Kirchhoff) never bind."""
     import torch
 
     from springcraft_tpu_torch.ops import assembly, assembly_kernels, rigid
     from springcraft_tpu_torch.ops import spd_linalg
 
     results = {}
-
-    def record(name, kernel_fn, plain_fn):
-        got, ref = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        check(torch.isfinite(got).all(), f"{name}: non-finite output")
-        err, rel = max_errors(got, ref)
-        check(rel <= KERNELS[name][2],
-              f"{name}: max rel err {rel:.3e} > {KERNELS[name][2]:g}")
-        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        print(f"parity {name} {tuple(got.shape)}: max abs err {err:.3e}, "
-              f"max rel err {rel:.3e} (tol {KERNELS[name][2]:g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        results.setdefault(name, []).append(
-            (tuple(got.shape), err, ms, plain_ms))
-        return ref
+    batch, n = coords.shape[:2]
 
     planes = record(
-        "hessian_planes",
+        results, "hessian_planes",
         lambda: assembly_kernels.hessian_planes_ensemble(coords, params),
-        lambda: assembly.hessian_planes_plain(coords, params))
+        lambda: assembly.hessian_planes_plain(coords, params),
+        (4 * (3 * batch * n + 9 * batch * n * n), 30 * batch * n * n))
 
-    n = coords.shape[1]
     bases = rigid.rigid_modes_anm(coords)
     _, _, scale_h, ts = rigid.stitch_inputs(planes, bases)
-    mp = spd_linalg.padded_size(3 * n)
+    m = 3 * n
+    mp = spd_linalg.padded_size(m)
     reg = record(
-        "regularize_stitch",
+        results, "regularize_stitch",
         lambda: assembly_kernels.regularize_stitch(planes, scale_h, ts, mp),
         lambda: assembly_kernels.regularize_stitch_plain(planes, scale_h,
-                                                         ts, mp))
+                                                         ts, mp),
+        (4 * (9 * batch * n * n + 7 * batch * m + batch * mp * mp),
+         14 * batch * m * m))
     del planes
 
-    # the first leaf of the recursion: an equilibrated SPD 64-panel
+    # the first leaf of the recursion: an equilibrated SPD 64-panel; the
+    # library call inverts the panels' Cholesky factor (factor excluded)
     panels = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     del reg
-    record("panel_inverse",
+    pb = spd_linalg.LEAF
+    factor = torch.linalg.cholesky(panels)
+    eye = torch.eye(pb, device=panels.device).expand_as(factor)
+    record(results, "panel_inverse",
            lambda: spd_linalg.panel_inverse_batched(panels),
-           lambda: spd_linalg.panel_inverse_plain(panels))
+           lambda: spd_linalg.panel_inverse_plain(panels),
+           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+           lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
 
     # the GNM ensemble's chunk, then the single structure
     for c in (coords, single):
-        record("kirchhoff",
+        b, nc = c.shape[:2]
+        record(results, "kirchhoff",
                lambda c=c: assembly_kernels.kirchhoff_ensemble(c, params),
-               lambda c=c: assembly.kirchhoff_plain(c, params))
+               lambda c=c: assembly.kirchhoff_plain(c, params),
+               (4 * (3 * b * nc + b * nc * nc), 10 * b * nc * nc))
     # the single structure (its path), then an ensemble chunk
     for c in (single, coords):
-        record("hessian_xyz",
+        b, nc = c.shape[:2]
+        record(results, "hessian_xyz",
                lambda c=c: assembly_kernels.hessian_xyz_ensemble(c, params),
-               lambda c=c: assembly.hessian_xyz_plain(c, params))
+               lambda c=c: assembly.hessian_xyz_plain(c, params),
+               (4 * (3 * b * nc + 9 * b * nc * nc), 30 * b * nc * nc))
     banded_parity(coords, single, params, results)
     return results
 
 
-def bisect_parity(diags, n_iter, results):
+def dense_band(diags):
+    """The dense symmetric band matrices ``(B, n, n)`` of band diagonals
+    ``(B, w, n)``."""
+    import torch
+
+    batch, w, n = diags.shape
+    band = torch.zeros((batch, n, n), dtype=diags.dtype, device=diags.device)
+    for d in range(w):
+        idx = torch.arange(n - d, device=diags.device)
+        band[:, idx, idx + d] = diags[:, d, :n - d]
+        band[:, idx + d, idx] = diags[:, d, :n - d]
+    return band
+
+
+def bisect_parity(diags, n_iter, results, library_band=None):
     """K10 against its plain version on band diagonals `diags` ``(B, w,
     n)``, the plain version (a Python loop over the band) timed over one
-    call; returns the kernel's eigenvalues and ``(lo, hi)``."""
+    call, ``torch.linalg.eigvalsh`` of `library_band` (the dense band) as
+    the library call; returns the kernel's eigenvalues and ``(lo, hi)``."""
     import torch
 
     from springcraft_tpu_torch.ops import spectrum
@@ -315,12 +441,25 @@ def bisect_parity(diags, n_iter, results):
     check(rel <= tol, f"banded_bisect {(batch, w, n)}: max rel err "
           f"{rel:.3e} > {tol:g}")
     ms = cuda_ms(bisect, reps=5)
+    library_ms = None
+    if library_band is not None:
+        library_ms = cuda_ms(lambda: torch.linalg.eigvalsh(library_band),
+                             reps=3)
+    # float64 Sturm counts: per eigenvalue, per halving, per band row the
+    # window's W (W - 1) eliminations, W - 1 multipliers and the pivot
+    rec = entry((batch, w, n), err, ms, plain_ms,
+                (4 * (w * (n + w) * batch + 2 * batch + batch * n),
+                 batch * n * n_iter * n * (w * w + 1), F64_FLOPS),
+                library_ms)
     print(f"parity banded_bisect {(batch, w, n)} (feed "
           f"{4 * w * (n + w) / 1024:.1f} KB), {n_iter} halvings: max abs err "
           f"{err:.3e}, max rel err {rel:.3e} (tol {tol:g}); kernel {ms:.4f} "
-          f"ms (5 calls), plain {plain_ms:.4f} ms (1 call)", flush=True)
-    results.setdefault("banded_bisect", []).append(
-        ((batch, w, n), err, ms, plain_ms))
+          f"ms (5 calls), plain {plain_ms:.4f} ms (1 call), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+          + ("none" if library_ms is None else
+             f"eigvalsh of the dense band {library_ms:.4f} ms (3 calls)"),
+          flush=True)
+    results.setdefault("banded_bisect", []).append(rec)
     return vals, lo, hi
 
 
@@ -336,8 +475,9 @@ def banded_parity(coords, single, params, results):
 
     diags = spectrum.band_reduce(
         assembly_kernels.hessian_xyz_ensemble(coords, params), 8)
-    batch, n = diags.shape[0], diags.shape[-1]
-    vals, lo, hi = bisect_parity(diags, N_ITER_BISECT, results)
+    batch, w, n = diags.shape
+    band = dense_band(diags)
+    vals, lo, hi = bisect_parity(diags, N_ITER_BISECT, results, band)
     # the single structure's path runs the default 40 halvings
     bisect_parity(spectrum.band_reduce(
         assembly_kernels.hessian_xyz_ensemble(single, params), 8), 40,
@@ -354,11 +494,6 @@ def banded_parity(coords, single, params, results):
     x_plain, plain_ms = timed_once(
         lambda: eigvec(spectrum.banded_eigvec_plain))
     check(bool(torch.isfinite(x).all()), "banded_eigvec: non-finite")
-    band = torch.zeros((batch, n, n), device=diags.device)
-    for d in range(diags.shape[1]):
-        idx = torch.arange(n - d, device=diags.device)
-        band[:, idx, idx + d] = diags[:, d, :n - d]
-        band[:, idx + d, idx] = diags[:, d, :n - d]
     norm = vals.abs().amax(dim=1)[:, None]
     medians, largest = {}, {}
     for label, u in (("kernel", x), ("plain", x_plain)):
@@ -384,6 +519,13 @@ def banded_parity(coords, single, params, results):
           f"banded_eigvec: 1 - |overlap| {worst:.3e}, sign-aligned max "
           f"abs err {err:.3e} on separated eigenvalues")
     ms = cuda_ms(lambda: eigvec(spectrum.banded_eigvec), reps=5)
+    library_ms = cuda_ms(lambda: torch.linalg.eigh(band), reps=3)
+    # float64: per shift the band's LDL^T (n rows of W^2 + 1) and two
+    # solves (forward and back, 4 (W - 1) + 3 a row)
+    rec = entry((batch, n, n), err, ms, plain_ms,
+                (4 * (w * (n + w) * batch + 2 * batch * n + batch * n * n),
+                 batch * n * n * (w * w + 1 + 2 * (4 * (w - 1) + 3)),
+                 F64_FLOPS), library_ms)
     print(f"parity banded_eigvec {tuple(x.shape)}, w 9, 2 solves, chunks of "
           f"256 shifts: median residual kernel {medians['kernel']:.3e}, "
           f"plain {medians['plain']:.3e} ||B|| (tol "
@@ -393,13 +535,16 @@ def banded_parity(coords, single, params, results):
           f"{apart.numel()} separated eigenvalues 1 - |u_k . u_p| <= "
           f"{worst:.3e} (tol {EIGVEC_OVERLAP_TOL:g}), sign-aligned max abs "
           f"err {err:.3e} (tol {tol:g}); kernel {ms:.4f} ms (5 calls, 4 "
-          f"launches each), plain {plain_ms:.4f} ms (1 call)", flush=True)
-    results["banded_eigvec"] = [((batch, n, n), err, ms, plain_ms)]
+          f"launches each), plain {plain_ms:.4f} ms (1 call), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library eigh of "
+          f"the dense band {library_ms:.4f} ms (3 calls)", flush=True)
+    results["banded_eigvec"] = [rec]
 
 
 def drive(path, fn):
     """Run `fn` once from zero launch counts and check that it launched
-    every kernel of `path`; returns ``(out, seconds, launches)``."""
+    every kernel of `path`; returns ``(out, seconds, launches)``.  Prints
+    the launches and the run's peak device memory."""
     import torch
 
     import springcraft_tpu_torch as sct
@@ -408,12 +553,15 @@ def drive(path, fn):
     for wrapper in wrappers.values():
         wrapper.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"{path} launches: {json.dumps(launches)}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"{path} launches: {json.dumps(launches)}; peak device memory "
+          f"{peak:.1f} MiB", flush=True)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} never launched kernel {name}")
     return out, seconds, launches
@@ -728,6 +876,367 @@ def paths(conformers, single, params, card):
     return launches
 
 
+def matfree_coord(n, seed=MATFREE_SEED):
+    """Random atoms at protein density, as the JAX package's matrix-free
+    benchmark draws them (``bench.py:665-668``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    spread = (n / (300 / 34.0 ** 3)) ** (1 / 3)
+    return (rng.rand(n, 3) * spread).astype(np.float32)
+
+
+def sorted_layout(coord, cutoff):
+    """Morton-sorted coordinates on the card, the permutation and the
+    tile-pair CSR (tile 256), as the solvers set them up."""
+    import numpy as np
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree
+
+    perm = matfree.spatial_sort_permutation(coord)
+    nbr, counts = matfree.tile_neighbor_lists(coord[perm], cutoff, 256)
+    csr = matfree.tile_csr(nbr, counts, perm.astype(np.int32),
+                           coord.shape[0], 256, DEVICE)
+    return torch.as_tensor(coord[perm], device=DEVICE), perm, csr
+
+
+def pair_list(c, params, csr):
+    """``(i, j, k_ij, d_ij)`` of every ordered pair within the cutoff,
+    from the tile walk of the plain versions."""
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree
+
+    parts = []
+    for _, rows, d, _, kmat, slots in matfree._tile_pairs(c, csr, 256,
+                                                          params):
+        r, q = torch.nonzero(kmat, as_tuple=True)
+        parts.append((r + rows.start, slots[q], kmat[r, q], d[r, q]))
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def sparse_operators(c, params, csr):
+    """The Hessian (xyz layout) and Kirchhoff matrix as CSR tensors, for
+    the library yardstick ``torch.sparse.mm`` (assembly excluded)."""
+    import torch
+
+    n = c.shape[0]
+    i, j, k, d = pair_list(c, params, csr)
+    g = -k / (d * d).sum(dim=1)
+    rows, cols, vals = [], [], []
+    for a in range(3):
+        for b in range(3):
+            v = g * d[:, a] * d[:, b]
+            diag = torch.zeros(n, device=c.device).index_add_(0, i, v)
+            rows += [a * n + i, a * n + torch.arange(n, device=c.device)]
+            cols += [b * n + j, b * n + torch.arange(n, device=c.device)]
+            vals += [v, -diag]
+    hessian = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (3 * n, 3 * n)).coalesce().to_sparse_csr()
+    deg = torch.zeros(n, device=c.device).index_add_(0, i, k)
+    ar = torch.arange(n, device=c.device)
+    kirchhoff = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([i, ar]), torch.cat([j, ar])]),
+        torch.cat([-k, deg]), (n, n)).coalesce().to_sparse_csr()
+    return hessian, kirchhoff, int(i.numel())
+
+
+def matfree_parity(results):
+    """K13 and K14 against their plain versions at n = 30,000 on the
+    sorted layout, K12 at n = 10,000 with the cutoff-free ``pfenm`` family,
+    each with X of the mode paths' 48 columns; library calls:
+    ``torch.sparse.mm`` of the CSR Hessian / Kirchhoff matrix (K13, K14)
+    and ``torch.matmul`` of the dense Hessian (K12), assembly excluded.
+    The bounds count the pairs within the cutoff of this run's atoms:
+    about 12 k + 30 flops each for the Hessian (rank-one form and the
+    diagonal block), 2 k + 2 for Kirchhoff."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import matfree
+
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    n, k = N_MATFREE, MATFREE_BLOCK
+    c, _, csr = sorted_layout(matfree_coord(n), MATFREE_CUTOFF)
+    gen = torch.Generator(DEVICE).manual_seed(MATFREE_SEED)
+    x3 = torch.randn(3 * n, k, device=DEVICE, generator=gen)
+    x1 = torch.randn(n, k, device=DEVICE, generator=gen)
+    hessian, kirchhoff, pairs = sparse_operators(c, params, csr)
+    tiles = int(csr.cols.numel())
+    print(f"matrix-free layout: n={n}, {csr.row_ptr.numel() - 1} row tiles, "
+          f"{tiles} tile pairs ({tiles * 256 ** 2:.3e} atom pairs visited), "
+          f"{pairs} ordered pairs within {MATFREE_CUTOFF} A "
+          f"({pairs / (tiles * 256 ** 2):.4%})", flush=True)
+    layout_bytes = 4 * (3 * n + n + csr.row_ptr.numel() + tiles)
+    check(max_errors(matfree._launch_hessian(c, x3, params, csr, 256),
+                     torch.sparse.mm(hessian, x3))[1] <= 1e-5,
+          "the sparse library Hessian disagrees with K13")
+    record(results, "hessian_apply_sparse",
+           lambda: matfree._launch_hessian(c, x3, params, csr, 256),
+           lambda: matfree.hessian_apply_sparse_plain(c, x3, params, csr,
+                                                      256),
+           (layout_bytes + 2 * 4 * 3 * n * k, pairs * (12 * k + 30)),
+           lambda: torch.sparse.mm(hessian, x3), plain_reps=3)
+    record(results, "kirchhoff_apply_sparse",
+           lambda: matfree._launch_kirchhoff(c, x1, params, csr, 256),
+           lambda: matfree.kirchhoff_apply_sparse_plain(c, x1, params, csr,
+                                                        256),
+           (layout_bytes + 2 * 4 * n * k, pairs * (2 * k + 2)),
+           lambda: torch.sparse.mm(kirchhoff, x1), plain_reps=3)
+    del hessian, kirchhoff, x1
+
+    nd = N_MATFREE_DENSE
+    cd = torch.as_tensor(matfree_coord(nd), device=DEVICE)
+    xd = torch.randn(3 * nd, k, device=DEVICE, generator=gen)
+    pfenm = sct.pfenm_params(None)
+    dense = dense_hessian(cd, pfenm)
+    record(results, "hessian_apply_dense",
+           lambda: matfree.hessian_apply_dense(cd, xd, pfenm),
+           lambda: matfree.hessian_apply_dense_plain(cd, xd, pfenm),
+           (4 * (3 * nd + 2 * 3 * nd * k), nd * (nd - 1) * (12 * k + 30)),
+           lambda: torch.matmul(dense, xd), reps=5, plain_reps=3)
+    del dense
+
+
+def dense_hessian(c, params):
+    """The dense xyz-layout Hessian of `c` ``(n, 3)``, row tile by row
+    tile through the plain tile walk (the assembly kernels stop at 4,096
+    atoms)."""
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree
+
+    n = c.shape[0]
+    out = torch.zeros((3 * n, 3 * n), device=c.device)
+    csr = matfree._dense_csr(n, 256, c.device)
+    for _, rows, d, sq, kmat, slots in matfree._tile_pairs(c, csr, 256,
+                                                          params):
+        r = torch.arange(rows.start, min(rows.stop, n), device=c.device)
+        keep = slots < n
+        g = -kmat[:r.numel()][:, keep] / torch.where(
+            sq == 0, torch.ones_like(sq), sq)[:r.numel()][:, keep]
+        dd = d[:r.numel()][:, keep]
+        for a in range(3):
+            for b in range(3):
+                plane = g * dd[..., a] * dd[..., b]
+                out[a * n + r, b * n:(b + 1) * n] = plane
+                out[a * n + r, b * n + r] -= plane.sum(dim=1)
+    return out
+
+
+def mode_checks(label, vals, vecs, res, apply64, wanted, tol):
+    """The returned residuals of the `wanted` modes below `tol`; float64
+    relative residuals ``|M u - lambda u| / lambda`` through `apply64` and
+    ``|U U^T - I|``."""
+    import torch
+
+    check(bool(torch.isfinite(vals).all() and torch.isfinite(vecs).all()),
+          f"{label}: non-finite modes")
+    u = vecs.double().T
+    lam = vals.double()
+    r64 = torch.linalg.vector_norm(apply64(u) - u * lam[None], dim=0) \
+        / lam.abs()
+    orth = float((u.T @ u - torch.eye(u.shape[1], dtype=u.dtype,
+                                      device=u.device)).abs().max())
+    reported = float(res[:wanted].max())
+    print(f"{label}: eigenvalues {vals.tolist()}; reported residuals of the "
+          f"{wanted} wanted modes <= {reported:.3e} (tol {tol:g}); float64 "
+          f"residuals <= {float(r64[:wanted].max()):.3e} (all {len(vals)}: "
+          f"{float(r64.max()):.3e}; tol {MATFREE_RESIDUAL_TOL:g}), "
+          f"|U U^T - I| {orth:.3e} (tol {MATFREE_ORTHO_TOL:g})", flush=True)
+    check(reported < tol, f"{label}: reported residual {reported:.3e}")
+    check(float(r64[:wanted].max()) <= MATFREE_RESIDUAL_TOL,
+          f"{label}: float64 residual {float(r64[:wanted].max()):.3e}")
+    check(orth <= MATFREE_ORTHO_TOL, f"{label}: orthonormality {orth:.3e}")
+
+
+def true_residual(c64, params, x, b):
+    """``|H x - P b| / |P b|`` per column in float64, ``P`` projecting out
+    the rigid-body modes."""
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree, rigid
+
+    t = rigid.rigid_modes_anm(c64)
+    b = b.double()
+    pb = b - t @ (t.T @ b)
+    hx = matfree.hessian_apply(c64, x.double(), params, dtype=torch.float64)
+    return torch.linalg.vector_norm(hx - pb, dim=0) \
+        / torch.linalg.vector_norm(pb, dim=0)
+
+
+def matfree_paths(card):
+    """Drive the four matrix-free paths; returns ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import matfree
+
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    n = N_MATFREE
+    coord = matfree_coord(n)
+    c64 = torch.as_tensor(coord, dtype=torch.float64, device=DEVICE)
+    launches = {}
+
+    def modes():
+        return sct.lowest_modes_matfree(coord, params, MATFREE_MODES,
+                                        degree=96, n_outer=10,
+                                        tol=MATFREE_TOL)
+
+    (vals, vecs, res), seconds, launches["anm_matfree_modes"] = drive(
+        "anm_matfree_modes", modes)
+    again = timed(modes)
+    print(f"anm_matfree_modes: n={n} ({3 * n} dimensions), "
+          f"{MATFREE_MODES} modes, float32: {seconds:.3f} s (first call), "
+          f"{again:.3f} s (second) on [{card}]", flush=True)
+    mode_checks("anm_matfree_modes", vals, vecs, res,
+                lambda u: matfree.hessian_apply(c64, u, params,
+                                                dtype=torch.float64),
+                MATFREE_WANTED, MATFREE_TOL)
+
+    sites = np.linspace(0, n - 1, 42).astype(np.int64)[::5][:8]
+    forces = np.random.RandomState(MATFREE_SEED).randn(n, 3, 4)\
+        .astype(np.float32)
+
+    def solve():
+        return (sct.dcc_rows_matfree(coord, params, sites, norm=False),
+                sct.linear_response_matfree(coord, params, forces))
+
+    ((rows, it_dcc, res_dcc), (disp, it_lr, res_lr)), seconds, \
+        launches["anm_matfree_solve"] = drive("anm_matfree_solve", solve)
+    check(bool(torch.isfinite(rows).all() and torch.isfinite(disp).all()),
+          "anm_matfree_solve: non-finite")
+    # the DCC rows' 24 CG columns again, for their float64 true residual
+    rhs = np.zeros((3 * n, 3 * len(sites)), np.float32)
+    for s, site in enumerate(sites):
+        for a in range(3):
+            rhs[a * n + site, 3 * s + a] = 1.0
+    x, _, _ = sct.covariance_solve_matfree(coord, params, rhs)
+    traces = sum(x.reshape(3, n, len(sites), 3)[a, :, :, a]
+                 for a in range(3)).T
+    check(max_errors(traces, rows)[1] <= 1e-6,
+          "dcc rows differ from their CG columns' traces")
+    lr_b = torch.as_tensor(forces, device=DEVICE).permute(1, 0, 2)\
+        .reshape(3 * n, -1)
+    lr_x = disp.permute(1, 0, 2).reshape(3 * n, -1)
+    true_dcc = true_residual(c64, params, x, torch.as_tensor(rhs,
+                                                             device=DEVICE))
+    true_lr = true_residual(c64, params, lr_x, lr_b)
+    print(f"anm_matfree_solve: n={n}, float32, {seconds:.3f} s on [{card}]; "
+          f"dcc_rows_matfree 8 sites (24 columns): {it_dcc} CG iterations, "
+          f"reported residuals <= {float(res_dcc.max()):.3e}, float64 true "
+          f"residuals <= {float(true_dcc.max()):.3e}; "
+          f"linear_response_matfree 4 forces: {it_lr} iterations, reported "
+          f"<= {float(res_lr.max()):.3e}, true <= {float(true_lr.max()):.3e} "
+          f"(tol {CG_TRUE_RESIDUAL_TOL:g})", flush=True)
+    check(float(max(true_dcc.max(), true_lr.max())) <= CG_TRUE_RESIDUAL_TOL,
+          "anm_matfree_solve: float64 true residual")
+    del x, rows, disp
+
+    def gnm_modes():
+        return sct.lowest_modes_matfree_gnm(coord, params, GNM_MATFREE_MODES,
+                                            degree=96, n_outer=10,
+                                            tol=GNM_MATFREE_TOL)
+
+    (vals, vecs, res), seconds, launches["gnm_matfree_modes"] = drive(
+        "gnm_matfree_modes", gnm_modes)
+    print(f"gnm_matfree_modes: n={n}, {GNM_MATFREE_MODES} modes, float32: "
+          f"{seconds:.3f} s on [{card}]", flush=True)
+    mode_checks("gnm_matfree_modes", vals, vecs, res,
+                lambda u: matfree.kirchhoff_apply(c64, u, params,
+                                                  dtype=torch.float64),
+                GNM_MATFREE_MODES, GNM_MATFREE_TOL)
+
+    nd = N_MATFREE_DENSE
+    coord_d = matfree_coord(nd)
+    cd64 = torch.as_tensor(coord_d, dtype=torch.float64, device=DEVICE)
+    pfenm = sct.pfenm_params(None)
+    (vals, vecs, res), seconds, launches["anm_matfree_modes_dense"] = drive(
+        "anm_matfree_modes_dense",
+        lambda: sct.lowest_modes_matfree(coord_d, pfenm, MATFREE_MODES,
+                                         degree=96, n_outer=10,
+                                         tol=MATFREE_TOL))
+    print(f"anm_matfree_modes_dense: pfenm without cutoff, n={nd} "
+          f"({3 * nd} dimensions), float32: {seconds:.3f} s on [{card}]",
+          flush=True)
+    mode_checks("anm_matfree_modes_dense", vals, vecs, res,
+                lambda u: matfree.hessian_apply(cd64, u, pfenm,
+                                                dtype=torch.float64),
+                MATFREE_WANTED, MATFREE_TOL)
+    return launches
+
+
+def matfree_anchor(results):
+    """At n = 3,000: the K13 path's 14 eigenvalues and the K14 path's 10
+    against float64 ``torch.linalg.eigvalsh`` of the plain float64 Hessian
+    and Kirchhoff matrix, ``covariance_solve_matfree`` columns against
+    float64 ``covariance_cholesky``; and K13 at this size against
+    ``torch.matmul`` of the K5-assembled float32 Hessian (assembly
+    excluded)."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import assembly_kernels, matfree, rigid
+    from springcraft_tpu_torch.parallel import pipeline
+
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    n = N_ANCHOR
+    coord = matfree_coord(n)
+    c64 = torch.as_tensor(coord[None], dtype=torch.float64, device=DEVICE)
+    h64 = pipeline._build_hessians_batched(c64, params, None)[0]
+    k64 = pipeline._build_kirchhoffs_batched(c64, params, None)[0]
+    for label, fn, matrix, k, trivial, tol in (
+            ("anm", sct.lowest_modes_matfree, h64, MATFREE_MODES, 6,
+             MATFREE_TOL),
+            ("gnm", sct.lowest_modes_matfree_gnm, k64, GNM_MATFREE_MODES, 1,
+             GNM_MATFREE_TOL)):
+        vals, _, _ = fn(coord, params, k, degree=96, n_outer=10, tol=tol)
+        ref = torch.linalg.eigvalsh(matrix)[trivial:trivial + k]
+        rel = float(((vals.double() - ref).abs() / ref).max())
+        print(f"anchor {label} n={n}: {k} float32 matrix-free eigenvalues "
+              f"vs float64 eigvalsh, max rel err {rel:.3e} (tol "
+              f"{ANCHOR_RTOL:g})", flush=True)
+        check(rel <= ANCHOR_RTOL, f"anchor {label}: eigenvalues {rel:.3e}")
+
+    sites = np.linspace(0, n - 1, 8).astype(np.int64)
+    rhs = np.zeros((3 * n, 3 * len(sites)))
+    for s, site in enumerate(sites):
+        for a in range(3):
+            rhs[a * n + site, 3 * s + a] = 1.0
+    x, it, _ = sct.covariance_solve_matfree(coord, params,
+                                            rhs.astype(np.float32))
+    cov = rigid.covariance_cholesky(h64[None],
+                                    rigid.rigid_modes_anm(c64))[0]
+    ref = cov @ torch.as_tensor(rhs, device=DEVICE)
+    _, rel = max_errors(x, ref)
+    print(f"anchor covariance_solve_matfree n={n}: 24 columns ({it} CG "
+          f"iterations) vs float64 covariance_cholesky, max rel err "
+          f"{rel:.3e} (tol {ANCHOR_RTOL:g})", flush=True)
+    check(rel <= ANCHOR_RTOL, f"anchor covariance columns {rel:.3e}")
+    del h64, k64, cov
+
+    # K13 at the anchor's size against the dense product
+    c, _, csr = sorted_layout(coord, MATFREE_CUTOFF)
+    h32 = assembly_kernels.hessian_xyz_ensemble(c[None], params)[0]
+    xk = torch.randn(3 * n, MATFREE_BLOCK, device=DEVICE,
+                     generator=torch.Generator(DEVICE).manual_seed(3))
+    pairs = len(pair_list(c, params, csr)[0])
+    record(results, "hessian_apply_sparse",
+           lambda: matfree._launch_hessian(c, xk, params, csr, 256),
+           lambda: matfree.hessian_apply_sparse_plain(c, xk, params, csr,
+                                                      256),
+           (4 * (4 * n + csr.row_ptr.numel() + csr.cols.numel()
+                 + 2 * 3 * n * MATFREE_BLOCK),
+            pairs * (12 * MATFREE_BLOCK + 30)),
+           lambda: torch.matmul(h32, xk), plain_reps=3,
+           label=" (library: torch.matmul of the K5 Hessian, assembly "
+                 "excluded)")
+
+
 def main():
     import torch
 
@@ -748,23 +1257,25 @@ def main():
     parity = kernel_parity(
         torch.as_tensor(conformers[:CHUNK], device="cuda"),
         torch.as_tensor(single[None], device="cuda"), params)
+    matfree_parity(parity)
     launches = paths(conformers, single, params, card)
+    launches.update(matfree_paths(card))
+    matfree_anchor(parity)
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
-        shapes = parity[name]
-        _, _, ms, plain_ms = shapes[0]
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": sum(count[name] for count in launches.values()),
-                 "max_abs_err": max(err for _, err, _, _ in shapes),
-                 "ms": ms, "plain_ms": plain_ms}
-        if len(shapes) > 1:
-            entry["shapes"] = [
-                {"shape": list(shape), "max_abs_err": err, "ms": t,
-                 "plain_ms": plain_t}
-                for shape, err, t, plain_t in shapes]
-        kernels.append(entry)
+        first = parity[name][0]
+        line = {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(count[name] for count in launches.values()),
+                "max_abs_err": max(r["max_abs_err"] for r in parity[name]),
+                **{key: first[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "shape": first["shape"]}
+        if len(parity[name]) > 1:
+            line["shapes"] = parity[name]
+        kernels.append(line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

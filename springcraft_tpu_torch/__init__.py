@@ -14,7 +14,18 @@ mode shapes from a two-stage banded eigensolver
 (:func:`ensemble_anm_spectral`, :func:`ensemble_anm_banded`, their GNM
 twins, :func:`anm_spectral`, :func:`gnm_spectral`) beside the dense
 ``torch.linalg.eigh`` route (:func:`ensemble_anm`, :func:`anm_observables`
-and their GNM twins).
+and their GNM twins); and past the dense regime, the matrix-free path
+(:mod:`.ops.matfree`, block-sparse and dense-grid ``H @ X`` and ``K @ X``
+kernels): the lowest modes by Chebyshev-filtered subspace iteration
+(:func:`lowest_modes_matfree`, :func:`lowest_modes_matfree_gnm`,
+:func:`estimate_lambda_max`) and covariance applications by deflated,
+preconditioned CG (:func:`covariance_solve_matfree`,
+:func:`covariance_solve_matfree_gnm`, :func:`linear_response_matfree`,
+:func:`prs_rows_matfree`, :func:`dcc_rows_matfree`,
+:func:`dcc_rows_matfree_gnm`).
+
+Entry points run on the current CUDA device unless the caller passes a
+tensor that lies elsewhere or ``device="cpu"``.
 
 Importing the package turns TF32 off for float32 matrix products (see
 :mod:`.utils.config`).
@@ -32,6 +43,11 @@ from .parallel.pipeline import (anm_fluctuations, anm_observables,
                                 ensemble_gnm_fluctuations,
                                 ensemble_gnm_spectral, gnm_fluctuations,
                                 gnm_observables, gnm_spectral)
+from .ops.matfree import (covariance_solve_matfree,
+                          covariance_solve_matfree_gnm, dcc_rows_matfree,
+                          dcc_rows_matfree_gnm, estimate_lambda_max,
+                          linear_response_matfree, lowest_modes_matfree,
+                          lowest_modes_matfree_gnm, prs_rows_matfree)
 from .utils.config import resolve_device, synchronize
 
 __all__ = [
@@ -54,6 +70,15 @@ __all__ = [
     "ensemble_gnm_spectral",
     "ensemble_anm_banded",
     "ensemble_gnm_banded",
+    "lowest_modes_matfree",
+    "lowest_modes_matfree_gnm",
+    "estimate_lambda_max",
+    "covariance_solve_matfree",
+    "covariance_solve_matfree_gnm",
+    "linear_response_matfree",
+    "prs_rows_matfree",
+    "dcc_rows_matfree",
+    "dcc_rows_matfree_gnm",
     "resolve_device",
     "synchronize",
     "kernel_wrappers",
@@ -66,6 +91,8 @@ def kernel_wrappers():
     from .ops.assembly_kernels import (hessian_planes_ensemble,
                                        hessian_xyz_ensemble,
                                        kirchhoff_ensemble, regularize_stitch)
+    from .ops.matfree import (hessian_apply_dense, hessian_apply_sparse,
+                              kirchhoff_apply_sparse)
     from .ops.spd_linalg import panel_inverse_batched
     from .ops.spectrum import banded_bisect, banded_eigvec
 
@@ -77,4 +104,7 @@ def kernel_wrappers():
         "hessian_xyz": hessian_xyz_ensemble,
         "banded_bisect": banded_bisect,
         "banded_eigvec": banded_eigvec,
+        "hessian_apply_dense": hessian_apply_dense,
+        "hessian_apply_sparse": hessian_apply_sparse,
+        "kirchhoff_apply_sparse": kirchhoff_apply_sparse,
     }

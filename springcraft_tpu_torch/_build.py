@@ -66,6 +66,16 @@ _SIGNATURES = {
     # batch, n, w, n_shifts, idx0, n_solves, seed, stream
     "sc_banded_eigvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _D, _P),
+    # coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
+    # has_cutoff, stream
+    "sc_hessian_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _I, _P),
+    # coords, x, out, n, k, kind, cutoff_sq, has_cutoff, stream
+    "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
+    # has_cutoff, stream
+    "sc_kirchhoff_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _I, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

@@ -1,0 +1,1265 @@
+"""
+Matrix-free ENM operators and the solvers above them: ``H @ X`` and
+``K @ X`` without materializing the Hessian or the Kirchhoff matrix.
+
+Counterpart of ``springcraft_tpu/ops/matfree.py`` (analytic families).
+The dense pipelines hold the ``(3n, 3n)`` Hessian, 32 GB in float32 at
+30k residues; here the operator stays implicit,
+
+    y_i = sum_j g_ij d_ij (d_ij . x_j) - (sum_j g_ij d_ij d_ij^T) x_i,
+
+with ``d_ij = r_i - r_j`` and ``g_ij = -k_ij / |d_ij|^2``, in the xyz
+plane layout ``(3n, k)`` of the JAX package.
+
+* Plain row-blocked operators (what XLA ran outside Pallas):
+  :func:`hessian_apply`, :func:`kirchhoff_apply`,
+  :func:`hessian_degree_bound`, :func:`hessian_diag_blocks`,
+  :func:`kirchhoff_degree`, :func:`matfree_mode_residuals`.
+* Host set-up (numpy): :func:`spatial_sort_permutation` (Morton order),
+  :func:`tile_neighbor_lists` and :func:`tile_csr`, the row-sorted tile
+  pairs as a CSR (row pointer from ``counts``, column tiles).  The JAX
+  package splits the pair list into segments because its scalar-prefetch
+  arrays live in a TPU's SMEM; the CUDA kernels take the whole CSR.
+* Three kernel wrappers, each with a plain version that walks the same
+  CSR with the same id masking and padded last tile:
+  :func:`hessian_apply_sparse` (K13, ``csrc/matfree_hessian.cu``),
+  :func:`hessian_apply_dense` (K12, the same kernel over every column
+  tile) and :func:`kirchhoff_apply_sparse` (K14,
+  ``csrc/matfree_kirchhoff.cu``).  A CPU tensor runs the plain version; a
+  CUDA tensor launches the kernel (float32, contiguous) or raises.
+  ``<wrapper>.launches`` counts kernel launches.
+* Chebyshev-filtered subspace iteration: :func:`lowest_modes_matfree`,
+  :func:`lowest_modes_matfree_gnm` (and :func:`estimate_lambda_max`).
+* Deflated, block-Jacobi-preconditioned CG with per-column step sizes:
+  :func:`covariance_solve_matfree`, :func:`covariance_solve_matfree_gnm`,
+  :func:`linear_response_matfree`, :func:`prs_rows_matfree`,
+  :func:`dcc_rows_matfree`, :func:`dcc_rows_matfree_gnm`.
+
+Routing (the JAX package's ``use_pallas = backend == "tpu"``, read as
+CUDA): float32 coordinates on CUDA take the kernels — block-sparse K13 /
+K14 when the family has a cutoff (``sparse`` default), the dense-grid K12
+otherwise — and keep the TPU's oversampling default ``max(k, 8, 48 - k)``;
+every other dtype or device runs the plain versions.  GNM without
+``sparse`` stays on the plain :func:`kirchhoff_apply`, as in JAX.  Not
+ported: patch overlays, ``checkpoint=`` / ``retries=``, the stochastic
+estimators and effector/sensor routes (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import functools
+import typing
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..utils.config import as_tensor, resolve_device
+from . import rigid
+from .ffparams import ANALYTIC_KINDS, FFParams, analytic_constants
+
+__all__ = [
+    "hessian_apply",
+    "kirchhoff_apply",
+    "hessian_apply_dense",
+    "hessian_apply_sparse",
+    "kirchhoff_apply_sparse",
+    "hessian_apply_sparse_plain",
+    "kirchhoff_apply_sparse_plain",
+    "hessian_apply_dense_plain",
+    "TileCSR",
+    "tile_csr",
+    "spatial_sort_permutation",
+    "tile_neighbor_lists",
+    "estimate_lambda_max",
+    "hessian_degree_bound",
+    "hessian_diag_blocks",
+    "kirchhoff_degree",
+    "lowest_modes_matfree",
+    "lowest_modes_matfree_gnm",
+    "covariance_solve_matfree",
+    "covariance_solve_matfree_gnm",
+    "linear_response_matfree",
+    "prs_rows_matfree",
+    "dcc_rows_matfree",
+    "dcc_rows_matfree_gnm",
+    "matfree_mode_residuals",
+]
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+def _check_params(params):
+    if isinstance(params, FFParams):
+        return
+    kind = getattr(params, "kind", type(params).__name__)
+    if kind in ANALYTIC_KINDS:
+        raise TypeError("params must be springcraft_tpu_torch FFParams "
+                        "(see ops.ffparams.from_numpy_params)")
+    raise ValueError(
+        f"matrix-free path does not support kind={kind!r}: the port's "
+        f"matrix-free operators take the analytic families "
+        f"{ANALYTIC_KINDS} (tabulated families and patch overlays are a "
+        f"later slice, ROADMAP.md)")
+
+
+def _squared_distance(d):
+    """``dx*dx + dy*dy + dz*dz`` in that order, as the kernels round it."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+        + d[..., 2] * d[..., 2]
+
+
+def _masked_constants(sq, valid, params):
+    """Spring constants, zero outside `valid` and beyond the cutoff."""
+    if params.has_cutoff:
+        valid = valid & (sq <= params.cutoff_sq)
+    return torch.where(valid, analytic_constants(params.kind, sq),
+                       torch.zeros_like(sq))
+
+
+def _rect_constants(sq, rows, cols, n, params):
+    """Masked force constants of a rectangular (R, C) index block:
+    `rows` / `cols` are global atom indices; zeros beyond the cutoff,
+    on self-pairs and on padding."""
+    valid = (rows[:, None] != cols[None, :]) \
+        & (rows < n)[:, None] & (cols < n)[None, :]
+    return _masked_constants(sq, valid, params)
+
+
+def _coord(coord, dtype, device):
+    coord = as_tensor(coord, dtype, device)
+    if coord.ndim != 2 or coord.shape[1] != 3:
+        raise ValueError(f"coord must be (n, 3), got {tuple(coord.shape)}")
+    return coord
+
+
+def _columns(x, rows, like, name="x"):
+    """`x` (``(rows, k)`` or ``(rows,)``) as a 2-D tensor of `like`'s
+    dtype on its device, and whether it was a vector: 3n rows for the xyz
+    plane layout, n for Kirchhoff."""
+    x = as_tensor(x, like.dtype, like.device)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    if x.ndim != 2 or x.shape[0] != rows:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{rows} rows")
+    return x, squeeze
+
+
+def _row_blocks(coord, params, block):
+    """Blocked row passes over all atom pairs: yields ``(r0, d, sq,
+    kmat)`` per block of `block` rows (``d`` ``(block, n_pad, 3)``, the
+    masked constants ``kmat`` ``(block, n_pad)``), rows and columns padded
+    to a multiple of `block`.  O(block * n) live memory."""
+    n = coord.shape[0]
+    n_pad = _round_up(n, block)
+    coord_p = F.pad(coord, (0, 0, 0, n_pad - n))
+    cols = torch.arange(n_pad, device=coord.device)
+    for r0 in range(0, n_pad, block):
+        d = coord_p[r0:r0 + block, None, :] - coord_p[None, :, :]
+        sq = _squared_distance(d)
+        yield r0, d, sq, _rect_constants(sq, cols[r0:r0 + block], cols, n,
+                                         params)
+
+
+def _safe(sq):
+    return torch.where(sq == 0, torch.ones_like(sq), sq)
+
+
+# ---------------------------------------------------------------------------
+# Plain row-blocked operators
+# ---------------------------------------------------------------------------
+
+def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
+                  device=None):
+    """
+    ``H @ x`` for the xyz-layout ANM Hessian, without materializing it:
+    row-blocked, O(block * n) live memory, any dtype and device — the
+    plain operator and the reference of the kernels.
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+    x : Tensor or ndarray, shape=(3n, k) or (3n,)
+        Block of vectors in xyz plane layout.
+    params : FFParams
+        Analytic family.
+
+    Returns
+    -------
+    y : Tensor, same shape as `x`, on `coord`'s device
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    x, squeeze = _columns(x, 3 * n, coord)
+    k = x.shape[1]
+    n_pad = _round_up(n, block)
+    x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
+    out = []
+    for r0, d, sq, kmat in _row_blocks(coord, params, block):
+        g = -kmat / _safe(sq)
+        xr = x_p[:, r0:r0 + block]
+        y = []
+        for a in range(3):
+            acc = torch.zeros_like(xr[0])
+            for b in range(3):
+                plane = g * d[..., a] * d[..., b]
+                acc = acc + plane @ x_p[b]
+                acc = acc - plane.sum(dim=1)[:, None] * xr[b]
+            y.append(acc)
+        out.append(torch.stack(y))
+    y = torch.cat(out, dim=1)[:, :n].reshape(3 * n, k)
+    return y[:, 0] if squeeze else y
+
+
+def kirchhoff_apply(coord, x, params, *, block=512, dtype=torch.float32,
+                    device=None):
+    """``K @ x`` for the GNM Kirchhoff matrix without materializing it
+    (row-blocked, any dtype); `x` is ``(n, k)`` or ``(n,)``."""
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    x, squeeze = _columns(x, n, coord)
+    n_pad = _round_up(n, block)
+    x_p = F.pad(x, (0, 0, 0, n_pad - n))
+    out = [-(kmat @ x_p) + kmat.sum(dim=1)[:, None] * x_p[r0:r0 + block]
+           for r0, _, _, kmat in _row_blocks(coord, params, block)]
+    y = torch.cat(out)[:n]
+    return y[:, 0] if squeeze else y
+
+
+def hessian_degree_bound(coord, params, *, masses=None, block=512,
+                         dtype=torch.float32, device=None):
+    """
+    Guaranteed upper bound on the largest eigenvalue of the (optionally
+    mass-weighted) ANM Hessian, by block-row Gershgorin:
+
+        lambda_max <= max_i w_i * (sum_j k_ij w_j + w_i sum_j k_ij)
+
+    with ``w = 1 / sqrt(masses)`` (ones without masses).  The Kirchhoff
+    bound coincides.  One blocked pass; a 0-d tensor.
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    w = (torch.ones(n, dtype=dtype, device=coord.device) if masses is None
+         else 1.0 / torch.sqrt(as_tensor(masses, dtype, coord.device)))
+    w_p = F.pad(w, (0, _round_up(n, block) - n))
+    rows = []
+    for r0, _, _, kmat in _row_blocks(coord, params, block):
+        wr = w_p[r0:r0 + block]
+        rows.append(wr * (kmat @ w_p + wr * kmat.sum(dim=1)))
+    return torch.cat(rows).max()
+
+
+def hessian_diag_blocks(coord, params, *, block=512, dtype=torch.float32,
+                        device=None):
+    """The ``(n, 3, 3)`` diagonal superblocks of the ANM Hessian
+    (``sum_j k_ij / d^2 d d^T``) in one blocked pass — the block-Jacobi
+    preconditioner of :func:`covariance_solve_matfree`."""
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    out = []
+    for _, d, sq, kmat in _row_blocks(coord, params, block):
+        g = kmat / _safe(sq)
+        out.append(torch.stack([
+            torch.stack([(g * d[..., a] * d[..., b]).sum(dim=1)
+                         for b in range(3)], dim=-1)
+            for a in range(3)], dim=-2))
+    return torch.cat(out)[:n]
+
+
+def kirchhoff_degree(coord, params, *, block=512, dtype=torch.float32,
+                     device=None):
+    """Per-atom Kirchhoff diagonal (the degree, ``sum_j k_ij``) by a
+    blocked pass — the GNM Jacobi preconditioner.  O(n^2) work."""
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    deg = [kmat.sum(dim=1)
+           for _, _, _, kmat in _row_blocks(coord, params, block)]
+    return torch.cat(deg)[:coord.shape[0]]
+
+
+def matfree_mode_residuals(coord, params, eig_values, eig_vectors, *,
+                           masses=None, block=512, dtype=torch.float32,
+                           device=None):
+    """Relative eigenpair residuals ``|H u - lambda u| / |lambda|`` of
+    modes in rows (``(k, 3n)``) through the plain operator — a post-hoc
+    check without the dense Hessian."""
+    coord = _coord(coord, dtype, device)
+    u = as_tensor(eig_vectors, dtype, coord.device).T
+    if masses is not None:
+        w3 = (1.0 / torch.sqrt(as_tensor(masses, dtype,
+                                         coord.device))).repeat(3)
+        hu = w3[:, None] * hessian_apply(coord, w3[:, None] * u, params,
+                                         block=block, dtype=dtype)
+    else:
+        hu = hessian_apply(coord, u, params, block=block, dtype=dtype)
+    lam = as_tensor(eig_values, dtype, coord.device)
+    r = hu - u * lam[None, :]
+    return torch.linalg.vector_norm(r, dim=0) \
+        / torch.clamp(lam.abs(), min=1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Host set-up: Morton order, tile neighbour lists, the tile-pair CSR
+# ---------------------------------------------------------------------------
+
+def _part1by2(v):
+    """Spread the lower 21 bits of `v` so consecutive bits are 3 apart
+    (uint64 Morton helper)."""
+    v = v.astype(np.uint64) & np.uint64(0x1FFFFF)
+    v = (v | (v << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
+    v = (v | (v << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
+    v = (v | (v << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
+    v = (v | (v << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
+    v = (v | (v << np.uint64(2))) & np.uint64(0x1249249249249249)
+    return v
+
+
+def spatial_sort_permutation(coord, cell=8.0):
+    """Permutation ordering atoms along a Morton (Z-order) curve over
+    `cell`-sized grid cells, so that consecutive atoms — and hence the
+    kernels' tiles — are spatially compact.  Host-side (numpy)."""
+    coord = np.asarray(coord, dtype=np.float64)
+    q = np.floor((coord - coord.min(axis=0)) / float(cell))
+    q = np.clip(q, 0, 2**21 - 1).astype(np.uint64)
+    key = (_part1by2(q[:, 0])
+           | (_part1by2(q[:, 1]) << np.uint64(1))
+           | (_part1by2(q[:, 2]) << np.uint64(2)))
+    return np.argsort(key, kind="stable")
+
+
+def tile_neighbor_lists(coord, cutoff, tile=256):
+    """
+    Tile-level neighbour lists: for each row tile, the column tiles whose
+    axis-aligned bounding boxes are within `cutoff` — a superset of the
+    interacting pairs (the kernels still apply the exact per-pair
+    cutoff).  Effective on spatially ordered atoms.
+
+    Returns
+    -------
+    nbr : ndarray, shape=(n_tiles, max_nbrs), int32
+        Neighbour tile indices, rows padded with the row's own index.
+    counts : ndarray, shape=(n_tiles,), int32
+        Number of valid entries per row.
+    """
+    coord = np.asarray(coord, dtype=np.float64)
+    n = coord.shape[0]
+    n_tiles = _round_up(n, tile) // tile
+    mins = np.empty((n_tiles, 3))
+    maxs = np.empty((n_tiles, 3))
+    for t in range(n_tiles):
+        blk = coord[t * tile:min((t + 1) * tile, n)]
+        mins[t] = blk.min(axis=0)
+        maxs[t] = blk.max(axis=0)
+    gap = np.maximum(mins[:, None, :] - maxs[None, :, :],
+                     mins[None, :, :] - maxs[:, None, :])
+    gap = np.maximum(gap, 0.0)
+    adj = np.sum(gap * gap, axis=-1) <= float(cutoff) ** 2
+    np.fill_diagonal(adj, True)
+    counts = adj.sum(axis=1).astype(np.int32)
+    nbr = np.empty((n_tiles, int(counts.max())), dtype=np.int32)
+    for t in range(n_tiles):
+        idx = np.where(adj[t])[0]
+        nbr[t, :len(idx)] = idx
+        nbr[t, len(idx):] = t
+    return nbr, counts
+
+
+def _flatten_pairs(nbr, counts, n_tiles):
+    """Row-sorted flattened pair list ``(pair_rows, pair_cols)`` from
+    tile neighbour lists."""
+    nbr = np.asarray(nbr)
+    counts = np.asarray(counts)
+    if nbr.ndim != 2 or nbr.shape[0] != n_tiles \
+            or counts.shape != (n_tiles,):
+        raise ValueError(
+            f"nbr {nbr.shape} / counts {counts.shape} do not describe "
+            f"{n_tiles} tiles — rebuild with tile_neighbor_lists(coord, "
+            f"cutoff, tile)")
+    if np.any(counts < 1) or np.any(counts > nbr.shape[1]):
+        raise ValueError(f"counts must lie in [1, {nbr.shape[1]}]")
+    pair_rows = np.repeat(np.arange(n_tiles, dtype=np.int32),
+                          counts.astype(np.int64))
+    pair_cols = np.concatenate(
+        [nbr[t, :counts[t]] for t in range(n_tiles)]).astype(np.int32)
+    if np.any(pair_cols < 0) or np.any(pair_cols >= n_tiles):
+        raise ValueError(f"neighbour tiles must lie in [0, {n_tiles})")
+    return pair_rows, pair_cols
+
+
+class TileCSR(typing.NamedTuple):
+    """Row-sorted tile pairs on the device: row tile ``t`` visits column
+    tiles ``cols[row_ptr[t]:row_ptr[t + 1]]``; ``ids`` ``(n,)`` holds
+    each slot's original atom index (self-pair and padding masks)."""
+
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    ids: torch.Tensor
+
+
+def tile_csr(nbr, counts, orig_ids, n, tile, device):
+    """:class:`TileCSR` of tile neighbour lists (int32, on `device`);
+    `orig_ids` defaults to ``arange(n)`` (unsorted layout)."""
+    n_tiles = _round_up(n, tile) // tile
+    _, cols = _flatten_pairs(nbr, counts, n_tiles)
+    row_ptr = np.zeros(n_tiles + 1, dtype=np.int32)
+    row_ptr[1:] = np.cumsum(np.asarray(counts, dtype=np.int64))
+    if orig_ids is None:
+        ids = torch.arange(n, dtype=torch.int32, device=device)
+    else:
+        ids = as_tensor(orig_ids, torch.int32, device).contiguous()
+        if ids.shape != (n,):
+            raise ValueError(f"orig_ids must be ({n},), got "
+                             f"{tuple(ids.shape)}")
+    return TileCSR(torch.as_tensor(row_ptr, device=device),
+                   torch.as_tensor(cols, device=device), ids)
+
+
+def _dense_csr(n, tile, device):
+    """Every column tile for every row tile, ids ``arange(n)``: the
+    dense grid of K12 as a CSR."""
+    n_tiles = _round_up(n, tile) // tile
+    nbr = np.tile(np.arange(n_tiles, dtype=np.int32), (n_tiles, 1))
+    return tile_csr(nbr, np.full(n_tiles, n_tiles, np.int32), None, n,
+                    tile, device)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels: the CSR walk, row tile by row tile
+# ---------------------------------------------------------------------------
+
+def _tile_pairs(coord, csr, tile, params):
+    """Per row tile ``t``: ``(t, rows, d, kmat, cols)`` over the gathered
+    slots ``cols`` of its neighbour tiles (``d`` ``(tile, C, 3)``,
+    ``kmat`` masked by original id, cutoff and padding), on coordinates
+    and ids padded to whole tiles (padding slots carry id ``n``)."""
+    n = coord.shape[0]
+    n_pad = _round_up(n, tile)
+    coord_p = F.pad(coord, (0, 0, 0, n_pad - n))
+    ids = F.pad(csr.ids, (0, n_pad - n), value=n)
+    offs = torch.arange(tile, device=coord.device)
+    ptr = csr.row_ptr.tolist()
+    for t in range(n_pad // tile):
+        rows = slice(t * tile, (t + 1) * tile)
+        slots = (csr.cols[ptr[t]:ptr[t + 1]].long()[:, None] * tile
+                 + offs).reshape(-1)
+        d = coord_p[rows, None, :] - coord_p[None, slots, :]
+        sq = _squared_distance(d)
+        rid, cid = ids[rows], ids[slots]
+        valid = (rid[:, None] != cid[None, :]) \
+            & (rid < n)[:, None] & (cid < n)[None, :]
+        yield t, rows, d, sq, _masked_constants(sq, valid, params), slots
+
+
+def hessian_apply_sparse_plain(coord, x, params, csr, tile):
+    """Plain version of K13 (and, over :func:`_dense_csr`, of K12):
+    ``H @ x`` for `coord` ``(n, 3)`` and `x` ``(3n, k)`` by the TPU
+    kernel's arithmetic — per row tile, the nine component planes over
+    its neighbour tiles contracted with X, the row sums applied last."""
+    n = coord.shape[0]
+    k = x.shape[-1]
+    n_pad = _round_up(n, tile)
+    x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
+    out = torch.empty_like(x_p)
+    for _, rows, d, sq, kmat, slots in _tile_pairs(coord, csr, tile,
+                                                   params):
+        g = -kmat / _safe(sq)
+        xc = x_p[:, slots]
+        for a in range(3):
+            planes = [g * d[..., a] * d[..., b] for b in range(3)]
+            acc = sum(planes[b] @ xc[b] for b in range(3))
+            for b in range(3):
+                acc = acc - planes[b].sum(dim=1)[:, None] * x_p[b, rows]
+            out[a, rows] = acc
+    return out[:, :n].reshape(3 * n, k)
+
+
+def hessian_apply_dense_plain(coord, x, params, tile=256):
+    """Plain version of K12: :func:`hessian_apply_sparse_plain` over the
+    dense grid of tiles with ids ``arange(n)``."""
+    return hessian_apply_sparse_plain(
+        coord, x, params, _dense_csr(coord.shape[0], tile, coord.device),
+        tile)
+
+
+def kirchhoff_apply_sparse_plain(coord, x, params, csr, tile):
+    """Plain version of K14: ``K @ x`` (`x` ``(n, k)``) by the TPU
+    kernel's arithmetic, ``-K_off @ x`` over the neighbour tiles, then
+    ``+ deg * x``."""
+    n = coord.shape[0]
+    n_pad = _round_up(n, tile)
+    x_p = F.pad(x, (0, 0, 0, n_pad - n))
+    out = torch.empty_like(x_p)
+    for _, rows, _, _, kmat, slots in _tile_pairs(coord, csr, tile,
+                                                  params):
+        out[rows] = -(kmat @ x_p[slots]) + kmat.sum(dim=1)[:, None] \
+            * x_p[rows]
+    return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (K12, K13, K14)
+# ---------------------------------------------------------------------------
+
+#: Columns of X per block of the Hessian and Kirchhoff kernels
+#: (``kCols`` in ``csrc/matfree_*.cu``) and the grid's y limit.
+_HESSIAN_COLS = 16
+_KIRCHHOFF_COLS = 32
+_MAX_GRID_Y = 65535
+
+
+def _check_kernel_shape(name, coord, x, cols_per_block):
+    n, k = coord.shape[0], x.shape[1]
+    if k > _MAX_GRID_Y * cols_per_block or 3 * n >= 2**31:
+        raise ValueError(f"{name}: (n, k) = ({n}, {k}) exceeds the kernel's "
+                         f"limits (k <= {_MAX_GRID_Y * cols_per_block}, "
+                         f"3n < 2^31)")
+
+
+def _kernel_args(params):
+    return (params.kind_code,
+            float(params.cutoff_sq) if params.has_cutoff else 0.0,
+            int(params.has_cutoff))
+
+
+def _launch_hessian(coord, x, params, csr, tile):
+    """Route one Hessian apply (x ``(3n, k)``): the plain version on the
+    CPU; on CUDA the kernel — K13 over `csr`, or K12 (every column tile)
+    for ``csr=None``."""
+    wrapper = hessian_apply_dense if csr is None else hessian_apply_sparse
+    name = wrapper.__name__
+    if _build.route(name, coord, x, *(csr or ())) == "cpu":
+        if csr is None:
+            csr = _dense_csr(coord.shape[0], tile, coord.device)
+        return hessian_apply_sparse_plain(coord, x, params, csr, tile)
+    _build.require_cuda_f32(name, coord=coord, x=x)
+    _check_kernel_shape(name, coord, x, _HESSIAN_COLS)
+    n, k = coord.shape[0], x.shape[1]
+    out = torch.empty_like(x)
+    if csr is None:
+        _build.launch("sc_hessian_apply_dense", coord.device,
+                      coord.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
+                      *_kernel_args(params))
+    else:
+        _build.launch("sc_hessian_apply_sparse", coord.device,
+                      coord.data_ptr(), csr.ids.data_ptr(),
+                      csr.row_ptr.data_ptr(), csr.cols.data_ptr(),
+                      x.data_ptr(), out.data_ptr(), n, k, tile,
+                      *_kernel_args(params))
+    wrapper.launches += 1
+    return out
+
+
+def _launch_kirchhoff(coord, x, params, csr, tile):
+    name = "kirchhoff_apply_sparse"
+    if _build.route(name, coord, x, *csr) == "cpu":
+        return kirchhoff_apply_sparse_plain(coord, x, params, csr, tile)
+    _build.require_cuda_f32(name, coord=coord, x=x)
+    _check_kernel_shape(name, coord, x, _KIRCHHOFF_COLS)
+    out = torch.empty_like(x)
+    _build.launch("sc_kirchhoff_apply_sparse", coord.device,
+                  coord.data_ptr(), csr.ids.data_ptr(),
+                  csr.row_ptr.data_ptr(), csr.cols.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), coord.shape[0], x.shape[1], tile,
+                  *_kernel_args(params))
+    kirchhoff_apply_sparse.launches += 1
+    return out
+
+
+def _check_tile(tile):
+    if int(tile) != tile or tile < 1:
+        raise ValueError(f"tile must be a positive int, got {tile!r}")
+
+
+def hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
+                         tile=256, *, dtype=torch.float32, device=None):
+    """
+    Block-sparse matrix-free ``H @ x`` (K13): only the tile pairs of
+    :func:`tile_neighbor_lists` are visited, and within them only pairs
+    inside the cutoff do per-column work.
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+        Atom coordinates, ideally spatially sorted
+        (:func:`spatial_sort_permutation`).
+    x : Tensor or ndarray, shape=(3n, k) or (3n,)
+        Vectors in xyz plane layout (the same order as `coord`).
+    nbr, counts : ndarray
+        Tile neighbour lists of `coord` at `tile`.
+    orig_ids : array, shape=(n,), optional
+        Original atom index of each slot; defaults to ``arange(n)``.
+
+    Returns
+    -------
+    y : Tensor, same shape as `x`.  A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel (float32, contiguous) or raises.
+    """
+    _check_params(params)
+    _check_tile(tile)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    xb, squeeze = _columns(x, 3 * n, coord)
+    csr = tile_csr(nbr, counts, orig_ids, n, tile, coord.device)
+    y = _launch_hessian(coord, xb, params, csr, tile)
+    return y[:, 0] if squeeze else y
+
+
+def hessian_apply_dense(coord, x, params, tile=256, *, dtype=torch.float32,
+                        device=None):
+    """Dense-grid matrix-free ``H @ x`` (K12): every column tile is
+    visited — the route of the families without a cutoff and of
+    ``sparse=False``.  `tile` blocks the plain version's rows; the
+    kernel walks every column itself.  Routing as
+    :func:`hessian_apply_sparse`."""
+    _check_params(params)
+    _check_tile(tile)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    xb, squeeze = _columns(x, 3 * n, coord)
+    y = _launch_hessian(coord, xb, params, None, tile)
+    return y[:, 0] if squeeze else y
+
+
+def kirchhoff_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
+                           tile=256, *, dtype=torch.float32, device=None):
+    """Block-sparse matrix-free ``K @ x`` for the GNM Kirchhoff operator
+    (K14); `x` is ``(n, k)`` or ``(n,)``, the rest as
+    :func:`hessian_apply_sparse`."""
+    _check_params(params)
+    _check_tile(tile)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    xb, squeeze = _columns(x, n, coord)
+    csr = tile_csr(nbr, counts, orig_ids, n, tile, coord.device)
+    y = _launch_kirchhoff(coord, xb, params, csr, tile)
+    return y[:, 0] if squeeze else y
+
+
+hessian_apply_sparse.launches = 0
+hessian_apply_dense.launches = 0
+kirchhoff_apply_sparse.launches = 0
+
+
+def _hessian_operator(coord, params, *, kernel, sparse, csr, tile, block):
+    """``x -> H @ x`` on `coord` for x ``(3n, p)``: K13 over `csr` or K12
+    on the kernel route, else the plain block-sparse walk or the
+    row-blocked operator."""
+    if kernel:
+        # the solvers' blocks (QR factors among them) may be strided; the
+        # kernels take contiguous X
+        return lambda x: _launch_hessian(coord, x.contiguous(), params,
+                                         csr if sparse else None, tile)
+    if sparse:
+        return functools.partial(hessian_apply_sparse_plain, coord,
+                                 params=params, csr=csr, tile=tile)
+    return functools.partial(hessian_apply, coord, params=params,
+                             block=block, dtype=coord.dtype)
+
+
+def _kirchhoff_operator(coord, params, *, kernel, sparse, csr, tile, block):
+    """``x -> K @ x`` for x ``(n, p)``: K14 on the kernel route with
+    `sparse`, the plain block-sparse walk without the kernel route, the
+    row-blocked operator without `sparse`."""
+    if sparse and kernel:
+        return lambda x: _launch_kirchhoff(coord, x.contiguous(), params,
+                                           csr, tile)
+    if sparse:
+        return functools.partial(kirchhoff_apply_sparse_plain, coord,
+                                 params=params, csr=csr, tile=tile)
+    return functools.partial(kirchhoff_apply, coord, params=params,
+                             block=block, dtype=coord.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev-filtered subspace iteration
+# ---------------------------------------------------------------------------
+
+def estimate_lambda_max(matvec, m, n_iter=50, safety=1.1, seed=0,
+                        dtype=torch.float32, device=None):
+    """Upper-bound estimate of the largest eigenvalue of a PSD operator
+    by power iteration (`n_iter` applies of one vector) times `safety`;
+    a lower bound before the safety factor, so the solvers use
+    :func:`hessian_degree_bound` instead.  The start vector lies on
+    `device`, by default the current CUDA device."""
+    v = torch.cos(torch.arange(m, dtype=dtype, device=resolve_device(device))
+                  * 0.7 + seed) + 1e-3
+    v = v / torch.linalg.vector_norm(v)
+    for _ in range(n_iter):
+        w = matvec(v)
+        v = w / torch.linalg.vector_norm(w)
+    return safety * torch.linalg.vector_norm(matvec(v))
+
+
+def _deflate(t, x):
+    return x - t @ (t.T @ x)
+
+
+def _chebyshev_filter(matvec, x, degree, a, b, a0=0.0):
+    """Scaled Chebyshev filter (Zhou & Saad): amplifies eigencomponents
+    in ``[a0, a]`` relative to the damped band ``[a, b]`` (`a`, `b`
+    Python floats)."""
+    e = (b - a) / 2.0
+    c = (b + a) / 2.0
+    sigma1 = e / (a0 - c)
+    sigma = sigma1
+    x_prev = x
+    y = (matvec(x) - c * x) * (sigma1 / e)
+    for _ in range(degree - 1):
+        sigma_new = 1.0 / (2.0 / sigma1 - sigma)
+        y_new = (2.0 * sigma_new / e) * (matvec(y) - c * y) \
+            - (sigma * sigma_new) * x_prev
+        x_prev, y, sigma = y, y_new, sigma_new
+    return y
+
+
+def _chebfsi_init(t, m, *, p, seed):
+    key = torch.arange(m * p, dtype=t.dtype, device=t.device).reshape(m, p)
+    x = torch.cos(key * 0.7 + seed) + 1e-3
+    x, _ = torch.linalg.qr(_deflate(t, x))
+    return x
+
+
+def _chebfsi_outer(matvec, t, x, a, b, *, degree, k):
+    """One filter + Rayleigh-Ritz pass; returns the rotated block, the
+    next filter cutoff (a Python float), the Ritz values and the
+    wanted-mode residuals."""
+    p = x.shape[1]
+    shift = 0.5 * b  # rigid modes land mid-band -> damped by the filter
+
+    def shifted_matvec(v):
+        return matvec(v) + shift * (t @ (t.T @ v))
+
+    y = _chebyshev_filter(shifted_matvec, x, degree, a, b)
+    y, _ = torch.linalg.qr(_deflate(t, y))
+    hy = matvec(y)
+    s = y.T @ hy
+    theta, w = torch.linalg.eigh((s + s.T) / 2)
+    x = y @ w
+    hx = hy @ w[:, :k]
+    res = torch.linalg.vector_norm(hx - x[:, :k] * theta[None, :k], dim=0) \
+        / torch.clamp(theta[:k].abs(), min=1e-30)
+    # next filter cutoff: just above the largest kept Ritz value, clamped
+    # inside the spectrum
+    a = min(max(1.05 * float(theta[p - 1]), b * 1e-4), 0.5 * b)
+    return x, a, theta, res
+
+
+def _chebfsi(matvec, t, m, lam_max, *, k, oversample, degree, n_outer,
+             seed, tol=None):
+    if n_outer < 1:
+        raise ValueError(f"n_outer must be >= 1, got {n_outer}")
+    b = float(lam_max)
+    x = _chebfsi_init(t, m, p=k + oversample, seed=seed)
+    a = b / 10.0
+    for _ in range(n_outer):
+        x, a, theta, res = _chebfsi_outer(matvec, t, x, a, b,
+                                          degree=degree, k=k)
+        if tol is not None and float(res.max()) < tol:
+            break
+    return theta[:k], x[:, :k].T, res
+
+
+def _sparse_setup(coord, params, masses, tile):
+    """Host set-up shared by the block-sparse solvers: Morton sort, tile
+    neighbour lists and their CSR, permuted masses.  Returns ``(sorted
+    coord, permuted masses, csr, perm)``."""
+    host = coord.detach().cpu().double().numpy()
+    perm = spatial_sort_permutation(host)
+    sorted_host = host[perm]
+    nbr, counts = tile_neighbor_lists(
+        sorted_host, float(np.sqrt(params.cutoff_sq)), tile)
+    coord_s = torch.as_tensor(sorted_host, dtype=coord.dtype,
+                              device=coord.device)
+    csr = tile_csr(nbr, counts, perm.astype(np.int32), coord.shape[0], tile,
+                   coord.device)
+    if masses is not None:
+        masses = masses[torch.as_tensor(perm, device=coord.device)]
+    return coord_s, masses, csr, perm
+
+
+def _route(coord, params, matvec, sparse, tile):
+    """``(kernel, sparse)``: the kernel route is float32 on CUDA; `sparse`
+    defaults to it with a cutoff and no `matvec`."""
+    _check_tile(tile)
+    kernel = coord.dtype == torch.float32 and coord.device.type == "cuda"
+    if sparse is None:
+        sparse = kernel and params.has_cutoff and matvec is None
+    return kernel, bool(sparse)
+
+
+def _oversample(oversample, k, kernel, matvec):
+    """Extra subspace vectors: the TPU's ``max(k, 8, 48 - k)`` on the
+    kernel route (chosen there for the 128-lane padding, kept so that the
+    card runs the TPU's algorithm), ``max(k, 8)`` elsewhere."""
+    if oversample is not None:
+        return int(oversample)
+    return max(k, 8, 48 - k) if (kernel and matvec is None) else max(k, 8)
+
+
+def _mass_weighted(base, w):
+    """``x -> w * base(w * x)`` for rows weighted by `w` (or `base`)."""
+    if w is None:
+        return base
+
+    def matvec(x):
+        wx = x * (w[:, None] if x.ndim == 2 else w)
+        y = base(wx)
+        return y * (w[:, None] if y.ndim == 2 else w)
+    return matvec
+
+
+def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
+                         degree=96, n_outer=10, tile=256, block=512,
+                         sparse=None, dtype=torch.float32, lambda_max=None,
+                         seed=0, matvec=None, tol=None, device=None):
+    """
+    The `k` lowest non-trivial ANM modes **without materializing the
+    Hessian** — Chebyshev-filtered subspace iteration over the
+    matrix-free operator, the six rigid-body modes shifted into the
+    damped band.  Requires a connected network; convergence is
+    gap-dependent, so check the returned residuals.
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+        A tensor keeps its device; anything else goes to `device`, by
+        default the current CUDA device.
+    params : FFParams
+        Analytic family.
+    k : int
+        Number of modes.
+    masses : Tensor or ndarray, shape=(n,), optional
+        Mass weighting: operates on ``W H W``, ``W = diag(1/sqrt(m))``.
+    oversample : int, optional
+        Extra subspace vectors; default ``max(k, 8, 48 - k)`` on the
+        kernel route (float32 on CUDA), ``max(k, 8)`` elsewhere.
+    degree : int
+        Chebyshev filter degree per outer iteration.
+    n_outer : int
+        Outer (filter + Rayleigh-Ritz) iterations.
+    sparse : bool, optional
+        Block-sparse operator: Morton-sorted atoms, tile neighbour lists,
+        only interacting tile pairs visited (K13 on the kernel route).
+        Default: on for the kernel route with a cutoff and no `matvec`.
+        Results come back in the original atom order.
+    lambda_max : float, optional
+        Known spectral upper bound; skips :func:`hessian_degree_bound`.
+    tol : float, optional
+        Stop once the largest wanted-mode relative residual is below it.
+    matvec : callable, optional
+        Override the operator: ``matvec(x)`` with x ``(3n, p)`` returns
+        ``H @ x``; mass weighting still wraps it.
+
+    Returns
+    -------
+    eig_values : Tensor, shape=(k,), ascending
+    eig_vectors : Tensor, shape=(k, 3n), xyz layout, modes in rows
+    residuals : Tensor, shape=(k,)
+        ``|H u - lambda u| / lambda``.
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    kernel, sparse = _route(coord, params, matvec, sparse, tile)
+    q = _oversample(oversample, k, kernel, matvec)
+    if masses is not None:
+        masses = as_tensor(masses, dtype, coord.device)
+    # guaranteed upper bound (the filter needs b >= lambda_max), on the
+    # original ordering
+    lam_max = (hessian_degree_bound(coord, params, masses=masses,
+                                    block=block, dtype=dtype)
+               if lambda_max is None else lambda_max)
+    perm = None
+    if matvec is not None:
+        base = matvec
+    else:
+        csr = None
+        if sparse:
+            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
+                                                     tile)
+        base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
+                                 csr=csr, tile=tile, block=block)
+    w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
+    t = rigid.rigid_modes_anm(coord, masses=masses)
+    vals, vecs, res = _chebfsi(
+        _mass_weighted(base, w3), t, 3 * n, lam_max, k=k, oversample=q,
+        degree=degree, n_outer=n_outer, seed=seed, tol=tol)
+    if perm is not None:
+        # back to the original atom order: sorted slot i is atom perm[i]
+        inv = np.argsort(perm)
+        cols = np.concatenate([a * n + inv for a in range(3)])
+        vecs = vecs[:, torch.as_tensor(cols, device=vecs.device)]
+    return vals, vecs, res
+
+
+def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
+                             oversample=None, degree=96, n_outer=10,
+                             tile=256, block=512, sparse=None,
+                             dtype=torch.float32, lambda_max=None, seed=0,
+                             matvec=None, tol=None, device=None):
+    """
+    The `k` lowest non-trivial GNM modes without materializing the
+    Kirchhoff matrix: :func:`lowest_modes_matfree` over the Kirchhoff
+    operator (K14 on the kernel route with `sparse`, else the plain
+    operators), with the constant vector as the deflated null space.
+
+    Returns ``(eig_values (k,), eig_vectors (k, n), residuals (k,))`` in
+    the original atom order.
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    kernel, sparse = _route(coord, params, matvec, sparse, tile)
+    q = _oversample(oversample, k, kernel, matvec)
+    if masses is not None:
+        masses = as_tensor(masses, dtype, coord.device)
+    # the block-row Gershgorin bound coincides for the Kirchhoff matrix
+    lam_max = (hessian_degree_bound(coord, params, masses=masses,
+                                    block=block, dtype=dtype)
+               if lambda_max is None else lambda_max)
+    perm = None
+    if matvec is not None:
+        base = matvec
+    else:
+        csr = None
+        if sparse:
+            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
+                                                     tile)
+        base = _kirchhoff_operator(coord, params, kernel=kernel,
+                                   sparse=sparse, csr=csr, tile=tile,
+                                   block=block)
+    w = None if masses is None else 1.0 / torch.sqrt(masses)
+    t = rigid.null_mode_gnm(n, masses=masses, dtype=dtype,
+                            device=coord.device)
+    vals, vecs, res = _chebfsi(
+        _mass_weighted(base, w), t, n, lam_max, k=k, oversample=q,
+        degree=degree, n_outer=n_outer, seed=seed, tol=tol)
+    if perm is not None:
+        vecs = vecs[:, torch.as_tensor(np.argsort(perm), device=vecs.device)]
+    return vals, vecs, res
+
+
+# ---------------------------------------------------------------------------
+# Deflated, preconditioned conjugate gradients
+# ---------------------------------------------------------------------------
+
+def _pcg(op, deflate, precond, rhs, *, tol, max_iter):
+    """Preconditioned CG on ``range(I - T T^t)`` with per-column step
+    sizes; stops once every column's relative residual passes `tol`.
+    Returns ``(x, iterations, residuals)``."""
+    b = deflate(rhs)
+    b_norm = torch.clamp(torch.linalg.vector_norm(b, dim=0), min=1e-30)
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = (r * z).sum(dim=0)
+    active = torch.linalg.vector_norm(r, dim=0) / b_norm > tol
+    i = 0
+    while i < max_iter and bool(active.any()):
+        # per-column freezing: converged columns stop, and columns whose
+        # curvature or rz degenerate (CG pushed past the precision floor)
+        # freeze at their last finite iterate instead of overflowing
+        hp = deflate(op(p))
+        denom = (p * hp).sum(dim=0)
+        ok = active & torch.isfinite(denom) & (denom > 0) & (rz > 0)
+        alpha = torch.where(ok, rz / torch.where(ok, denom, 1.0), 0.0)
+        x = x + p * alpha[None, :]
+        r = r - hp * alpha[None, :]
+        z = precond(r)
+        rz_new = (r * z).sum(dim=0)
+        beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0)
+        p = torch.where(ok[None, :], z + p * beta[None, :], p)
+        rz = rz_new
+        active = ok & (torch.linalg.vector_norm(r, dim=0) / b_norm > tol)
+        i += 1
+    res = torch.linalg.vector_norm(r, dim=0) / b_norm
+    return deflate(x), i, res
+
+
+def _deflated_pcg(op, t, inv_blocks, rhs, n, *, tol, max_iter):
+    """ANM CG: vectors ``(3n, k)`` in xyz layout, the per-atom inverse
+    ``3 x 3`` diagonal blocks ``inv_blocks`` ``(n, 3, 3)`` as the
+    preconditioner."""
+    def deflate(x):
+        return _deflate(t, x)
+
+    def precond(r):
+        rr = r.reshape(3, n, -1).transpose(0, 1)            # (n, 3, k)
+        out = torch.bmm(inv_blocks, rr)
+        return deflate(out.transpose(0, 1).reshape(3 * n, -1))
+
+    return _pcg(op, deflate, precond, rhs, tol=tol, max_iter=max_iter)
+
+
+def _deflated_pcg_gnm(op, t, inv_diag, rhs, n, *, tol, max_iter):
+    """GNM CG: vectors ``(n, k)``, the inverse degree diagonal as the
+    preconditioner."""
+    def deflate(x):
+        return _deflate(t, x)
+
+    return _pcg(op, deflate, lambda r: deflate(inv_diag[:, None] * r), rhs,
+                tol=tol, max_iter=max_iter)
+
+
+def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
+                             max_iter=1000, tile=256, block=512,
+                             sparse=None, dtype=torch.float32, matvec=None,
+                             device=None):
+    """
+    ``pinv(H) @ rhs`` without materializing the Hessian or its
+    covariance: deflated, block-Jacobi-preconditioned CG on the implicit
+    operator, each column with its own step sizes.  Requires a connected
+    network.
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+    rhs : Tensor or ndarray, shape=(3n, k) or (3n,)
+        Right-hand sides in xyz plane layout.
+    tol : float
+        Relative residual target per column.
+    max_iter : int
+        CG iteration cap.
+    sparse, matvec, device :
+        As :func:`lowest_modes_matfree` (kernel route: float32 on CUDA).
+
+    Returns
+    -------
+    x : Tensor, same shape as `rhs`
+        ``pinv(H) @ rhs``, null-space component removed.
+    n_iter : int
+    residuals : Tensor, shape=(k,)
+        ``|H x - P rhs| / |P rhs|`` as the recurrence carries it.
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    kernel, sparse = _route(coord, params, matvec, sparse, tile)
+    rhs, squeeze = _columns(rhs, 3 * n, coord, "rhs")
+    if masses is not None:
+        masses = as_tensor(masses, dtype, coord.device)
+
+    # block-Jacobi preconditioner from the original ordering
+    diag_blocks = hessian_diag_blocks(coord, params, block=block,
+                                      dtype=dtype)
+    if masses is not None:
+        diag_blocks = diag_blocks * (1.0 / masses)[:, None, None]
+    # regularized 3x3 inverses (isolated atoms would be singular)
+    trace = diag_blocks.diagonal(dim1=1, dim2=2).sum(dim=-1)
+    reg = 1e-6 * torch.clamp(trace, min=1e-30)[:, None, None] \
+        * torch.eye(3, dtype=dtype, device=coord.device)
+    inv_blocks = torch.linalg.inv(diag_blocks + reg)
+
+    perm = None
+    if matvec is not None:
+        base = matvec
+    else:
+        csr = None
+        if sparse:
+            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
+                                                     tile)
+            perm_t = torch.as_tensor(perm, device=coord.device)
+            inv_blocks = inv_blocks[perm_t]
+            rhs = rhs[torch.cat([a * n + perm_t for a in range(3)])]
+        base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
+                                 csr=csr, tile=tile, block=block)
+    w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
+    t = rigid.rigid_modes_anm(coord, masses=masses)
+    x, n_it, res = _deflated_pcg(_mass_weighted(base, w3), t, inv_blocks,
+                                 rhs, n, tol=tol, max_iter=max_iter)
+    if perm is not None:
+        inv = torch.as_tensor(np.argsort(perm), device=x.device)
+        x = x[torch.cat([a * n + inv for a in range(3)])]
+    return (x[:, 0] if squeeze else x), n_it, res
+
+
+def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
+                                 tol=1e-6, max_iter=1000, tile=256,
+                                 block=512, sparse=None, dtype=torch.float32,
+                                 precond=True, device=None):
+    """
+    ``pinv(K) @ rhs`` for the GNM Kirchhoff matrix without materializing
+    it — the GNM twin of :func:`covariance_solve_matfree` (constant-mode
+    deflation, degree Jacobi preconditioner, per-column CG step sizes).
+    `rhs` is ``(n, k)`` or ``(n,)``; ``precond=False`` skips the O(n^2)
+    degree pass.  Returns ``(x, n_iter, residuals)``.
+    """
+    _check_params(params)
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    kernel, sparse = _route(coord, params, None, sparse, tile)
+    rhs, squeeze = _columns(rhs, n, coord, "rhs")
+    if masses is not None:
+        masses = as_tensor(masses, dtype, coord.device)
+
+    if precond:
+        deg = kirchhoff_degree(coord, params, block=block, dtype=dtype)
+        if masses is not None:
+            deg = deg * (1.0 / masses)
+        inv_diag = 1.0 / torch.clamp(deg, min=1e-30)
+    else:
+        inv_diag = torch.ones(n, dtype=dtype, device=coord.device)
+
+    perm = None
+    csr = None
+    if sparse:
+        coord, masses, csr, perm = _sparse_setup(coord, params, masses, tile)
+        perm_t = torch.as_tensor(perm, device=coord.device)
+        inv_diag = inv_diag[perm_t]
+        rhs = rhs[perm_t]
+    base = _kirchhoff_operator(coord, params, kernel=kernel, sparse=sparse,
+                               csr=csr, tile=tile, block=block)
+    w = None if masses is None else 1.0 / torch.sqrt(masses)
+    t = rigid.null_mode_gnm(n, masses=masses, dtype=dtype,
+                            device=coord.device)
+    x, n_it, res = _deflated_pcg_gnm(_mass_weighted(base, w), t, inv_diag,
+                                     rhs, n, tol=tol, max_iter=max_iter)
+    if perm is not None:
+        x = x[torch.as_tensor(np.argsort(perm), device=x.device)]
+    return (x[:, 0] if squeeze else x), n_it, res
+
+
+def linear_response_matfree(coord, params, force, *, dtype=torch.float32,
+                            device=None, **options):
+    """
+    Linear response displacements ``pinv(H) @ force`` without the
+    Hessian or covariance — `force` is ``(n, 3)`` or ``(3n,)`` (atom-major
+    flat) or a batch ``(n, 3, k)``; returns displacements in the same
+    shape, the CG iteration count and the residuals.  `options` go to
+    :func:`covariance_solve_matfree`.
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    force = as_tensor(force, dtype, coord.device)
+    if force.ndim == 1:
+        if force.shape[0] != 3 * n:
+            raise ValueError(
+                f"force has {force.shape[0]} entries, expected {3 * n}")
+        vec = force.reshape(n, 3).T.reshape(3 * n)          # -> xyz layout
+        x, n_it, res = covariance_solve_matfree(coord, params, vec,
+                                                dtype=dtype, **options)
+        return x.reshape(3, n).T.reshape(3 * n), n_it, res
+    if force.shape[:2] != (n, 3) or force.ndim > 3:
+        raise ValueError(
+            f"force has shape {tuple(force.shape)}, expected ({n}, 3[, k])")
+    batched = force.ndim == 3
+    f = force if batched else force[:, :, None]
+    vec = f.permute(1, 0, 2).reshape(3 * n, -1)
+    x, n_it, res = covariance_solve_matfree(coord, params, vec, dtype=dtype,
+                                            **options)
+    disp = x.reshape(3, n, -1).permute(1, 0, 2)
+    return (disp if batched else disp[:, :, 0]), n_it, res
+
+
+def _check_sites(sites, n):
+    sites = np.asarray(sites, dtype=np.int64)
+    if sites.ndim != 1 or np.any(sites < 0) or np.any(sites >= n):
+        raise IndexError(f"sites must be flat indices in [0, {n})")
+    return sites
+
+
+def _site_columns(coord, params, sites, masses, dtype, options):
+    """The three covariance columns ``pinv(H) @ e_(site, a)`` per site,
+    site-major, as ``(3, n, n_sites, 3)`` ``[b, j, s, a]``."""
+    n = coord.shape[0]
+    rhs = np.zeros((3 * n, 3 * len(sites)), dtype=np.float64)
+    for s, site in enumerate(sites):
+        for a in range(3):
+            rhs[a * n + site, 3 * s + a] = 1.0
+    x, n_it, res = covariance_solve_matfree(
+        coord, params, rhs, masses=masses, dtype=dtype, **options)
+    return x.reshape(3, n, len(sites), 3), n_it, res
+
+
+def _normalize_rows(rows, sites, msf):
+    diag = as_tensor(msf, rows.dtype, rows.device)
+    return rows / torch.sqrt(diag[None, :] * diag[torch.as_tensor(
+        sites, device=rows.device)][:, None])
+
+
+def prs_rows_matfree(coord, params, sites, *, norm=True, masses=None,
+                     dtype=torch.float32, device=None, **options):
+    """
+    Perturbation-response-scanning rows for selected perturbation sites
+    without the covariance: three covariance columns per site by the
+    deflated CG (:func:`covariance_solve_matfree`), squared and folded;
+    ``norm`` divides each row by its diagonal entry.
+
+    Returns ``(prs_rows (len(sites), n), n_iter, residuals (3 len(sites),))``.
+    """
+    coord = _coord(coord, dtype, device)
+    sites = _check_sites(sites, coord.shape[0])
+    cols, n_it, res = _site_columns(coord, params, sites, masses, dtype,
+                                    options)
+    prs = (cols ** 2).sum(dim=(0, 3)).T
+    if norm:
+        diag = prs[torch.arange(len(sites), device=prs.device),
+                   torch.as_tensor(sites, device=prs.device)]
+        prs = prs / diag[:, None]
+    return prs, n_it, res
+
+
+def dcc_rows_matfree(coord, params, sites, *, norm=True, msf=None,
+                     masses=None, dtype=torch.float32, device=None,
+                     **options):
+    """
+    Dynamic cross-correlation rows for selected sites without the
+    covariance: the ``3 x 3`` superelement traces of each site's three
+    covariance columns (deflated CG) are the all-mode DCC row
+    ``DCC[site, j] = tr C(site, j)``.  ``norm=True`` needs the per-atom
+    covariance traces `msf` for ``DCC_ij / sqrt(DCC_ii DCC_jj)``.
+
+    Returns ``(dcc_rows (len(sites), n), n_iter, residuals)``.
+    """
+    coord = _coord(coord, dtype, device)
+    sites = _check_sites(sites, coord.shape[0])
+    if norm and msf is None:
+        raise ValueError(
+            "norm=True needs the per-atom covariance traces for the DCC "
+            "denominator: pass msf=(all-mode MSF; at mega scale the "
+            "mode-sum MSF from lowest_modes_matfree), or use norm=False")
+    cols, n_it, res = _site_columns(coord, params, sites, masses, dtype,
+                                    options)
+    rows = sum(cols[a, :, :, a] for a in range(3)).T
+    if norm:
+        rows = _normalize_rows(rows, sites, msf)
+    return rows, n_it, res
+
+
+def dcc_rows_matfree_gnm(coord, params, sites, *, norm=True, msf=None,
+                         masses=None, dtype=torch.float32, device=None,
+                         **options):
+    """
+    GNM DCC rows without the covariance: the all-mode GNM DCC is the
+    covariance, so each row is one ``pinv(K) @ e_site`` solve
+    (:func:`covariance_solve_matfree_gnm`).  `msf` (the covariance
+    diagonal) is required for ``norm=True``.
+
+    Returns ``(dcc_rows (len(sites), n), n_iter, residuals)``.
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    sites = _check_sites(sites, n)
+    if norm and msf is None:
+        raise ValueError(
+            "norm=True needs the covariance diagonal: pass msf=(all-mode "
+            "GNM MSF; at mega scale the mode-sum MSF from "
+            "lowest_modes_matfree_gnm), or use norm=False")
+    rhs = np.zeros((n, len(sites)), dtype=np.float64)
+    rhs[sites, np.arange(len(sites))] = 1.0
+    x, n_it, res = covariance_solve_matfree_gnm(
+        coord, params, rhs, masses=masses, dtype=dtype, **options)
+    rows = x.T
+    if norm:
+        rows = _normalize_rows(rows, sites, msf)
+    return rows, n_it, res

@@ -255,7 +255,7 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     ----------
     coords : Tensor or ndarray, shape=(B, n, 3)
         Conformers of one protein.  A tensor keeps its device; anything
-        else needs `device`.
+        else goes to `device`.
     params : FFParams
         Analytic force field (see :func:`.ops.ffparams.from_numpy_params`
         to carry one across from the JAX package).
@@ -278,7 +278,8 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
         Conformers per pass; ``B`` must divide into chunks.  Bounds
         device memory only.
     device : str or torch.device, optional
-        Required for a non-tensor `coords`.
+        Where a non-tensor `coords` goes; by default the current CUDA
+        device (``"cpu"`` to run on the CPU).
     with_prs : bool
         Also return the PRS matrix ``prs`` ``(B, n, n)`` and its
         ``effector`` and ``sensor`` profiles ``(B, n)``; needs

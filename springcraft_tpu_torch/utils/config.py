@@ -11,9 +11,11 @@ Device rules shared by every public entry point of the port:
 
 * a tensor input keeps its own device; passing a different ``device``
   raises instead of moving it silently;
-* a numpy input needs ``device`` passed explicitly;
-* asking for ``"cuda"`` without a usable card raises — nothing falls
-  back to the CPU.
+* a numpy input goes to ``device`` or, without one, to the current CUDA
+  device: the entry points run on the card unless the caller asks for
+  the CPU (``device="cpu"``);
+* asking for CUDA (by name or by default) without a usable card raises
+  — nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -32,17 +34,16 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 
-def resolve_device(device):
-    """``torch.device`` for `device`; raises when CUDA is asked for and
-    no card is available."""
-    if device is None:
-        raise ValueError("device must be given explicitly, e.g. 'cuda' "
-                         "or 'cpu'")
-    dev = torch.device(device)
+def resolve_device(device=None):
+    """``torch.device`` for `device`, the current CUDA device for
+    ``None``; raises ``RuntimeError`` when CUDA is asked for, by name or
+    by default, and no card is available."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() "
-            f"is False")
+            f"device {'cuda (the default)' if device is None else device!r}"
+            f" requested but torch.cuda.is_available() is False; pass "
+            f"device='cpu' to run on the CPU")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -50,17 +51,14 @@ def resolve_device(device):
 
 def as_tensor(x, dtype, device=None):
     """`x` as a tensor of `dtype`.  A tensor keeps its device (`device`,
-    when given, must name the same one); anything else needs
-    `device`."""
+    when given, must name the same one); anything else goes to `device`,
+    by default the current CUDA device."""
     if isinstance(x, torch.Tensor):
         if device is not None and resolve_device(device) != x.device:
             raise ValueError(
                 f"tensor lies on {x.device}, but device={device!r} was "
                 f"requested; move it explicitly")
         return x.to(dtype=dtype)
-    if device is None:
-        raise ValueError(
-            "a non-tensor input needs device= (e.g. 'cuda' or 'cpu')")
     return torch.as_tensor(np.asarray(x), dtype=dtype,
                            device=resolve_device(device))
 

@@ -2,8 +2,9 @@
 PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small and edge shapes, and the
 paths on CUDA (ANM plane traces, ANM covariance and PRS, GNM ensemble,
-single structures, the spectral pipelines) against the float64 engines,
-each with the launch counts of its own kernels.
+single structures, the spectral pipelines, the matrix-free modes and CG
+solves) against the float64 engines, each with the launch counts of its
+own kernels.
 
 Marked ``cuda``: every test skips without an NVIDIA GPU.  This file
 imports neither JAX nor the JAX package, so it runs on a machine that
@@ -26,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 import springcraft_tpu_torch as sct  # noqa: E402
 from springcraft_tpu_torch.ops import assembly, assembly_kernels  # noqa: E402
+from springcraft_tpu_torch.ops import matfree  # noqa: E402
 from springcraft_tpu_torch.ops import rigid, spd_linalg, spectrum  # noqa: E402
 from springcraft_tpu_torch.parallel import pipeline  # noqa: E402
 
@@ -470,3 +472,149 @@ def test_spectral_paths_on_cuda(cuda, path):
         else:
             assert _rel(value, ref[key]) <= 1e-4, key
             assert _rel(value, cpu[key].to(cuda)) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free kernels (K12, K13, K14) and paths
+# ---------------------------------------------------------------------------
+
+
+def _protein_blob(n, seed):
+    """Random atoms at the JAX benchmark's protein density
+    (``bench.py:131``, 300 residues in a 34 A cube)."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, 3) * 34.0 * (n / 300) ** (1 / 3)).astype(np.float32)
+
+
+def _sorted_layout(n, seed, cutoff=13.0, tile=256):
+    coord = _protein_blob(n, seed)
+    perm = matfree.spatial_sort_permutation(coord)
+    nbr, counts = matfree.tile_neighbor_lists(coord[perm], cutoff, tile)
+    return coord[perm], perm.astype(np.int32), nbr, counts
+
+
+@pytest.mark.parametrize("k", [1, 5, 48, 130])
+@pytest.mark.parametrize("n", [257, 1000])
+@pytest.mark.parametrize("wrapper", ["hessian_apply_dense",
+                                     "hessian_apply_sparse",
+                                     "kirchhoff_apply_sparse"])
+def test_matfree_kernels(cuda, wrapper, n, k):
+    """Each kernel against its plain version on the same CUDA tensors at
+    ragged n (a padded last tile), the sparse kernels on a Morton-sorted
+    layout with original ids; 1e-5 of max|y|."""
+    coord, ids, nbr, counts = _sorted_layout(n, seed=n + k)
+    node = wrapper == "kirchhoff_apply_sparse"
+    params = (sct.pfenm_params(None) if wrapper == "hessian_apply_dense"
+              else sct.invariant_params(13.0))
+    x = torch.as_tensor(np.random.RandomState(k).randn(
+        n if node else 3 * n, k).astype(np.float32), device=cuda)
+    c = torch.as_tensor(coord, device=cuda)
+    fn = getattr(matfree, wrapper)
+    before = fn.launches
+    if wrapper == "hessian_apply_dense":
+        got = fn(c, x, params)
+        ref = matfree.hessian_apply_dense_plain(c, x, params)
+    else:
+        got = fn(c, x, params, nbr, counts, ids)
+        csr = matfree.tile_csr(nbr, counts, ids, n, 256, cuda)
+        plain = (matfree.kirchhoff_apply_sparse_plain if node
+                 else matfree.hessian_apply_sparse_plain)
+        ref = plain(c, x, params, csr, 256)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == x.shape and got.device == c.device
+    assert _rel(got, ref) <= 1e-5
+    # the sparse kernels agree with the row-blocked operator in float64
+    if wrapper == "hessian_apply_sparse":
+        exact = matfree.hessian_apply(c.double(), x.double(), params,
+                                      dtype=torch.float64)
+        assert _rel(got, exact) <= 1e-5
+
+
+@pytest.mark.parametrize("tile", [16, 100])
+def test_matfree_kernels_take_other_tiles(cuda, tile):
+    """Tiles that are not a multiple of the kernels' 32-row blocks."""
+    coord, ids, nbr, counts = _sorted_layout(300, seed=tile, cutoff=9.0,
+                                             tile=tile)
+    params = sct.hinsen_params(9.0)
+    c = torch.as_tensor(coord, device=cuda)
+    for node in (False, True):
+        x = torch.randn(300 if node else 900, 7, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(tile))
+        fn = (matfree.kirchhoff_apply_sparse if node
+              else matfree.hessian_apply_sparse)
+        got = fn(c, x, params, nbr, counts, ids, tile=tile)
+        ref = fn(c.cpu(), x.cpu(), params, nbr, counts, ids, tile=tile)
+        torch.cuda.synchronize()
+        assert _rel(got, ref.to(cuda)) <= 1e-5
+
+
+def test_matfree_kernels_refuse_what_they_do_not_take(cuda):
+    coord, ids, nbr, counts = _sorted_layout(300, seed=0)
+    c = torch.as_tensor(coord, device=cuda)
+    params = sct.invariant_params(13.0)
+    x = torch.zeros(900, 4, device=cuda)
+    for fn, args, vec in (
+            (matfree.hessian_apply_sparse, (nbr, counts, ids), x),
+            (matfree.hessian_apply_dense, (), x),
+            (matfree.kirchhoff_apply_sparse, (nbr, counts, ids), x[:300])):
+        with pytest.raises(TypeError, match="float32"):
+            fn(c, vec, params, *args, dtype=torch.float64)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(c, vec.t().contiguous().t(), params, *args)
+        with pytest.raises(ValueError, match="device"):
+            fn(c, vec.cpu(), params, *args)
+
+
+#: matrix-free path -> the kernel it must launch
+MATFREE_PATHS = {
+    "modes": "hessian_apply_sparse",
+    "modes_dense": "hessian_apply_dense",
+    "modes_gnm": "kirchhoff_apply_sparse",
+    "solve": "hessian_apply_sparse",
+    "solve_gnm": "kirchhoff_apply_sparse",
+}
+
+
+def _matfree_path(path, coord, device, dtype):
+    kw = dict(device=device, dtype=dtype)
+    params = sct.invariant_params(13.0)
+    if path == "modes":
+        return sct.lowest_modes_matfree(coord, params, 5, degree=48,
+                                        n_outer=12, tol=2e-4, **kw)[:2]
+    if path == "modes_dense":
+        return sct.lowest_modes_matfree(coord, sct.pfenm_params(None), 5,
+                                        degree=48, n_outer=12, tol=2e-4,
+                                        **kw)[:2]
+    if path == "modes_gnm":
+        return sct.lowest_modes_matfree_gnm(coord, params, 5, degree=48,
+                                            n_outer=12, tol=2e-4, **kw)[:2]
+    if path == "solve":
+        return sct.dcc_rows_matfree(coord, params, [0, 100, 200],
+                                    norm=False, **kw)[:1]
+    return sct.dcc_rows_matfree_gnm(coord, params, [0, 100, 200],
+                                    norm=False, **kw)[:1]
+
+
+@pytest.mark.parametrize("path", sorted(MATFREE_PATHS))
+def test_matfree_paths_on_cuda(cuda, path):
+    """Each float32 path launches its kernel and no other, and agrees
+    with the float64 plain route on the card: eigenvalues to 1e-4
+    relative, eigenvectors by subspace overlap above 1 - 1e-4, CG rows to
+    1e-3 of max (float32 CG to a relative residual of 1e-6)."""
+    coord = _protein_blob(600, seed=11)
+    wrappers = sct.kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = _matfree_path(path, coord, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    _check_launches(wrappers, before, {MATFREE_PATHS[path]})
+    ref = _matfree_path(path, coord.astype(np.float64), "cuda",
+                        torch.float64)
+    assert got[0].device.type == "cuda"
+    if path.startswith("modes"):
+        vals, vecs = got
+        assert float(((vals.double() - ref[0]).abs() / ref[0]).max()) <= 1e-4
+        overlap = torch.linalg.matrix_norm(vecs.double() @ ref[1].T, ord=-2)
+        assert float(overlap) >= 1 - 1e-4
+    else:
+        assert _rel(got[0], ref[0]) <= 1e-3

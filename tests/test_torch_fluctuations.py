@@ -245,8 +245,10 @@ def test_single_structure_input_rules():
     with pytest.raises(ValueError, match=r"\(n, 3\)"):
         sct.anm_fluctuations(_dense_coords(2, 10, seed=0), params,
                              device="cpu")
-    with pytest.raises(ValueError, match="device"):
-        sct.gnm_fluctuations(_dense_coords(1, 10, seed=0)[0], params)
+    if not torch.cuda.is_available():
+        # a numpy input goes to the card by default
+        with pytest.raises(RuntimeError, match="cuda"):
+            sct.gnm_fluctuations(_dense_coords(1, 10, seed=0)[0], params)
     with pytest.raises(TypeError, match="FFParams"):
         sct.gnm_fluctuations(_dense_coords(1, 10, seed=0)[0],
                              jff.invariant_params(7.0), device="cpu")

@@ -34,6 +34,7 @@ def _run(args, cwd, timeout=120):
 def test_import_leaves_jax_out():
     proc = _run(["-c", "import sys, springcraft_tpu_torch, "
                  "springcraft_tpu_torch.ops.rigid, "
+                 "springcraft_tpu_torch.ops.matfree, "
                  "springcraft_tpu_torch.parallel.pipeline; "
                  "bad = sorted(m for m in sys.modules if m == 'jax' or "
                  "m.startswith(('jax.', 'springcraft_tpu.'))"
@@ -49,7 +50,11 @@ def test_entry_points_are_exported():
                  "ensemble_gnm", "anm_spectral", "gnm_spectral",
                  "ensemble_anm_spectral", "ensemble_gnm_spectral",
                  "ensemble_anm_banded", "ensemble_gnm_banded",
-                 "kernel_wrappers"):
+                 "lowest_modes_matfree", "lowest_modes_matfree_gnm",
+                 "estimate_lambda_max", "covariance_solve_matfree",
+                 "covariance_solve_matfree_gnm", "linear_response_matfree",
+                 "prs_rows_matfree", "dcc_rows_matfree",
+                 "dcc_rows_matfree_gnm", "kernel_wrappers"):
         assert name in sct.__all__ and callable(getattr(sct, name))
 
 
@@ -60,7 +65,8 @@ def test_every_c_entry_point_has_a_wrapper():
     assert entries == {"sc_hessian_planes", "sc_hessian_xyz",
                        "sc_kirchhoff", "sc_regularize_stitch",
                        "sc_panel_inverse", "sc_banded_bisect",
-                       "sc_banded_eigvec"}
+                       "sc_banded_eigvec", "sc_hessian_apply_sparse",
+                       "sc_hessian_apply_dense", "sc_kirchhoff_apply_sparse"}
     sources = "".join(p.read_text() for p in _build.SOURCES)
     for entry in entries:
         assert f'extern "C" int {entry}(' in sources, entry
@@ -73,11 +79,13 @@ def test_float32_products_stay_full_precision():
 
 
 def test_resolve_device():
+    """Entry points default to the card: ``None`` is the current CUDA
+    device, and raises naming cuda where there is none."""
     assert sct.resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(ValueError):
-        sct.resolve_device(None)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        sct.resolve_device(None)
     with pytest.raises(RuntimeError, match="cuda"):
         sct.resolve_device("cuda")
 
@@ -88,14 +96,18 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.name.startswith("springcraft_kernels_")
     assert {p.name for p in _build.SOURCES} >= {
         "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
-        "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu"}
+        "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu",
+        "matfree_hessian.cu", "matfree_kirchhoff.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
                                           "regularize_stitch",
                                           "panel_inverse", "kirchhoff",
                                           "hessian_xyz", "banded_bisect",
-                                          "banded_eigvec"}
+                                          "banded_eigvec",
+                                          "hessian_apply_dense",
+                                          "hessian_apply_sparse",
+                                          "kirchhoff_apply_sparse"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
 

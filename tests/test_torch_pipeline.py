@@ -196,8 +196,13 @@ def test_gnm_ensemble_is_not_ported_yet():
 def test_device_rules():
     coords = _dense_coords(2, 10, seed=0)
     params = sct.invariant_params(7.0)
-    with pytest.raises(ValueError, match="device"):
-        sct.ensemble_anm_fluctuations(coords, params, inverse="blocked")
+    # a numpy input goes to the card by default, and raises without one
+    if torch.cuda.is_available():
+        out = sct.ensemble_anm_fluctuations(coords, params)
+        assert out["msf"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            sct.ensemble_anm_fluctuations(coords, params, inverse="blocked")
     with pytest.raises(ValueError, match="inverse"):
         sct.ensemble_anm_fluctuations(coords, params, inverse="eigh",
                                       device="cpu")
