@@ -49,7 +49,24 @@ Phases:
      orthonormality, each CG solution through its float64 true residual,
      and at n = 3,000 the eigenvalues against float64
      ``torch.linalg.eigvalsh`` and the covariance columns against float64
-     ``covariance_cholesky``; the peak device memory of each path.
+     ``covariance_cholesky``; the peak device memory of each path;
+   * the tabulated force fields: sdENM (26 distance bins, residue types
+     drawn as the JAX package's benchmark draws them, one chain) over the
+     same 1024 conformers — plane traces, covariance with PRS, GNM — each
+     required to have taken its assembly kernel's table branch and held
+     against float64 ``cho_solve``; eANM on the CA trace of
+     ``tests/data/7cal.pdb`` (1776 residues) through ``anm_fluctuations``
+     and ``gnm_fluctuations``, with the relative RMSE of the float32 MSF
+     against the float64 engine (``bench.py:1229-1250``: fails above 1e-3,
+     expected near 1e-5);
+   * ``prep="direct"`` of ``ensemble_anm_fluctuations`` (the
+     coordinates-to-factor-input kernel, invariant field), plane traces
+     and covariance, held against float64 ``cho_solve`` and against the
+     planes path of the same call, with both rates in turns;
+   * the public panel functions ``panel_cholesky_batched``,
+     ``panel_inverse_batched(shrink_block=None)`` and
+     ``spd_inverse_blocked`` on a chunk's equilibrated factor input
+     ``(128, 1024, 1024)``.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -115,6 +132,19 @@ KERNELS.update({
         "springcraft_tpu_torch/csrc/matfree_kirchhoff.cu",
         "springcraft_tpu/ops/matfree.py:964", 1e-5),
 })
+KERNELS.update({
+    "assembly_stitch": (
+        "springcraft_tpu_torch/csrc/assembly_stitch.cu",
+        "springcraft_tpu/ops/pallas_kernels.py:1192", 1e-5),
+    "panel_cholesky": (
+        "springcraft_tpu_torch/csrc/panel_cholesky.cu",
+        "springcraft_tpu/ops/pallas_linalg.py:58", 1e-4),
+    "panel_inverse_full": (
+        "springcraft_tpu_torch/csrc/panel_inverse.cu",
+        "springcraft_tpu/ops/pallas_linalg.py:92", 1e-4),
+})
+#: The assembly kernels, whose wrappers also count their table branch.
+TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff")
 #: Path -> the kernels it must launch.
 PATH_KERNELS = {
     "anm_traces": ("hessian_planes", "regularize_stitch", "panel_inverse"),
@@ -136,7 +166,35 @@ PATH_KERNELS = {
     "anm_matfree_solve": ("hessian_apply_sparse",),
     "gnm_matfree_modes": ("kirchhoff_apply_sparse",),
     "anm_matfree_modes_dense": ("hessian_apply_dense",),
+    # tabulated families: the same kernels, through their table branch
+    "anm_tabulated_traces": ("hessian_planes", "regularize_stitch",
+                             "panel_inverse"),
+    "anm_tabulated_covariance": ("hessian_planes", "regularize_stitch",
+                                 "panel_inverse"),
+    "gnm_tabulated": ("kirchhoff", "panel_inverse"),
+    "anm_7cal_eanm": ("hessian_xyz",),
+    "gnm_7cal_eanm": ("kirchhoff",),
+    "anm_direct_traces": ("assembly_stitch", "panel_inverse"),
+    "anm_direct_covariance": ("assembly_stitch", "panel_inverse"),
+    "panel_functions": ("panel_cholesky", "panel_inverse_full",
+                        "panel_inverse"),
 }
+#: Paths that must go through the table branch of their assembly kernel.
+TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
+               "gnm_tabulated", "anm_7cal_eanm", "gnm_7cal_eanm")
+#: The float32 MSF of 7cal under eANM against the float64 engine, relative
+#: RMSE (bench.py:1243-1250: expected near 1e-5).
+MSF_RMSE_TOL = 1e-3
+#: Outputs of the 7cal paths, max|x - ref| / max|ref|.  7cal's equilibrated
+#: eANM Hessian has a condition number of 4.9e3, and the float32
+#: ``torch.linalg.cholesky_ex`` of its 5328 dimensions on the H100 alone
+#: (float64 solve behind it) leaves the MSF 1.7e-4, the PRS 9.8e-4 and the
+#: sensor profile 1.5e-3 off float64; the float32 assembly contributes 1e-6.
+REAL_STRUCTURE_TOL = 5e-3
+#: Residue names in the order the JAX package's benchmark draws them
+#: (bench.py:176-179).
+AA20 = ("ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
+        "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL")
 #: The matrix-free section of the JAX package's benchmark
 #: (bench.py:656-705): atoms at protein density, seed 4, invariant 13 A;
 #: 14 modes (10 wanted + 4 buffer), degree 96, 10 outer iterations.
@@ -220,6 +278,37 @@ def make_conformers(n_conf, n_res, seed):
         np.float32)
 
 
+def make_ca_atoms(n, seed=0):
+    """Synthetic all-CA structure of one chain with a random sequence at
+    protein density, as the JAX package's benchmark makes the input of
+    its tabulated force fields (``bench.py:183-198``): the coordinates
+    are drawn first, then the residue types."""
+    import numpy as np
+
+    from springcraft_tpu_torch.structure import AtomArray
+
+    rng = np.random.RandomState(seed)
+    atoms = AtomArray(n)
+    atoms.coord = (rng.rand(n, 3) * 34.0 * (n / 300) ** (1 / 3)).astype(
+        np.float32)
+    atoms.atom_name = np.full(n, "CA")
+    atoms.element = np.full(n, "C")
+    atoms.chain_id = np.full(n, "A")
+    atoms.res_id = np.arange(1, n + 1)
+    atoms.res_name = np.array(AA20)[rng.randint(0, 20, n)]
+    return atoms
+
+
+def load_7cal_ca():
+    """The CA trace of the repository's 7cal test structure."""
+    from springcraft_tpu_torch.structure import load_structure
+
+    atoms = load_structure(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+        "7cal.pdb"), model=1)
+    return atoms[(atoms.atom_name == "CA") & (atoms.element == "C")]
+
+
 def cuda_ms(fn, reps=TIMING_REPS):
     """Mean device time of `fn` in milliseconds over `reps` calls, after
     one warm-up call, from CUDA events."""
@@ -274,11 +363,12 @@ def build_kernels():
     _build.load()
     seconds = time.perf_counter() - t0
     # ptxas -v: per kernel, its name, then its spills, then its registers;
-    # a template's window width W follows its name
+    # a template's argument (a window width, or 1 for a table branch)
+    # follows its name
     report, name, spills = [], "?", ""
     for line in (_build.build_log() or "").splitlines():
-        found = re.search(r"entry function .*?([a-z_]+_kernel)(ILi(\d+)E)?",
-                          line)
+        found = re.search(
+            r"entry function .*?([a-z_]+_kernel)(IL[ib](\d+)E)?", line)
         if found:
             name = found.group(1) + (f"<{found.group(3)}>"
                                      if found.group(3) else "")
@@ -338,6 +428,57 @@ def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
     return ref
 
 
+def stitch_parity(results, coords, params, label):
+    """K7 against its plain version (the plain planes through the plain
+    stitch) on a chunk, with the scale and basis its path computes; the
+    bound is the one write of ``reg`` plus the small inputs."""
+    from springcraft_tpu_torch.ops import assembly_kernels, rigid, spd_linalg
+
+    batch, n = coords.shape[:2]
+    m = 3 * n
+    mp = spd_linalg.padded_size(m)
+    _, _, scale_h, ts = rigid._stitch_inputs_from_diag(
+        rigid._hessian_diag_xyz_batched(coords, params),
+        rigid.rigid_modes_anm(coords), None)
+    record(results, "assembly_stitch",
+           lambda: assembly_kernels.assembly_stitch(coords, params, scale_h,
+                                                    ts, mp),
+           lambda: assembly_kernels.assembly_stitch_plain(coords, params,
+                                                          scale_h, ts, mp),
+           (4 * (3 * batch * n + 7 * batch * m + batch * mp * mp),
+            45 * batch * m * m), label=label)
+
+
+def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
+    """The table branch of the three assembly kernels against its plain
+    version (a gather): sdENM on a ``(128, 300)`` chunk, eANM on 7cal's CA
+    trace ``(1, 1776)``.  The branch writes what the analytic one writes,
+    so the bounds are the same bytes; it also reads the tables (at most
+    125 KB) and 4 bytes of codes per atom."""
+    from springcraft_tpu_torch.ops import assembly, assembly_kernels
+
+    def nbytes(b, n, per_pair, p):
+        tables = 4 * (p.n_bins * 1200 + len(p.edges_sq or ()) + n)
+        return 4 * (3 * b * n + per_pair * b * n * n) + tables
+
+    for c, p, label in ((coords, sd_enm, " sdENM"),
+                        (ca_7cal, e_anm, " eANM on 7cal")):
+        b, n = c.shape[:2]
+        if b > 1:
+            record(results, "hessian_planes",
+                   lambda: assembly_kernels.hessian_planes_ensemble(c, p),
+                   lambda: assembly.hessian_planes_plain(c, p),
+                   (nbytes(b, n, 9, p), 30 * b * n * n), label=label)
+        record(results, "hessian_xyz",
+               lambda: assembly_kernels.hessian_xyz_ensemble(c, p),
+               lambda: assembly.hessian_xyz_plain(c, p),
+               (nbytes(b, n, 9, p), 30 * b * n * n), label=label)
+        record(results, "kirchhoff",
+               lambda: assembly_kernels.kirchhoff_ensemble(c, p),
+               lambda: assembly.kirchhoff_plain(c, p),
+               (nbytes(b, n, 1, p), 10 * b * n * n), label=label)
+
+
 def kernel_parity(coords, single, params):
     """Each kernel against its plain version at its paths' shapes
     (`coords` a ``(128, 300)`` chunk, `single` a ``(1, 1776)``
@@ -347,6 +488,7 @@ def kernel_parity(coords, single, params):
     10 for Kirchhoff) never bind."""
     import torch
 
+    import springcraft_tpu_torch as sct
     from springcraft_tpu_torch.ops import assembly, assembly_kernels, rigid
     from springcraft_tpu_torch.ops import spd_linalg
 
@@ -371,6 +513,8 @@ def kernel_parity(coords, single, params):
         (4 * (9 * batch * n * n + 7 * batch * m + batch * mp * mp),
          14 * batch * m * m))
     del planes
+    stitch_parity(results, coords, params, " invariant 13 A")
+    stitch_parity(results, coords, sct.hinsen_params(), " hinsen")
 
     # the first leaf of the recursion: an equilibrated SPD 64-panel; the
     # library call inverts the panels' Cholesky factor (factor excluded)
@@ -384,6 +528,22 @@ def kernel_parity(coords, single, params):
            lambda: spd_linalg.panel_inverse_plain(panels),
            (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
            lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
+    record(results, "panel_inverse_full",
+           lambda: spd_linalg.panel_inverse_full(panels),
+           lambda: spd_linalg.panel_inverse_plain(panels),
+           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+           lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
+    check(torch.equal(spd_linalg.panel_inverse_full(panels),
+                      spd_linalg.panel_inverse_batched(panels)),
+          "panel_inverse_full differs from panel_inverse in some bit")
+    print("parity panel_inverse_full == panel_inverse: bit for bit",
+          flush=True)
+    record(results, "panel_cholesky",
+           lambda: spd_linalg.panel_cholesky(panels),
+           lambda: spd_linalg.panel_cholesky_plain(panels),
+           (4 * 2 * batch * pb * pb, batch * pb ** 3 / 3),
+           lambda: torch.linalg.cholesky(panels))
+    del factor, eye, panels
 
     # the GNM ensemble's chunk, then the single structure
     for c in (coords, single):
@@ -552,6 +712,8 @@ def drive(path, fn):
     wrappers = sct.kernel_wrappers()
     for wrapper in wrappers.values():
         wrapper.launches = 0
+    for name in TABLE_KERNELS:
+        wrappers[name].table_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -559,11 +721,18 @@ def drive(path, fn):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    table = {name: wrappers[name].table_launches for name in TABLE_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"{path} launches: {json.dumps(launches)}; peak device memory "
+    print(f"{path} launches: {json.dumps(launches)}; of these through the "
+          f"table branch: {json.dumps(table)}; peak device memory "
           f"{peak:.1f} MiB", flush=True)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} never launched kernel {name}")
+        if name in TABLE_KERNELS:
+            want = launches[name] if path in TABLE_PATHS else 0
+            check(table[name] == want,
+                  f"{path}: kernel {name} took its table branch "
+                  f"{table[name]} times of {launches[name]}, not {want}")
     return out, seconds, launches
 
 
@@ -591,6 +760,16 @@ def compare(label, out, ref, tols):
           + ", ".join(f"{key} max rel err {err:.3e} (tol "
                       f"{tols.get(key, SLICE_TOL):g})"
                       for key, err in errs.items()), flush=True)
+
+
+def msf_rel_rmse(label, msf32, msf64):
+    """The repository's float32 regression line: relative RMSE of the
+    float32 MSF against the float64 one, failing above MSF_RMSE_TOL."""
+    x, ref = msf32.double(), msf64.double()
+    rmse = float(((x - ref) ** 2).mean().sqrt() / (ref ** 2).mean().sqrt())
+    print(f"{label}: float32 MSF vs float64 engine: rel RMSE {rmse:.2e} "
+          f"(tol {MSF_RMSE_TOL:g}, expected near 1e-5)", flush=True)
+    check(rmse <= MSF_RMSE_TOL, f"{label}: MSF rel RMSE {rmse:.3e}")
 
 
 def timed(fn):
@@ -630,10 +809,10 @@ def ensemble_path(path, run, conformers, shapes, card, repeats):
     return launches
 
 
-def single_path(path, run, coord, shapes, tols, card):
+def single_path(path, run, coord, shapes, tols, card, msf_rmse=False):
     """Drive a single-structure path in float32, hold it against its
-    float64 engine and print the time per structure; returns the
-    launches."""
+    float64 engine (with `msf_rmse` also by the relative RMSE of the MSF)
+    and print the time per structure; returns the launches."""
     import torch
 
     def f32():
@@ -641,9 +820,11 @@ def single_path(path, run, coord, shapes, tols, card):
 
     out, seconds, launches = drive(path, f32)
     check_outputs(path, out, shapes)
-    compare(path, out, run(coord.astype("float64"), dtype=torch.float64),
-            tols)
-    del out
+    ref = run(coord.astype("float64"), dtype=torch.float64)
+    compare(path, out, ref, tols)
+    if msf_rmse:
+        msf_rel_rmse(path, out["msf"], ref["msf"])
+    del out, ref
     again = timed(f32)
     print(f"{path}: N={coord.shape[0]} float32, {seconds * 1e3:.1f} ms "
           f"per structure (first call), {again * 1e3:.1f} ms (second) on "
@@ -792,14 +973,14 @@ def spectral_paths(conformers, single, params, card):
             conformers, {**covariance, **eigen, **modes,
                          "covariance": (n_conf, dim, dim),
                          "mode_vectors": (n_conf, N_MODES, dim)},
-            refs, n_trivial, card, repeats=2)
+            refs, n_trivial, card, repeats=1)
         launches[f"{model}_banded_ensemble"] = spectral_ensemble_path(
             f"{model}_banded_ensemble",
             lambda c, fn=getattr(sct, f"ensemble_{model}_banded"):
                 fn(c, params, **banded),
             conformers, {**covariance, **eigen,
                          "eig_vectors": (n_conf, dim, dim)},
-            refs, n_trivial, card, repeats=1)
+            refs, n_trivial, card, repeats=0)
         del refs
 
     n1 = single.shape[0]
@@ -821,10 +1002,11 @@ def spectral_paths(conformers, single, params, card):
     return launches
 
 
-def paths(conformers, single, params, card):
-    """Drive every path once; returns ``{path: launches}``."""
-    import torch
-
+def fluctuation_ensemble_paths(names, conformers, params, card, repeats,
+                               **options):
+    """Drive the three ensemble fluctuation paths (plane traces,
+    covariance with PRS, GNM; `names` in that order, ``None`` skips one)
+    with `params`; returns ``{path: launches}``."""
     import springcraft_tpu_torch as sct
 
     n_conf, n = conformers.shape[:2]
@@ -834,7 +1016,7 @@ def paths(conformers, single, params, card):
     def anm(coords, **kwargs):
         kwargs.setdefault("with_covariance", False)
         return sct.ensemble_anm_fluctuations(coords, params, device="cuda",
-                                             **kwargs)
+                                             **options, **kwargs)
 
     def gnm(coords, **kwargs):
         return sct.ensemble_gnm_fluctuations(coords, params, device="cuda",
@@ -843,36 +1025,162 @@ def paths(conformers, single, params, card):
     def anm_covariance(coords, **kwargs):
         return anm(coords, with_covariance=True, with_prs=True, **kwargs)
 
-    # cuBLAS/cuSOLVER set-up before the first timed run
-    anm(conformers[:CHUNK], inverse="blocked", chunk=CHUNK)
-    launches = {"anm_traces": ensemble_path("anm_traces", anm, conformers,
-                                            traces, card, repeats=3)}
-    launches["anm_covariance"] = ensemble_path(
-        "anm_covariance", anm_covariance, conformers,
-        {**traces, "covariance": (n_conf, 3 * n, 3 * n),
-         "prs": (n_conf, n, n), "effector": (n_conf, n),
-         "sensor": (n_conf, n)}, card, repeats=2)
-    launches["gnm_ensemble"] = ensemble_path(
-        "gnm_ensemble", gnm, conformers,
-        {**traces, "covariance": (n_conf, n, n)}, card, repeats=2)
+    shapes = (traces,
+              {**traces, "covariance": (n_conf, 3 * n, 3 * n),
+               "prs": (n_conf, n, n), "effector": (n_conf, n),
+               "sensor": (n_conf, n)},
+              {**traces, "covariance": (n_conf, n, n)})
+    return {name: ensemble_path(name, run, conformers, shape, card, reps)
+            for name, run, shape, reps in zip(
+                names, (anm, anm_covariance, gnm), shapes, repeats)
+            if name is not None}
 
-    m = single.shape[0]
+
+def fluctuation_single_paths(names, coord, params, card, msf_rmse=False):
+    """Drive ``anm_fluctuations`` (with PRS) and ``gnm_fluctuations`` on
+    one structure `coord` ``(n, 3)`` with `params`; returns ``{path:
+    launches}``.  With `msf_rmse` (7cal under eANM) the MSF is held by
+    its relative RMSE, the repository's own regression line, and every
+    output to REAL_STRUCTURE_TOL of its largest value."""
+    import springcraft_tpu_torch as sct
+
+    m = coord.shape[0]
     single_traces = {"msf": (m,), "bfactor": (m,), "dcc": (m, m)}
-    cov_tols = dict.fromkeys(("covariance", "prs", "effector", "sensor"),
-                             SINGLE_COV_TOL)
-    launches["anm_single"] = single_path(
-        "anm_single",
+    if msf_rmse:
+        cov_tols = dict.fromkeys((*single_traces, "covariance", "prs",
+                                  "effector", "sensor"), REAL_STRUCTURE_TOL)
+    else:
+        cov_tols = dict.fromkeys(("covariance", "prs", "effector", "sensor"),
+                                 SINGLE_COV_TOL)
+    launches = {names[0]: single_path(
+        names[0],
         lambda c, **kw: sct.anm_fluctuations(c, params, with_prs=True,
                                              device="cuda", **kw),
-        single, {**single_traces, "covariance": (3 * m, 3 * m),
-                 "prs": (m, m), "effector": (m,), "sensor": (m,)},
-        cov_tols, card)
-    launches["gnm_single"] = single_path(
-        "gnm_single",
+        coord, {**single_traces, "covariance": (3 * m, 3 * m),
+                "prs": (m, m), "effector": (m,), "sensor": (m,)},
+        cov_tols, card, msf_rmse)}
+    launches[names[1]] = single_path(
+        names[1],
         lambda c, **kw: sct.gnm_fluctuations(c, params, device="cuda",
                                              **kw),
-        single, {**single_traces, "covariance": (m, m)}, cov_tols, card)
+        coord, {**single_traces, "covariance": (m, m)}, cov_tols, card,
+        msf_rmse)
+    return launches
+
+
+def direct_paths(conformers, params, card):
+    """``prep="direct"`` of the ANM ensemble (K7): both outputs against
+    float64 ``cho_solve`` (as every ensemble path), no launch of the
+    planes kernels, the first chunk against the planes path of the same
+    call to float32 summation order, and the two preps' rates in turns;
+    returns ``{path: launches}``."""
+    import springcraft_tpu_torch as sct
+
+    launches = fluctuation_ensemble_paths(
+        ("anm_direct_traces", "anm_direct_covariance", None), conformers,
+        params, card, (0, 0, 0), prep="direct")
+    for path, count in launches.items():
+        check(count["hessian_planes"] == 0 and count["regularize_stitch"] == 0,
+              f"{path} launched the planes kernels")
+
+    def run(prep, coords=conformers, **kwargs):
+        return sct.ensemble_anm_fluctuations(
+            coords, params, inverse="blocked", chunk=CHUNK, prep=prep,
+            device="cuda", **kwargs)
+
+    for label, kwargs in (("anm_direct_traces", {"with_covariance": False}),
+                          ("anm_direct_covariance", {"with_prs": True})):
+        direct = run("direct", conformers[:CHUNK], **kwargs)
+        planes = run("planes", conformers[:CHUNK], **kwargs)
+        errs = {key: max_errors(direct[key], planes[key])[1]
+                for key in planes}
+        for key, err in errs.items():
+            check(err <= SLICE_TOL, f"{label} {key}: {err:.3e} from the "
+                  f"planes path")
+        del direct, planes
+        rates = {"direct": [], "planes": []}
+        for prep in ("planes", "direct", "direct", "planes"):
+            rates[prep].append(len(conformers) / timed(
+                lambda prep=prep: run(prep, **kwargs)))
+        print(f"{label} vs prep=planes (first chunk): "
+              + ", ".join(f"{key} max rel err {err:.3e}"
+                          for key, err in errs.items())
+              + f" (tol {SLICE_TOL:g}); rates in turns planes, direct, "
+              f"direct, planes: {rates['planes'][0]:.1f}, "
+              f"{rates['direct'][0]:.1f}, {rates['direct'][1]:.1f}, "
+              f"{rates['planes'][1]:.1f} solves/s on [{card}]", flush=True)
+    return launches
+
+
+def panel_function_path(conformers, params):
+    """The public panel functions on the equilibrated factor input of a
+    chunk ``(128, 1024, 1024)``: ``panel_cholesky_batched`` (K8) and
+    ``panel_inverse_batched(shrink_block=None)`` (K9) on its leading
+    64-panels, ``spd_inverse_blocked`` (K3 at the leaves) on the whole;
+    returns ``{path: launches}``."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import rigid, spd_linalg
+
+    coords = torch.as_tensor(conformers[:CHUNK], device="cuda")
+    reg, _, _ = rigid._regularize_equilibrated_direct(
+        coords, params, rigid.rigid_modes_anm(coords))
+    panels = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
+
+    def run():
+        return (sct.panel_cholesky_batched(panels),
+                sct.panel_inverse_batched(panels, shrink_block=None),
+                sct.spd_inverse_blocked(reg))
+
+    ((l, w), w_full, inv), _, launches = drive("panel_functions", run)
+    for name, x in (("l", l), ("w", w), ("w_full", w_full), ("inv", inv)):
+        check(bool(torch.isfinite(x).all()), f"panel_functions: {name}")
+    p64, eye = panels.double(), torch.eye(spd_linalg.LEAF, device="cuda")
+    errs = {
+        "L L^T - A": float((l.double() @ l.double().mT - p64).abs().max()),
+        "W L - I": float((w.double() @ l.double() - eye).abs().max()),
+        "W_full A W_full^T - I": float(
+            (w_full.double() @ p64 @ w_full.double().mT - eye).abs().max()),
+        "inv vs float64 torch.linalg.inv (of max)": max_errors(
+            inv, torch.linalg.inv(reg.double()))[1],
+    }
+    print(f"panel_functions on {tuple(panels.shape)} panels and "
+          f"{tuple(reg.shape)} reg: "
+          + ", ".join(f"{key} {err:.3e}" for key, err in errs.items())
+          + f" (tol {SLICE_TOL:g})", flush=True)
+    for key, err in errs.items():
+        check(err <= SLICE_TOL, f"panel_functions: {key} {err:.3e}")
+    return {"panel_functions": launches}
+
+
+def paths(conformers, single, params, card):
+    """Drive every dense path of the analytic field once; returns
+    ``{path: launches}``."""
+    import springcraft_tpu_torch as sct
+
+    # cuBLAS/cuSOLVER set-up before the first timed run
+    sct.ensemble_anm_fluctuations(conformers[:CHUNK], params,
+                                  inverse="blocked", with_covariance=False,
+                                  device="cuda")
+    launches = fluctuation_ensemble_paths(
+        ("anm_traces", "anm_covariance", "gnm_ensemble"), conformers, params,
+        card, (3, 2, 2))
+    launches.update(fluctuation_single_paths(("anm_single", "gnm_single"),
+                                             single, params, card))
     launches.update(spectral_paths(conformers, single, params, card))
+    return launches
+
+
+def tabulated_paths(conformers, sd_enm, ca_7cal, e_anm, card):
+    """Drive the tabulated paths: sdENM over the conformers, eANM on
+    7cal's CA trace; returns ``{path: launches}``."""
+    launches = fluctuation_ensemble_paths(
+        ("anm_tabulated_traces", "anm_tabulated_covariance",
+         "gnm_tabulated"), conformers, sd_enm, card, (2, 1, 1))
+    launches.update(fluctuation_single_paths(
+        ("anm_7cal_eanm", "gnm_7cal_eanm"), ca_7cal, e_anm, card,
+        msf_rmse=True))
     return launches
 
 
@@ -1254,11 +1562,24 @@ def main():
     params = sct.invariant_params(CUTOFF)
     conformers = make_conformers(N_CONFORMERS, N_RES, SEED)
     single = make_conformers(1, N_SINGLE, SEED)[0]
-    parity = kernel_parity(
-        torch.as_tensor(conformers[:CHUNK], device="cuda"),
-        torch.as_tensor(single[None], device="cuda"), params)
+    sd_enm = sct.TabulatedForceField.sd_enm(
+        make_ca_atoms(N_RES)).to_compact_params()
+    ca_7cal = load_7cal_ca()
+    e_anm = sct.TabulatedForceField.e_anm(ca_7cal).to_compact_params()
+    check(ca_7cal.array_length() == N_SINGLE, "7cal's CA count")
+    chunk = torch.as_tensor(conformers[:CHUNK], device="cuda")
+    parity = kernel_parity(chunk,
+                           torch.as_tensor(single[None], device="cuda"),
+                           params)
+    table_parity(parity, chunk, sd_enm,
+                 torch.as_tensor(ca_7cal.coord[None], device="cuda"), e_anm)
+    del chunk
     matfree_parity(parity)
     launches = paths(conformers, single, params, card)
+    launches.update(tabulated_paths(conformers, sd_enm, ca_7cal.coord, e_anm,
+                                    card))
+    launches.update(direct_paths(conformers, params, card))
+    launches.update(panel_function_path(conformers, params))
     launches.update(matfree_paths(card))
     matfree_anchor(parity)
 

@@ -8,9 +8,11 @@ eigendecomposition — over conformer ensembles
 (:func:`ensemble_anm_fluctuations`, :func:`ensemble_gnm_fluctuations`)
 and for one structure (:func:`anm_fluctuations`,
 :func:`gnm_fluctuations`), with the covariance and PRS — for the analytic
-force fields, with hand-written CUDA kernels for Hopper (``csrc/``) on
-its paths; and the spectral pipelines — eigenvalues, frequencies and
-mode shapes from a two-stage banded eigensolver
+force fields and the tabulated ones (:class:`TabulatedForceField` with
+its named parameterizations sdENM, eANM and the others, built from a
+structure read by :func:`load_structure`), with hand-written CUDA kernels
+for Hopper (``csrc/``) on its paths; and the spectral pipelines —
+eigenvalues, frequencies and mode shapes from a two-stage banded eigensolver
 (:func:`ensemble_anm_spectral`, :func:`ensemble_anm_banded`, their GNM
 twins, :func:`anm_spectral`, :func:`gnm_spectral`) beside the dense
 ``torch.linalg.eigh`` route (:func:`ensemble_anm`, :func:`anm_observables`
@@ -33,7 +35,15 @@ Importing the package turns TF32 off for float32 matrix products (see
 
 from .utils import config  # noqa: F401  (pins float32 precision)
 from .ops.ffparams import (FFParams, from_numpy_params, hinsen_params,
-                           invariant_params, pfenm_params)
+                           invariant_params, pfenm_params,
+                           table_compact_params, table_pair_params)
+from .models.forcefield import (ForceField, HinsenForceField,
+                                InvariantForceField,
+                                ParameterFreeForceField,
+                                TabulatedForceField)
+from .structure import AtomArray, BadStructureError, load_structure
+from .ops.spd_linalg import (panel_cholesky_batched, panel_inverse_batched,
+                             spd_inverse_blocked)
 from .parallel.pipeline import (anm_fluctuations, anm_observables,
                                 anm_spectral, ensemble_anm,
                                 ensemble_anm_banded,
@@ -56,6 +66,19 @@ __all__ = [
     "invariant_params",
     "hinsen_params",
     "pfenm_params",
+    "table_pair_params",
+    "table_compact_params",
+    "ForceField",
+    "InvariantForceField",
+    "HinsenForceField",
+    "ParameterFreeForceField",
+    "TabulatedForceField",
+    "AtomArray",
+    "BadStructureError",
+    "load_structure",
+    "panel_cholesky_batched",
+    "panel_inverse_batched",
+    "spd_inverse_blocked",
     "anm_fluctuations",
     "gnm_fluctuations",
     "ensemble_anm_fluctuations",
@@ -88,12 +111,14 @@ __all__ = [
 def kernel_wrappers():
     """Every kernel wrapper of the port, by kernel name; each keeps its
     launch count in ``.launches``."""
-    from .ops.assembly_kernels import (hessian_planes_ensemble,
+    from .ops.assembly_kernels import (assembly_stitch,
+                                       hessian_planes_ensemble,
                                        hessian_xyz_ensemble,
                                        kirchhoff_ensemble, regularize_stitch)
     from .ops.matfree import (hessian_apply_dense, hessian_apply_sparse,
                               kirchhoff_apply_sparse)
-    from .ops.spd_linalg import panel_inverse_batched
+    from .ops.spd_linalg import (panel_cholesky, panel_inverse_batched,
+                                 panel_inverse_full)
     from .ops.spectrum import banded_bisect, banded_eigvec
 
     return {
@@ -107,4 +132,7 @@ def kernel_wrappers():
         "hessian_apply_dense": hessian_apply_dense,
         "hessian_apply_sparse": hessian_apply_sparse,
         "kirchhoff_apply_sparse": kirchhoff_apply_sparse,
+        "assembly_stitch": assembly_stitch,
+        "panel_cholesky": panel_cholesky,
+        "panel_inverse_full": panel_inverse_full,
     }

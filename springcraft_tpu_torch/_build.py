@@ -50,16 +50,21 @@ _D = ctypes.c_double
 
 #: C entry points and their argument types.
 _SIGNATURES = {
-    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
-    "sc_hessian_planes": (_P, _P, _I, _I, _I, _F, _I, _P),
-    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
-    "sc_hessian_xyz": (_P, _P, _I, _I, _I, _F, _I, _P),
-    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, stream
-    "sc_kirchhoff": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # coords, out, batch, n, kind, cutoff_sq, has_cutoff, tables, edges_sq,
+    # atom_code, n_bins, n_edges, stream: one signature for the three
+    # assembly entries, the last five read only by the tabulated family
+    "sc_hessian_planes": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
+    "sc_hessian_xyz": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
+    "sc_kirchhoff": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
+    # coords, scale_h, ts, out, batch, n, mp, kind, cutoff_sq, has_cutoff,
+    # stream
+    "sc_assembly_stitch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # planes, scale_h, ts, out, batch, n, mp, stream
     "sc_regularize_stitch": (_P, _P, _P, _P, _I, _I, _I, _P),
     # panels, out, count, pb, stream
     "sc_panel_inverse": (_P, _P, _I, _I, _P),
+    "sc_panel_inverse_full": (_P, _P, _I, _I, _P),
+    "sc_panel_cholesky": (_P, _P, _I, _I, _P),
     # feed, lo, hi, out, batch, n, w, n_iter, stream
     "sc_banded_bisect": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # feed, shifts, pivot_floor, l_scratch, d_scratch, x_scratch, out,

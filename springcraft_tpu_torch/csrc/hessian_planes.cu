@@ -12,7 +12,14 @@
 //   the concatenation is folded into the store address,
 //   H[b, a n + p, e n + q].  The single structure runs at B = 1; the JAX
 //   package's vmap of `hessian_pallas` over an ensemble runs at B = chunk.
-// Analytic force-field families only.
+// Analytic families and the tabulated `table_compact` family: both TPU
+// kernels' table branches (the one-hot products of :130-185 in
+// `_hessian_kernel`, the precomputed pair planes of :593-666 in
+// `_hessian_ensemble_kernel`) are one per-pair lookup here (spring.cuh,
+// `table_constant`), so neither the products nor the planes are carried
+// over.  The type tables stay in device memory (batch-invariant, at most
+// 125 KB, read through L2); per-atom codes and bin edges are staged in
+// shared memory behind the coordinates.
 //
 // What bounds it on the H100: memory writes.  Each conformer writes
 // 9 * n^2 floats (415 MB for a 128-conformer chunk at n = 300, 114 MB for
@@ -28,7 +35,9 @@
 // shuffles and writes the diagonal entries itself — no cross-block
 // reduction and no second pass.  A block of 8 warps stages its conformer's
 // coordinates in shared memory (structure of arrays, 12 n bytes: 21 KB at
-// n = 1776; the wrapper refuses n > 4096, past the 48 KB default).
+// n = 1776; 16 n bytes plus the edges for the tabulated family, which
+// passes the 48 KB default from n = 3066 and then opts in; the wrapper
+// refuses n > 4096).
 //
 // Arithmetic follows the JAX kernels operation by operation (spring.cuh);
 // the diagonal's summation order differs.
@@ -41,18 +50,19 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+template <bool kTable>
 __global__ void hessian_kernel(const float* __restrict__ coords,
                                float* __restrict__ out, int batch, int n,
                                int kind, float cutoff_sq, int has_cutoff,
+                               springcraft::PairTable table,
+                               const float* __restrict__ edges_sq,
+                               const int* __restrict__ atom_code,
                                int xyz_layout) {
-  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n]
+  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n], then codes
   const int b = blockIdx.y;
-  const float* c = coords + static_cast<size_t>(b) * n * 3;
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
-    const int atom = i / 3;
-    xyz[(i - atom * 3) * n + atom] = c[i];
-  }
-  __syncthreads();
+  springcraft::stage_conformer<kTable>(
+      xyz, coords + static_cast<size_t>(b) * n * 3, n, atom_code, edges_sq,
+      table);
 
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -83,8 +93,8 @@ __global__ void hessian_kernel(const float* __restrict__ coords,
     d[1] = __fsub_rn(py, xyz[n + q]);
     d[2] = __fsub_rn(pz, xyz[2 * n + q]);
     const float sq = springcraft::squared_distance(d[0], d[1], d[2]);
-    const float k = springcraft::masked_spring_constant(kind, sq, q != p,
-                                                        cutoff_sq, has_cutoff);
+    const float k = springcraft::masked_pair_constant<kTable>(
+        kind, table, p, q, sq, cutoff_sq, has_cutoff);
     const float g = __fdiv_rn(-k, sq == 0.0f ? 1.0f : sq);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -116,29 +126,45 @@ __global__ void hessian_kernel(const float* __restrict__ coords,
 }
 
 int launch(const float* coords, float* out, int batch, int n, int kind,
-           float cutoff_sq, int has_cutoff, int xyz_layout, void* stream) {
+           float cutoff_sq, int has_cutoff, const float* tables,
+           const float* edges_sq, const int* atom_code, int n_bins,
+           int n_edges, int xyz_layout, void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-    const size_t smem = 3 * static_cast<size_t>(n) * sizeof(float);
-    hessian_kernel<<<grid, 32 * kWarpsPerBlock, smem,
+    const size_t smem = springcraft::assembly_smem_bytes(n, kind, n_edges);
+    const auto kernel = kind == springcraft::kTableCompact
+                            ? hessian_kernel<true>
+                            : hessian_kernel<false>;
+    const cudaError_t opt = springcraft::allow_shared_memory(kernel, smem);
+    if (opt != cudaSuccess) return static_cast<int>(opt);
+    const springcraft::PairTable table{tables, nullptr, nullptr, n_bins,
+                                       n_edges};
+    kernel<<<grid, 32 * kWarpsPerBlock, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-        coords, out, batch, n, kind, cutoff_sq, has_cutoff, xyz_layout);
+        coords, out, batch, n, kind, cutoff_sq, has_cutoff, table, edges_sq,
+        atom_code, xyz_layout);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// tables (n_bins, 3, 20, 20), edges_sq (n_edges) and atom_code (n) are read
+// only for kind == table_compact and may be null otherwise.
 extern "C" int sc_hessian_planes(const float* coords, float* out, int batch,
                                  int n, int kind, float cutoff_sq,
-                                 int has_cutoff, void* stream) {
-  return launch(coords, out, batch, n, kind, cutoff_sq, has_cutoff, 0,
-                stream);
+                                 int has_cutoff, const float* tables,
+                                 const float* edges_sq, const int* atom_code,
+                                 int n_bins, int n_edges, void* stream) {
+  return launch(coords, out, batch, n, kind, cutoff_sq, has_cutoff, tables,
+                edges_sq, atom_code, n_bins, n_edges, 0, stream);
 }
 
 extern "C" int sc_hessian_xyz(const float* coords, float* out, int batch,
                               int n, int kind, float cutoff_sq,
-                              int has_cutoff, void* stream) {
-  return launch(coords, out, batch, n, kind, cutoff_sq, has_cutoff, 1,
-                stream);
+                              int has_cutoff, const float* tables,
+                              const float* edges_sq, const int* atom_code,
+                              int n_bins, int n_edges, void* stream) {
+  return launch(coords, out, batch, n, kind, cutoff_sq, has_cutoff, tables,
+                edges_sq, atom_code, n_bins, n_edges, 1, stream);
 }

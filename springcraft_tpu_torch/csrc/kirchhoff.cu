@@ -8,7 +8,10 @@
 //   through `kirchhoff_pallas`): the single structure runs at B = 1, and
 //   the JAX package's vmap of `kirchhoff_pallas` over an ensemble (its
 //   GNM pipelines for the analytic families) runs at B = chunk.
-// Analytic force-field families only.
+// Analytic families and the tabulated `table_compact` family, whose
+// one-hot products (`_kirchhoff_kernel`) and precomputed pair planes
+// (`_kirchhoff_ensemble_kernel`) are one per-pair lookup here (spring.cuh,
+// `table_constant`; see hessian_planes.cu).
 //
 // What bounds it on the H100: memory writes.  Each conformer writes n^2
 // floats (46 MB for a 128-conformer chunk at n = 300) and reads 12 n bytes
@@ -20,7 +23,8 @@
 // (one coalesced 128-byte store per step), the row sum stays in a register
 // and is reduced by warp shuffle, and lane 0 writes the diagonal.  No
 // cross-block reduction.  A block of 8 warps stages its conformer's
-// coordinates in shared memory (12 n bytes; the wrapper refuses n > 4096).
+// coordinates in shared memory (12 n bytes, 16 n plus the edges for the
+// tabulated family; the wrapper refuses n > 4096).
 
 #include <cuda_runtime.h>
 
@@ -30,17 +34,18 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+template <bool kTable>
 __global__ void kirchhoff_kernel(const float* __restrict__ coords,
                                  float* __restrict__ out, int n, int kind,
-                                 float cutoff_sq, int has_cutoff) {
-  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n]
+                                 float cutoff_sq, int has_cutoff,
+                                 springcraft::PairTable table,
+                                 const float* __restrict__ edges_sq,
+                                 const int* __restrict__ atom_code) {
+  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n], then codes
   const int b = blockIdx.y;
-  const float* c = coords + static_cast<size_t>(b) * n * 3;
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
-    const int atom = i / 3;
-    xyz[(i - atom * 3) * n + atom] = c[i];
-  }
-  __syncthreads();
+  springcraft::stage_conformer<kTable>(
+      xyz, coords + static_cast<size_t>(b) * n * 3, n, atom_code, edges_sq,
+      table);
 
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -53,8 +58,8 @@ __global__ void kirchhoff_kernel(const float* __restrict__ coords,
     const float sq = springcraft::squared_distance(
         __fsub_rn(px, xyz[q]), __fsub_rn(py, xyz[n + q]),
         __fsub_rn(pz, xyz[2 * n + q]));
-    const float k = springcraft::masked_spring_constant(kind, sq, q != p,
-                                                        cutoff_sq, has_cutoff);
+    const float k = springcraft::masked_pair_constant<kTable>(
+        kind, table, p, q, sq, cutoff_sq, has_cutoff);
     acc += k;
     if (q != p) row[q] = -k;
   }
@@ -66,15 +71,27 @@ __global__ void kirchhoff_kernel(const float* __restrict__ coords,
 
 }  // namespace
 
+// tables (n_bins, 3, 20, 20), edges_sq (n_edges) and atom_code (n) are read
+// only for kind == table_compact and may be null otherwise.
 extern "C" int sc_kirchhoff(const float* coords, float* out, int batch, int n,
                             int kind, float cutoff_sq, int has_cutoff,
+                            const float* tables, const float* edges_sq,
+                            const int* atom_code, int n_bins, int n_edges,
                             void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-    const size_t smem = 3 * static_cast<size_t>(n) * sizeof(float);
-    kirchhoff_kernel<<<grid, 32 * kWarpsPerBlock, smem,
+    const size_t smem = springcraft::assembly_smem_bytes(n, kind, n_edges);
+    const auto kernel = kind == springcraft::kTableCompact
+                            ? kirchhoff_kernel<true>
+                            : kirchhoff_kernel<false>;
+    const cudaError_t opt = springcraft::allow_shared_memory(kernel, smem);
+    if (opt != cudaSuccess) return static_cast<int>(opt);
+    const springcraft::PairTable table{tables, nullptr, nullptr, n_bins,
+                                       n_edges};
+    kernel<<<grid, 32 * kWarpsPerBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-        coords, out, n, kind, cutoff_sq, has_cutoff);
+        coords, out, n, kind, cutoff_sq, has_cutoff, table, edges_sq,
+        atom_code);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,12 @@
 // Pair arithmetic shared by the assembly kernels (hessian_planes.cu,
-// kirchhoff.cu): the squared distance and the analytic spring-constant
-// rules of springcraft_tpu/ops/pallas_kernels.py:95-108
-// (`_analytic_constants`), operation by operation.
+// kirchhoff.cu, assembly_stitch.cu) and the matrix-free ones: the squared
+// distance, the analytic spring-constant rules of
+// springcraft_tpu/ops/pallas_kernels.py:95-108 (`_analytic_constants`),
+// operation by operation, and the table lookup of the `table_compact`
+// family, which computes what `_compact_tile_constants` (:130-185) and
+// `pair_constant_planes` + `_planes_tile_constants` (:593-666) compute.
+//
+// The bin edges are ascending (the force field checks it).
 //
 // The _rn intrinsics keep nvcc from contracting multiply-adds into FMAs, so
 // the cutoff decision and every pair value follow the same roundings as the
@@ -13,10 +18,12 @@
 
 namespace springcraft {
 
-// Integer tags of the analytic families, as ops/ffparams.py's
-// FFParams.kind_code gives them.
+// Integer tags of the families, as ops/ffparams.py's FFParams.kind_code
+// gives them.
 constexpr int kInvariant = 0;
 constexpr int kHinsen = 1;
+constexpr int kPfenm = 2;
+constexpr int kTableCompact = 3;
 
 // dx * dx + dy * dy + dz * dz, in that order.
 __device__ __forceinline__ float squared_distance(float dx, float dy,
@@ -46,6 +53,116 @@ __device__ __forceinline__ float masked_spring_constant(int kind, float sq,
                                                         int has_cutoff) {
   const bool valid = distinct && (!has_cutoff || sq <= cutoff_sq);
   return valid ? spring_constant(kind, sq) : 0.0f;
+}
+
+// The `table_compact` family as a kernel sees it.  The TPU kernels turn the
+// per-pair gather into one-hot matrix products, or into precomputed
+// (n_bins, n, n) pair planes with a select tree, because the TPU cannot
+// gather; here a pair is one lookup.
+struct PairTable {
+  // (n_bins, 3, 20, 20) in device memory, contexts intra, inter, bonded;
+  // batch-invariant and at most 125 KB (26 bins), so it lives in L2 and is
+  // read through the read-only path.
+  const float* tables;
+  // Squared right bin edges (n_edges) and one packed int per atom (type in
+  // bits 0-4, bonded-to-next flag in bit 5, chain code from bit 6), both
+  // staged in shared memory by the kernel.
+  const float* edges_sq;
+  const int* code;
+  int n_bins;
+  int n_edges;
+};
+
+constexpr int kTypes = 20;
+
+// Tabulated spring constant of the pair (p, q), p != q, at squared distance
+// `sq`: bin = min(#{edges_sq < sq}, n_bins - 1); context bonded for
+// neighbours in the array whose lower one is flagged, else intra-chain for
+// equal chain codes, else inter-chain.
+__device__ __forceinline__ float table_constant(const PairTable& t, int p,
+                                                int q, float sq) {
+  int bin = 0;
+  if (t.n_bins > 1) {
+    // lower bound over the ascending edges: the count of edges below sq
+    int hi = t.n_edges;
+    while (bin < hi) {
+      const int mid = (bin + hi) >> 1;
+      if (sq > t.edges_sq[mid]) bin = mid + 1; else hi = mid;
+    }
+    bin = min(bin, t.n_bins - 1);
+  }
+  const int cp = t.code[p], cq = t.code[q];
+  const int lower = p < q ? cp : cq;
+  const int gap = p < q ? q - p : p - q;
+  int context = (cp >> 6) == (cq >> 6) ? 0 : 1;
+  if (gap == 1 && (lower & 32)) context = 2;
+  return __ldg(t.tables + ((bin * 3 + context) * kTypes + (cp & 31)) * kTypes +
+               (cq & 31));
+}
+
+// Spring constant of the pair (p, q), zero unless p != q and, with a cutoff,
+// sq <= cutoff_sq: the table lookup with kTable, else the analytic rule of
+// `kind`.  The assembly kernels are instantiated once for each, so the
+// analytic instance carries nothing of the lookup.
+template <bool kTable>
+__device__ __forceinline__ float masked_pair_constant(int kind,
+                                                      const PairTable& t,
+                                                      int p, int q, float sq,
+                                                      float cutoff_sq,
+                                                      int has_cutoff) {
+  if constexpr (kTable) {
+    const bool valid = p != q && (!has_cutoff || sq <= cutoff_sq);
+    return valid ? table_constant(t, p, q, sq) : 0.0f;
+  } else {
+    return masked_spring_constant(kind, sq, p != q, cutoff_sq, has_cutoff);
+  }
+}
+
+// Shared-memory bytes of the staged coordinates (structure of arrays) plus,
+// for the tabulated family, the per-atom codes and the edges.
+__host__ __device__ inline size_t assembly_smem_bytes(int n, int kind,
+                                                      int n_edges) {
+  size_t bytes = 3 * static_cast<size_t>(n) * sizeof(float);
+  if (kind == kTableCompact)
+    bytes += static_cast<size_t>(n) * sizeof(int) +
+             static_cast<size_t>(n_edges) * sizeof(float);
+  return bytes;
+}
+
+// Stage one conformer's coordinates `c` (n, 3) as x[0:n], y[n:2n], z[2n:3n]
+// at `smem` and, with kTable, the atom codes and edges behind them; fills
+// the shared pointers of `t`.  Every thread of the block calls it; it ends
+// with a barrier.
+template <bool kTable>
+__device__ __forceinline__ void stage_conformer(float* smem,
+                                                const float* __restrict__ c,
+                                                int n,
+                                                const int* __restrict__ code,
+                                                const float* __restrict__ edges,
+                                                PairTable& t) {
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    const int atom = i / 3;
+    smem[(i - atom * 3) * n + atom] = c[i];
+  }
+  if constexpr (kTable) {
+    int* s_code = reinterpret_cast<int*>(smem + 3 * n);
+    float* s_edges = reinterpret_cast<float*>(s_code + n);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_code[i] = code[i];
+    for (int i = threadIdx.x; i < t.n_edges; i += blockDim.x)
+      s_edges[i] = edges[i];
+    t.code = s_code;
+    t.edges_sq = s_edges;
+  }
+  __syncthreads();
+}
+
+// Opt a kernel in to more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_shared_memory(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace springcraft

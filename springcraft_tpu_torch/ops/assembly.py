@@ -2,7 +2,9 @@
 Dense batched ANM Hessian (xyz plane layout) and GNM Kirchhoff assembly.
 
 Counterpart of ``springcraft_tpu/ops/assembly.py:43-181`` for the
-analytic families.  These are the plain PyTorch versions of the assembly
+analytic and the tabulated families (spring constants from
+:func:`.ffparams.base_constants`: an analytic rule or a table lookup).
+These are the plain PyTorch versions of the assembly
 kernels (wrapped in :mod:`.assembly_kernels`) and follow their
 arithmetic: valid pairs are ``p != q`` within the cutoff; the Hessian
 has ``g = -k / sq`` (``sq == 0`` guarded), ``plane = (g d_a) d_b`` and
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .ffparams import analytic_constants
+from .ffparams import base_constants
 
 __all__ = [
     "kirchhoff_plain",
@@ -35,7 +37,7 @@ def _pair_geometry(coords, params):
     if params.has_cutoff:
         valid = valid & (sq <= torch.as_tensor(params.cutoff_sq,
                                                dtype=sq.dtype))
-    k = torch.where(valid, analytic_constants(params.kind, sq),
+    k = torch.where(valid, base_constants(params, sq),
                     torch.zeros_like(sq))
     return disp, sq, k
 

@@ -3,8 +3,9 @@ Wrappers of the assembly and prep kernels, with their plain versions.
 
 Counterpart of ``springcraft_tpu/ops/pallas_kernels.py:191-554``
 (single-structure Hessian and Kirchhoff assembly), ``:688-1040``
-(ensemble assembly) and ``:1046-1165, 1344-1386`` (the regularize/stitch
-prep), analytic families.
+(ensemble assembly), ``:1046-1165, 1344-1386`` (the regularize/stitch
+prep) and ``:1167-1341`` (the assembly-fused prep); the assembly
+wrappers take the analytic families and ``table_compact``.
 
 * :func:`hessian_planes_ensemble` — kernel ``csrc/hessian_planes.cu``
   (entry ``sc_hessian_planes``); plain version
@@ -16,10 +17,15 @@ prep), analytic families.
   version :func:`.assembly.kirchhoff_plain`.
 * :func:`regularize_stitch` — kernel ``csrc/regularize_stitch.cu``;
   plain version :func:`regularize_stitch_plain`.
+* :func:`assembly_stitch` — kernel ``csrc/assembly_stitch.cu``: the same
+  factor input straight from the coordinates; plain version
+  :func:`assembly_stitch_plain`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (float32 only) or raises.  It never falls back
-from one to the other.  ``<wrapper>.launches`` counts kernel launches.
+from one to the other.  ``<wrapper>.launches`` counts kernel launches;
+the three assembly wrappers also count in ``.table_launches`` those that
+took the kernel's table branch (a ``table_compact`` family).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from .. import _build
 from .assembly import (hessian_planes_plain, hessian_xyz_plain,
                        kirchhoff_plain, planes_to_xyz)
+from .ffparams import ANALYTIC_KINDS
 
 __all__ = [
     "hessian_planes_ensemble",
@@ -36,11 +43,33 @@ __all__ = [
     "kirchhoff_ensemble",
     "regularize_stitch",
     "regularize_stitch_plain",
+    "assembly_stitch",
+    "assembly_stitch_plain",
+    "MAX_ATOMS_STITCH",
 ]
 
-#: Largest conformer the assembly kernels stage in 48 KB of shared memory.
+#: Largest conformer the assembly kernels stage in shared memory (48 KB
+#: of coordinates; the tabulated family adds its atom codes and opts in
+#: to 64 KB).
 _MAX_ATOMS = 4096
+#: Largest conformer :func:`assembly_stitch` stages (coordinates and
+#: scale, 24 n bytes, in the default 48 KB).
+MAX_ATOMS_STITCH = 2048
 _MAX_GRID_YZ = 65535
+
+
+def _table_args(params, n, device):
+    """The table branch's kernel arguments ``(tables, edges_sq,
+    atom_code, n_bins, n_edges)``: pointers to the family's float32
+    device tensors, or nulls for an analytic family."""
+    if params.kind != "table_compact":
+        return None, None, None, 0, 0
+    if params.n_atoms != n:
+        raise ValueError(f"force field was built for {params.n_atoms} "
+                         f"atoms, coordinates have {n}")
+    dev = params.device_tables(device, torch.float32)
+    return (dev["tables"].data_ptr(), dev["edges"].data_ptr(),
+            dev["code"].data_ptr(), params.n_bins, dev["edges"].numel())
 
 
 def _assemble(wrapper, entry, plain, out_shape, coords, params):
@@ -64,8 +93,9 @@ def _assemble(wrapper, entry, plain, out_shape, coords, params):
         entry, coords.device, coords.data_ptr(), out.data_ptr(), batch, n,
         params.kind_code,
         float(params.cutoff_sq) if params.has_cutoff else 0.0,
-        int(params.has_cutoff))
+        int(params.has_cutoff), *_table_args(params, n, coords.device))
     wrapper.launches += 1
+    wrapper.table_launches += params.kind == "table_compact"
     return out
 
 
@@ -95,9 +125,10 @@ def kirchhoff_ensemble(coords, params):
                      lambda b, n: (b, n, n), coords, params)
 
 
-hessian_planes_ensemble.launches = 0
-hessian_xyz_ensemble.launches = 0
-kirchhoff_ensemble.launches = 0
+for _wrapper in (hessian_planes_ensemble, hessian_xyz_ensemble,
+                 kirchhoff_ensemble):
+    _wrapper.launches = 0
+    _wrapper.table_launches = 0
 
 
 def regularize_stitch_plain(planes, scale_h, ts, mp):
@@ -164,3 +195,73 @@ def regularize_stitch(planes, scale_h, ts, mp):
 
 
 regularize_stitch.launches = 0
+
+
+def _check_stitch_inputs(name, coords, params, scale_h, ts, mp):
+    if params.kind not in ANALYTIC_KINDS:
+        raise ValueError(f"{name} takes the analytic families "
+                         f"{ANALYTIC_KINDS}, got kind={params.kind!r}")
+    if coords.ndim != 3 or coords.shape[-1] != 3:
+        raise ValueError(f"{name}: coords must be (B, n, 3), got "
+                         f"{tuple(coords.shape)}")
+    batch, n, _ = coords.shape
+    m = 3 * n
+    if tuple(scale_h.shape) != (batch, m) \
+            or tuple(ts.shape) != (batch, m, 6):
+        raise ValueError(
+            f"{name}: scale_h must be ({batch}, {m}) and ts ({batch}, "
+            f"{m}, 6), got {tuple(scale_h.shape)} and {tuple(ts.shape)}")
+    if mp < m:
+        raise ValueError(f"{name}: mp={mp} must be >= 3n={m}")
+
+
+def assembly_stitch_plain(coords, params, scale_h, ts, mp):
+    """Plain version of :func:`assembly_stitch`: the plain Hessian
+    planes through the plain stitch."""
+    _check_stitch_inputs("assembly_stitch_plain", coords, params, scale_h,
+                         ts, mp)
+    return regularize_stitch_plain(hessian_planes_plain(coords, params),
+                                   scale_h, ts, mp)
+
+
+def assembly_stitch(coords, params, scale_h, ts, mp):
+    """The factor input of :func:`regularize_stitch` straight from the
+    coordinates, in one kernel: the nine Hessian planes are recomputed
+    where they are scaled and never reach device memory.  Analytic
+    families.
+
+    Parameters
+    ----------
+    coords : Tensor, shape=(B, n, 3)
+    params : FFParams
+    scale_h : Tensor, shape=(B, 3n)
+    ts : Tensor, shape=(B, 3n, 6)
+    mp : int
+        As for :func:`regularize_stitch`.
+
+    Returns
+    -------
+    reg : Tensor, shape=(B, mp, mp)
+    """
+    _check_stitch_inputs("assembly_stitch", coords, params, scale_h, ts, mp)
+    if _build.route("assembly_stitch", coords, scale_h, ts) == "cpu":
+        return assembly_stitch_plain(coords, params, scale_h, ts, mp)
+    _build.require_cuda_f32("assembly_stitch", coords=coords,
+                            scale_h=scale_h, ts=ts)
+    batch, n, _ = coords.shape
+    if n > MAX_ATOMS_STITCH or batch > _MAX_GRID_YZ:
+        raise ValueError(f"assembly_stitch: (B, n) = ({batch}, {n}) exceeds "
+                         f"the kernel's limits (B <= {_MAX_GRID_YZ}, n <= "
+                         f"{MAX_ATOMS_STITCH})")
+    out = torch.empty((batch, mp, mp), dtype=torch.float32,
+                      device=coords.device)
+    _build.launch("sc_assembly_stitch", coords.device, coords.data_ptr(),
+                  scale_h.data_ptr(), ts.data_ptr(), out.data_ptr(), batch,
+                  n, mp, params.kind_code,
+                  float(params.cutoff_sq) if params.has_cutoff else 0.0,
+                  int(params.has_cutoff))
+    assembly_stitch.launches += 1
+    return out
+
+
+assembly_stitch.launches = 0

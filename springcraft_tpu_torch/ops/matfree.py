@@ -93,17 +93,17 @@ def _round_up(x, m):
 
 
 def _check_params(params):
-    if isinstance(params, FFParams):
-        return
     kind = getattr(params, "kind", type(params).__name__)
+    if isinstance(params, FFParams) and kind in ANALYTIC_KINDS:
+        return
     if kind in ANALYTIC_KINDS:
         raise TypeError("params must be springcraft_tpu_torch FFParams "
                         "(see ops.ffparams.from_numpy_params)")
     raise ValueError(
         f"matrix-free path does not support kind={kind!r}: the port's "
         f"matrix-free operators take the analytic families "
-        f"{ANALYTIC_KINDS} (tabulated families and patch overlays are a "
-        f"later slice, ROADMAP.md)")
+        f"{ANALYTIC_KINDS} (the table lookup of its kernels and patch "
+        f"overlays are a later slice, ROADMAP.md)")
 
 
 def _squared_distance(d):

@@ -20,7 +20,10 @@ and DCC consume (:func:`covariance_plane_traces`):
   products of the column-scaled factor; the ANM ensemble pipeline feeds
   it from the raw Hessian planes through the regularize/stitch kernel
   (:func:`covariance_plane_traces_from_planes`,
-  :func:`covariance_cholesky_from_planes`);
+  :func:`covariance_cholesky_from_planes`) or, opt-in, straight from
+  the coordinates through the assembly-fused stitch kernel
+  (:func:`covariance_plane_traces_direct`,
+  :func:`covariance_cholesky_direct`; analytic families);
 * ``"cho_solve"`` — ``torch.linalg.cholesky_ex`` plus a solve against
   the identity, any dtype: the single-structure engine and the port's
   own float64 reference.
@@ -36,15 +39,21 @@ import torch
 import torch.nn.functional as F
 
 from . import spd_linalg
-from .assembly_kernels import regularize_stitch
+from .assembly import _pair_geometry
+from .assembly_kernels import (MAX_ATOMS_STITCH, assembly_stitch,
+                               regularize_stitch)
+from .ffparams import ANALYTIC_KINDS
 
 __all__ = [
     "rigid_modes_anm",
     "null_mode_gnm",
     "covariance_cholesky",
     "covariance_cholesky_from_planes",
+    "covariance_cholesky_direct",
     "covariance_plane_traces",
     "covariance_plane_traces_from_planes",
+    "covariance_plane_traces_direct",
+    "direct_prep_applies",
 ]
 
 
@@ -113,25 +122,31 @@ def _regularize_equilibrated(matrix, t, pad_to=None):
     return reg, scale, sigma
 
 
-def stitch_inputs(planes, t, masses=None):
-    """Everything the regularize/stitch kernel needs besides the planes:
-    ``(scale, sigma, scale_h, ts)``.  ``scale`` un-scales the inverse
-    factor downstream; ``scale_h = scale * w`` folds the mass weights
-    ``w = 1 / sqrt(m)`` of ``M' = W H W`` into the kernel's row and
-    column scale."""
-    n = planes.shape[-1]
-    diag_m = torch.cat([torch.diagonal(planes[4 * a], dim1=-2, dim2=-1)
-                        for a in range(3)], dim=-1)          # (B, 3n)
+def _stitch_inputs_from_diag(diag_m, t, masses):
+    """``(scale, sigma, scale_h, ts)`` of the stitch kernels from the
+    raw Hessian diagonal ``(B, 3n)``: mass weights ``w = 1 / sqrt(m)``
+    of ``M' = W H W`` scale the diagonal and fold into the kernel's row
+    and column scale ``scale_h = scale * w``; ``scale`` un-scales the
+    inverse factor downstream."""
     w_xyz = None
     if masses is not None:
-        w_xyz = (1.0 / torch.sqrt(masses.to(planes.dtype))).repeat(3)
+        w_xyz = (1.0 / torch.sqrt(masses.to(diag_m.dtype))).repeat(3)
         diag_m = diag_m * (w_xyz * w_xyz)[None]
     scale, sigma, ts = _equilibration(diag_m, t)
     scale_h = scale if w_xyz is None else scale * w_xyz[None]
-    if ts.shape[-2] != 3 * n:
-        raise ValueError(f"null basis has {ts.shape[-2]} rows, planes "
-                         f"need {3 * n}")
+    if ts.shape[-2] != diag_m.shape[-1]:
+        raise ValueError(f"null basis has {ts.shape[-2]} rows, the "
+                         f"Hessian has {diag_m.shape[-1]}")
     return scale, sigma, scale_h.contiguous(), ts.contiguous()
+
+
+def stitch_inputs(planes, t, masses=None):
+    """Everything the regularize/stitch kernel needs besides the planes
+    (see :func:`_stitch_inputs_from_diag`), the diagonal read off the
+    three diagonal planes."""
+    diag_m = torch.cat([torch.diagonal(planes[4 * a], dim1=-2, dim2=-1)
+                        for a in range(3)], dim=-1)          # (B, 3n)
+    return _stitch_inputs_from_diag(diag_m, t, masses)
 
 
 def _regularize_equilibrated_planes(planes, n, t, masses=None):
@@ -145,6 +160,38 @@ def _regularize_equilibrated_planes(planes, n, t, masses=None):
     scale, sigma, scale_h, ts = stitch_inputs(planes, t, masses)
     mp = spd_linalg.padded_size(3 * n)
     return regularize_stitch(planes, scale_h, ts, mp), scale, sigma
+
+
+def _hessian_diag_xyz_batched(coords, params):
+    """``(B, 3n)`` diagonal of the xyz-layout ANM Hessian straight from
+    coordinates: all the assembly-fused prep needs ahead of its kernel
+    (the Jacobi scale is a global function of the diagonal through
+    ``sigma``, so the kernel cannot compute it row by row).  Plain
+    PyTorch, O(n) output."""
+    disp, sq, k = _pair_geometry(coords, params)
+    g = k / torch.where(sq == 0, torch.ones_like(sq), sq)
+    return torch.cat([(g * d * d).sum(dim=-1) for d in disp], dim=-1)
+
+
+def direct_prep_applies(params, n):
+    """Whether the assembly-fused prep covers this configuration: an
+    analytic family at a size its kernel stages.  Anything else takes
+    the planes path, as in the JAX package."""
+    return params.kind in ANALYTIC_KINDS and n <= MAX_ATOMS_STITCH
+
+
+def _regularize_equilibrated_direct(coords, params, t, masses=None):
+    """Semantic twin of :func:`_regularize_equilibrated_planes` that
+    starts from the coordinates ``(B, n, 3)``: the pair planes are
+    recomputed inside the assembly-fused stitch kernel and never reach
+    device memory.  ``scale`` and ``sigma`` match the planes path to
+    the summation order of the diagonal.  Returns ``(reg, scale,
+    sigma)``."""
+    t = t.to(coords.dtype)
+    scale, sigma, scale_h, ts = _stitch_inputs_from_diag(
+        _hessian_diag_xyz_batched(coords, params), t, masses)
+    mp = spd_linalg.padded_size(3 * coords.shape[1])
+    return assembly_stitch(coords, params, scale_h, ts, mp), scale, sigma
 
 
 def _padded_scale(scale, mp):
@@ -271,6 +318,29 @@ def covariance_cholesky_from_planes(planes, n, null_basis, masses=None):
     reg, scale, sigma = _regularize_equilibrated_planes(
         planes, n, t, masses=masses)
     m = 3 * n
+    w = _w_from_reg_blocked(reg, scale)
+    return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
+
+
+def covariance_plane_traces_direct(coords, params, null_basis,
+                                   masses=None):
+    """:func:`covariance_plane_traces_from_planes` straight from the
+    coordinates ``(B, n, 3)`` through the assembly-fused prep."""
+    n = coords.shape[1]
+    t = null_basis.to(coords.dtype)
+    reg, scale, sigma = _regularize_equilibrated_direct(
+        coords, params, t, masses=masses)
+    parts = _w_parts_from_reg_blocked(reg, scale)
+    return _plane_traces_from_w_parts(parts, t, sigma, n)
+
+
+def covariance_cholesky_direct(coords, params, null_basis, masses=None):
+    """:func:`covariance_cholesky_from_planes` straight from the
+    coordinates ``(B, n, 3)`` through the assembly-fused prep."""
+    m = 3 * coords.shape[1]
+    t = null_basis.to(coords.dtype)
+    reg, scale, sigma = _regularize_equilibrated_direct(
+        coords, params, t, masses=masses)
     w = _w_from_reg_blocked(reg, scale)
     return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
 

@@ -1,8 +1,9 @@
 """
 Batched divide-and-conquer inverse Cholesky factor of SPD matrices.
 
-Counterpart of ``springcraft_tpu/ops/pallas_linalg.py:270-623``
-(:func:`spd_inverse_factor`, :func:`spd_inverse_factor_parts`).  The
+Counterpart of ``springcraft_tpu/ops/pallas_linalg.py:192-623``
+(:func:`spd_inverse_factor`, :func:`spd_inverse_factor_parts`,
+:func:`spd_inverse_blocked`, the panel functions).  The
 recursion keeps the JAX package's split points, padding and exact-zero
 block skips, so that both packages factor the SAME padded problem:
 
@@ -15,7 +16,12 @@ The node products are plain ``torch.matmul`` (the JAX package leaves
 them to XLA).  The leaves, ``L^-1`` of SPD panels of at most ``LEAF``
 rows, are the kernel ``csrc/panel_inverse.cu`` behind
 :func:`panel_inverse_batched`, with :func:`panel_inverse_plain` beside
-it.
+it.  Two more public panel functions stand beside the recursion, as in
+the JAX package: the full-window form of the same elimination
+(:func:`panel_inverse_full`, the kernel's second entry, reached through
+``panel_inverse_batched(shrink_block=None)``) and the panel Cholesky
+factor (:func:`panel_cholesky_batched`, kernel
+``csrc/panel_cholesky.cu``, plain version :func:`panel_cholesky_plain`).
 """
 
 from __future__ import annotations
@@ -28,7 +34,12 @@ from .. import _build
 __all__ = [
     "LEAF",
     "panel_inverse_batched",
+    "panel_inverse_full",
     "panel_inverse_plain",
+    "panel_cholesky",
+    "panel_cholesky_batched",
+    "panel_cholesky_plain",
+    "spd_inverse_blocked",
     "spd_inverse_factor",
     "spd_inverse_factor_parts",
     "padded_size",
@@ -38,6 +49,8 @@ __all__ = [
 #: ``block``), and the largest panel the kernel takes: its ``[M | I]``
 #: state, 2 pb^2 floats, lives in shared memory (32 KB).
 LEAF = 64
+#: Largest panel the Cholesky kernel takes (66 KB of shared memory).
+MAX_CHOLESKY_PANEL = 128
 
 
 def _round_up(x, m):
@@ -70,26 +83,103 @@ def panel_inverse_plain(panels):
     return torch.tril(s[:, :, pb:])
 
 
-def panel_inverse_batched(panels):
-    """``L^-1`` (lower triangular, strict upper exactly zero) of a batch
-    of SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
-    ``LEAF`` on CUDA)."""
+def _launch_panels(wrapper, entry, plain, panels, limit):
+    """Run a panel kernel (C entry `entry`, panels up to `limit` rows)
+    on `panels`, or its plain version on a CPU tensor."""
+    name = wrapper.__name__
     _check_panels(panels)
-    if _build.route("panel_inverse_batched", panels) == "cpu":
-        return panel_inverse_plain(panels)
-    _build.require_cuda_f32("panel_inverse_batched", panels=panels)
+    if _build.route(name, panels) == "cpu":
+        return plain(panels)
+    _build.require_cuda_f32(name, panels=panels)
     count, pb, _ = panels.shape
-    if pb > LEAF:
-        raise ValueError(f"panel_inverse_batched: pb={pb} exceeds "
-                         f"{LEAF}")
+    if pb > limit:
+        raise ValueError(f"{name}: pb={pb} exceeds {limit}, the largest "
+                         f"panel the kernel holds in shared memory")
     out = torch.empty_like(panels)
-    _build.launch("sc_panel_inverse", panels.device, panels.data_ptr(),
-                  out.data_ptr(), count, pb)
-    panel_inverse_batched.launches += 1
+    _build.launch(entry, panels.device, panels.data_ptr(), out.data_ptr(),
+                  count, pb)
+    wrapper.launches += 1
     return out
 
 
+def panel_inverse_batched(panels, shrink_block=8):
+    """``L^-1`` (lower triangular, strict upper exactly zero) of a batch
+    of SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
+    ``LEAF`` on CUDA).
+
+    `shrink_block` keeps the JAX package's switch: any block size that
+    divides ``pb`` takes the kernel that leaves finished rows alone (it
+    retires them one by one, and every block size gives the same bits);
+    ``None`` takes the full-window kernel, :func:`panel_inverse_full`,
+    with the same result."""
+    if shrink_block is None:
+        return panel_inverse_full(panels)
+    _check_panels(panels)
+    if shrink_block <= 0 or panels.shape[-1] % shrink_block:
+        raise ValueError(f"shrink_block must divide pb={panels.shape[-1]}, "
+                         f"got {shrink_block}")
+    return _launch_panels(panel_inverse_batched, "sc_panel_inverse",
+                          panel_inverse_plain, panels, LEAF)
+
+
+def panel_inverse_full(panels):
+    """:func:`panel_inverse_batched` by the full-window elimination:
+    every step updates all ``pb`` rows over all ``2 pb`` columns of
+    ``[M | I]``.  On an SPD panel its output equals the other kernel's
+    bit for bit (the extra updates are exact zeros)."""
+    return _launch_panels(panel_inverse_full, "sc_panel_inverse_full",
+                          panel_inverse_plain, panels, LEAF)
+
+
+def panel_cholesky_plain(panels):
+    """Plain version of :func:`panel_cholesky`: right-looking Cholesky
+    as a loop of tensor ops over the batch, no pivot clamp."""
+    _check_panels(panels)
+    pb = panels.shape[-1]
+    s = panels.clone()
+    for i in range(pb):
+        rs = 1.0 / torch.sqrt(s[:, i, i])
+        col = s[:, i:, i] * rs[:, None]
+        s[:, i:, i] = col
+        s[:, i + 1:, i + 1:] = s[:, i + 1:, i + 1:] \
+            - col[:, 1:, None] * col[:, None, 1:]
+    return torch.tril(s)
+
+
+def panel_cholesky(panels):
+    """Lower Cholesky factors (strict upper exactly zero) of a batch of
+    SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
+    ``MAX_CHOLESKY_PANEL`` on CUDA).  A panel that is not SPD gives
+    non-finite output."""
+    return _launch_panels(panel_cholesky, "sc_panel_cholesky",
+                          panel_cholesky_plain, panels, MAX_CHOLESKY_PANEL)
+
+
 panel_inverse_batched.launches = 0
+panel_inverse_full.launches = 0
+panel_cholesky.launches = 0
+
+
+def _tri_inverse_newton(l):
+    """Exact inverse of batched lower-triangular panels by log-depth
+    Newton iteration: with ``X0 = diag(L)^-1`` the residual ``I - X L``
+    is strictly lower triangular, so each ``X <- X (2 I - L X)``
+    squares it to zero in ``ceil(log2(pb))`` rounds.  Plain matrix
+    products, as in the JAX package."""
+    pb = l.shape[-1]
+    d = torch.diagonal(l, dim1=-2, dim2=-1)
+    x = torch.eye(pb, dtype=l.dtype, device=l.device) / d[..., :, None]
+    for _ in range(max(1, (pb - 1).bit_length())):
+        x = 2.0 * x - x @ (l @ x)
+    return x
+
+
+def panel_cholesky_batched(panels):
+    """Cholesky factor and its inverse for a batch of small SPD panels
+    ``(P, pb, pb)``: ``(l, w)`` with ``l`` lower triangular and
+    ``w = l^-1`` by Newton products on ``l``."""
+    l = panel_cholesky(panels)
+    return l, _tri_inverse_newton(l)
 
 
 def padded_size(m):
@@ -131,6 +221,15 @@ def spd_inverse_factor(a):
     upper triangle is exactly zero."""
     g = _recursive_inverse_factor(_identity_padded(a))
     return g.reshape(a.shape[:-2] + g.shape[-2:])
+
+
+def spd_inverse_blocked(a):
+    """Dense inverse ``(..., m, m)`` of a batch of SPD matrices by the
+    divide-and-conquer inverse factor and one Gram product,
+    ``A^-1 = (G^T G)[:m, :m]``."""
+    m = a.shape[-1]
+    g = spd_inverse_factor(a)
+    return (g.transpose(-1, -2) @ g)[..., :m, :m]
 
 
 def spd_inverse_factor_parts(a):

@@ -17,7 +17,8 @@ The ANM blocked engine runs per chunk of conformers:
 1. rigid-body bases (``torch.linalg.qr``);
 2. raw Hessian planes — kernel ``hessian_planes.cu``;
 3. regularized, equilibrated, identity-padded factor input — kernel
-   ``regularize_stitch.cu``;
+   ``regularize_stitch.cu`` (with ``prep="direct"`` steps 2 and 3 are
+   one kernel, ``assembly_stitch.cu``, for the analytic families);
 4. divide-and-conquer inverse factor — ``torch.matmul`` nodes, kernel
    ``panel_inverse.cu`` at the 64-wide leaves;
 5. blockwise plane-trace Grams or, with ``with_covariance``, the Gram of
@@ -32,9 +33,14 @@ points assemble dense matrices with the kernels in float32
 (``hessian_planes.cu``'s xyz-layout store, ``kirchhoff.cu``) and with
 their plain versions in any other dtype — the JAX package's rule
 (``_resolve_use_pallas``: the kernels are float32-only) — then factor
-with ``torch.linalg``.  ``inverse="auto"`` takes ``"blocked"`` for
-float32 on CUDA and ``"cho_solve"`` otherwise (``:785-794``, the TPU read
-as CUDA).
+with ``torch.linalg``.  Every entry point takes an ``FFParams`` or a
+force-field object (:mod:`..models.forcefield`), which is lowered to its
+compact parameters where it has them (``:985-1000``); the tabulated
+``table_compact`` family runs through the same kernels, the
+position-specific ``table_pair`` through the plain assembly in every
+dtype (as the JAX package leaves it to XLA).  ``inverse="auto"`` takes
+``"blocked"`` for float32 on CUDA and ``"cho_solve"`` otherwise
+(``:785-794``, the TPU read as CUDA).
 
 **Spectral pipelines** (``:74-196, 268-598, 1003-1032``), over dense
 Hessians or Kirchhoff matrices from the same assembly:
@@ -67,7 +73,7 @@ from ..ops.assembly import hessian_xyz_plain, kirchhoff_plain
 from ..ops.assembly_kernels import (hessian_planes_ensemble,
                                     hessian_xyz_ensemble,
                                     kirchhoff_ensemble)
-from ..ops.ffparams import FFParams
+from ..ops.ffparams import KERNEL_KINDS, FFParams
 from ..utils.config import as_tensor
 
 __all__ = [
@@ -104,8 +110,10 @@ def _mass_weight(matrix, masses, xyz=False):
 
 def _assemble_by_dtype(kernel, plain, coords, params):
     """`kernel` (its wrapper launches on CUDA, or runs its plain version
-    on the CPU) for float32 coordinates; `plain` for any other dtype."""
-    fn = kernel if coords.dtype == torch.float32 else plain
+    on the CPU) for float32 coordinates of a family the kernels take;
+    `plain` for any other dtype and for ``table_pair``."""
+    fn = kernel if coords.dtype == torch.float32 \
+        and params.kind in KERNEL_KINDS else plain
     return fn(coords, params)
 
 
@@ -153,10 +161,20 @@ def _gnm_cov_observables(cov, with_dcc):
 
 
 def _anm_chunk(coords, params, masses, inverse, with_covariance,
-               with_dcc, with_prs):
+               with_dcc, with_prs, prep="planes"):
     n = coords.shape[1]
     bases = rigid.rigid_modes_anm(coords, masses=masses)
-    if inverse == "blocked":
+    if inverse == "blocked" and prep == "direct" \
+            and rigid.direct_prep_applies(params, n):
+        # assembly-fused prep (opt-in): coordinates to factor input in
+        # one kernel, the planes never reach device memory
+        if not with_covariance:
+            return _anm_trace_observables(
+                rigid.covariance_plane_traces_direct(
+                    coords, params, bases, masses=masses), with_dcc)
+        cov = rigid.covariance_cholesky_direct(coords, params, bases,
+                                               masses=masses)
+    elif inverse == "blocked" and params.kind in KERNEL_KINDS:
         planes = hessian_planes_ensemble(coords, params)
         if not with_covariance:
             return _anm_trace_observables(
@@ -165,11 +183,14 @@ def _anm_chunk(coords, params, masses, inverse, with_covariance,
         cov = rigid.covariance_cholesky_from_planes(planes, n, bases,
                                                     masses=masses)
     else:
+        # cho_solve, or the blocked engine on dense Hessians for a
+        # family without an assembly kernel (table_pair)
         hessians = _build_hessians_batched(coords, params, masses)
         if not with_covariance:
             return _anm_trace_observables(
-                rigid.covariance_plane_traces(hessians, bases), with_dcc)
-        cov = rigid.covariance_cholesky(hessians, bases)
+                rigid.covariance_plane_traces(hessians, bases,
+                                              inverse=inverse), with_dcc)
+        cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse)
     return _anm_cov_observables(cov, n, with_dcc, with_prs)
 
 
@@ -201,12 +222,32 @@ def _check_prs(with_covariance, with_prs):
             "all nine covariance plane blocks, not just the traces")
 
 
+def _resolve_params(params):
+    """An :class:`FFParams`, given as such or as a force-field object,
+    which is lowered to its compact parameters where it has them and to
+    its ``to_params()`` otherwise (``pipeline.py:985-1000``)."""
+    if isinstance(params, FFParams):
+        return params
+    to_compact = getattr(params, "to_compact_params", None)
+    if to_compact is not None:
+        return to_compact()
+    to_params = getattr(params, "to_params", None)
+    if to_params is not None and not hasattr(params, "kind"):
+        lowered = to_params()
+        if lowered is None:
+            raise ValueError("This force field has no device "
+                             "parameterization")
+        return lowered
+    raise TypeError("params must be springcraft_tpu_torch FFParams (see "
+                    "ops.ffparams.from_numpy_params) or a force field of "
+                    "springcraft_tpu_torch.models")
+
+
 def _prepare(coords, params, masses, dtype, device, ndim):
     """Coordinates (``(B, n, 3)`` for ``ndim=3``, ``(n, 3)`` for 2) and
-    masses as contiguous tensors of `dtype` on one device."""
-    if not isinstance(params, FFParams):
-        raise TypeError("params must be springcraft_tpu_torch FFParams "
-                        "(see ops.ffparams.from_numpy_params)")
+    masses as contiguous tensors of `dtype` on one device, and the
+    lowered :class:`FFParams`."""
+    params = _resolve_params(params)
     coords = as_tensor(coords, dtype, device).contiguous()
     if coords.ndim != ndim or coords.shape[-1] != 3:
         shape = "(B, n, 3)" if ndim == 3 else "(n, 3)"
@@ -214,7 +255,7 @@ def _prepare(coords, params, masses, dtype, device, ndim):
                          f"{tuple(coords.shape)}")
     if masses is not None:
         masses = as_tensor(masses, dtype, coords.device)
-    return coords, masses
+    return coords, params, masses
 
 
 def _run_chunked(run, coords, chunk):
@@ -256,9 +297,11 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     coords : Tensor or ndarray, shape=(B, n, 3)
         Conformers of one protein.  A tensor keeps its device; anything
         else goes to `device`.
-    params : FFParams
-        Analytic force field (see :func:`.ops.ffparams.from_numpy_params`
-        to carry one across from the JAX package).
+    params : FFParams or force field
+        An analytic or tabulated family (see
+        :func:`.ops.ffparams.from_numpy_params` to carry one across
+        from the JAX package), or a force-field object of
+        :mod:`..models.forcefield`, lowered to its compact parameters.
     masses : Tensor or ndarray, shape=(n,), optional
         Mass-weights the Hessian (``W H W``, ``W = diag(1/sqrt(m))``).
     inverse : {"auto", "blocked", "cho_solve"}
@@ -284,8 +327,13 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
         Also return the PRS matrix ``prs`` ``(B, n, n)`` and its
         ``effector`` and ``sensor`` profiles ``(B, n)``; needs
         `with_covariance`.
-    prep : {"planes"}
-        ``"direct"`` needs kernel K7, which is not ported yet.
+    prep : {"planes", "direct"}
+        Blocked engine only.  ``"planes"`` assembles the raw Hessian
+        planes and stitches them into the factor input; ``"direct"``
+        recomputes the planes inside the stitch kernel so that they
+        never reach device memory (analytic families; a tabulated
+        family takes the planes path all the same, as in the JAX
+        package).  Equal to float32 summation order.
 
     Returns
     -------
@@ -293,16 +341,15 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     for, ``dcc``, ``covariance``, ``prs``, ``effector`` and ``sensor``.
     A disconnected network gives non-finite values by design.
     """
-    if prep != "planes":
-        raise NotImplementedError(
-            f"prep={prep!r} needs the assembly-fused stitch kernel K7, "
-            f"which is not ported yet (ROADMAP.md, kernel table)")
+    if prep not in ("planes", "direct"):
+        raise ValueError(f"prep must be 'planes' or 'direct', got {prep!r}")
     _check_prs(with_covariance, with_prs)
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
-                             with_dcc, with_prs), coords, chunk)
+                             with_dcc, with_prs, prep), coords, chunk)
 
 
 def ensemble_gnm_fluctuations(coords, params, masses=None, *,
@@ -314,7 +361,8 @@ def ensemble_gnm_fluctuations(coords, params, masses=None, *,
     (mass-scaled) constant mode.  ``inverse="blocked"`` runs the kernels
     (float32 on CUDA); ``"cho_solve"`` runs in any dtype; ``"auto"``
     picks as :func:`ensemble_anm_fluctuations` does."""
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc), coords,
@@ -331,7 +379,7 @@ def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     ``covariance``, and no PRS).  A float32 structure on CUDA is
     assembled by the Hessian kernel."""
     _check_prs(with_covariance, with_prs)
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     return _single(lambda c: _anm_chunk(c, params, masses, "cho_solve",
                                         with_covariance, with_dcc,
                                         with_prs), coord)
@@ -341,7 +389,7 @@ def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
                      dtype=torch.float32, device=None):
     """GNM twin of :func:`anm_fluctuations`: covariance ``(n, n)``,
     ``msf``, ``bfactor`` and ``dcc`` of one structure."""
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     return _single(lambda c: _gnm_chunk(c, params, masses, "cho_solve",
                                         with_dcc), coord)
 
@@ -422,7 +470,7 @@ def anm_observables(coord, params, masses=None, *, with_dcc=False,
     and, as asked for, ``dcc`` and ``covariance``; `n_modes` restricts
     the observables to the lowest non-trivial modes.
     """
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     return _single(lambda c: _anm_eigen_chunk(c, params, masses,
@@ -434,7 +482,7 @@ def gnm_observables(coord, params, masses=None, *, with_dcc=False,
                     tem_factors=nma_core.K_B, device=None):
     """GNM twin of :func:`anm_observables` over the Kirchhoff matrix
     (one trivial mode, no ``covariance``)."""
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     return _single(lambda c: _gnm_eigen_chunk(c, params, masses,
@@ -448,7 +496,8 @@ def ensemble_anm(coords, params, masses=None, *, with_dcc=False,
     """:func:`anm_observables` over a conformer ensemble ``(B, n, 3)``
     (batched ``eigh``); `chunk` and `device` as in
     :func:`ensemble_anm_fluctuations`."""
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     return _run_chunked(lambda c: _anm_eigen_chunk(
@@ -459,7 +508,8 @@ def ensemble_gnm(coords, params, masses=None, *, with_dcc=False,
                  n_modes=None, dtype=torch.float32, tem=None,
                  tem_factors=nma_core.K_B, chunk=None, device=None):
     """:func:`gnm_observables` over a conformer ensemble ``(B, n, 3)``."""
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     return _run_chunked(lambda c: _gnm_eigen_chunk(
@@ -479,7 +529,8 @@ def ensemble_anm_banded(coords, params, masses=None, *, with_dcc=False,
     iterative solver, about 1e-5 relative residuals after the built-in
     polish and windowed Rayleigh-Ritz.
     """
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     solver = _banded_eigh(bandwidth, n_iter_bisect)
@@ -493,7 +544,8 @@ def ensemble_gnm_banded(coords, params, masses=None, *, with_dcc=False,
                         chunk=None, device=None):
     """GNM twin of :func:`ensemble_anm_banded` over the Kirchhoff
     matrices."""
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     solver = _banded_eigh(bandwidth, n_iter_bisect)
@@ -556,7 +608,8 @@ def ensemble_anm_spectral(coords, params, masses=None, *, n_modes=None,
     ``mode_vectors`` ``(B, k, 3n)`` by subspace iteration on that
     covariance.  Needs a connected network.
     """
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(lambda c: _anm_spectral_chunk(
         c, params, masses, inverse, n_modes, with_dcc, bandwidth,
@@ -569,7 +622,8 @@ def ensemble_gnm_spectral(coords, params, masses=None, *, n_modes=None,
                           chunk=None, device=None):
     """GNM twin of :func:`ensemble_anm_spectral` over the Kirchhoff
     matrices (``pipeline.py:535-598``)."""
-    coords, masses = _prepare(coords, params, masses, dtype, device, 3)
+    coords, params, masses = _prepare(coords, params, masses, dtype, device,
+                                      3)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(lambda c: _gnm_spectral_chunk(
         c, params, masses, inverse, n_modes, with_dcc, bandwidth,
@@ -581,7 +635,7 @@ def anm_spectral(coord, params, masses=None, *, n_modes=None, with_dcc=True,
                  n_iter_modes=24, device=None):
     """:func:`ensemble_anm_spectral` for one structure ``(n, 3)``, with the
     Cholesky engine (``pipeline.py:347-413``)."""
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     return _single(lambda c: _anm_spectral_chunk(
         c, params, masses, "cho_solve", n_modes, with_dcc, bandwidth,
         n_iter_bisect, n_iter_modes), coord)
@@ -592,7 +646,7 @@ def gnm_spectral(coord, params, masses=None, *, with_dcc=True,
                  device=None):
     """GNM twin of :func:`anm_spectral`, without mode shapes
     (``pipeline.py:495-532``)."""
-    coord, masses = _prepare(coord, params, masses, dtype, device, 2)
+    coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     return _single(lambda c: _gnm_spectral_chunk(
         c, params, masses, "cho_solve", None, with_dcc, bandwidth,
         n_iter_bisect, None), coord)

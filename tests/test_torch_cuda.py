@@ -618,3 +618,302 @@ def test_matfree_paths_on_cuda(cuda, path):
         assert float(overlap) >= 1 - 1e-4
     else:
         assert _rel(got[0], ref[0]) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Tabulated families (the assembly kernels' table branch), the
+# coordinates-to-factor-input kernel, the panel Cholesky and full-window
+# panel inverse kernels
+# ---------------------------------------------------------------------------
+
+_AA = ("ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
+       "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL")
+
+
+def _ca_atoms(n, seed, chains=2, spread=None):
+    """Random CA trace of `chains` chains with one numbering gap."""
+    rng = np.random.RandomState(seed)
+    atoms = sct.AtomArray(n)
+    spread = 34.0 * (n / 300) ** (1 / 3) if spread is None else spread
+    atoms.coord = (rng.rand(n, 3) * spread).astype(np.float32)
+    atoms.atom_name = np.full(n, "CA")
+    atoms.element = np.full(n, "C")
+    atoms.chain_id = np.array(["ABCD"[i * chains // n] for i in range(n)])
+    res_id = np.arange(1, n + 1)
+    res_id[n // 3:] += 2                      # a gap: no bond across it
+    atoms.res_id = res_id
+    atoms.res_name = np.array(_AA)[rng.randint(0, 20, n)]
+    return atoms
+
+
+def _table_params(maker, atoms):
+    if maker == "no_cutoff":
+        rng = np.random.RandomState(5)
+        intra, inter = rng.rand(20, 20) + 0.5, rng.rand(20, 20) + 0.5
+        ff = sct.TabulatedForceField(atoms, 7.5, intra + intra.T,
+                                     inter + inter.T, None)
+    else:
+        ff = getattr(sct.TabulatedForceField, maker)(atoms)
+    return ff.to_compact_params()
+
+
+@pytest.mark.parametrize("maker", ["sd_enm", "e_anm", "d_enm", "no_cutoff"])
+@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776),
+                                 (1, 3100)])
+def test_table_branch_of_the_assembly_kernels(cuda, maker, b, n):
+    """n = 3100 stages 49.7 KB (coordinates, codes, edges): the opt-in
+    past the default 48 KB of shared memory."""
+    atoms = _ca_atoms(n, seed=n)
+    params = _table_params(maker, atoms)
+    rng = np.random.RandomState(n)
+    coords = torch.as_tensor(
+        atoms.coord[None] + 0.3 * rng.randn(b, n, 3).astype(np.float32),
+        device=cuda)
+    for wrapper, plain in (
+            (assembly_kernels.hessian_planes_ensemble,
+             assembly.hessian_planes_plain),
+            (assembly_kernels.kirchhoff_ensemble, assembly.kirchhoff_plain),
+            (assembly_kernels.hessian_xyz_ensemble,
+             assembly.hessian_xyz_plain)):
+        before = wrapper.launches, wrapper.table_launches
+        got = wrapper(coords, params)
+        assert (wrapper.launches, wrapper.table_launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = plain(coords, params)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.device == coords.device
+        assert _rel(got, ref) <= 1e-5, wrapper.__name__
+    # same table entries pair for pair: the off-diagonal Kirchhoff
+    # entries are the table's own values, so they agree bit for bit
+    got = assembly_kernels.kirchhoff_ensemble(coords, params)
+    ref = assembly.kirchhoff_plain(coords, params)
+    off = ~torch.eye(n, dtype=torch.bool, device=cuda)
+    assert torch.equal(got[:, off], ref[:, off])
+
+
+def test_table_branch_on_a_bin_edge(cuda):
+    """Distances exactly on sdENM's first edge (4.0) and its last (16.5,
+    the cutoff) stay in the bin the edge closes; neighbours in the array
+    are bonded."""
+    atoms = _ca_atoms(20, seed=1, chains=1)
+    atoms.res_id = np.arange(1, 21)
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    coord = np.zeros((1, 20, 3), dtype=np.float32)
+    coord[0, :, 0] = [0.0, 0.25, 2.0, 4.0, 16.75] + [20.0 + 3.8 * i
+                                                      for i in range(15)]
+    got = assembly_kernels.kirchhoff_ensemble(
+        torch.as_tensor(coord, device=cuda), params)[0].cpu().numpy()
+    t = params.type_idx
+    assert got[0, 3] == -params.intra_table[t[0], t[3], 0]
+    assert got[1, 4] == -params.intra_table[t[1], t[4], 25]
+    assert got[0, 4] == 0.0
+    assert got[0, 1] == -params.bonded_table[t[0], t[1], 0]
+
+
+def test_table_kernels_refuse_what_they_do_not_take(cuda):
+    atoms = _ca_atoms(30, seed=2)
+    ff = sct.TabulatedForceField.e_anm(atoms)
+    coords = torch.as_tensor(atoms.coord[None], device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        assembly_kernels.kirchhoff_ensemble(coords, ff.to_params())
+    with pytest.raises(ValueError, match="built for 30 atoms"):
+        assembly_kernels.hessian_planes_ensemble(
+            coords[:, :20].contiguous(), ff.to_compact_params())
+    scale_h = torch.ones(1, 90, device=cuda)
+    ts = torch.zeros(1, 90, 6, device=cuda)
+    with pytest.raises(ValueError, match="analytic"):
+        assembly_kernels.assembly_stitch(coords, ff.to_compact_params(),
+                                         scale_h, ts, 128)
+    with pytest.raises(TypeError, match="float32"):
+        assembly_kernels.assembly_stitch(coords.double(),
+                                         sct.invariant_params(7.0),
+                                         scale_h.double(), ts.double(), 128)
+    with pytest.raises(ValueError, match="exceeds"):
+        assembly_kernels.assembly_stitch(
+            torch.zeros(1, 2049, 3, device=cuda), sct.invariant_params(7.0),
+            torch.ones(1, 6147, device=cuda),
+            torch.zeros(1, 6147, 6, device=cuda), 6272)
+    with pytest.raises(ValueError, match="exceeds"):
+        spd_linalg.panel_cholesky(
+            torch.eye(136, device=cuda).expand(2, 136, 136).contiguous())
+    with pytest.raises(ValueError, match="exceeds"):
+        spd_linalg.panel_inverse_full(
+            torch.eye(72, device=cuda).expand(2, 72, 72).contiguous())
+
+
+@pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
+                                         ("hinsen", None), ("pfenm", 7.0)])
+@pytest.mark.parametrize("b,n,mp", [(3, 41, 128), (2, 32, 96),
+                                    (2, 100, 384), (1, 5, 16)])
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_assembly_stitch_kernel(cuda, kind, cutoff, b, n, mp, with_masses):
+    params = getattr(sct, f"{kind}_params")(cutoff)
+    coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
+    masses = torch.linspace(0.8, 2.5, n, device=cuda) if with_masses \
+        else None
+    bases = rigid.rigid_modes_anm(coords, masses=masses)
+    _, _, scale_h, ts = rigid._stitch_inputs_from_diag(
+        rigid._hessian_diag_xyz_batched(coords, params), bases, masses)
+    before = assembly_kernels.assembly_stitch.launches
+    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, mp)
+    assert assembly_kernels.assembly_stitch.launches == before + 1
+    ref = assembly_kernels.assembly_stitch_plain(coords, params, scale_h,
+                                                 ts, mp)
+    torch.cuda.synchronize()
+    assert got.shape == (b, mp, mp)
+    assert _rel(got, ref) <= 1e-5
+    assert torch.equal(got[:, 3 * n:, :], ref[:, 3 * n:, :])
+    assert torch.equal(got[:, :, 3 * n:], ref[:, :, 3 * n:])
+    # and the two-kernel route it fuses
+    two = assembly_kernels.regularize_stitch(
+        assembly_kernels.hessian_planes_ensemble(coords, params), scale_h,
+        ts, mp)
+    assert _rel(got, two) <= 1e-5
+
+
+@pytest.mark.parametrize("pb", [8, 16, 64, 128])
+def test_panel_cholesky_kernel(cuda, pb):
+    """pb = 128 holds 66 KB of shared memory: the opt-in branch."""
+    panels = torch.as_tensor(_spd_panels(5, pb, seed=pb), device=cuda)
+    before = spd_linalg.panel_cholesky.launches
+    got = spd_linalg.panel_cholesky(panels)
+    assert spd_linalg.panel_cholesky.launches == before + 1
+    ref = spd_linalg.panel_cholesky_plain(panels)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 2e-5
+    assert float((got - torch.linalg.cholesky(panels.double())
+                  ).abs().max()) <= 2e-5
+    upper = torch.triu(got, diagonal=1)
+    assert torch.equal(upper, torch.zeros_like(upper))
+    l, w = sct.panel_cholesky_batched(panels)
+    assert torch.equal(l, got)
+    eye = torch.eye(pb, device=cuda, dtype=torch.float64)
+    assert float((w.double() @ l.double() - eye).abs().max()) <= 1e-4
+
+
+def test_panel_cholesky_kernel_breakdown_is_not_finite(cuda):
+    panels = _spd_panels(3, 64, seed=1)
+    panels[1, 5, 5] = -1.0
+    got = spd_linalg.panel_cholesky(torch.as_tensor(panels, device=cuda))
+    assert not bool(torch.isfinite(got[1]).all())
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool(torch.isfinite(got[2]).all())
+
+
+@pytest.mark.parametrize("pb", [8, 16, 64])
+def test_panel_inverse_full_kernel_equals_the_shrink_kernel(cuda, pb):
+    panels = torch.as_tensor(_spd_panels(5, pb, seed=pb), device=cuda)
+    before = (spd_linalg.panel_inverse_full.launches,
+              spd_linalg.panel_inverse_batched.launches)
+    got = sct.panel_inverse_batched(panels, shrink_block=None)
+    assert (spd_linalg.panel_inverse_full.launches,
+            spd_linalg.panel_inverse_batched.launches) == (before[0] + 1,
+                                                           before[1])
+    shrink = sct.panel_inverse_batched(panels, shrink_block=8)
+    ref = spd_linalg.panel_inverse_plain(panels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shrink)
+    assert float((got - ref).abs().max()) <= 2e-5
+    bad = panels.clone()
+    bad[1, 5, 5] = -1.0
+    assert not bool(torch.isfinite(spd_linalg.panel_inverse_full(bad)[1]
+                                   ).all())
+
+
+def test_spd_inverse_blocked_on_cuda(cuda):
+    a = torch.as_tensor(_spd_panels(4, 300, seed=3), device=cuda)
+    before = spd_linalg.panel_inverse_batched.launches
+    inv = sct.spd_inverse_blocked(a)
+    assert spd_linalg.panel_inverse_batched.launches > before
+    assert inv.shape == (4, 300, 300)
+    assert _rel(inv, torch.linalg.inv(a.double())) <= 1e-4
+
+
+def _check_launches(wrappers, before, expected, table=()):
+    for name, wrapper in wrappers.items():
+        grew = wrapper.launches > before[name]
+        assert grew == (name in expected), name
+    for name in table:
+        assert wrappers[name].table_launches > 0, name
+
+
+@pytest.mark.parametrize("maker", ["sd_enm", "e_anm"])
+def test_tabulated_slice_on_cuda(cuda, maker):
+    atoms = _ca_atoms(100, seed=7)
+    ff = getattr(sct.TabulatedForceField, maker)(atoms)
+    rng = np.random.RandomState(0)
+    coords = atoms.coord[None] + 0.05 * rng.randn(4, 100, 3).astype(
+        np.float32)
+    masses = np.linspace(0.8, 2.5, 100).astype(np.float32)
+    wrappers = sct.kernel_wrappers()
+    for name in ("hessian_planes", "hessian_xyz", "kirchhoff"):
+        wrappers[name].table_launches = 0
+
+    def snapshot():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    before = snapshot()
+    got = sct.ensemble_anm_fluctuations(coords, ff, masses=masses,
+                                        with_prs=True, chunk=2)
+    _check_launches(wrappers, before, {"hessian_planes", "regularize_stitch",
+                                       "panel_inverse"}, ("hessian_planes",))
+    ref = sct.ensemble_anm_fluctuations(
+        coords.astype(np.float64), ff, masses=masses.astype(np.float64),
+        with_prs=True, inverse="cho_solve", dtype=torch.float64)
+    for key in ref:
+        assert got[key].device.type == "cuda"
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+
+    before = snapshot()
+    got = sct.ensemble_gnm_fluctuations(coords, ff, masses=masses)
+    _check_launches(wrappers, before, {"kirchhoff", "panel_inverse"},
+                    ("kirchhoff",))
+    ref = sct.ensemble_gnm_fluctuations(
+        coords.astype(np.float64), ff, masses=masses.astype(np.float64),
+        inverse="cho_solve", dtype=torch.float64)
+    for key in ref:
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+
+    before = snapshot()
+    got = sct.anm_fluctuations(coords[0], ff, with_prs=True)
+    _check_launches(wrappers, before, {"hessian_xyz"}, ("hessian_xyz",))
+    ref = sct.anm_fluctuations(coords[0].astype(np.float64), ff,
+                               with_prs=True, dtype=torch.float64)
+    for key in ref:
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+
+    # table_pair: no kernel in either package, plain assembly on the card
+    before = snapshot()
+    got = sct.ensemble_anm_fluctuations(coords, ff.to_params(),
+                                        with_covariance=False)
+    _check_launches(wrappers, before, {"panel_inverse"})
+    same = sct.ensemble_anm_fluctuations(coords, ff, with_covariance=False)
+    for key in same:
+        assert _rel(got[key], same[key]) <= 1e-4, key
+
+
+@pytest.mark.parametrize("kind,cutoff", [("invariant", 13.0),
+                                         ("hinsen", None)])
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_direct_prep_on_cuda(cuda, kind, cutoff, with_masses):
+    params = getattr(sct, f"{kind}_params")(cutoff)
+    coords = _coords(4, 100, seed=3, spread=34.0 * (1 / 3) ** (1 / 3))
+    masses = (np.linspace(0.8, 2.5, 100).astype(np.float32)
+              if with_masses else None)
+    wrappers = sct.kernel_wrappers()
+    for options in ({"with_covariance": False}, {"with_prs": True}):
+        before = {name: w.launches for name, w in wrappers.items()}
+        got = sct.ensemble_anm_fluctuations(coords, params, masses=masses,
+                                            prep="direct", chunk=2,
+                                            **options)
+        _check_launches(wrappers, before, {"assembly_stitch",
+                                           "panel_inverse"})
+        planes = sct.ensemble_anm_fluctuations(coords, params, masses=masses,
+                                               prep="planes", **options)
+        ref = sct.ensemble_anm_fluctuations(
+            coords.astype(np.float64), params,
+            masses=None if masses is None else masses.astype(np.float64),
+            inverse="cho_solve", dtype=torch.float64, **options)
+        for key in ref:
+            assert _rel(got[key], planes[key]) <= 1e-4, key
+            assert _rel(got[key], ref[key]) <= 1e-4, key

@@ -35,6 +35,10 @@ def test_import_leaves_jax_out():
     proc = _run(["-c", "import sys, springcraft_tpu_torch, "
                  "springcraft_tpu_torch.ops.rigid, "
                  "springcraft_tpu_torch.ops.matfree, "
+                 "springcraft_tpu_torch.models, "
+                 "springcraft_tpu_torch.models.forcefield, "
+                 "springcraft_tpu_torch.structure, "
+                 "springcraft_tpu_torch.structure.pdb, "
                  "springcraft_tpu_torch.parallel.pipeline; "
                  "bad = sorted(m for m in sys.modules if m == 'jax' or "
                  "m.startswith(('jax.', 'springcraft_tpu.'))"
@@ -54,7 +58,12 @@ def test_entry_points_are_exported():
                  "estimate_lambda_max", "covariance_solve_matfree",
                  "covariance_solve_matfree_gnm", "linear_response_matfree",
                  "prs_rows_matfree", "dcc_rows_matfree",
-                 "dcc_rows_matfree_gnm", "kernel_wrappers"):
+                 "dcc_rows_matfree_gnm", "kernel_wrappers",
+                 "TabulatedForceField", "InvariantForceField",
+                 "HinsenForceField", "ParameterFreeForceField",
+                 "load_structure", "table_pair_params",
+                 "table_compact_params", "panel_cholesky_batched",
+                 "panel_inverse_batched", "spd_inverse_blocked"):
         assert name in sct.__all__ and callable(getattr(sct, name))
 
 
@@ -64,7 +73,9 @@ def test_every_c_entry_point_has_a_wrapper():
     entries = set(_build._SIGNATURES) - {"sc_error_string"}
     assert entries == {"sc_hessian_planes", "sc_hessian_xyz",
                        "sc_kirchhoff", "sc_regularize_stitch",
-                       "sc_panel_inverse", "sc_banded_bisect",
+                       "sc_panel_inverse", "sc_panel_inverse_full",
+                       "sc_panel_cholesky", "sc_assembly_stitch",
+                       "sc_banded_bisect",
                        "sc_banded_eigvec", "sc_hessian_apply_sparse",
                        "sc_hessian_apply_dense", "sc_kirchhoff_apply_sparse"}
     sources = "".join(p.read_text() for p in _build.SOURCES)
@@ -97,7 +108,8 @@ def test_kernel_library_is_named_by_its_sources():
     assert {p.name for p in _build.SOURCES} >= {
         "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
         "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu",
-        "matfree_hessian.cu", "matfree_kirchhoff.cu"}
+        "matfree_hessian.cu", "matfree_kirchhoff.cu", "assembly_stitch.cu",
+        "panel_cholesky.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
@@ -107,7 +119,10 @@ def test_kernel_library_is_named_by_its_sources():
                                           "banded_eigvec",
                                           "hessian_apply_dense",
                                           "hessian_apply_sparse",
-                                          "kirchhoff_apply_sparse"}
+                                          "kirchhoff_apply_sparse",
+                                          "assembly_stitch",
+                                          "panel_cholesky",
+                                          "panel_inverse_full"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
 

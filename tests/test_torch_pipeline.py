@@ -172,24 +172,32 @@ def test_disconnected_network_is_not_finite():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"prep": "direct"},
-    {"prep": "direct", "with_covariance": True},
-    {"prep": "direct", "with_covariance": True, "with_prs": True},
+    {"prep": "fused"},
+    {"prep": "concat", "with_covariance": True},
+    {"prep": None, "with_covariance": True, "with_prs": True},
 ])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``prep`` takes the JAX package's two values, ``"planes"`` and
+    ``"direct"`` (tests/test_torch_direct.py); anything else is
+    refused, as there (``pipeline.py:862-864``)."""
+    with pytest.raises(ValueError, match="prep must be"):
         _port(_dense_coords(2, 10, seed=0), 7.0, **kwargs)
 
 
 def test_gnm_ensemble_is_not_ported_yet():
-    """For the tabulated families: the analytic GNM ensemble is ported
-    (tests/test_torch_fluctuations.py), the table_compact branch of its
-    Kirchhoff kernel is not, and its parameters cannot be carried
-    across."""
+    """For patch overlays: the GNM ensemble is ported for the analytic
+    (tests/test_torch_fluctuations.py) and the tabulated families
+    (tests/test_torch_tabulated.py); parameters with an overlay cannot
+    be carried across yet, and nothing else is taken for FFParams."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sct.ensemble_gnm_fluctuations(
             _dense_coords(2, 10, seed=0),
-            sct.from_numpy_params({"kind": "table_compact", "n_bins": 3}),
+            sct.from_numpy_params({"kind": "table_compact", "n_bins": 3,
+                                   "overlays": ("overlay",)}),
+            inverse="blocked", device="cpu")
+    with pytest.raises(TypeError, match="FFParams"):
+        sct.ensemble_gnm_fluctuations(
+            _dense_coords(2, 10, seed=0), {"kind": "table_compact"},
             inverse="blocked", device="cpu")
 
 

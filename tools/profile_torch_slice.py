@@ -7,10 +7,16 @@ Runs the headline configuration of ``chip_smoke.py`` (1024 conformers of
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. the device time of each stage on one 128-conformer chunk (CUDA-event
    means), and of one panel-inverse launch, for the plane-trace path, for
-   the path with the covariance and PRS, and for the GNM ensemble;
+   the path with the covariance and PRS, and for the GNM ensemble; the
+   stages of ``prep="direct"`` (the Hessian diagonal pass, the scale and
+   basis, the coordinates-to-factor-input kernel) beside the planes
+   path's; then the same chunk under the tabulated sdENM force field
+   (the assembly kernels' table branch; ``--skip-tabulated`` leaves it
+   out);
 3. the same for the spectral pipelines (``--reps-spectral`` calls each):
    ``ensemble_anm_spectral`` with the JAX package's benchmark settings
-   (20 modes, 32 halvings) and ``ensemble_anm_banded``;
+   (20 modes, 32 halvings) and ``ensemble_anm_banded`` (``--skip-spectral``
+   leaves them and their trace out);
 4. ``torch.profiler`` traces of one 1024-conformer call of the main path
    and of one 128-conformer chunk of ``ensemble_anm_spectral``: the wall
    time, the union of the kernels' intervals (the device's busy share
@@ -23,7 +29,7 @@ Runs the headline configuration of ``chip_smoke.py`` (1024 conformers of
 The tables and the Chrome traces go to ``--out``.
 
 Usage:  python tools/profile_torch_slice.py [--out DIR] [--reps N]
-            [--reps-spectral N]
+            [--reps-spectral N] [--skip-spectral] [--skip-tabulated]
 """
 
 import argparse
@@ -65,7 +71,10 @@ def busy_intervals(trace_path):
     return busy, per_kernel
 
 
-def stage_times(dev, params, reps):
+def stage_times(dev, params, reps, label=""):
+    """Stage times of one chunk of the three fluctuation paths under
+    `params`, each line prefixed with `label`; for an analytic family
+    also the stages of ``prep="direct"``."""
     c = dev[:cs.CHUNK].contiguous()
     n = c.shape[1]
     bases = rigid.rigid_modes_anm(c)
@@ -134,8 +143,22 @@ def stage_times(dev, params, reps):
         "G whole chunk": lambda: sct.ensemble_gnm_fluctuations(
             c, params, inverse="blocked", device="cuda"),
     })
+    if rigid.direct_prep_applies(params, n):
+        diag = rigid._hessian_diag_xyz_batched(c, params)
+        stages.update({
+            "D3a Hessian diagonal from coordinates (plain)":
+                lambda: rigid._hessian_diag_xyz_batched(c, params),
+            "D3b stitch inputs from the diagonal":
+                lambda: rigid._stitch_inputs_from_diag(diag, bases, None),
+            "D3c K7 assembly_stitch":
+                lambda: assembly_kernels.assembly_stitch(c, params, scale_h,
+                                                         ts, mp),
+            "D whole chunk, prep=direct": lambda: run(c, params,
+                                                      prep="direct"),
+            "D whole chunk, prep=planes (again)": lambda: run(c, params),
+        })
     for name, fn in stages.items():
-        print(f"stage {name}: {cs.cuda_ms(fn, reps=reps):.4f} ms",
+        print(f"stage {label}{name}: {cs.cuda_ms(fn, reps=reps):.4f} ms",
               flush=True)
 
 
@@ -254,6 +277,10 @@ def main():
                         help="calls per stage timing")
     parser.add_argument("--reps-spectral", type=int, default=3,
                         help="calls per stage timing of the spectral paths")
+    parser.add_argument("--skip-spectral", action="store_true",
+                        help="leave out the spectral stages and trace")
+    parser.add_argument("--skip-tabulated", action="store_true",
+                        help="leave out the sdENM chunk")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -267,12 +294,20 @@ def main():
     run(dev, params)
     torch.cuda.synchronize()
     stage_times(dev, params, args.reps)
-    spectral_stage_times(dev, params, args.reps_spectral)
+    if not args.skip_tabulated:
+        sd_enm = sct.TabulatedForceField.sd_enm(
+            cs.make_ca_atoms(cs.N_RES)).to_compact_params()
+        stage_times(dev, sd_enm, args.reps, label="sdENM ")
+    if not args.skip_spectral:
+        spectral_stage_times(dev, params, args.reps_spectral)
     profiled_call("main_path", lambda: run(dev, params), args.out)
-    chunk = dev[:cs.CHUNK].contiguous()
-    profiled_call("anm_spectral_chunk", lambda: sct.ensemble_anm_spectral(
-        chunk, params, n_modes=cs.N_MODES, n_iter_bisect=cs.N_ITER_BISECT,
-        device="cuda"), args.out)
+    if not args.skip_spectral:
+        chunk = dev[:cs.CHUNK].contiguous()
+        profiled_call("anm_spectral_chunk",
+                      lambda: sct.ensemble_anm_spectral(
+                          chunk, params, n_modes=cs.N_MODES,
+                          n_iter_bisect=cs.N_ITER_BISECT, device="cuda"),
+                      args.out)
     chunk_sweep(dev, params)
     print(card, flush=True)
     return 0
