@@ -10,7 +10,9 @@ and for one structure (:func:`anm_fluctuations`,
 :func:`gnm_fluctuations`), with the covariance and PRS — for the analytic
 force fields and the tabulated ones (:class:`TabulatedForceField` with
 its named parameterizations sdENM, eANM and the others, built from a
-structure read by :func:`load_structure`), with hand-written CUDA kernels
+structure read by :func:`load_structure`), each optionally wrapped in a
+:class:`PatchedForceField` (contact shutdown, pairs switched off or on),
+with hand-written CUDA kernels
 for Hopper (``csrc/``) on its paths; and the spectral pipelines —
 eigenvalues, frequencies and mode shapes from a two-stage banded eigensolver
 (:func:`ensemble_anm_spectral`, :func:`ensemble_anm_banded`, their GNM
@@ -34,12 +36,13 @@ Importing the package turns TF32 off for float32 matrix products (see
 """
 
 from .utils import config  # noqa: F401  (pins float32 precision)
-from .ops.ffparams import (FFParams, from_numpy_params, hinsen_params,
-                           invariant_params, pfenm_params,
-                           table_compact_params, table_pair_params)
+from .ops.ffparams import (FFParams, PatchOverlay, from_numpy_params,
+                           hinsen_params, invariant_params, pfenm_params,
+                           strip_overlays, table_compact_params,
+                           table_pair_params, with_overlay)
 from .models.forcefield import (ForceField, HinsenForceField,
                                 InvariantForceField,
-                                ParameterFreeForceField,
+                                ParameterFreeForceField, PatchedForceField,
                                 TabulatedForceField)
 from .structure import AtomArray, BadStructureError, load_structure
 from .ops.spd_linalg import (panel_cholesky_batched, panel_inverse_batched,
@@ -62,6 +65,9 @@ from .utils.config import resolve_device, synchronize
 
 __all__ = [
     "FFParams",
+    "PatchOverlay",
+    "with_overlay",
+    "strip_overlays",
     "from_numpy_params",
     "invariant_params",
     "hinsen_params",
@@ -72,6 +78,7 @@ __all__ = [
     "InvariantForceField",
     "HinsenForceField",
     "ParameterFreeForceField",
+    "PatchedForceField",
     "TabulatedForceField",
     "AtomArray",
     "BadStructureError",

@@ -72,15 +72,17 @@ _SIGNATURES = {
     "sc_banded_eigvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _D, _P),
     # coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
-    # has_cutoff, stream
+    # has_cutoff, tables, edges_sq, atom_code (by slot), n_bins, n_edges,
+    # stream
     "sc_hessian_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                _I, _P),
-    # coords, x, out, n, k, kind, cutoff_sq, has_cutoff, stream
-    "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
-    # has_cutoff, stream
+                                _I, _P, _P, _P, _I, _I, _P),
+    # coords, x, out, n, k, kind, cutoff_sq, has_cutoff, tables, edges_sq,
+    # atom_code, n_bins, n_edges, stream
+    "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P,
+                               _I, _I, _P),
+    # as sc_hessian_apply_sparse
     "sc_kirchhoff_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _P),
+                                  _F, _I, _P, _P, _P, _I, _I, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

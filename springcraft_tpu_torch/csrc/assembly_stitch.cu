@@ -77,10 +77,8 @@ __global__ void assembly_stitch_kernel(const float* __restrict__ coords,
     return;
   }
 
-  springcraft::PairTable unused{};
-  springcraft::stage_conformer<false>(
-      smem, coords + static_cast<size_t>(b) * n * 3, n, nullptr, nullptr,
-      unused);
+  springcraft::stage_coordinates(
+      smem, coords + static_cast<size_t>(b) * n * 3, 0, n, n);
   float* scale = smem + 3 * n;
   for (int i = threadIdx.x; i < m; i += blockDim.x)
     scale[i] = scale_h[static_cast<size_t>(b) * m + i];

@@ -33,11 +33,20 @@
 // the nine stores is one coalesced 128-byte line per step, in either
 // layout), keeps the nine row sums in registers, reduces them with warp
 // shuffles and writes the diagonal entries itself — no cross-block
-// reduction and no second pass.  A block of 8 warps stages its conformer's
-// coordinates in shared memory (structure of arrays, 12 n bytes: 21 KB at
-// n = 1776; 16 n bytes plus the edges for the tabulated family, which
-// passes the 48 KB default from n = 3066 and then opts in; the wrapper
-// refuses n > 4096).
+// reduction and no second pass.  A block of 8 warps stages the column
+// atoms' coordinates in shared memory (structure of arrays, 12 bytes an
+// atom, 16 plus the edges for the tabulated family): the whole conformer
+// in one piece up to 4,096 atoms (21 KB at n = 1776; the tabulated family
+// passes the 48 KB default from n = 3066 and then opts in), and beyond that
+// tile by tile of 2,048 atoms with a barrier per tile, as the TPU kernel
+// walks its column tiles, so a structure of any size assembles (one
+// Hessian at n = 30,000 is 32.4 GB).  The row atom's coordinates, code and
+// nine sums live in registers across the tiles.  Offsets are size_t.  One
+// body serves both: a whole conformer is one tile (a second instantiation
+// that kept the old single-barrier staging for it measured slower).  The
+// column sweep is unrolled fourfold: a warp at n = 300 has ten steps of nine
+// dependent-address stores, and four steps in flight took K1 at (128, 300)
+// from 0.283 to 0.229 ms (unrolled twofold it took 0.39).
 //
 // Arithmetic follows the JAX kernels operation by operation (spring.cuh);
 // the diagonal's summation order differs.
@@ -53,20 +62,19 @@ constexpr int kWarpsPerBlock = 8;
 template <bool kTable>
 __global__ void hessian_kernel(const float* __restrict__ coords,
                                float* __restrict__ out, int batch, int n,
-                               int kind, float cutoff_sq, int has_cutoff,
-                               springcraft::PairTable table,
+                               int tile, int kind, float cutoff_sq,
+                               int has_cutoff, springcraft::PairTable table,
                                const float* __restrict__ edges_sq,
                                const int* __restrict__ atom_code,
                                int xyz_layout) {
-  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n], then codes
+  extern __shared__ float smem[];
   const int b = blockIdx.y;
-  springcraft::stage_conformer<kTable>(
-      xyz, coords + static_cast<size_t>(b) * n * 3, n, atom_code, edges_sq,
-      table);
+  const float* conformer = coords + static_cast<size_t>(b) * n * 3;
+  springcraft::ColumnTile<kTable> cols(smem, tile, edges_sq, table);
 
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= n) return;  // whole warp leaves together
+  const bool active = p < n;  // a warp past the last row only helps staging
 
   // Element (a, e, q) of row p lies at row[a * a_stride + e * e_stride + q].
   const size_t nn = static_cast<size_t>(n) * n;
@@ -82,31 +90,50 @@ __global__ void hessian_kernel(const float* __restrict__ coords,
     a_stride = 3 * e_stride;
   }
 
-  const float px = xyz[p], py = xyz[n + p], pz = xyz[2 * n + p];
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  int cp = 0;
+  if (active) {
+    px = conformer[3 * static_cast<size_t>(p)];
+    py = conformer[3 * static_cast<size_t>(p) + 1];
+    pz = conformer[3 * static_cast<size_t>(p) + 2];
+    if constexpr (kTable) cp = atom_code[p];
+  }
   float acc[9];
 #pragma unroll
   for (int ab = 0; ab < 9; ++ab) acc[ab] = 0.0f;
 
-  for (int q = lane; q < n; q += 32) {
-    float d[3];
-    d[0] = __fsub_rn(px, xyz[q]);
-    d[1] = __fsub_rn(py, xyz[n + q]);
-    d[2] = __fsub_rn(pz, xyz[2 * n + q]);
-    const float sq = springcraft::squared_distance(d[0], d[1], d[2]);
-    const float k = springcraft::masked_pair_constant<kTable>(
-        kind, table, p, q, sq, cutoff_sq, has_cutoff);
-    const float g = __fdiv_rn(-k, sq == 0.0f ? 1.0f : sq);
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int len = min(tile, n - j0);
+    cols.load(conformer, atom_code, j0, len);
+    if (!active) continue;
+    const float* x = cols.xyz;
+    const float* y = x + cols.stride;
+    const float* z = y + cols.stride;
+#pragma unroll 4
+    for (int s = lane; s < len; s += 32) {
+      const int q = j0 + s;
+      float d[3];
+      d[0] = __fsub_rn(px, x[s]);
+      d[1] = __fsub_rn(py, y[s]);
+      d[2] = __fsub_rn(pz, z[s]);
+      const float sq = springcraft::squared_distance(d[0], d[1], d[2]);
+      const float k = springcraft::masked_pair_constant<kTable>(
+          kind, table, cp, kTable ? cols.code[s] : 0, p, q, sq, cutoff_sq,
+          has_cutoff);
+      const float g = __fdiv_rn(-k, sq == 0.0f ? 1.0f : sq);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float ga = __fmul_rn(g, d[a]);
+      for (int a = 0; a < 3; ++a) {
+        const float ga = __fmul_rn(g, d[a]);
 #pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float v = __fmul_rn(ga, d[e]);
-        acc[3 * a + e] += v;
-        if (q != p) row[a * a_stride + e * e_stride + q] = v;
+        for (int e = 0; e < 3; ++e) {
+          const float v = __fmul_rn(ga, d[e]);
+          acc[3 * a + e] += v;
+          if (q != p) row[a * a_stride + e * e_stride + q] = v;
+        }
       }
     }
   }
+  if (!active) return;
 
 #pragma unroll
   for (int ab = 0; ab < 9; ++ab) {
@@ -131,18 +158,18 @@ int launch(const float* coords, float* out, int batch, int n, int kind,
            int n_edges, int xyz_layout, void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-    const size_t smem = springcraft::assembly_smem_bytes(n, kind, n_edges);
+    const int tile = springcraft::assembly_column_tile(n);
+    const size_t smem = springcraft::assembly_smem_bytes(tile, kind, n_edges);
     const auto kernel = kind == springcraft::kTableCompact
                             ? hessian_kernel<true>
                             : hessian_kernel<false>;
     const cudaError_t opt = springcraft::allow_shared_memory(kernel, smem);
     if (opt != cudaSuccess) return static_cast<int>(opt);
-    const springcraft::PairTable table{tables, nullptr, nullptr, n_bins,
-                                       n_edges};
+    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
     kernel<<<grid, 32 * kWarpsPerBlock, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-        coords, out, batch, n, kind, cutoff_sq, has_cutoff, table, edges_sq,
-        atom_code, xyz_layout);
+        coords, out, batch, n, tile, kind, cutoff_sq, has_cutoff, table,
+        edges_sq, atom_code, xyz_layout);
   }
   return static_cast<int>(cudaGetLastError());
 }

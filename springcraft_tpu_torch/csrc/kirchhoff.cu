@@ -22,9 +22,11 @@
 // WARP owns one whole row p of one conformer, its lanes sweep the columns
 // (one coalesced 128-byte store per step), the row sum stays in a register
 // and is reduced by warp shuffle, and lane 0 writes the diagonal.  No
-// cross-block reduction.  A block of 8 warps stages its conformer's
-// coordinates in shared memory (12 n bytes, 16 n plus the edges for the
-// tabulated family; the wrapper refuses n > 4096).
+// cross-block reduction.  A block of 8 warps stages the column atoms'
+// coordinates in shared memory (12 bytes an atom, 16 plus the edges for the
+// tabulated family): the whole conformer up to 4,096 atoms, tiles of 2,048
+// with a barrier per tile beyond, so any size assembles.  The column sweep
+// is unrolled fourfold, as in hessian_planes.cu.
 
 #include <cuda_runtime.h>
 
@@ -36,33 +38,50 @@ constexpr int kWarpsPerBlock = 8;
 
 template <bool kTable>
 __global__ void kirchhoff_kernel(const float* __restrict__ coords,
-                                 float* __restrict__ out, int n, int kind,
-                                 float cutoff_sq, int has_cutoff,
+                                 float* __restrict__ out, int n, int tile,
+                                 int kind, float cutoff_sq, int has_cutoff,
                                  springcraft::PairTable table,
                                  const float* __restrict__ edges_sq,
                                  const int* __restrict__ atom_code) {
-  extern __shared__ float xyz[];  // x[0:n], y[n:2n], z[2n:3n], then codes
+  extern __shared__ float smem[];
   const int b = blockIdx.y;
-  springcraft::stage_conformer<kTable>(
-      xyz, coords + static_cast<size_t>(b) * n * 3, n, atom_code, edges_sq,
-      table);
+  const float* conformer = coords + static_cast<size_t>(b) * n * 3;
+  springcraft::ColumnTile<kTable> cols(smem, tile, edges_sq, table);
 
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= n) return;  // whole warp leaves together
+  const bool active = p < n;  // a warp past the last row only helps staging
 
-  const float px = xyz[p], py = xyz[n + p], pz = xyz[2 * n + p];
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  int cp = 0;
+  if (active) {
+    px = conformer[3 * static_cast<size_t>(p)];
+    py = conformer[3 * static_cast<size_t>(p) + 1];
+    pz = conformer[3 * static_cast<size_t>(p) + 2];
+    if constexpr (kTable) cp = atom_code[p];
+  }
   float* row = out + (static_cast<size_t>(b) * n + p) * n;
   float acc = 0.0f;
-  for (int q = lane; q < n; q += 32) {
-    const float sq = springcraft::squared_distance(
-        __fsub_rn(px, xyz[q]), __fsub_rn(py, xyz[n + q]),
-        __fsub_rn(pz, xyz[2 * n + q]));
-    const float k = springcraft::masked_pair_constant<kTable>(
-        kind, table, p, q, sq, cutoff_sq, has_cutoff);
-    acc += k;
-    if (q != p) row[q] = -k;
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int len = min(tile, n - j0);
+    cols.load(conformer, atom_code, j0, len);
+    if (!active) continue;
+    const float* x = cols.xyz;
+    const float* y = x + cols.stride;
+    const float* z = y + cols.stride;
+#pragma unroll 4
+    for (int s = lane; s < len; s += 32) {
+      const int q = j0 + s;
+      const float sq = springcraft::squared_distance(
+          __fsub_rn(px, x[s]), __fsub_rn(py, y[s]), __fsub_rn(pz, z[s]));
+      const float k = springcraft::masked_pair_constant<kTable>(
+          kind, table, cp, kTable ? cols.code[s] : 0, p, q, sq, cutoff_sq,
+          has_cutoff);
+      acc += k;
+      if (q != p) row[q] = -k;
+    }
   }
+  if (!active) return;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -80,17 +99,17 @@ extern "C" int sc_kirchhoff(const float* coords, float* out, int batch, int n,
                             void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-    const size_t smem = springcraft::assembly_smem_bytes(n, kind, n_edges);
+    const int tile = springcraft::assembly_column_tile(n);
+    const size_t smem = springcraft::assembly_smem_bytes(tile, kind, n_edges);
     const auto kernel = kind == springcraft::kTableCompact
                             ? kirchhoff_kernel<true>
                             : kirchhoff_kernel<false>;
     const cudaError_t opt = springcraft::allow_shared_memory(kernel, smem);
     if (opt != cudaSuccess) return static_cast<int>(opt);
-    const springcraft::PairTable table{tables, nullptr, nullptr, n_bins,
-                                       n_edges};
+    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
     kernel<<<grid, 32 * kWarpsPerBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-        coords, out, n, kind, cutoff_sq, has_cutoff, table, edges_sq,
+        coords, out, n, tile, kind, cutoff_sq, has_cutoff, table, edges_sq,
         atom_code);
   }
   return static_cast<int>(cudaGetLastError());

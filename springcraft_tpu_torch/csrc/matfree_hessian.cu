@@ -13,7 +13,15 @@
 // * springcraft_tpu/ops/matfree.py:385 `_apply_kernel` (K12, reached through
 //   `hessian_apply_pallas`): entry sc_hessian_apply_dense, the same body over
 //   every column atom, ids = arange(n).
-// Analytic force-field families only.
+// Analytic families and the tabulated `table_compact` family (the table
+// branch of both TPU kernels, matfree.py:389-421 and :813-856): a pair that
+// passes the id and cutoff test takes k = tables[bin][context][type_p]
+// [type_q] (spring.cuh, `table_constant`) instead of the analytic rule.  The
+// kernel is instantiated with and without the lookup, so the analytic
+// instances carry none of it.  In Morton order the per-atom codes are read
+// by slot (the caller permutes them with the coordinates) while the bonded
+// test and "which atom is the lower one" go by original id, the same ids
+// that mask self-pairs and padding.
 //
 // What bounds it on the H100: instruction issue, not bytes.  X in and Y out
 // are 12 n k bytes each (35 MB at n = 30,000, k = 48), but the cutoff test
@@ -37,7 +45,9 @@
 // (measured), so four warps shorten the heaviest row tile's chain fourfold
 // and quadruple the warps in flight; their partial sums meet in shared
 // memory at the end.  Column coordinates and ids are staged in shared
-// memory 256 atoms at a time and read as broadcasts; X is NOT staged: a
+// memory 256 atoms at a time (the table branch stages their codes beside
+// them, and the bin edges once per block) and read as broadcasts; X is NOT
+// staged: a
 // pair passes the cutoff in under 1% of the tests, so a staged column block
 // of X would be read 100 times more often than used.  The x_j values of a
 // passing pair are warp-uniform loads through L1.  Each block covers
@@ -63,10 +73,20 @@ constexpr int kStage = 256;  // column atoms staged per step
 constexpr int kCols = 16;    // columns of X per block
 constexpr int kAcc = 3 * kCols + 6;  // a lane's sums: y and D
 
+// What the table branch stages beside the column coordinates: nothing in an
+// analytic instance.
+template <bool kTable>
+struct TableStage {};
+template <>
+struct TableStage<true> {
+  int code[kStage];
+  float edges[springcraft::kMaxEdges];
+};
+
 // One block: rows [row0, row0 + kRows) of parent tile t (clipped to the tile
 // and to n), columns [c0, c0 + kc) of X.  Dense walks every column atom;
 // otherwise the column tiles cols[row_ptr[t] .. row_ptr[t + 1]).
-template <bool Dense>
+template <bool Dense, bool kTable>
 __global__ void __launch_bounds__(kThreads)
     hessian_apply_kernel(const float* __restrict__ coords,
                          const int* __restrict__ ids,
@@ -74,11 +94,20 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ col_tiles,
                          const float* __restrict__ x, float* __restrict__ out,
                          int n, int k, int tile, int kind, float cutoff_sq,
-                         int has_cutoff) {
+                         int has_cutoff, springcraft::PairTable table,
+                         const float* __restrict__ edges_sq,
+                         const int* __restrict__ atom_code) {
   __shared__ float sx[kStage], sy[kStage], sz[kStage];
   __shared__ int sid[kStage];
+  __shared__ TableStage<kTable> staged;
   __shared__ float partial[kWarps - 1][kAcc][kRows];
   const int lane = threadIdx.x % kRows, warp = threadIdx.x / kRows;
+  if constexpr (kTable) {
+    // published by the first barrier of the walk
+    for (int e = threadIdx.x; e < table.n_edges; e += kThreads)
+      staged.edges[e] = edges_sq[e];
+    table.edges_sq = staged.edges;
+  }
 
   int t = 0, row_end = n, row0;
   if (Dense) {
@@ -97,11 +126,13 @@ __global__ void __launch_bounds__(kThreads)
 
   float px = 0.0f, py = 0.0f, pz = 0.0f;
   int pid = n;  // inactive rows take no pair
+  int cp = 0;   // the row atom's code, by slot
   if (active) {
     px = coords[3 * i];
     py = coords[3 * i + 1];
     pz = coords[3 * i + 2];
     pid = Dense ? i : ids[i];
+    if constexpr (kTable) cp = atom_code[i];
   }
   const bool row_ok = pid < n;
 
@@ -130,6 +161,7 @@ __global__ void __launch_bounds__(kThreads)
         sy[q] = coords[3 * j + 1];
         sz[q] = coords[3 * j + 2];
         sid[q] = Dense ? j : ids[j];
+        if constexpr (kTable) staged.code[q] = atom_code[j];
       }
       __syncthreads();
       if (!row_ok) continue;
@@ -142,8 +174,13 @@ __global__ void __launch_bounds__(kThreads)
         const float sq = springcraft::squared_distance(dx, dy, dz);
         if (jid == pid || jid >= n || (has_cutoff && !(sq <= cutoff_sq)))
           continue;
-        const float g = -__fdiv_rn(springcraft::spring_constant(kind, sq),
-                                   sq == 0.0f ? 1.0f : sq);
+        float kij;
+        if constexpr (kTable)
+          kij = springcraft::table_constant(table, cp, staged.code[q], pid,
+                                            jid, sq);
+        else
+          kij = springcraft::spring_constant(kind, sq);
+        const float g = -__fdiv_rn(kij, sq == 0.0f ? 1.0f : sq);
         const float gx = g * dx, gy = g * dy, gz = g * dz;
         d00 += gx * dx;
         d01 += gx * dy;
@@ -213,20 +250,30 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// tables (n_bins, 3, 20, 20), edges_sq (n_edges <= kMaxEdges) and atom_code
+// (n, by slot) are read only for kind == table_compact and may be null
+// otherwise.
 extern "C" int sc_hessian_apply_sparse(const float* coords, const int* ids,
                                        const int* row_ptr,
                                        const int* col_tiles, const float* x,
                                        float* out, int n, int k, int tile,
                                        int kind, float cutoff_sq,
-                                       int has_cutoff, void* stream) {
+                                       int has_cutoff, const float* tables,
+                                       const float* edges_sq,
+                                       const int* atom_code, int n_bins,
+                                       int n_edges, void* stream) {
+  if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
   if (n > 0 && k > 0 && tile > 0) {
     const int n_tiles = (n + tile - 1) / tile;
     const dim3 grid(n_tiles * ((tile + kRows - 1) / kRows),
                     (k + kCols - 1) / kCols);
-    hessian_apply_kernel<false>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind,
-            cutoff_sq, has_cutoff);
+    const auto kernel = kind == springcraft::kTableCompact
+                            ? hessian_apply_kernel<false, true>
+                            : hessian_apply_kernel<false, false>;
+    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
+        has_cutoff, table, edges_sq, atom_code);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -234,13 +281,20 @@ extern "C" int sc_hessian_apply_sparse(const float* coords, const int* ids,
 extern "C" int sc_hessian_apply_dense(const float* coords, const float* x,
                                       float* out, int n, int k, int kind,
                                       float cutoff_sq, int has_cutoff,
-                                      void* stream) {
+                                      const float* tables,
+                                      const float* edges_sq,
+                                      const int* atom_code, int n_bins,
+                                      int n_edges, void* stream) {
+  if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
   if (n > 0 && k > 0) {
     const dim3 grid((n + kRows - 1) / kRows, (k + kCols - 1) / kCols);
-    hessian_apply_kernel<true>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            coords, nullptr, nullptr, nullptr, x, out, n, k, n, kind,
-            cutoff_sq, has_cutoff);
+    const auto kernel = kind == springcraft::kTableCompact
+                            ? hessian_apply_kernel<true, true>
+                            : hessian_apply_kernel<true, false>;
+    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        coords, nullptr, nullptr, nullptr, x, out, n, k, n, kind, cutoff_sq,
+        has_cutoff, table, edges_sq, atom_code);
   }
   return static_cast<int>(cudaGetLastError());
 }

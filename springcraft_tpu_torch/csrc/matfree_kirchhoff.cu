@@ -7,7 +7,10 @@
 // `_sparse_kirchhoff_kernel` (K14, reached through
 // `kirchhoff_apply_pallas_sparse` and `_launch_sparse_segments`): the
 // row-sorted tile pairs of `tile_neighbor_lists` as a CSR, pairs masked by
-// original atom id.  Analytic force-field families only.
+// original atom id.  Analytic families and the tabulated `table_compact`
+// family (the TPU kernel's table branch, matfree.py:1000-1010): a second
+// instantiation looks a passing pair up in the type tables, codes read by
+// slot, the bonded test by original id (see matfree_hessian.cu).
 //
 // What bounds it on the H100: instruction issue for the cutoff tests, then
 // X's traffic.  Per pair that passes the cutoff the work is one FMA per
@@ -38,6 +41,17 @@ constexpr int kThreads = kRows * kWarps;
 constexpr int kStage = 256;
 constexpr int kCols = 32;
 
+// What the table branch stages beside the column coordinates: nothing in
+// the analytic instance.
+template <bool kTable>
+struct TableStage {};
+template <>
+struct TableStage<true> {
+  int code[kStage];
+  float edges[springcraft::kMaxEdges];
+};
+
+template <bool kTable>
 __global__ void __launch_bounds__(kThreads)
     kirchhoff_apply_kernel(const float* __restrict__ coords,
                            const int* __restrict__ ids,
@@ -45,11 +59,21 @@ __global__ void __launch_bounds__(kThreads)
                            const int* __restrict__ col_tiles,
                            const float* __restrict__ x,
                            float* __restrict__ out, int n, int k, int tile,
-                           int kind, float cutoff_sq, int has_cutoff) {
+                           int kind, float cutoff_sq, int has_cutoff,
+                           springcraft::PairTable table,
+                           const float* __restrict__ edges_sq,
+                           const int* __restrict__ atom_code) {
   __shared__ float sx[kStage], sy[kStage], sz[kStage];
   __shared__ int sid[kStage];
+  __shared__ TableStage<kTable> staged;
   __shared__ float partial[kWarps - 1][kCols + 1][kRows];
   const int lane = threadIdx.x % kRows, warp = threadIdx.x / kRows;
+  if constexpr (kTable) {
+    // published by the first barrier of the walk
+    for (int e = threadIdx.x; e < table.n_edges; e += kThreads)
+      staged.edges[e] = edges_sq[e];
+    table.edges_sq = staged.edges;
+  }
 
   const int per_tile = (tile + kRows - 1) / kRows;
   const int t = blockIdx.x / per_tile;
@@ -63,11 +87,13 @@ __global__ void __launch_bounds__(kThreads)
 
   float px = 0.0f, py = 0.0f, pz = 0.0f;
   int pid = n;
+  int cp = 0;  // the row atom's code, by slot
   if (active) {
     px = coords[3 * i];
     py = coords[3 * i + 1];
     pz = coords[3 * i + 2];
     pid = ids[i];
+    if constexpr (kTable) cp = atom_code[i];
   }
   const bool row_ok = pid < n;
 
@@ -88,6 +114,7 @@ __global__ void __launch_bounds__(kThreads)
         sy[q] = coords[3 * j + 1];
         sz[q] = coords[3 * j + 2];
         sid[q] = ids[j];
+        if constexpr (kTable) staged.code[q] = atom_code[j];
       }
       __syncthreads();
       if (!row_ok) continue;
@@ -98,7 +125,12 @@ __global__ void __launch_bounds__(kThreads)
             __fsub_rn(px, sx[q]), __fsub_rn(py, sy[q]), __fsub_rn(pz, sz[q]));
         if (jid == pid || jid >= n || (has_cutoff && !(sq <= cutoff_sq)))
           continue;
-        const float kij = springcraft::spring_constant(kind, sq);
+        float kij;
+        if constexpr (kTable)
+          kij = springcraft::table_constant(table, cp, staged.code[q], pid,
+                                            jid, sq);
+        else
+          kij = springcraft::spring_constant(kind, sq);
         deg += kij;
         const float* xj = x + static_cast<size_t>(j0 + q) * k + c0;
 #pragma unroll
@@ -130,20 +162,30 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// tables (n_bins, 3, 20, 20), edges_sq (n_edges <= kMaxEdges) and atom_code
+// (n, by slot) are read only for kind == table_compact and may be null
+// otherwise.
 extern "C" int sc_kirchhoff_apply_sparse(const float* coords, const int* ids,
                                          const int* row_ptr,
                                          const int* col_tiles, const float* x,
                                          float* out, int n, int k, int tile,
                                          int kind, float cutoff_sq,
-                                         int has_cutoff, void* stream) {
+                                         int has_cutoff, const float* tables,
+                                         const float* edges_sq,
+                                         const int* atom_code, int n_bins,
+                                         int n_edges, void* stream) {
+  if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
   if (n > 0 && k > 0 && tile > 0) {
     const int n_tiles = (n + tile - 1) / tile;
     const dim3 grid(n_tiles * ((tile + kRows - 1) / kRows),
                     (k + kCols - 1) / kCols);
-    kirchhoff_apply_kernel<<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel = kind == springcraft::kTableCompact
+                            ? kirchhoff_apply_kernel<true>
+                            : kirchhoff_apply_kernel<false>;
+    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
-        has_cutoff);
+        has_cutoff, table, edges_sq, atom_code);
   }
   return static_cast<int>(cudaGetLastError());
 }

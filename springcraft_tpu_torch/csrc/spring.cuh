@@ -64,23 +64,28 @@ struct PairTable {
   // batch-invariant and at most 125 KB (26 bins), so it lives in L2 and is
   // read through the read-only path.
   const float* tables;
-  // Squared right bin edges (n_edges) and one packed int per atom (type in
-  // bits 0-4, bonded-to-next flag in bit 5, chain code from bit 6), both
-  // staged in shared memory by the kernel.
+  // Squared right bin edges (n_edges), staged in shared memory by the kernel.
   const float* edges_sq;
-  const int* code;
   int n_bins;
   int n_edges;
 };
 
 constexpr int kTypes = 20;
+// Most bin edges a kernel with static shared memory stages (the matrix-free
+// kernels; sdENM has 26).
+constexpr int kMaxEdges = 64;
 
-// Tabulated spring constant of the pair (p, q), p != q, at squared distance
+// Tabulated spring constant of a pair of distinct atoms at squared distance
 // `sq`: bin = min(#{edges_sq < sq}, n_bins - 1); context bonded for
-// neighbours in the array whose lower one is flagged, else intra-chain for
-// equal chain codes, else inter-chain.
-__device__ __forceinline__ float table_constant(const PairTable& t, int p,
-                                                int q, float sq) {
+// neighbours in the original array whose lower one is flagged, else
+// intra-chain for equal chain codes, else inter-chain.  `cp`, `cq` are the
+// atoms' packed codes (type in bits 0-4, bonded-to-next flag in bit 5, chain
+// code from bit 6) and `pos_p`, `pos_q` their positions in the original
+// array: the assembly kernels pass the atom indices, the matrix-free kernels
+// read the codes by slot of the Morton order and pass the original ids.
+__device__ __forceinline__ float table_constant(const PairTable& t, int cp,
+                                                int cq, int pos_p, int pos_q,
+                                                float sq) {
   int bin = 0;
   if (t.n_bins > 1) {
     // lower bound over the ascending edges: the count of edges below sq
@@ -91,70 +96,103 @@ __device__ __forceinline__ float table_constant(const PairTable& t, int p,
     }
     bin = min(bin, t.n_bins - 1);
   }
-  const int cp = t.code[p], cq = t.code[q];
-  const int lower = p < q ? cp : cq;
-  const int gap = p < q ? q - p : p - q;
+  const int lower = pos_p < pos_q ? cp : cq;
+  const int gap = pos_p < pos_q ? pos_q - pos_p : pos_p - pos_q;
   int context = (cp >> 6) == (cq >> 6) ? 0 : 1;
   if (gap == 1 && (lower & 32)) context = 2;
   return __ldg(t.tables + ((bin * 3 + context) * kTypes + (cp & 31)) * kTypes +
                (cq & 31));
 }
 
-// Spring constant of the pair (p, q), zero unless p != q and, with a cutoff,
-// sq <= cutoff_sq: the table lookup with kTable, else the analytic rule of
-// `kind`.  The assembly kernels are instantiated once for each, so the
-// analytic instance carries nothing of the lookup.
+// Spring constant of the pair of atoms p, q (array positions, codes cp, cq),
+// zero unless p != q and, with a cutoff, sq <= cutoff_sq: the table lookup
+// with kTable, else the analytic rule of `kind`.  The kernels are
+// instantiated once for each, so the analytic instance carries nothing of
+// the lookup.
 template <bool kTable>
 __device__ __forceinline__ float masked_pair_constant(int kind,
                                                       const PairTable& t,
-                                                      int p, int q, float sq,
+                                                      int cp, int cq, int p,
+                                                      int q, float sq,
                                                       float cutoff_sq,
                                                       int has_cutoff) {
   if constexpr (kTable) {
     const bool valid = p != q && (!has_cutoff || sq <= cutoff_sq);
-    return valid ? table_constant(t, p, q, sq) : 0.0f;
+    return valid ? table_constant(t, cp, cq, p, q, sq) : 0.0f;
   } else {
     return masked_spring_constant(kind, sq, p != q, cutoff_sq, has_cutoff);
   }
 }
 
-// Shared-memory bytes of the staged coordinates (structure of arrays) plus,
-// for the tabulated family, the per-atom codes and the edges.
-__host__ __device__ inline size_t assembly_smem_bytes(int n, int kind,
+// Column atoms the assembly kernels stage at a time: a whole conformer up to
+// kWholeConformer atoms (48 KB of coordinates), tiles of kColumnTile beyond.
+constexpr int kWholeConformer = 4096;
+constexpr int kColumnTile = 2048;
+
+__host__ __device__ inline int assembly_column_tile(int n) {
+  return n <= kWholeConformer ? n : kColumnTile;
+}
+
+// Shared-memory bytes of one staged column tile (structure of arrays) plus,
+// for the tabulated family, its per-atom codes and the edges.
+__host__ __device__ inline size_t assembly_smem_bytes(int tile, int kind,
                                                       int n_edges) {
-  size_t bytes = 3 * static_cast<size_t>(n) * sizeof(float);
+  size_t bytes = 3 * static_cast<size_t>(tile) * sizeof(float);
   if (kind == kTableCompact)
-    bytes += static_cast<size_t>(n) * sizeof(int) +
+    bytes += static_cast<size_t>(tile) * sizeof(int) +
              static_cast<size_t>(n_edges) * sizeof(float);
   return bytes;
 }
 
-// Stage one conformer's coordinates `c` (n, 3) as x[0:n], y[n:2n], z[2n:3n]
-// at `smem` and, with kTable, the atom codes and edges behind them; fills
-// the shared pointers of `t`.  Every thread of the block calls it; it ends
-// with a barrier.
-template <bool kTable>
-__device__ __forceinline__ void stage_conformer(float* smem,
-                                                const float* __restrict__ c,
-                                                int n,
-                                                const int* __restrict__ code,
-                                                const float* __restrict__ edges,
-                                                PairTable& t) {
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+// Stage the coordinates of atoms [j0, j0 + len) of one conformer `c` (n, 3)
+// as x[0:len], y[stride:stride + len], z[2 stride:2 stride + len] at `smem`.
+// Every thread of the block calls it; the caller sets the barrier.
+__device__ __forceinline__ void stage_coordinates(float* smem,
+                                                  const float* __restrict__ c,
+                                                  int j0, int len,
+                                                  int stride) {
+  c += 3 * static_cast<size_t>(j0);
+  for (int i = threadIdx.x; i < 3 * len; i += blockDim.x) {
     const int atom = i / 3;
-    smem[(i - atom * 3) * n + atom] = c[i];
+    smem[(i - atom * 3) * stride + atom] = c[i];
   }
-  if constexpr (kTable) {
-    int* s_code = reinterpret_cast<int*>(smem + 3 * n);
-    float* s_edges = reinterpret_cast<float*>(s_code + n);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_code[i] = code[i];
-    for (int i = threadIdx.x; i < t.n_edges; i += blockDim.x)
-      s_edges[i] = edges[i];
-    t.code = s_code;
-    t.edges_sq = s_edges;
-  }
-  __syncthreads();
 }
+
+// The shared memory of an assembly kernel: a column tile's coordinates, then
+// (kTable) its atom codes and the bin edges.
+template <bool kTable>
+struct ColumnTile {
+  float* xyz;
+  int* code;
+  int stride;
+
+  // Lay the buffers out over `smem` and stage the edges (once per block).
+  __device__ __forceinline__ ColumnTile(float* smem, int tile,
+                                        const float* __restrict__ edges,
+                                        PairTable& t)
+      : xyz(smem), code(reinterpret_cast<int*>(smem + 3 * tile)),
+        stride(tile) {
+    if constexpr (kTable) {
+      float* s_edges = reinterpret_cast<float*>(code + tile);
+      for (int i = threadIdx.x; i < t.n_edges; i += blockDim.x)
+        s_edges[i] = edges[i];
+      t.edges_sq = s_edges;
+    }
+  }
+
+  // Stage atoms [j0, j0 + len) between two barriers: the first lets every
+  // warp finish with the tile before, the second publishes this one.
+  __device__ __forceinline__ void load(const float* __restrict__ c,
+                                       const int* __restrict__ atom_code,
+                                       int j0, int len) {
+    __syncthreads();
+    stage_coordinates(xyz, c, j0, len, stride);
+    if constexpr (kTable)
+      for (int i = threadIdx.x; i < len; i += blockDim.x)
+        code[i] = atom_code[j0 + i];
+    __syncthreads();
+  }
+};
 
 // Opt a kernel in to more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>

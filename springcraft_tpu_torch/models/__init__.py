@@ -1,12 +1,14 @@
 """Force-field objects of the port (see :mod:`.forcefield`)."""
 
 from .forcefield import (ForceField, HinsenForceField, InvariantForceField,
-                         ParameterFreeForceField, TabulatedForceField)
+                         ParameterFreeForceField, PatchedForceField,
+                         TabulatedForceField)
 
 __all__ = [
     "ForceField",
     "InvariantForceField",
     "HinsenForceField",
     "ParameterFreeForceField",
+    "PatchedForceField",
     "TabulatedForceField",
 ]

@@ -12,7 +12,9 @@ parameterizations.  Every force field lowers itself with
 the pipelines take; the tabulated one also with
 ``to_compact_params``, which the assembly kernels evaluate.  The
 parameter tables are the package's own data (``data/*.csv``).
-``PatchedForceField`` waits for the patch overlays (ROADMAP.md).
+:class:`PatchedForceField` wraps any of them with artificial contact
+switching and lowers to the wrapped field's parameters plus one dense
+:class:`~..ops.ffparams.PatchOverlay`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "InvariantForceField",
     "HinsenForceField",
     "ParameterFreeForceField",
+    "PatchedForceField",
     "TabulatedForceField",
     "AA_LIST",
     "AA_TO_INDEX",
@@ -177,6 +180,144 @@ class ParameterFreeForceField(ForceField):
 
     def to_params(self, natoms=None):
         return ffparams.pfenm_params(self._cutoff_distance)
+
+
+class PatchedForceField(ForceField):
+    """
+    Wraps another force field and applies custom changes to selected
+    pairs of atoms (reference ``forcefield.py:117-261``): per-atom
+    contact shutdown, per-pair switch-off, and per-pair switch-on with
+    explicit force constants.
+    """
+
+    def __init__(self, force_field, contact_shutdown=None,
+                 contact_pair_off=None, contact_pair_on=None,
+                 force_constants=None):
+        self._force_field = force_field
+
+        def _opt_array(value, dtype=None):
+            return None if value is None else np.asarray(value, dtype=dtype)
+
+        self._contact_shutdown = _opt_array(contact_shutdown)
+        self._contact_pair_off = _opt_array(contact_pair_off)
+        self._contact_pair_on = _opt_array(contact_pair_on)
+        self._force_constants = _opt_array(force_constants)
+
+        for indices in (self._contact_shutdown, self._contact_pair_off,
+                        self._contact_pair_on):
+            _check_indices(force_field.natoms, indices)
+        if self._contact_pair_on is not None:
+            if self._force_constants is None:
+                raise TypeError(
+                    "Individual force constants must be given, "
+                    "if contacts are turned on"
+                )
+            if len(self._force_constants) != len(self._contact_pair_on):
+                raise IndexError(
+                    f"{len(self._force_constants)} force constants were "
+                    f"given for {len(self._contact_pair_on)} "
+                    f"switched on contact_pairs"
+                )
+            if (self._contact_pair_on[:, 0]
+                    == self._contact_pair_on[:, 1]).any():
+                raise ValueError(
+                    "Cannot turn on interaction of an atom with itself"
+                )
+
+    def force_constant(self, atom_i, atom_j, sq_distance):
+        inner = self._force_field
+        if inner.cutoff_distance is None:
+            constants = np.asarray(
+                inner.force_constant(atom_i, atom_j, sq_distance),
+                dtype=float,
+            )
+        else:
+            # Pairs beyond the wrapped field's cutoff (possible for
+            # switched-on contacts) must not reach the wrapped
+            # force_constant (reference forcefield.py:188-195)
+            constants = np.zeros(len(sq_distance))
+            within = sq_distance <= inner.cutoff_distance**2
+            constants[within] = inner.force_constant(
+                np.asarray(atom_i)[within], np.asarray(atom_j)[within],
+                np.asarray(sq_distance)[within],
+            )
+
+        if self._contact_pair_on is None:
+            return constants
+
+        # Override constants for patched pairs.  Pairs are matched via
+        # sorted encoded keys (i * size + j), symmetrized.
+        atom_i = np.asarray(atom_i)
+        atom_j = np.asarray(atom_j)
+        pi, pj = self._contact_pair_on.T
+        size = int(max(pi.max(), pj.max(), atom_i.max(), atom_j.max())) + 1
+        keys = np.concatenate([pi * size + pj, pj * size + pi])
+        values = np.concatenate([self._force_constants] * 2)
+        order = np.argsort(keys, kind="stable")
+        keys, values = keys[order], values[order]
+
+        query = atom_i * size + atom_j
+        pos = np.searchsorted(keys, query)
+        pos_clipped = np.minimum(pos, len(keys) - 1)
+        matched = keys[pos_clipped] == query
+        return np.where(matched, values[pos_clipped], constants)
+
+    @property
+    def cutoff_distance(self):
+        return self._force_field.cutoff_distance
+
+    @property
+    def contact_shutdown(self):
+        return _concat_optional(self._contact_shutdown,
+                                self._force_field.contact_shutdown)
+
+    @property
+    def contact_pair_off(self):
+        return _concat_optional(self._contact_pair_off,
+                                self._force_field.contact_pair_off)
+
+    @property
+    def contact_pair_on(self):
+        return _concat_optional(self._contact_pair_on,
+                                self._force_field.contact_pair_on)
+
+    @property
+    def natoms(self):
+        return self._force_field.natoms
+
+    def to_params(self, natoms=None):
+        """The wrapped field's parameters with one more dense overlay.
+        A field without an atom count of its own (the analytic ones)
+        needs `natoms`; without it the result is ``None``."""
+        inner = self._force_field.to_params(natoms=natoms)
+        if inner is None:
+            return None
+        n = natoms if natoms is not None else self.natoms
+        if n is None:
+            return None
+
+        off_mask = np.zeros((n, n), dtype=bool)
+        if self._contact_shutdown is not None:
+            off_mask[self._contact_shutdown, :] = True
+            off_mask[:, self._contact_shutdown] = True
+        if self._contact_pair_off is not None:
+            i, j = self._contact_pair_off.T
+            off_mask[i, j] = True
+            off_mask[j, i] = True
+
+        on_mask = np.zeros((n, n), dtype=bool)
+        has_value = np.zeros((n, n), dtype=bool)
+        values = np.zeros((n, n), dtype=np.float64)
+        if self._contact_pair_on is not None:
+            i, j = self._contact_pair_on.T
+            on_mask[i, j] = True
+            on_mask[j, i] = True
+            values[i, j] = self._force_constants
+            values[j, i] = self._force_constants
+            has_value = on_mask.copy()
+
+        return ffparams.with_overlay(inner, off_mask, on_mask, values,
+                                     has_value)
 
 
 class TabulatedForceField(ForceField):
@@ -381,6 +522,30 @@ class TabulatedForceField(ForceField):
         if nonbonded_mean:
             table = np.full((20, 20), np.average(table))
         return TabulatedForceField(atoms, 82.0, table, table, 13.0)
+
+
+def _concat_optional(first, second):
+    if second is None:
+        return first
+    if first is None:
+        # Reference concatenates unconditionally here, which would fail;
+        # returning the wrapped field's patches is the useful behavior.
+        return second
+    return np.concatenate([first, second])
+
+
+def _check_indices(length, indices):
+    """Bounds check for patch index arrays
+    (reference ``forcefield.py:953-962``)."""
+    if indices is None or length is None:
+        return
+    flat = np.asarray(indices).flatten()
+    out_of_bounds = flat[flat >= length]
+    if len(out_of_bounds) > 0:
+        raise IndexError(
+            f"Index {out_of_bounds[0]} is out of bounds "
+            f"for a structure of length {length}"
+        )
 
 
 def _as_type_table(value, n_bins):

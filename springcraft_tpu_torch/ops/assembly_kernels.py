@@ -5,7 +5,12 @@ Counterpart of ``springcraft_tpu/ops/pallas_kernels.py:191-554``
 (single-structure Hessian and Kirchhoff assembly), ``:688-1040``
 (ensemble assembly), ``:1046-1165, 1344-1386`` (the regularize/stitch
 prep) and ``:1167-1341`` (the assembly-fused prep); the assembly
-wrappers take the analytic families and ``table_compact``.
+wrappers take the analytic families and ``table_compact``, at any number
+of atoms.  With patch overlays :func:`hessian_xyz_ensemble` and
+:func:`kirchhoff_ensemble` run on the base family and add the sparse
+correction of :mod:`.assembly` (``:284-295, 476-484, 913-927, 988-996``);
+the planes layout and the assembly-fused prep refuse overlays, as their
+TPU kernels do.
 
 * :func:`hessian_planes_ensemble` — kernel ``csrc/hessian_planes.cu``
   (entry ``sc_hessian_planes``); plain version
@@ -34,8 +39,9 @@ import torch
 
 from .. import _build
 from .assembly import (hessian_planes_plain, hessian_xyz_plain,
-                       kirchhoff_plain, planes_to_xyz)
-from .ffparams import ANALYTIC_KINDS
+                       kirchhoff_plain, overlay_correction_hessian_xyz,
+                       overlay_correction_kirchhoff, planes_to_xyz)
+from .ffparams import ANALYTIC_KINDS, strip_overlays
 
 __all__ = [
     "hessian_planes_ensemble",
@@ -48,10 +54,11 @@ __all__ = [
     "MAX_ATOMS_STITCH",
 ]
 
-#: Largest conformer the assembly kernels stage in shared memory (48 KB
-#: of coordinates; the tabulated family adds its atom codes and opts in
-#: to 64 KB).
-_MAX_ATOMS = 4096
+#: Most atoms of an assembly kernel: its row and column indices and
+#: ``3 n`` are ints.  (Up to 4096 atoms the kernels stage a whole
+#: conformer in shared memory, beyond that tiles of 2048 column atoms:
+#: ``kWholeConformer``, ``kColumnTile`` in ``csrc/spring.cuh``.)
+_MAX_ATOMS = 2**29
 #: Largest conformer :func:`assembly_stitch` stages (coordinates and
 #: scale, 24 n bytes, in the default 48 KB).
 MAX_ATOMS_STITCH = 2048
@@ -64,28 +71,39 @@ def _table_args(params, n, device):
     device tensors, or nulls for an analytic family."""
     if params.kind != "table_compact":
         return None, None, None, 0, 0
-    if params.n_atoms != n:
-        raise ValueError(f"force field was built for {params.n_atoms} "
-                         f"atoms, coordinates have {n}")
+    params._check_atoms(n)
     dev = params.device_tables(device, torch.float32)
     return (dev["tables"].data_ptr(), dev["edges"].data_ptr(),
             dev["code"].data_ptr(), params.n_bins, dev["edges"].numel())
 
 
-def _assemble(wrapper, entry, plain, out_shape, coords, params):
+def _assemble(wrapper, entry, plain, out_shape, coords, params,
+              correction=None):
     """Run an assembly kernel (C entry `entry`, output `out_shape` given
-    ``(B, n)``) on `coords`, or its plain version on a CPU tensor."""
+    ``(B, n)``) on `coords`, or its plain version on a CPU tensor.  With
+    patch overlays the base family is assembled and `correction` adds
+    the overlays' sparse part."""
     name = wrapper.__name__
     if coords.ndim != 3 or coords.shape[-1] != 3:
         raise ValueError(f"{name}: coords must be (B, n, 3), got "
                          f"{tuple(coords.shape)}")
+    if params.overlays:
+        if correction is None:
+            raise ValueError(
+                f"{name} takes no patch overlays: their sparse correction "
+                f"applies to the assembled matrix (hessian_xyz_ensemble, "
+                f"kirchhoff_ensemble)")
+        params._check_atoms(coords.shape[1])
+        base = _assemble(wrapper, entry, plain, out_shape, coords,
+                         strip_overlays(params))
+        return correction(base, coords, params)
     if _build.route(name, coords) == "cpu":
         return plain(coords, params)
     _build.require_cuda_f32(name, coords=coords)
     batch, n, _ = coords.shape
     if n > _MAX_ATOMS or batch > _MAX_GRID_YZ:
         raise ValueError(f"{name}: (B, n) = ({batch}, {n}) exceeds the "
-                         f"kernel's limits (B <= {_MAX_GRID_YZ}, n <= "
+                         f"kernel's index range (B <= {_MAX_GRID_YZ}, n <= "
                          f"{_MAX_ATOMS})")
     out = torch.empty(out_shape(batch, n), dtype=torch.float32,
                       device=coords.device)
@@ -102,7 +120,8 @@ def _assemble(wrapper, entry, plain, out_shape, coords, params):
 def hessian_planes_ensemble(coords, params):
     """Nine xyz Hessian component planes of a conformer batch,
     ``(B, n, 3) -> (9, B, n, n)`` (see
-    :func:`.assembly.hessian_planes_plain` for the layout)."""
+    :func:`.assembly.hessian_planes_plain` for the layout).  Refuses
+    patch overlays."""
     return _assemble(hessian_planes_ensemble, "sc_hessian_planes",
                      hessian_planes_plain, lambda b, n: (9, b, n, n),
                      coords, params)
@@ -114,7 +133,7 @@ def hessian_xyz_ensemble(coords, params):
     ``B = 1`` and the float32 ``cho_solve`` ensemble engine's."""
     return _assemble(hessian_xyz_ensemble, "sc_hessian_xyz",
                      hessian_xyz_plain, lambda b, n: (b, 3 * n, 3 * n),
-                     coords, params)
+                     coords, params, overlay_correction_hessian_xyz)
 
 
 def kirchhoff_ensemble(coords, params):
@@ -122,7 +141,8 @@ def kirchhoff_ensemble(coords, params):
     ``(B, n, 3) -> (B, n, n)``: the ensemble assembly and, at ``B = 1``,
     the single-structure one."""
     return _assemble(kirchhoff_ensemble, "sc_kirchhoff", kirchhoff_plain,
-                     lambda b, n: (b, n, n), coords, params)
+                     lambda b, n: (b, n, n), coords, params,
+                     overlay_correction_kirchhoff)
 
 
 for _wrapper in (hessian_planes_ensemble, hessian_xyz_ensemble,
@@ -198,9 +218,11 @@ regularize_stitch.launches = 0
 
 
 def _check_stitch_inputs(name, coords, params, scale_h, ts, mp):
-    if params.kind not in ANALYTIC_KINDS:
+    if params.kind not in ANALYTIC_KINDS or params.overlays:
         raise ValueError(f"{name} takes the analytic families "
-                         f"{ANALYTIC_KINDS}, got kind={params.kind!r}")
+                         f"{ANALYTIC_KINDS} without patch overlays, got "
+                         f"kind={params.kind!r} with "
+                         f"{len(params.overlays)} overlays")
     if coords.ndim != 3 or coords.shape[-1] != 3:
         raise ValueError(f"{name}: coords must be (B, n, 3), got "
                          f"{tuple(coords.shape)}")

@@ -2,9 +2,12 @@
 Matrix-free ENM operators and the solvers above them: ``H @ X`` and
 ``K @ X`` without materializing the Hessian or the Kirchhoff matrix.
 
-Counterpart of ``springcraft_tpu/ops/matfree.py`` (analytic families).
-The dense pipelines hold the ``(3n, 3n)`` Hessian, 32 GB in float32 at
-30k residues; here the operator stays implicit,
+Counterpart of ``springcraft_tpu/ops/matfree.py`` for the families whose
+parameters are O(n): the analytic ones and the tabulated
+``table_compact`` (sdENM, eANM, ...), each with or without patch
+overlays; ``table_pair`` is refused, as there.  The dense pipelines hold
+the ``(3n, 3n)`` Hessian, 32 GB in float32 at 30k residues; here the
+operator stays implicit,
 
     y_i = sum_j g_ij d_ij (d_ij . x_j) - (sum_j g_ij d_ij d_ij^T) x_i,
 
@@ -27,7 +30,11 @@ plane layout ``(3n, k)`` of the JAX package.
   tile) and :func:`kirchhoff_apply_sparse` (K14,
   ``csrc/matfree_kirchhoff.cu``).  A CPU tensor runs the plain version; a
   CUDA tensor launches the kernel (float32, contiguous) or raises.
-  ``<wrapper>.launches`` counts kernel launches.
+  ``<wrapper>.launches`` counts kernel launches, ``.table_launches``
+  those through the kernel's table branch (``table_compact``).
+* Patch overlays never reach a kernel: every operator runs the base
+  family and adds the sparse correction :func:`overlay_apply_hessian` /
+  :func:`overlay_apply_kirchhoff` over the pairs an overlay can touch.
 * Chebyshev-filtered subspace iteration: :func:`lowest_modes_matfree`,
   :func:`lowest_modes_matfree_gnm` (and :func:`estimate_lambda_max`).
 * Deflated, block-Jacobi-preconditioned CG with per-column step sizes:
@@ -40,9 +47,15 @@ CUDA): float32 coordinates on CUDA take the kernels — block-sparse K13 /
 K14 when the family has a cutoff (``sparse`` default), the dense-grid K12
 otherwise — and keep the TPU's oversampling default ``max(k, 8, 48 - k)``;
 every other dtype or device runs the plain versions.  GNM without
-``sparse`` stays on the plain :func:`kirchhoff_apply`, as in JAX.  Not
-ported: patch overlays, ``checkpoint=`` / ``retries=``, the stochastic
-estimators and effector/sensor routes (ROADMAP.md).
+``sparse`` stays on the plain :func:`kirchhoff_apply`, as in JAX.
+
+In Morton order (the block-sparse solvers) the per-atom codes of a
+tabulated family and the overlay masks are permuted with the atoms,
+while the bonded test of the table lookup goes by original atom id, the
+ids that also mask self-pairs and padding.
+
+Not ported: ``checkpoint=`` / ``retries=``, the stochastic estimators and
+effector/sensor routes (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,11 +70,15 @@ import torch.nn.functional as F
 from .. import _build
 from ..utils.config import as_tensor, resolve_device
 from . import rigid
-from .ffparams import ANALYTIC_KINDS, FFParams, analytic_constants
+from .assembly_kernels import _table_args
+from .ffparams import (KERNEL_KINDS, FFParams, overlay_pair_delta,
+                       rect_base_constants, strip_overlays)
 
 __all__ = [
     "hessian_apply",
     "kirchhoff_apply",
+    "overlay_apply_hessian",
+    "overlay_apply_kirchhoff",
     "hessian_apply_dense",
     "hessian_apply_sparse",
     "kirchhoff_apply_sparse",
@@ -94,16 +111,15 @@ def _round_up(x, m):
 
 def _check_params(params):
     kind = getattr(params, "kind", type(params).__name__)
-    if isinstance(params, FFParams) and kind in ANALYTIC_KINDS:
+    if isinstance(params, FFParams) and kind in KERNEL_KINDS:
         return
-    if kind in ANALYTIC_KINDS:
+    if kind in KERNEL_KINDS:
         raise TypeError("params must be springcraft_tpu_torch FFParams "
                         "(see ops.ffparams.from_numpy_params)")
     raise ValueError(
-        f"matrix-free path does not support kind={kind!r}: the port's "
-        f"matrix-free operators take the analytic families "
-        f"{ANALYTIC_KINDS} (the table lookup of its kernels and patch "
-        f"overlays are a later slice, ROADMAP.md)")
+        f"matrix-free path does not support kind={kind!r} (O(n^2) "
+        f"parameters: use the dense assembly instead); it takes "
+        f"{KERNEL_KINDS}, with or without patch overlays")
 
 
 def _squared_distance(d):
@@ -112,21 +128,21 @@ def _squared_distance(d):
         + d[..., 2] * d[..., 2]
 
 
-def _masked_constants(sq, valid, params):
-    """Spring constants, zero outside `valid` and beyond the cutoff."""
+def _rect_constants(sq, rows, cols, n, params, row_ids=None, col_ids=None):
+    """Masked base-family force constants of a rectangular (R, C) block:
+    `rows` / `cols` are atom slots (they index the per-atom codes of a
+    tabulated family), `row_ids` / `col_ids` the atoms' original ids
+    where the slots are a reordering (default: the slots themselves).
+    Validity and the table's bonded test go by id; zeros beyond the
+    cutoff, on self-pairs and on padding (id ``>= n``)."""
+    rid = rows if row_ids is None else row_ids
+    cid = cols if col_ids is None else col_ids
+    valid = (rid[:, None] != cid[None, :]) \
+        & (rid < n)[:, None] & (cid < n)[None, :]
     if params.has_cutoff:
         valid = valid & (sq <= params.cutoff_sq)
-    return torch.where(valid, analytic_constants(params.kind, sq),
-                       torch.zeros_like(sq))
-
-
-def _rect_constants(sq, rows, cols, n, params):
-    """Masked force constants of a rectangular (R, C) index block:
-    `rows` / `cols` are global atom indices; zeros beyond the cutoff,
-    on self-pairs and on padding."""
-    valid = (rows[:, None] != cols[None, :]) \
-        & (rows < n)[:, None] & (cols < n)[None, :]
-    return _masked_constants(sq, valid, params)
+    k = rect_base_constants(params, sq, rows, cols, rid, cid)
+    return torch.where(valid, k, torch.zeros_like(sq))
 
 
 def _coord(coord, dtype, device):
@@ -151,11 +167,14 @@ def _columns(x, rows, like, name="x"):
 
 
 def _row_blocks(coord, params, block):
-    """Blocked row passes over all atom pairs: yields ``(r0, d, sq,
-    kmat)`` per block of `block` rows (``d`` ``(block, n_pad, 3)``, the
-    masked constants ``kmat`` ``(block, n_pad)``), rows and columns padded
-    to a multiple of `block`.  O(block * n) live memory."""
+    """Blocked row passes over all atom pairs of the base family (no
+    overlays): yields ``(r0, d, sq, kmat)`` per block of `block` rows
+    (``d`` ``(block, n_pad, 3)``, the masked constants ``kmat`` ``(block,
+    n_pad)``), rows and columns padded to a multiple of `block`.
+    O(block * n) live memory."""
+    params = strip_overlays(params)
     n = coord.shape[0]
+    params._check_atoms(n)
     n_pad = _round_up(n, block)
     coord_p = F.pad(coord, (0, 0, 0, n_pad - n))
     cols = torch.arange(n_pad, device=coord.device)
@@ -187,7 +206,8 @@ def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
     x : Tensor or ndarray, shape=(3n, k) or (3n,)
         Block of vectors in xyz plane layout.
     params : FFParams
-        Analytic family.
+        An analytic family or ``table_compact``; patch overlays apply as
+        a sparse correction (:func:`overlay_apply_hessian`).
 
     Returns
     -------
@@ -197,6 +217,11 @@ def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
     coord = _coord(coord, dtype, device)
     n = coord.shape[0]
     x, squeeze = _columns(x, 3 * n, coord)
+    if params.overlays:
+        y = hessian_apply(coord, x, strip_overlays(params), block=block,
+                          dtype=dtype) \
+            + overlay_apply_hessian(coord, x, params, dtype=dtype)
+        return y[:, 0] if squeeze else y
     k = x.shape[1]
     n_pad = _round_up(n, block)
     x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
@@ -220,11 +245,18 @@ def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
 def kirchhoff_apply(coord, x, params, *, block=512, dtype=torch.float32,
                     device=None):
     """``K @ x`` for the GNM Kirchhoff matrix without materializing it
-    (row-blocked, any dtype); `x` is ``(n, k)`` or ``(n,)``."""
+    (row-blocked, any dtype); `x` is ``(n, k)`` or ``(n,)``.  Patch
+    overlays apply as a sparse correction
+    (:func:`overlay_apply_kirchhoff`)."""
     _check_params(params)
     coord = _coord(coord, dtype, device)
     n = coord.shape[0]
     x, squeeze = _columns(x, n, coord)
+    if params.overlays:
+        y = kirchhoff_apply(coord, x, strip_overlays(params), block=block,
+                            dtype=dtype) \
+            + overlay_apply_kirchhoff(coord, x, params, dtype=dtype)
+        return y[:, 0] if squeeze else y
     n_pad = _round_up(n, block)
     x_p = F.pad(x, (0, 0, 0, n_pad - n))
     out = [-(kmat @ x_p) + kmat.sum(dim=1)[:, None] * x_p[r0:r0 + block]
@@ -242,7 +274,9 @@ def hessian_degree_bound(coord, params, *, masses=None, block=512,
         lambda_max <= max_i w_i * (sum_j k_ij w_j + w_i sum_j k_ij)
 
     with ``w = 1 / sqrt(masses)`` (ones without masses).  The Kirchhoff
-    bound coincides.  One blocked pass; a 0-d tensor.
+    bound coincides.  One blocked pass; a 0-d tensor.  Patch overlays add
+    ``max_i w_i (sum_j |delta_ij| w_j + w_i sum_j |delta_ij|)``: still an
+    upper bound, possibly looser.
     """
     _check_params(params)
     coord = _coord(coord, dtype, device)
@@ -254,14 +288,25 @@ def hessian_degree_bound(coord, params, *, masses=None, block=512,
     for r0, _, _, kmat in _row_blocks(coord, params, block):
         wr = w_p[r0:r0 + block]
         rows.append(wr * (kmat @ w_p + wr * kmat.sum(dim=1)))
-    return torch.cat(rows).max()
+    bound = torch.cat(rows).max()
+    if params.overlays:
+        ii, jj, delta, _, _ = overlay_pair_delta(coord, params)
+        if ii.numel():
+            ad = delta.abs()
+            wsum = torch.zeros_like(w).index_add_(0, ii, ad * w[jj]) \
+                .index_add_(0, jj, ad * w[ii])
+            rsum = torch.zeros_like(w).index_add_(0, ii, ad) \
+                .index_add_(0, jj, ad)
+            bound = bound + (w * (wsum + w * rsum)).max()
+    return bound
 
 
 def hessian_diag_blocks(coord, params, *, block=512, dtype=torch.float32,
                         device=None):
     """The ``(n, 3, 3)`` diagonal superblocks of the ANM Hessian
     (``sum_j k_ij / d^2 d d^T``) in one blocked pass — the block-Jacobi
-    preconditioner of :func:`covariance_solve_matfree`."""
+    preconditioner of :func:`covariance_solve_matfree`.  Patch overlays
+    scatter their exact contribution in."""
     _check_params(params)
     coord = _coord(coord, dtype, device)
     n = coord.shape[0]
@@ -272,18 +317,73 @@ def hessian_diag_blocks(coord, params, *, block=512, dtype=torch.float32,
             torch.stack([(g * d[..., a] * d[..., b]).sum(dim=1)
                          for b in range(3)], dim=-1)
             for a in range(3)], dim=-2))
-    return torch.cat(out)[:n]
+    blocks = torch.cat(out)[:n]
+    if params.overlays:
+        ii, jj, delta, disp, safe_sq = overlay_pair_delta(coord, params)
+        if ii.numel():
+            dd = (delta / safe_sq)[:, None, None] * disp[:, :, None] \
+                * disp[:, None, :]
+            blocks = blocks.index_add_(0, ii, dd).index_add_(0, jj, dd)
+    return blocks
 
 
 def kirchhoff_degree(coord, params, *, block=512, dtype=torch.float32,
                      device=None):
     """Per-atom Kirchhoff diagonal (the degree, ``sum_j k_ij``) by a
-    blocked pass — the GNM Jacobi preconditioner.  O(n^2) work."""
+    blocked pass — the GNM Jacobi preconditioner.  O(n^2) work; patch
+    overlays scatter their contribution in."""
     _check_params(params)
     coord = _coord(coord, dtype, device)
     deg = [kmat.sum(dim=1)
            for _, _, _, kmat in _row_blocks(coord, params, block)]
-    return torch.cat(deg)[:coord.shape[0]]
+    deg = torch.cat(deg)[:coord.shape[0]]
+    if params.overlays:
+        ii, jj, delta, _, _ = overlay_pair_delta(coord, params)
+        if ii.numel():
+            deg = deg.index_add_(0, ii, delta).index_add_(0, jj, delta)
+    return deg
+
+
+def overlay_apply_hessian(coord, x, params, *, dtype=torch.float32,
+                          pos=None, device=None):
+    """``(Delta H) @ x`` for the sparse correction of the patch overlays
+    in xyz layout, O(P k) for P affected pairs: what every matrix-free
+    operator adds to its base-family apply.  `pos` ``(n,)`` maps slots
+    to original atom positions where `coord`, `x` and the overlay masks
+    are reordered (Morton order), for the bonded test of
+    ``table_compact``.  Accumulates with ``index_add_``: float32 sums in
+    no fixed order."""
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    x, squeeze = _columns(x, 3 * n, coord)
+    k = x.shape[1]
+    xb = x.reshape(3, n, k)
+    ii, jj, delta, disp, safe_sq = overlay_pair_delta(coord, params,
+                                                      pos=pos)
+    y = torch.zeros_like(xb)
+    if ii.numel():
+        diff = xb[:, ii] - xb[:, jj]                        # (3, P, k)
+        s = (delta / safe_sq)[:, None] * sum(
+            disp[:, a, None] * diff[a] for a in range(3))   # (P, k)
+        for a in range(3):
+            contrib = disp[:, a, None] * s
+            y[a].index_add_(0, ii, contrib).index_add_(0, jj, -contrib)
+    y = y.reshape(3 * n, k)
+    return y[:, 0] if squeeze else y
+
+
+def overlay_apply_kirchhoff(coord, x, params, *, dtype=torch.float32,
+                            pos=None, device=None):
+    """``(Delta K) @ x``, the GNM twin of :func:`overlay_apply_hessian`
+    (`x`: ``(n, k)`` or ``(n,)``)."""
+    coord = _coord(coord, dtype, device)
+    x, squeeze = _columns(x, coord.shape[0], coord)
+    ii, jj, delta, _, _ = overlay_pair_delta(coord, params, pos=pos)
+    y = torch.zeros_like(x)
+    if ii.numel():
+        t = delta[:, None] * (x[ii] - x[jj])
+        y.index_add_(0, ii, t).index_add_(0, jj, -t)
+    return y[:, 0] if squeeze else y
 
 
 def matfree_mode_residuals(coord, params, eig_values, eig_vectors, *,
@@ -439,9 +539,13 @@ def _dense_csr(n, tile, device):
 def _tile_pairs(coord, csr, tile, params):
     """Per row tile ``t``: ``(t, rows, d, kmat, cols)`` over the gathered
     slots ``cols`` of its neighbour tiles (``d`` ``(tile, C, 3)``,
-    ``kmat`` masked by original id, cutoff and padding), on coordinates
-    and ids padded to whole tiles (padding slots carry id ``n``)."""
+    ``kmat`` of the base family masked by original id, cutoff and
+    padding), on coordinates and ids padded to whole tiles (padding
+    slots carry id ``n``).  A tabulated family's codes are read by slot,
+    its bonded test goes by id."""
+    params = strip_overlays(params)
     n = coord.shape[0]
+    params._check_atoms(n)
     n_pad = _round_up(n, tile)
     coord_p = F.pad(coord, (0, 0, 0, n_pad - n))
     ids = F.pad(csr.ids, (0, n_pad - n), value=n)
@@ -453,17 +557,18 @@ def _tile_pairs(coord, csr, tile, params):
                  + offs).reshape(-1)
         d = coord_p[rows, None, :] - coord_p[None, slots, :]
         sq = _squared_distance(d)
-        rid, cid = ids[rows], ids[slots]
-        valid = (rid[:, None] != cid[None, :]) \
-            & (rid < n)[:, None] & (cid < n)[None, :]
-        yield t, rows, d, sq, _masked_constants(sq, valid, params), slots
+        kmat = _rect_constants(sq, t * tile + offs, slots, n, params,
+                               ids[rows].long(), ids[slots].long())
+        yield t, rows, d, sq, kmat, slots
 
 
 def hessian_apply_sparse_plain(coord, x, params, csr, tile):
     """Plain version of K13 (and, over :func:`_dense_csr`, of K12):
     ``H @ x`` for `coord` ``(n, 3)`` and `x` ``(3n, k)`` by the TPU
     kernel's arithmetic — per row tile, the nine component planes over
-    its neighbour tiles contracted with X, the row sums applied last."""
+    its neighbour tiles contracted with X, the row sums applied last.
+    The base family of `params` (a tabulated one in the order of
+    `coord`); overlays are the caller's correction."""
     n = coord.shape[0]
     k = x.shape[-1]
     n_pad = _round_up(n, tile)
@@ -514,6 +619,8 @@ def kirchhoff_apply_sparse_plain(coord, x, params, csr, tile):
 _HESSIAN_COLS = 16
 _KIRCHHOFF_COLS = 32
 _MAX_GRID_Y = 65535
+#: Most bin edges the kernels stage (``kMaxEdges`` in ``csrc/spring.cuh``).
+_MAX_EDGES = 64
 
 
 def _check_kernel_shape(name, coord, x, cols_per_block):
@@ -524,16 +631,40 @@ def _check_kernel_shape(name, coord, x, cols_per_block):
                          f"3n < 2^31)")
 
 
-def _kernel_args(params):
+def _kernel_args(params, n, device):
+    """Family arguments of the three kernels: kind, cutoff, and the table
+    branch's pointers (the per-atom codes in the order of `coord`)."""
+    if params.kind == "table_compact" and params.edges_sq is not None \
+            and len(params.edges_sq) > _MAX_EDGES:
+        raise ValueError(f"the matrix-free kernels stage at most "
+                         f"{_MAX_EDGES} bin edges, got "
+                         f"{len(params.edges_sq)}")
     return (params.kind_code,
             float(params.cutoff_sq) if params.has_cutoff else 0.0,
-            int(params.has_cutoff))
+            int(params.has_cutoff), *_table_args(params, n, device))
+
+
+def _with_overlay_apply(base, overlay_apply, coord, params, pos):
+    """``x -> base(x) + (Delta) x``: the base-family apply `base` with
+    the overlays' sparse correction behind it (`base` itself without
+    overlays)."""
+    if not params.overlays:
+        return base
+    return lambda x: base(x) + overlay_apply(coord, x, params,
+                                             dtype=coord.dtype, pos=pos)
 
 
 def _launch_hessian(coord, x, params, csr, tile):
     """Route one Hessian apply (x ``(3n, k)``): the plain version on the
     CPU; on CUDA the kernel — K13 over `csr`, or K12 (every column tile)
-    for ``csr=None``."""
+    for ``csr=None``.  Patch overlays follow the base-family apply as a
+    sparse correction, `csr`'s ids giving the original positions."""
+    if params.overlays:
+        return _with_overlay_apply(
+            lambda v: _launch_hessian(coord, v, strip_overlays(params), csr,
+                                      tile),
+            overlay_apply_hessian, coord, params,
+            None if csr is None else csr.ids)(x)
     wrapper = hessian_apply_dense if csr is None else hessian_apply_sparse
     name = wrapper.__name__
     if _build.route(name, coord, x, *(csr or ())) == "cpu":
@@ -547,18 +678,24 @@ def _launch_hessian(coord, x, params, csr, tile):
     if csr is None:
         _build.launch("sc_hessian_apply_dense", coord.device,
                       coord.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
-                      *_kernel_args(params))
+                      *_kernel_args(params, n, coord.device))
     else:
         _build.launch("sc_hessian_apply_sparse", coord.device,
                       coord.data_ptr(), csr.ids.data_ptr(),
                       csr.row_ptr.data_ptr(), csr.cols.data_ptr(),
                       x.data_ptr(), out.data_ptr(), n, k, tile,
-                      *_kernel_args(params))
+                      *_kernel_args(params, n, coord.device))
     wrapper.launches += 1
+    wrapper.table_launches += params.kind == "table_compact"
     return out
 
 
 def _launch_kirchhoff(coord, x, params, csr, tile):
+    if params.overlays:
+        return _with_overlay_apply(
+            lambda v: _launch_kirchhoff(coord, v, strip_overlays(params),
+                                        csr, tile),
+            overlay_apply_kirchhoff, coord, params, csr.ids)(x)
     name = "kirchhoff_apply_sparse"
     if _build.route(name, coord, x, *csr) == "cpu":
         return kirchhoff_apply_sparse_plain(coord, x, params, csr, tile)
@@ -569,8 +706,9 @@ def _launch_kirchhoff(coord, x, params, csr, tile):
                   coord.data_ptr(), csr.ids.data_ptr(),
                   csr.row_ptr.data_ptr(), csr.cols.data_ptr(), x.data_ptr(),
                   out.data_ptr(), coord.shape[0], x.shape[1], tile,
-                  *_kernel_args(params))
+                  *_kernel_args(params, coord.shape[0], coord.device))
     kirchhoff_apply_sparse.launches += 1
+    kirchhoff_apply_sparse.table_launches += params.kind == "table_compact"
     return out
 
 
@@ -644,9 +782,10 @@ def kirchhoff_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
     return y[:, 0] if squeeze else y
 
 
-hessian_apply_sparse.launches = 0
-hessian_apply_dense.launches = 0
-kirchhoff_apply_sparse.launches = 0
+for _wrapper in (hessian_apply_sparse, hessian_apply_dense,
+                 kirchhoff_apply_sparse):
+    _wrapper.launches = 0
+    _wrapper.table_launches = 0
 
 
 def _hessian_operator(coord, params, *, kernel, sparse, csr, tile, block):
@@ -659,8 +798,10 @@ def _hessian_operator(coord, params, *, kernel, sparse, csr, tile, block):
         return lambda x: _launch_hessian(coord, x.contiguous(), params,
                                          csr if sparse else None, tile)
     if sparse:
-        return functools.partial(hessian_apply_sparse_plain, coord,
-                                 params=params, csr=csr, tile=tile)
+        return _with_overlay_apply(
+            functools.partial(hessian_apply_sparse_plain, coord,
+                              params=params, csr=csr, tile=tile),
+            overlay_apply_hessian, coord, params, csr.ids)
     return functools.partial(hessian_apply, coord, params=params,
                              block=block, dtype=coord.dtype)
 
@@ -673,8 +814,10 @@ def _kirchhoff_operator(coord, params, *, kernel, sparse, csr, tile, block):
         return lambda x: _launch_kirchhoff(coord, x.contiguous(), params,
                                            csr, tile)
     if sparse:
-        return functools.partial(kirchhoff_apply_sparse_plain, coord,
-                                 params=params, csr=csr, tile=tile)
+        return _with_overlay_apply(
+            functools.partial(kirchhoff_apply_sparse_plain, coord,
+                              params=params, csr=csr, tile=tile),
+            overlay_apply_kirchhoff, coord, params, csr.ids)
     return functools.partial(kirchhoff_apply, coord, params=params,
                              block=block, dtype=coord.dtype)
 
@@ -770,9 +913,12 @@ def _chebfsi(matvec, t, m, lam_max, *, k, oversample, degree, n_outer,
 
 def _sparse_setup(coord, params, masses, tile):
     """Host set-up shared by the block-sparse solvers: Morton sort, tile
-    neighbour lists and their CSR, permuted masses.  Returns ``(sorted
-    coord, permuted masses, csr, perm)``."""
+    neighbour lists and their CSR, permuted masses, and the parameters
+    with their per-atom codes and overlay masks in the sorted order
+    (a new record with device tensors of its own).  Returns ``(sorted
+    coord, permuted params, permuted masses, csr, perm)``."""
     host = coord.detach().cpu().double().numpy()
+    params._check_atoms(host.shape[0])
     perm = spatial_sort_permutation(host)
     sorted_host = host[perm]
     nbr, counts = tile_neighbor_lists(
@@ -783,7 +929,9 @@ def _sparse_setup(coord, params, masses, tile):
                    coord.device)
     if masses is not None:
         masses = masses[torch.as_tensor(perm, device=coord.device)]
-    return coord_s, masses, csr, perm
+    if params.kind == "table_compact" or params.overlays:
+        params = params.permuted(perm)
+    return coord_s, params, masses, csr, perm
 
 
 def _route(coord, params, matvec, sparse, tile):
@@ -834,7 +982,8 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
         A tensor keeps its device; anything else goes to `device`, by
         default the current CUDA device.
     params : FFParams
-        Analytic family.
+        An analytic family or ``table_compact``, with or without patch
+        overlays.
     k : int
         Number of modes.
     masses : Tensor or ndarray, shape=(n,), optional
@@ -884,8 +1033,8 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     else:
         csr = None
         if sparse:
-            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
-                                                     tile)
+            coord, params, masses, csr, perm = _sparse_setup(
+                coord, params, masses, tile)
         base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
                                  csr=csr, tile=tile, block=block)
     w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
@@ -932,8 +1081,8 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     else:
         csr = None
         if sparse:
-            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
-                                                     tile)
+            coord, params, masses, csr, perm = _sparse_setup(
+                coord, params, masses, tile)
         base = _kirchhoff_operator(coord, params, kernel=kernel,
                                    sparse=sparse, csr=csr, tile=tile,
                                    block=block)
@@ -1066,8 +1215,8 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
     else:
         csr = None
         if sparse:
-            coord, masses, csr, perm = _sparse_setup(coord, params, masses,
-                                                     tile)
+            coord, params, masses, csr, perm = _sparse_setup(
+                coord, params, masses, tile)
             perm_t = torch.as_tensor(perm, device=coord.device)
             inv_blocks = inv_blocks[perm_t]
             rhs = rhs[torch.cat([a * n + perm_t for a in range(3)])]
@@ -1113,7 +1262,8 @@ def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
     perm = None
     csr = None
     if sparse:
-        coord, masses, csr, perm = _sparse_setup(coord, params, masses, tile)
+        coord, params, masses, csr, perm = _sparse_setup(coord, params,
+                                                         masses, tile)
         perm_t = torch.as_tensor(perm, device=coord.device)
         inv_diag = inv_diag[perm_t]
         rhs = rhs[perm_t]

@@ -175,9 +175,11 @@ def _hessian_diag_xyz_batched(coords, params):
 
 def direct_prep_applies(params, n):
     """Whether the assembly-fused prep covers this configuration: an
-    analytic family at a size its kernel stages.  Anything else takes
-    the planes path, as in the JAX package."""
-    return params.kind in ANALYTIC_KINDS and n <= MAX_ATOMS_STITCH
+    analytic family without patch overlays at a size its kernel stages.
+    Anything else takes the planes path or dense Hessians, as in the JAX
+    package."""
+    return params.kind in ANALYTIC_KINDS and not params.overlays \
+        and n <= MAX_ATOMS_STITCH
 
 
 def _regularize_equilibrated_direct(coords, params, t, masses=None):
@@ -354,7 +356,18 @@ def _cholesky_factor(reg):
                        torch.full_like(chol, float("nan")), chol)
 
 
-def covariance_cholesky(matrix, null_basis, inverse="cho_solve"):
+def _factor_in(factor_dtype, inverse, matrix, null_basis):
+    """`matrix` and `null_basis` in `factor_dtype` (``None``: as they
+    are; the Cholesky engine only)."""
+    if factor_dtype is None or factor_dtype == matrix.dtype:
+        return matrix, null_basis
+    if inverse != "cho_solve":
+        raise ValueError("factor_dtype applies to inverse='cho_solve'")
+    return matrix.to(factor_dtype), null_basis.to(factor_dtype)
+
+
+def covariance_cholesky(matrix, null_basis, inverse="cho_solve",
+                        factor_dtype=None):
     """Pseudo-inverse ``(..., m, m)`` of PSD interaction matrices
     ``(..., m, m)`` with a known orthonormal null basis ``(..., m, k)``
     (the six rigid modes of an ANM Hessian, the constant mode of a GNM
@@ -363,8 +376,13 @@ def covariance_cholesky(matrix, null_basis, inverse="cho_solve"):
     ``inverse="cho_solve"`` factors with ``torch.linalg.cholesky_ex`` and
     solves against the identity (any dtype); ``inverse="blocked"`` runs
     the divide-and-conquer inverse factor and the Gram of its
-    column-scaled form.
+    column-scaled form.  `factor_dtype` runs the Cholesky engine,
+    regularization included, in another dtype than `matrix`'s and casts
+    the result back (the single-structure entry points: float64).
     """
+    out_dtype = matrix.dtype
+    matrix, null_basis = _factor_in(factor_dtype, inverse, matrix,
+                                    null_basis)
     m = matrix.shape[-1]
     t = null_basis.to(matrix.dtype)
     if inverse == "blocked":
@@ -379,17 +397,22 @@ def covariance_cholesky(matrix, null_basis, inverse="cho_solve"):
         inv = inv * scale[..., :, None] * scale[..., None, :]
     else:
         raise ValueError(f"unknown inverse engine {inverse!r}")
-    return inv - _null_projector(t, sigma)
+    return (inv - _null_projector(t, sigma)).to(out_dtype)
 
 
-def covariance_plane_traces(matrix, null_basis, inverse="cho_solve"):
+def covariance_plane_traces(matrix, null_basis, inverse="cho_solve",
+                            factor_dtype=None):
     """Plane traces ``(..., n, n)`` of the pseudo-inverse of xyz-layout
     ANM Hessians ``(..., 3n, 3n)``.
 
     ``inverse="cho_solve"`` factors with ``torch.linalg.cholesky`` and a
     triangular solve against the identity (any dtype);
     ``inverse="blocked"`` runs the divide-and-conquer inverse factor.
+    `factor_dtype` as in :func:`covariance_cholesky`.
     """
+    out_dtype = matrix.dtype
+    matrix, null_basis = _factor_in(factor_dtype, inverse, matrix,
+                                    null_basis)
     m = matrix.shape[-1]
     if m % 3:
         raise ValueError(f"xyz-layout ANM matrix dimension must be "
@@ -408,4 +431,4 @@ def covariance_plane_traces(matrix, null_basis, inverse="cho_solve"):
     eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
     w = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
     w = w * scale[..., None, :]
-    return _plane_traces_from_w(w, t, sigma, n)
+    return _plane_traces_from_w(w, t, sigma, n).to(out_dtype)

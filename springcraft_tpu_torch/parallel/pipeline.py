@@ -33,12 +33,21 @@ points assemble dense matrices with the kernels in float32
 (``hessian_planes.cu``'s xyz-layout store, ``kirchhoff.cu``) and with
 their plain versions in any other dtype — the JAX package's rule
 (``_resolve_use_pallas``: the kernels are float32-only) — then factor
-with ``torch.linalg``.  Every entry point takes an ``FFParams`` or a
-force-field object (:mod:`..models.forcefield`), which is lowered to its
+with ``torch.linalg``.  The single-structure entry points factor and
+solve in float64 whatever the working dtype (a float32 matrix is cast
+up and the covariance cast back): float32 ``cholesky_ex`` alone cost
+1.7e-4 of a 1776-residue structure's MSF.  Every entry point takes an
+``FFParams`` or a force-field object (:mod:`..models.forcefield`), which
+is lowered to its
 compact parameters where it has them (``:985-1000``); the tabulated
 ``table_compact`` family runs through the same kernels, the
 position-specific ``table_pair`` through the plain assembly in every
-dtype (as the JAX package leaves it to XLA).  ``inverse="auto"`` takes
+dtype (as the JAX package leaves it to XLA).  Patch overlays
+(``PatchedForceField``, or overlay parameters) ride on every path: the
+kernels assemble the base family and a sparse correction follows, before
+any mass weighting; the planes form and ``prep="direct"`` do not apply,
+so the blocked engine then takes dense Hessians (``:942, 957-960``).
+``inverse="auto"`` takes
 ``"blocked"`` for float32 on CUDA and ``"cho_solve"`` otherwise
 (``:785-794``, the TPU read as CUDA).
 
@@ -161,7 +170,7 @@ def _gnm_cov_observables(cov, with_dcc):
 
 
 def _anm_chunk(coords, params, masses, inverse, with_covariance,
-               with_dcc, with_prs, prep="planes"):
+               with_dcc, with_prs, prep="planes", factor_dtype=None):
     n = coords.shape[1]
     bases = rigid.rigid_modes_anm(coords, masses=masses)
     if inverse == "blocked" and prep == "direct" \
@@ -174,7 +183,8 @@ def _anm_chunk(coords, params, masses, inverse, with_covariance,
                     coords, params, bases, masses=masses), with_dcc)
         cov = rigid.covariance_cholesky_direct(coords, params, bases,
                                                masses=masses)
-    elif inverse == "blocked" and params.kind in KERNEL_KINDS:
+    elif inverse == "blocked" and params.kind in KERNEL_KINDS \
+            and not params.overlays:
         planes = hessian_planes_ensemble(coords, params)
         if not with_covariance:
             return _anm_trace_observables(
@@ -183,22 +193,26 @@ def _anm_chunk(coords, params, masses, inverse, with_covariance,
         cov = rigid.covariance_cholesky_from_planes(planes, n, bases,
                                                     masses=masses)
     else:
-        # cho_solve, or the blocked engine on dense Hessians for a
-        # family without an assembly kernel (table_pair)
+        # cho_solve, or the blocked engine on dense Hessians for what
+        # the planes kernel does not take (table_pair, patch overlays)
         hessians = _build_hessians_batched(coords, params, masses)
         if not with_covariance:
             return _anm_trace_observables(
-                rigid.covariance_plane_traces(hessians, bases,
-                                              inverse=inverse), with_dcc)
-        cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse)
+                rigid.covariance_plane_traces(
+                    hessians, bases, inverse=inverse,
+                    factor_dtype=factor_dtype), with_dcc)
+        cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse,
+                                        factor_dtype=factor_dtype)
     return _anm_cov_observables(cov, n, with_dcc, with_prs)
 
 
-def _gnm_chunk(coords, params, masses, inverse, with_dcc):
+def _gnm_chunk(coords, params, masses, inverse, with_dcc,
+               factor_dtype=None):
     kirchhoffs = _build_kirchhoffs_batched(coords, params, masses)
     basis = rigid.null_mode_gnm(coords.shape[1], masses=masses,
                                 dtype=coords.dtype, device=coords.device)
-    cov = rigid.covariance_cholesky(kirchhoffs, basis, inverse=inverse)
+    cov = rigid.covariance_cholesky(kirchhoffs, basis, inverse=inverse,
+                                    factor_dtype=factor_dtype)
     return _gnm_cov_observables(cov, with_dcc)
 
 
@@ -222,10 +236,12 @@ def _check_prs(with_covariance, with_prs):
             "all nine covariance plane blocks, not just the traces")
 
 
-def _resolve_params(params):
+def _resolve_params(params, natoms=None):
     """An :class:`FFParams`, given as such or as a force-field object,
     which is lowered to its compact parameters where it has them and to
-    its ``to_params()`` otherwise (``pipeline.py:985-1000``)."""
+    its ``to_params()`` otherwise (``pipeline.py:985-1000``); `natoms`
+    sizes the overlay of a ``PatchedForceField`` around a field without
+    an atom count of its own."""
     if isinstance(params, FFParams):
         return params
     to_compact = getattr(params, "to_compact_params", None)
@@ -233,7 +249,7 @@ def _resolve_params(params):
         return to_compact()
     to_params = getattr(params, "to_params", None)
     if to_params is not None and not hasattr(params, "kind"):
-        lowered = to_params()
+        lowered = to_params(natoms=natoms)
         if lowered is None:
             raise ValueError("This force field has no device "
                              "parameterization")
@@ -247,12 +263,12 @@ def _prepare(coords, params, masses, dtype, device, ndim):
     """Coordinates (``(B, n, 3)`` for ``ndim=3``, ``(n, 3)`` for 2) and
     masses as contiguous tensors of `dtype` on one device, and the
     lowered :class:`FFParams`."""
-    params = _resolve_params(params)
     coords = as_tensor(coords, dtype, device).contiguous()
     if coords.ndim != ndim or coords.shape[-1] != 3:
         shape = "(B, n, 3)" if ndim == 3 else "(n, 3)"
         raise ValueError(f"coords must be {shape}, got "
                          f"{tuple(coords.shape)}")
+    params = _resolve_params(params, coords.shape[-2])
     if masses is not None:
         masses = as_tensor(masses, dtype, coords.device)
     return coords, params, masses
@@ -377,12 +393,13 @@ def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     keys of :func:`ensemble_anm_fluctuations` without the batch axis.
     With ``with_covariance=False`` only the plane traces are formed (no
     ``covariance``, and no PRS).  A float32 structure on CUDA is
-    assembled by the Hessian kernel."""
+    assembled by the Hessian kernel; the factorization and the solve run
+    in float64 and the result comes back in `dtype`."""
     _check_prs(with_covariance, with_prs)
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
-    return _single(lambda c: _anm_chunk(c, params, masses, "cho_solve",
-                                        with_covariance, with_dcc,
-                                        with_prs), coord)
+    return _single(lambda c: _anm_chunk(
+        c, params, masses, "cho_solve", with_covariance, with_dcc, with_prs,
+        factor_dtype=torch.float64), coord)
 
 
 def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
@@ -391,7 +408,7 @@ def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     ``msf``, ``bfactor`` and ``dcc`` of one structure."""
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
     return _single(lambda c: _gnm_chunk(c, params, masses, "cho_solve",
-                                        with_dcc), coord)
+                                        with_dcc, torch.float64), coord)
 
 
 # ---------------------------------------------------------------------------

@@ -77,18 +77,71 @@ def test_from_numpy_params_round_trip(kind, cutoff):
     assert got.has_cutoff == ref.has_cutoff
 
 
-@pytest.mark.parametrize("fields", [
-    {"kind": "table_compact", "n_bins": 3, "overlays": ("overlay",)},
-    {"kind": "table_pair", "n_bins": 2, "overlays": ("overlay",)},
-    {"kind": "invariant", "n_bins": 1, "cutoff_sq": 49.0,
-     "overlays": ("overlay",)},
-])
-def test_from_numpy_params_refuses_unported(fields):
-    """Patch overlays are what is left to port, on any family (the
-    tabulated families themselves are carried across:
-    tests/test_torch_tabulated.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tff.from_numpy_params(fields)
+def _overlay_fields(n, seed):
+    """The four ``(n, n)`` arrays of one overlay, as a dict."""
+    rng = np.random.RandomState(seed)
+    off = np.triu(rng.rand(n, n) < 0.1, 1)
+    on = np.triu(rng.rand(n, n) < 0.1, 1) & ~off
+    values = np.where(on, rng.rand(n, n) + 0.5, 0.0)
+    return {"off_mask": off | off.T, "on_mask": on | on.T,
+            "values": values + values.T, "has_value": on | on.T}
+
+
+def _family_fields(kind, n):
+    rng = np.random.RandomState(1)
+    if kind == "invariant":
+        return {"kind": kind, "n_bins": 1, "cutoff_sq": 49.0}
+    edges_sq = (16.0, 49.0)
+    if kind == "table_pair":
+        return {"kind": kind, "n_bins": 2, "cutoff_sq": 49.0,
+                "edges_sq": edges_sq, "pair_table": rng.rand(n, n, 2)}
+    tables = {f"{name}_table": rng.rand(20, 20, 2).astype(np.float32)
+              for name in ("intra", "inter", "bonded")}
+    return {"kind": kind, "n_bins": 2, "cutoff_sq": 49.0,
+            "edges_sq": edges_sq,
+            "type_idx": rng.randint(0, 20, n).astype(np.int32),
+            "chain_code": np.zeros(n, np.int32),
+            "bonded_next": np.ones(n, bool), **tables}
+
+
+@pytest.mark.parametrize("kind", ["table_compact", "table_pair",
+                                  "invariant"])
+def test_from_numpy_params_carries_overlays(kind):
+    """Patch overlays ride on every family: each entry, a dict of its four
+    ``(n, n)`` arrays, becomes a ``PatchOverlay`` in order, and the
+    overlay reaches the dense constants (the JAX package's own value
+    pipeline: tests/test_torch_overlays.py)."""
+    n = 12
+    entries = (_overlay_fields(n, 2), _overlay_fields(n, 3))
+    got = tff.from_numpy_params({**_family_fields(kind, n),
+                                 "overlays": entries})
+    assert got.kind == kind and len(got.overlays) == 2
+    for overlay, entry in zip(got.overlays, entries):
+        for name, array in entry.items():
+            assert np.array_equal(getattr(overlay, name), array), name
+    assert got.n_atoms == n
+    base = tff.from_numpy_params(_family_fields(kind, n))
+    assert tff.strip_overlays(got) == base and got != base
+    sq = torch.from_numpy(np.random.RandomState(4).rand(n, n) * 60.0)
+    sq = sq + sq.T
+    assert not torch.equal(tff.force_constants(got, sq),
+                           tff.force_constants(base, sq))
+
+
+def test_from_numpy_params_refuses_a_malformed_overlay():
+    fields = _family_fields("invariant", 6)
+    entry = _overlay_fields(6, 0)
+    with pytest.raises(ValueError, match="an overlay entry is a dict"):
+        tff.from_numpy_params({**fields, "overlays": ("overlay",)})
+    with pytest.raises(ValueError, match="an overlay entry is a dict"):
+        tff.from_numpy_params({**fields, "overlays": (
+            {k: v for k, v in entry.items() if k != "values"},)})
+    with pytest.raises(ValueError, match=r"four \(n, n\) arrays"):
+        tff.from_numpy_params({**fields, "overlays": (
+            {**entry, "values": entry["values"][:5]},)})
+    with pytest.raises(ValueError, match="different atom counts"):
+        tff.from_numpy_params({**_family_fields("table_pair", 7),
+                               "overlays": (entry,)})
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -3,8 +3,9 @@ PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small and edge shapes, and the
 paths on CUDA (ANM plane traces, ANM covariance and PRS, GNM ensemble,
 single structures, the spectral pipelines, the matrix-free modes and CG
-solves) against the float64 engines, each with the launch counts of its
-own kernels.
+solves, the tabulated families on all of them, patch overlays, single
+structures past 4,096 atoms) against the float64 engines, each with the
+launch counts of its own kernels.
 
 Marked ``cuda``: every test skips without an NVIDIA GPU.  This file
 imports neither JAX nor the JAX package, so it runs on a machine that
@@ -163,7 +164,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(TypeError, match="float32"):
             wrapper(coords.double(), params)
         with pytest.raises(ValueError, match="exceeds"):
-            wrapper(torch.zeros(1, 4097, 3, device=cuda), params)
+            wrapper(torch.zeros(65536, 2, 3, device=cuda), params)
 
 
 @pytest.mark.parametrize("with_masses", [False, True])
@@ -917,3 +918,294 @@ def test_direct_prep_on_cuda(cuda, kind, cutoff, with_masses):
         for key in ref:
             assert _rel(got[key], planes[key]) <= 1e-4, key
             assert _rel(got[key], ref[key]) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# The table branch of the matrix-free kernels, the assembly kernels past
+# 4,096 atoms, patch overlays
+# ---------------------------------------------------------------------------
+
+def _sorted_table_layout(n, seed, maker="sd_enm", chains=2, tile=256):
+    """A tabulated family on a Morton-sorted layout: sorted coordinates,
+    the parameters in the sorted order, original ids, neighbour lists."""
+    atoms = _ca_atoms(n, seed, chains=chains)
+    params = _table_params(maker, atoms)
+    perm = matfree.spatial_sort_permutation(atoms.coord)
+    cutoff = np.sqrt(params.cutoff_sq) if params.has_cutoff else 1e9
+    nbr, counts = matfree.tile_neighbor_lists(atoms.coord[perm], cutoff,
+                                              tile)
+    return (atoms.coord[perm], params, params.permuted(perm),
+            perm.astype(np.int32), nbr, counts)
+
+
+@pytest.mark.parametrize("k", [1, 48, 70])
+@pytest.mark.parametrize("n,tile", [(257, 256), (1000, 256), (300, 16)])
+@pytest.mark.parametrize("maker", ["sd_enm", "e_anm", "no_cutoff"])
+def test_table_branch_of_the_matfree_kernels(cuda, maker, n, tile, k):
+    """K13 and K14 in Morton order (codes by slot, bonded pairs by original
+    id: array neighbours land in different tiles) and K12 in atom order,
+    each against its plain version on the same CUDA tensors and counted as
+    a table launch; K13 also against the float64 row-blocked operator in
+    the original order."""
+    coord, params, sorted_params, ids, nbr, counts = _sorted_table_layout(
+        n, seed=n + k, maker=maker, tile=tile)
+    c = torch.as_tensor(coord, device=cuda)
+    rng = np.random.RandomState(k)
+    x3 = torch.as_tensor(rng.randn(3 * n, k).astype(np.float32), device=cuda)
+    x1 = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=cuda)
+    csr = matfree.tile_csr(nbr, counts, ids, n, tile, cuda)
+    for fn, plain, x in (
+            (matfree.hessian_apply_sparse,
+             matfree.hessian_apply_sparse_plain, x3),
+            (matfree.kirchhoff_apply_sparse,
+             matfree.kirchhoff_apply_sparse_plain, x1)):
+        before = fn.launches, fn.table_launches
+        got = fn(c, x, sorted_params, nbr, counts, ids, tile=tile)
+        assert (fn.launches, fn.table_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        ref = plain(c, x, sorted_params, csr, tile)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 1e-5, fn.__name__
+    inv = np.argsort(ids)
+    original = torch.as_tensor(coord[inv], device=cuda)
+    rows = np.concatenate([a * n + inv for a in range(3)])
+    exact = matfree.hessian_apply(original.double(), x3[rows].double(),
+                                  params, dtype=torch.float64)
+    got = matfree.hessian_apply_sparse(c, x3, sorted_params, nbr, counts,
+                                       ids, tile=tile)
+    assert _rel(got[rows], exact) <= 1e-5
+    if tile == 256:
+        before = matfree.hessian_apply_dense.table_launches
+        got = matfree.hessian_apply_dense(original, x3[rows], params)
+        assert matfree.hessian_apply_dense.table_launches == before + 1
+        ref = matfree.hessian_apply_dense_plain(original, x3[rows], params)
+        assert _rel(got, ref) <= 1e-5
+        assert _rel(got, exact) <= 1e-5
+
+
+def test_matfree_table_branch_on_a_bin_edge_and_a_split_bond(cuda):
+    """Pairs exactly on sdENM's first edge (4.0) and on its last (16.5,
+    the cutoff) stay in the bin the edge closes, and a bonded pair whose
+    atoms sit in different tiles takes the bonded table: K @ e_j reads
+    single constants back."""
+    n, tile = 40, 16
+    atoms = _ca_atoms(n, seed=1, chains=1)
+    atoms.res_id = np.arange(1, n + 1)
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    coord = np.zeros((n, 3), dtype=np.float32)
+    coord[:, 0] = [0.0, 0.25, 2.0, 4.0, 16.75] + [40.0 + 3.8 * i
+                                                  for i in range(n - 5)]
+    # slots: atom 1 moves to the far end, so the bonded pair (0, 1) and the
+    # cutoff pair (1, 4) straddle tiles
+    perm = np.array([0] + list(range(2, n)) + [1])
+    nbr = np.tile(np.arange(3, dtype=np.int32), (3, 1))
+    counts = np.full(3, 3, np.int32)
+    eye = torch.eye(n, device=cuda)
+    got = matfree.kirchhoff_apply_sparse(
+        torch.as_tensor(coord[perm], device=cuda), eye,
+        params.permuted(perm), nbr, counts, perm.astype(np.int32),
+        tile=tile).cpu().numpy()
+    slot = np.argsort(perm)
+    t = params.type_idx
+    assert got[slot[0], slot[3]] == -params.intra_table[t[0], t[3], 0]
+    assert got[slot[1], slot[4]] == -params.intra_table[t[1], t[4], 25]
+    assert got[slot[0], slot[4]] == 0.0
+    assert got[slot[0], slot[1]] == -params.bonded_table[t[0], t[1], 0]
+    assert got[slot[1], slot[2]] == -params.bonded_table[t[1], t[2], 0]
+
+
+def test_matfree_table_kernels_refuse_what_they_do_not_take(cuda):
+    atoms = _ca_atoms(300, seed=2)
+    ff = sct.TabulatedForceField.e_anm(atoms)
+    c = torch.as_tensor(atoms.coord, device=cuda)
+    x = torch.zeros(900, 4, device=cuda)
+    nbr, counts = matfree.tile_neighbor_lists(atoms.coord, 13.0, 256)
+    with pytest.raises(ValueError, match="table_pair"):
+        matfree.hessian_apply_sparse(c, x, ff.to_params(), nbr, counts)
+    with pytest.raises(ValueError, match="table_pair"):
+        sct.lowest_modes_matfree(atoms.coord, ff.to_params(), 3)
+    params = ff.to_compact_params()
+    with pytest.raises(TypeError, match="float32"):
+        matfree.hessian_apply_dense(c, x, params, dtype=torch.float64)
+    with pytest.raises(ValueError, match="built for 300 atoms"):
+        matfree.hessian_apply_dense(c[:200].contiguous(), x[:600], params)
+    many = params.replace(edges_sq=tuple(float(i + 1) for i in range(65)),
+                          n_bins=65, **{
+        f: np.zeros((20, 20, 65), np.float32)
+        for f in ("intra_table", "inter_table", "bonded_table")})
+    with pytest.raises(ValueError, match="at most 64 bin edges"):
+        matfree.hessian_apply_dense(c, x, many)
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 8192])
+@pytest.mark.parametrize("maker", [None, "sd_enm"])
+def test_assembly_kernels_tile_past_4096_atoms(cuda, n, maker):
+    """One structure on both sides of the size where the assembly kernels
+    stop staging a whole conformer and walk column tiles: K1, K5 and K6
+    against their plain versions, both families."""
+    if maker is None:
+        params = sct.invariant_params(13.0)
+        coord = _protein_blob(n, seed=n)
+    else:
+        # compact parameters straight from the tables: the force-field
+        # object would hold an (n, n, 26) table
+        small = _table_params(maker, _ca_atoms(40, seed=3))
+        rng = np.random.RandomState(n)
+        chain = (np.arange(n) * 3 // n).astype(np.int32)
+        params = small.replace(
+            type_idx=rng.randint(0, 20, n).astype(np.int32),
+            chain_code=chain,
+            bonded_next=np.concatenate([chain[:-1] == chain[1:], [False]]))
+        coord = _protein_blob(n, seed=n)
+    c = torch.as_tensor(coord[None], device=cuda)
+    for wrapper, plain in (
+            (assembly_kernels.kirchhoff_ensemble, assembly.kirchhoff_plain),
+            (assembly_kernels.hessian_xyz_ensemble,
+             assembly.hessian_xyz_plain),
+            (assembly_kernels.hessian_planes_ensemble,
+             assembly.hessian_planes_plain)):
+        before = wrapper.table_launches
+        got = wrapper(c, params)
+        assert wrapper.table_launches == before + (maker is not None)
+        ref = plain(c, params)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 1e-5, wrapper.__name__
+        if wrapper is assembly_kernels.kirchhoff_ensemble:
+            off = ~torch.eye(n, dtype=torch.bool, device=cuda)
+            assert torch.equal(got[0][off], ref[0][off])
+        del got, ref
+        torch.cuda.empty_cache()
+
+
+def _patch(coord, cutoff, seed=0):
+    """A patch on `coord`: one atom shut down and re-attached to its six
+    nearest neighbours, two pairs off, two pairs on beyond the cutoff."""
+    rng = np.random.RandomState(seed)
+    picks = rng.permutation(len(coord))[:5]
+    shut, others = picks[0], picks[1:]
+
+    def distances(atom):
+        d = np.linalg.norm(coord - coord[atom], axis=1)
+        d[shut] = 0.0
+        return d
+
+    on = [(shut, q) for q in np.argsort(
+        np.linalg.norm(coord - coord[shut], axis=1))[1:7]]
+    off = []
+    for atom in others[:2]:
+        d = distances(atom)
+        inside = np.flatnonzero((d > 0) & (d <= 0.8 * cutoff))
+        off.append((atom, inside[np.argmax(d[inside])]))
+    for atom in others[2:]:
+        far = np.flatnonzero(distances(atom) > 1.05 * cutoff)
+        if len(far):
+            on.append((atom, far[0]))
+    return dict(contact_shutdown=[shut], contact_pair_off=np.asarray(off),
+                contact_pair_on=np.asarray(on),
+                force_constants=rng.uniform(0.5, 2.0, len(on)))
+
+
+@pytest.mark.parametrize("maker", [None, "e_anm"])
+def test_overlays_on_the_dense_paths_on_cuda(cuda, maker):
+    """The kernels assemble the base family and the sparse correction
+    follows: the corrected matrices against the dense plain route with the
+    overlay, and the float32 paths against float64 ``cho_solve``, with the
+    launches of their own kernels (dense Hessians, never planes).  eANM,
+    not sdENM: a re-attached atom on springs of order one beside sdENM's
+    bonded constant of 1085 leaves the float32 covariance of this
+    100-atom blob 2.9e-4 off float64."""
+    atoms = _ca_atoms(100, seed=7)
+    inner = (sct.InvariantForceField(13.0) if maker is None
+             else getattr(sct.TabulatedForceField, maker)(atoms))
+    cutoff = 13.0 if maker is None else float(inner.cutoff_distance)
+    patch = _patch(atoms.coord, cutoff)
+    params = sct.PatchedForceField(inner, **patch).to_params(natoms=100)
+    if maker is not None:
+        params = inner.to_compact_params().replace(overlays=params.overlays)
+    rng = np.random.RandomState(0)
+    coords = atoms.coord[None] + 0.05 * rng.randn(4, 100, 3).astype(
+        np.float32)
+    c = torch.as_tensor(coords, device=cuda)
+    for wrapper, plain in (
+            (assembly_kernels.kirchhoff_ensemble, assembly.kirchhoff_plain),
+            (assembly_kernels.hessian_xyz_ensemble,
+             assembly.hessian_xyz_plain)):
+        got, ref = wrapper(c, params), plain(c, params)
+        assert _rel(got, ref) <= 1e-5, wrapper.__name__
+        assert _rel(wrapper(c, sct.strip_overlays(params)), ref) > 1e-3
+    with pytest.raises(ValueError, match="no patch overlays"):
+        assembly_kernels.hessian_planes_ensemble(c, params)
+
+    wrappers = sct.kernel_wrappers()
+    table = ("hessian_xyz",) if maker else ()
+    for prep in ("planes", "direct"):
+        before = {name: w.launches for name, w in wrappers.items()}
+        got = sct.ensemble_anm_fluctuations(coords, params, with_prs=True,
+                                            chunk=2, prep=prep)
+        _check_launches(wrappers, before, {"hessian_xyz", "panel_inverse"},
+                        table)
+        ref = sct.ensemble_anm_fluctuations(
+            coords.astype(np.float64), params, with_prs=True,
+            inverse="cho_solve", dtype=torch.float64)
+        for key in ref:
+            assert _rel(got[key], ref[key]) <= 1e-4, key
+    before = {name: w.launches for name, w in wrappers.items()}
+    got = sct.ensemble_gnm_fluctuations(coords, params)
+    _check_launches(wrappers, before, {"kirchhoff", "panel_inverse"},
+                    ("kirchhoff",) if maker else ())
+    ref = sct.ensemble_gnm_fluctuations(
+        coords.astype(np.float64), params, inverse="cho_solve",
+        dtype=torch.float64)
+    for key in ref:
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+    before = {name: w.launches for name, w in wrappers.items()}
+    got = sct.anm_fluctuations(coords[0], params, with_prs=True)
+    _check_launches(wrappers, before, {"hessian_xyz"}, table)
+    ref = sct.anm_fluctuations(coords[0].astype(np.float64), params,
+                               with_prs=True, dtype=torch.float64)
+    for key in ref:
+        assert _rel(got[key], ref[key]) <= 1e-4, key
+
+
+@pytest.mark.parametrize("maker", [None, "sd_enm"])
+def test_overlays_on_the_matfree_paths_on_cuda(cuda, maker):
+    """Operators and solvers with an overlay in Morton order on the card,
+    against the float64 dense assembly with the same overlay."""
+    n = 600
+    atoms = _ca_atoms(n, seed=11)
+    if maker is None:
+        base, cutoff = sct.invariant_params(13.0), 13.0
+    else:
+        base = _table_params(maker, atoms)
+        cutoff = float(np.sqrt(base.cutoff_sq))
+    overlay = sct.PatchedForceField(
+        sct.InvariantForceField(1.0), **_patch(atoms.coord, cutoff)
+    ).to_params(natoms=n).overlays[0]
+    params = base.replace(overlays=(overlay,))
+    c64 = torch.as_tensor(atoms.coord[None], dtype=torch.float64,
+                          device=cuda)
+    h64 = pipeline._build_hessians_batched(c64, params, None)[0]
+    k64 = pipeline._build_kirchhoffs_batched(c64, params, None)[0]
+    x = torch.randn(3 * n, 5, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    wrappers = sct.kernel_wrappers()
+    before = {name: w.launches for name, w in wrappers.items()}
+    vals, _, _ = sct.lowest_modes_matfree(atoms.coord, params, 5, degree=48,
+                                          n_outer=16, tol=2e-4)
+    _check_launches(wrappers, before, {"hessian_apply_sparse"},
+                    ("hessian_apply_sparse",) if maker else ())
+    ref = torch.linalg.eigvalsh(h64)[6:11]
+    assert float(((vals.double() - ref).abs() / ref).max()) <= 1e-4
+    vals, _, _ = sct.lowest_modes_matfree_gnm(atoms.coord, params, 5,
+                                              degree=48, n_outer=16,
+                                              tol=2e-4)
+    ref = torch.linalg.eigvalsh(k64)[1:6]
+    assert float(((vals.double() - ref).abs() / ref).max()) <= 1e-4
+    # the dense-grid kernel with the correction behind it
+    got = matfree.hessian_apply_dense(
+        torch.as_tensor(atoms.coord, device=cuda), x, params)
+    assert _rel(got, h64 @ x.double()) <= 1e-5
+    # without the overlay the operator is another one
+    base_apply = matfree.hessian_apply_dense(
+        torch.as_tensor(atoms.coord, device=cuda), x, base)
+    assert _rel(base_apply, h64 @ x.double()) > 1e-3

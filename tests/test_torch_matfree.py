@@ -5,7 +5,9 @@ CPU: the row-blocked operators, the plain routes of the three kernel
 wrappers (K12, K13, K14) against the Pallas kernels in interpret mode,
 the host set-up, the degree and diagonal passes, Chebyshev modes on the
 plain and the block-sparse route, the deflated CG solvers, and the
-refusals.
+refusals.  The same for a tabulated family and for patch overlays is in
+``tests/test_torch_matfree_tables.py`` (a file of its own, so that the
+two run on different workers).
 
 Tolerances: the operators 1e-10 (float64) and 5e-6 of max|y| (float32,
 ``tests/test_matfree.py:99-101``); the host set-up exactly; the degree
@@ -322,7 +324,8 @@ def _refusals():
     coord = random_coord(3, 30, box=20.0)
     _, tp = _params("invariant", 9.0)
     nbr, counts = tmf.tile_neighbor_lists(coord, 9.0, 16)
-    table = jff.FFParams(kind="table_compact", n_bins=1)
+    # O(n^2) parameters: the one family the matrix-free path refuses
+    table = sct.table_pair_params(np.zeros((30, 30, 1)), None)
     return {
         "tabulated-apply": (ValueError, "matrix-free",
                             lambda: tmf.hessian_apply(

@@ -61,10 +61,22 @@ def test_entry_points_are_exported():
                  "dcc_rows_matfree_gnm", "kernel_wrappers",
                  "TabulatedForceField", "InvariantForceField",
                  "HinsenForceField", "ParameterFreeForceField",
-                 "load_structure", "table_pair_params",
+                 "PatchedForceField", "PatchOverlay", "with_overlay",
+                 "strip_overlays", "load_structure", "table_pair_params",
                  "table_compact_params", "panel_cholesky_batched",
                  "panel_inverse_batched", "spd_inverse_blocked"):
         assert name in sct.__all__ and callable(getattr(sct, name))
+    from springcraft_tpu_torch.ops import assembly, ffparams, matfree
+
+    for module, names in (
+            (ffparams, ("overlay_candidate_pairs", "pair_base_constants",
+                        "overlay_pair_delta", "effective_adjacency",
+                        "force_constants")),
+            (assembly, ("overlay_correction_hessian_xyz",
+                        "overlay_correction_kirchhoff")),
+            (matfree, ("overlay_apply_hessian", "overlay_apply_kirchhoff"))):
+        for name in names:
+            assert name in module.__all__ and callable(getattr(module, name))
 
 
 def test_every_c_entry_point_has_a_wrapper():
@@ -125,6 +137,10 @@ def test_kernel_library_is_named_by_its_sources():
                                           "panel_inverse_full"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
+    for name in ("hessian_planes", "hessian_xyz", "kirchhoff",
+                 "hessian_apply_dense", "hessian_apply_sparse",
+                 "kirchhoff_apply_sparse"):
+        assert isinstance(sct.kernel_wrappers()[name].table_launches, int)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -176,7 +176,7 @@ def test_disconnected_network_is_not_finite():
     {"prep": "concat", "with_covariance": True},
     {"prep": None, "with_covariance": True, "with_prs": True},
 ])
-def test_unported_options_raise(kwargs):
+def test_prep_takes_planes_or_direct(kwargs):
     """``prep`` takes the JAX package's two values, ``"planes"`` and
     ``"direct"`` (tests/test_torch_direct.py); anything else is
     refused, as there (``pipeline.py:862-864``)."""
@@ -184,21 +184,20 @@ def test_unported_options_raise(kwargs):
         _port(_dense_coords(2, 10, seed=0), 7.0, **kwargs)
 
 
-def test_gnm_ensemble_is_not_ported_yet():
-    """For patch overlays: the GNM ensemble is ported for the analytic
-    (tests/test_torch_fluctuations.py) and the tabulated families
-    (tests/test_torch_tabulated.py); parameters with an overlay cannot
-    be carried across yet, and nothing else is taken for FFParams."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sct.ensemble_gnm_fluctuations(
-            _dense_coords(2, 10, seed=0),
-            sct.from_numpy_params({"kind": "table_compact", "n_bins": 3,
-                                   "overlays": ("overlay",)}),
-            inverse="blocked", device="cpu")
-    with pytest.raises(TypeError, match="FFParams"):
-        sct.ensemble_gnm_fluctuations(
-            _dense_coords(2, 10, seed=0), {"kind": "table_compact"},
-            inverse="blocked", device="cpu")
+def test_entry_points_refuse_a_plain_dict():
+    """Parameters are the port's ``FFParams`` or a force-field object: the
+    fields of a JAX ``FFParams`` as a plain dict go through
+    ``from_numpy_params`` first (overlays included:
+    tests/test_torch_assembly.py, tests/test_torch_overlays.py)."""
+    fields = {"kind": "invariant", "n_bins": 1, "cutoff_sq": 49.0}
+    coords = _dense_coords(2, 10, seed=0)
+    for entry in (sct.ensemble_gnm_fluctuations,
+                  sct.ensemble_anm_fluctuations):
+        with pytest.raises(TypeError, match="FFParams"):
+            entry(coords, fields, inverse="blocked", device="cpu")
+        out = entry(coords, sct.from_numpy_params(fields),
+                    inverse="blocked", device="cpu")
+        assert torch.isfinite(out["msf"]).all()
 
 
 def test_device_rules():

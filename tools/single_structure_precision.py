@@ -7,18 +7,20 @@ of ``tests/data/7cal.pdb`` under the eANM force field and prints, for
 every output, the largest error over the largest reference value and the
 relative RMSE against the float64 engine on the card, for:
 
-1. the float32 entry point as it is (Hessian kernel, float32
-   ``torch.linalg.cholesky_ex`` and ``cholesky_solve``);
+1. the float32 entry point as it is (Hessian kernel, then the
+   regularization, factorization and solve in float64, cast back);
 2. the blocked engine on the same structure (a batch of one through
    ``ensemble_anm_fluctuations(inverse="blocked")``);
-3. the float32 Hessian and rigid-body basis with the factorization and
-   the solve in float64 (what the assembly costs);
+3. the all-float32 Cholesky engine the entry point used before (float32
+   ``torch.linalg.cholesky_ex`` and ``cholesky_solve``);
 4. the float32 factor with the solve in float64 (what the factorization
    costs);
 5. the float32 factor with a float32 triangular solve and Gram product;
 
-and the extreme eigenvalues of the equilibrated, regularized matrix that
-is factored.
+each of the first three with its time per structure (host clock to a
+synchronize, second and third call), then ``gnm_fluctuations`` the same
+way, and the extreme eigenvalues of the equilibrated, regularized matrix
+that is factored.
 
 Usage:  python tools/single_structure_precision.py
 """
@@ -48,6 +50,14 @@ def report(label, out, ref):
     print(f"{label}: " + "; ".join(parts), flush=True)
 
 
+def timed_twice(fn):
+    """Milliseconds of two further calls of `fn`, each to a synchronize."""
+    out = []
+    for _ in range(2):
+        out.append(cs.timed(fn) * 1e3)
+    return ", ".join(f"{ms:.1f}" for ms in out) + " ms"
+
+
 def main():
     if not torch.cuda.is_available():
         print("single_structure_precision: no CUDA device", file=sys.stderr)
@@ -58,23 +68,33 @@ def main():
     params = sct.TabulatedForceField.e_anm(ca).to_compact_params()
     ref = sct.anm_fluctuations(ca.coord.astype(np.float64), params,
                                with_prs=True, dtype=torch.float64)
-    report("1 float32 cho_solve engine",
-           sct.anm_fluctuations(ca.coord, params, with_prs=True), ref)
-    blocked = sct.ensemble_anm_fluctuations(ca.coord[None], params,
-                                            with_prs=True, inverse="blocked")
-    report("2 float32 blocked engine",
-           {key: value[0] for key, value in blocked.items()}, ref)
-
     coords = torch.as_tensor(ca.coord[None], device="cuda")
     ref1 = {key: value[None] for key, value in ref.items()}
+
+    def entry_point():
+        return sct.anm_fluctuations(ca.coord, params, with_prs=True)
+
+    def blocked():
+        return sct.ensemble_anm_fluctuations(ca.coord[None], params,
+                                             with_prs=True, inverse="blocked")
+
+    def all_float32():
+        return pipeline._anm_chunk(coords, params, None, "cho_solve", True,
+                                   True, True)
+
+    report("1 float32 entry point (float64 factor and solve)",
+           entry_point(), ref)
+    print("  time per structure: " + timed_twice(entry_point), flush=True)
+    report("2 float32 blocked engine", blocked(), ref1)
+    print("  time per structure: " + timed_twice(blocked), flush=True)
+    report("3 all-float32 Cholesky engine", all_float32(), ref1)
+    print("  time per structure: " + timed_twice(all_float32), flush=True)
+
     h32 = pipeline._build_hessians_batched(coords, params, None)
     t32 = rigid.rigid_modes_anm(coords)
 
     def observables(cov):
         return pipeline._anm_cov_observables(cov, n, True, True)
-
-    report("3 float32 assembly, float64 factor and solve", observables(
-        rigid.covariance_cholesky(h32.double(), t32.double())), ref1)
 
     reg, scale, sigma = rigid._regularize_equilibrated(h32, t32)
     chol = torch.linalg.cholesky_ex(reg)[0]
@@ -94,6 +114,23 @@ def main():
     print(f"equilibrated matrix ({3 * n} dimensions): eigenvalues "
           f"{float(vals[0]):.4e} to {float(vals[-1]):.4e}, condition "
           f"{float(vals[-1] / vals[0]):.3e}", flush=True)
+    del h32, reg, chol, inv, w, eye
+
+    gref = sct.gnm_fluctuations(ca.coord.astype(np.float64), params,
+                                dtype=torch.float64)
+
+    def gnm_entry():
+        return sct.gnm_fluctuations(ca.coord, params)
+
+    def gnm_float32():
+        return pipeline._gnm_chunk(coords, params, None, "cho_solve", True)
+
+    report("GNM 1 float32 entry point (float64 factor and solve)",
+           gnm_entry(), gref)
+    print("  time per structure: " + timed_twice(gnm_entry), flush=True)
+    report("GNM 3 all-float32 Cholesky engine", gnm_float32(),
+           {key: value[None] for key, value in gref.items()})
+    print("  time per structure: " + timed_twice(gnm_float32), flush=True)
     return 0
 
 
