@@ -16,7 +16,9 @@ Phases:
    tensors, at the shapes its paths give it, timed with CUDA events (the
    two banded kernels on the band of the first chunk's Hessians, the
    bisection also on the single structure's band at 8 halvings, their
-   slow plain versions timed over one call);
+   slow plain versions timed over one call; the pair-CSR build, whose
+   rows and slots must equal its plain version's, and K13 / K14 over its
+   list, timed in turns with ``torch.sparse.mm``);
 4. the paths, each driven once from zero launch counts and required to
    have launched its own kernels (``PATH_KERNELS``), with finiteness
    checks and a float32 result held against the port's float64 engines
@@ -39,10 +41,12 @@ Phases:
      against float64 ``cho_solve``, eigenvectors and mode shapes through
      their residuals and orthonormality;
    * the matrix-free paths (``bench.py:656-868``): random atoms at protein
-     density (seed 4), invariant field at 13 A, float32 —
-     ``lowest_modes_matfree`` (14 modes, degree 96, 10 outer iterations,
-     tol 2e-4; K13) at n = 30,000, twice; ``dcc_rows_matfree`` on 8 sites
-     (24 CG columns) and ``linear_response_matfree`` on 4 forces (K13);
+     density (seed 4), invariant field at 13 A, float32, each block-sparse
+     solver building its pair CSR once (``pair_csr``) and gathering over
+     it on every apply — ``lowest_modes_matfree`` (14 modes, degree 96, 10
+     outer iterations, tol 2e-4; K13) at n = 30,000, twice;
+     ``dcc_rows_matfree`` on 8 sites (24 CG columns) and
+     ``linear_response_matfree`` on 4 forces (K13);
      ``lowest_modes_matfree_gnm`` (10 modes, tol 5e-4; K14) at 30,000; the
      cutoff-free ``pfenm`` family's ``lowest_modes_matfree`` (K12) at
      n = 10,000; each mode set through its float64 residuals and
@@ -63,10 +67,10 @@ Phases:
      chains, so bonded, intra-chain and inter-chain pairs all occur) on
      the same random atoms — ``lowest_modes_matfree``,
      ``dcc_rows_matfree`` with ``linear_response_matfree`` and
-     ``lowest_modes_matfree_gnm`` at n = 30,000 (K13, K14 through their
-     table branch) and the dense grid (``sparse=False``, K12) at 10,000,
-     with the float64 checks of the analytic paths through the plain
-     float64 tabulated operators;
+     ``lowest_modes_matfree_gnm`` at n = 30,000 (the pair-CSR build
+     through its table branch, K13, K14) and the dense grid
+     (``sparse=False``, K12) at 10,000, with the float64 checks of the
+     analytic paths through the plain float64 tabulated operators;
    * patch overlays (a ``PatchedForceField``: two atoms shut down and
      re-attached by switched-on pairs with their own constants, a few
      pairs off, a few on beyond the cutoff): around the invariant field
@@ -152,6 +156,13 @@ KERNELS.update({
         "springcraft_tpu_torch/csrc/matfree_kirchhoff.cu",
         "springcraft_tpu/ops/matfree.py:964", 1e-5),
 })
+#: Not a TPU kernel: the set-up of K13 and K14, the pair CSR they gather
+#: over, built once per solver call.  Its tolerance bounds the constants
+#: (relative); its rows and slots must equal the plain version's.
+KERNELS["pair_csr"] = (
+    "springcraft_tpu_torch/csrc/matfree_pairs.cu",
+    "springcraft_tpu/ops/matfree.py:807, springcraft_tpu/ops/matfree.py:964",
+    1e-6)
 KERNELS.update({
     "assembly_stitch": (
         "springcraft_tpu_torch/csrc/assembly_stitch.cu",
@@ -180,9 +191,10 @@ PATH_KERNELS = {
     "gnm_banded_ensemble": ("kirchhoff", "banded_bisect", "banded_eigvec"),
     "anm_spectral_single": ("hessian_xyz", "banded_bisect"),
     "gnm_spectral_single": ("kirchhoff", "banded_bisect"),
-    "anm_matfree_modes": ("hessian_apply_sparse",),
-    "anm_matfree_solve": ("hessian_apply_sparse",),
-    "gnm_matfree_modes": ("kirchhoff_apply_sparse",),
+    # the block-sparse paths build the pair CSR, then gather over it
+    "anm_matfree_modes": ("pair_csr", "hessian_apply_sparse"),
+    "anm_matfree_solve": ("pair_csr", "hessian_apply_sparse"),
+    "gnm_matfree_modes": ("pair_csr", "kirchhoff_apply_sparse"),
     "anm_matfree_modes_dense": ("hessian_apply_dense",),
     # tabulated families: the same kernels, through their table branch
     "anm_tabulated_traces": ("hessian_planes", "regularize_stitch",
@@ -196,10 +208,10 @@ PATH_KERNELS = {
     "anm_direct_covariance": ("assembly_stitch", "panel_inverse"),
     "panel_functions": ("panel_cholesky", "panel_inverse_full",
                         "panel_inverse"),
-    # tabulated matrix-free: the table branch of K13, K14, K12
-    "anm_matfree_modes_tabulated": ("hessian_apply_sparse",),
-    "anm_matfree_solve_tabulated": ("hessian_apply_sparse",),
-    "gnm_matfree_modes_tabulated": ("kirchhoff_apply_sparse",),
+    # tabulated matrix-free: the table branch of the pair-CSR build, K12
+    "anm_matfree_modes_tabulated": ("pair_csr", "hessian_apply_sparse"),
+    "anm_matfree_solve_tabulated": ("pair_csr", "hessian_apply_sparse"),
+    "gnm_matfree_modes_tabulated": ("pair_csr", "kirchhoff_apply_sparse"),
     "anm_matfree_modes_dense_tabulated": ("hessian_apply_dense",),
     # patch overlays: the kernels on the base family, then the correction;
     # the blocked ANM engine takes dense Hessians (K5), not planes
@@ -209,16 +221,15 @@ PATH_KERNELS = {
     "anm_7cal_overlay": ("hessian_xyz",),
     "gnm_7cal_overlay": ("kirchhoff",),
     "gnm_spectral_7cal_overlay": ("kirchhoff", "banded_bisect"),
-    "anm_matfree_overlay": ("hessian_apply_sparse",),
-    "anm_matfree_overlay_tabulated": ("hessian_apply_sparse",),
-    "gnm_matfree_overlay_tabulated": ("kirchhoff_apply_sparse",),
+    "anm_matfree_overlay": ("pair_csr", "hessian_apply_sparse"),
+    "anm_matfree_overlay_tabulated": ("pair_csr", "hessian_apply_sparse"),
+    "gnm_matfree_overlay_tabulated": ("pair_csr", "kirchhoff_apply_sparse"),
     # single structures past 4,096 atoms
     "assembly_large": ("hessian_xyz", "kirchhoff", "hessian_planes"),
 }
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
-                 "hessian_apply_sparse", "hessian_apply_dense",
-                 "kirchhoff_apply_sparse")
+                 "hessian_apply_dense", "pair_csr")
 #: Paths whose kernels must all go through their table branch.
 TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "gnm_tabulated", "anm_7cal_eanm", "gnm_7cal_eanm",
@@ -476,11 +487,12 @@ def entry(shape, err, ms, plain_ms, work, library_ms=None):
 
 
 def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
-           reps=TIMING_REPS, plain_reps=TIMING_REPS, label=""):
+           reps=TIMING_REPS, plain_reps=TIMING_REPS, label="", turns=False):
     """Hold `kernel_fn` against `plain_fn` on the same CUDA tensors, time
     both (and `library_fn`, one PyTorch call of the same function) with
     CUDA events, and append the record to ``results[name]``; returns the
-    plain output."""
+    plain output.  With `turns` the kernel and the library call are timed
+    in turns (kernel, library, library, kernel) and their means kept."""
     import torch
 
     got, ref = kernel_fn(), plain_fn()
@@ -489,15 +501,25 @@ def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
     err, rel = max_errors(got, ref)
     check(rel <= KERNELS[name][2],
           f"{name}: max rel err {rel:.3e} > {KERNELS[name][2]:g}")
-    ms, plain_ms = cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, plain_reps)
-    library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
+    plain_ms = cuda_ms(plain_fn, plain_reps)
+    turn = ""
+    if turns:
+        k1, l1, l2, k2 = (cuda_ms(fn, reps) for fn in (
+            kernel_fn, library_fn, library_fn, kernel_fn))
+        ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        turn = (f" (in turns: kernel {k1:.4f}, library {l1:.4f}, library "
+                f"{l2:.4f}, kernel {k2:.4f} ms)")
+    else:
+        ms = cuda_ms(kernel_fn, reps)
+        library_ms = None if library_fn is None else cuda_ms(library_fn,
+                                                             reps)
     rec = entry(got.shape, err, ms, plain_ms, work, library_ms)
     print(f"parity {name} {tuple(got.shape)}{label}: max abs err {err:.3e}, "
           f"max rel err {rel:.3e} (tol {KERNELS[name][2]:g}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
-          + ("none" if library_ms is None else f"{library_ms:.4f} ms"),
-          flush=True)
+          + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+          + turn, flush=True)
     results.setdefault(name, []).append(rec)
     return ref
 
@@ -1295,28 +1317,17 @@ def sorted_layout(coord, cutoff):
     return torch.as_tensor(coord[perm], device=DEVICE), perm, csr
 
 
-def pair_list(c, params, csr):
-    """``(i, j, k_ij, d_ij)`` of every ordered pair within the cutoff,
-    from the tile walk of the plain versions."""
+def sparse_operators(c, pairs):
+    """The Hessian (xyz layout) and Kirchhoff matrix of the pair CSR
+    `pairs` as CSR tensors, for the library yardstick ``torch.sparse.mm``
+    (assembly excluded); also the pairs' rows and slots."""
     import torch
 
     from springcraft_tpu_torch.ops import matfree
 
-    parts = []
-    for _, rows, d, _, kmat, slots in matfree._tile_pairs(c, csr, 256,
-                                                          params):
-        r, q = torch.nonzero(kmat, as_tuple=True)
-        parts.append((r + rows.start, slots[q], kmat[r, q], d[r, q]))
-    return [torch.cat(x) for x in zip(*parts)]
-
-
-def sparse_operators(c, params, csr):
-    """The Hessian (xyz layout) and Kirchhoff matrix as CSR tensors, for
-    the library yardstick ``torch.sparse.mm`` (assembly excluded)."""
-    import torch
-
     n = c.shape[0]
-    i, j, k, d = pair_list(c, params, csr)
+    i, j, k = matfree._pair_rows(pairs), pairs.slots.long(), pairs.k
+    d = c[i] - c[j]
     g = -k / (d * d).sum(dim=1)
     rows, cols, vals = [], [], []
     for a in range(3):
@@ -1334,7 +1345,7 @@ def sparse_operators(c, params, csr):
     kirchhoff = torch.sparse_coo_tensor(
         torch.stack([torch.cat([i, ar]), torch.cat([j, ar])]),
         torch.cat([-k, deg]), (n, n)).coalesce().to_sparse_csr()
-    return hessian, kirchhoff, int(i.numel()), (i, j)
+    return hessian, kirchhoff, (i, j)
 
 
 def sd_enm_compact(n, chains=3, seed=0):
@@ -1373,13 +1384,18 @@ def context_counts(params, perm, i, j):
 
 
 def sparse_parity(results, params, label):
-    """K13 and K14 against their plain versions at n = 30,000 on the
-    sorted layout under `params` (in original atom order), X of the mode
-    paths' 48 columns; library: ``torch.sparse.mm`` of the CSR Hessian /
-    Kirchhoff matrix, assembly excluded.  The bounds count the pairs
-    within the cutoff of this run's atoms: about 12 k + 30 flops each for
-    the Hessian (rank-one form and the diagonal block), 2 k + 2 for
-    Kirchhoff; a tabulated family also reads its tables and codes."""
+    """At n = 30,000 on the sorted layout under `params` (in original
+    atom order): the pair-CSR build against its plain version (the same
+    rows and slots, constants within 1e-6), then K13 and K14 over the
+    built list against their plain versions over the same list and
+    against the tile walk's, X of the mode paths' 48 columns, timed in
+    turns with ``torch.sparse.mm`` of the CSR Hessian / Kirchhoff matrix
+    (assembly and build excluded).  The bounds count this run's pairs:
+    the build reads the layout and writes 8 bytes a pair and tests every
+    visited pair (9 flops); the applies read X, the list and the
+    coordinates and write Y once, about 12 k + 30 flops a pair for the
+    Hessian (rank-one form and the diagonal block), 2 k + 2 for
+    Kirchhoff."""
     import numpy as np
     import torch
 
@@ -1393,38 +1409,83 @@ def sparse_parity(results, params, label):
     gen = torch.Generator(DEVICE).manual_seed(MATFREE_SEED)
     x3 = torch.randn(3 * n, k, device=DEVICE, generator=gen)
     x1 = torch.randn(n, k, device=DEVICE, generator=gen)
-    hessian, kirchhoff, pairs, (i, j) = sparse_operators(c, sorted_params,
-                                                         csr)
+
+    def build():
+        return matfree.pair_csr(c, sorted_params, csr, 256)
+
+    def build_plain():
+        return matfree.pair_csr_plain(c, sorted_params, csr, 256)
+
+    pairs, plain = build(), build_plain()
+    torch.cuda.synchronize()
+    check(torch.equal(pairs.row_ptr, plain.row_ptr)
+          and torch.equal(pairs.slots, plain.slots),
+          f"pair_csr{label}: the kernel's pairs differ from the plain "
+          f"version's")
+    k_err = float((pairs.k - plain.k).abs().max())
+    k_rel = float(((pairs.k - plain.k).abs()
+                   / plain.k.abs().clamp(min=1e-30)).max())
+    check(k_rel <= KERNELS["pair_csr"][2],
+          f"pair_csr{label}: constants {k_rel:.3e} off the plain version")
+    hessian, kirchhoff, (i, j) = sparse_operators(c, pairs)
+    count = int(pairs.slots.numel())
     tiles = int(csr.cols.numel())
+    visited = tiles * 256 ** 2
     counts = context_counts(params, perm, i, j) if tabulated else None
     del i, j
     print(f"matrix-free layout{label}: n={n}, {csr.row_ptr.numel() - 1} row "
-          f"tiles, {tiles} tile pairs ({tiles * 256 ** 2:.3e} atom pairs "
-          f"visited), {pairs} ordered pairs within {cutoff} A "
-          f"({pairs / (tiles * 256 ** 2):.4%})"
+          f"tiles, {tiles} tile pairs ({visited:.3e} atom pairs visited), "
+          f"{count} ordered pairs within {cutoff} A "
+          f"({count / visited:.4%}), pair CSR {8 * count / 1e6:.1f} MB"
           + (f", by table: {json.dumps(counts)}" if tabulated else ""),
           flush=True)
     if tabulated:
         check(min(counts.values()) > 0, f"a table context never occurs: "
               f"{counts}")
-    layout_bytes = 4 * (3 * n + n + csr.row_ptr.numel() + tiles)
-    if tabulated:
-        layout_bytes += 4 * (params.n_bins * 1200 + len(params.edges_sq) + n)
-    check(max_errors(matfree._launch_hessian(c, x3, sorted_params, csr, 256),
-                     torch.sparse.mm(hessian, x3))[1] <= 1e-5,
-          "the sparse library Hessian disagrees with K13")
-    record(results, "hessian_apply_sparse",
-           lambda: matfree._launch_hessian(c, x3, sorted_params, csr, 256),
-           lambda: matfree.hessian_apply_sparse_plain(c, x3, sorted_params,
-                                                      csr, 256),
-           (layout_bytes + 2 * 4 * 3 * n * k, pairs * (12 * k + 30)),
-           lambda: torch.sparse.mm(hessian, x3), plain_reps=3, label=label)
-    record(results, "kirchhoff_apply_sparse",
-           lambda: matfree._launch_kirchhoff(c, x1, sorted_params, csr, 256),
-           lambda: matfree.kirchhoff_apply_sparse_plain(c, x1, sorted_params,
-                                                        csr, 256),
-           (layout_bytes + 2 * 4 * n * k, pairs * (2 * k + 2)),
-           lambda: torch.sparse.mm(kirchhoff, x1), plain_reps=3, label=label)
+    table_bytes = 4 * (params.n_bins * 1200 + len(params.edges_sq) + n) \
+        if tabulated else 0
+    ms, plain_ms = cuda_ms(build, 5), cuda_ms(build_plain, 1)
+    rec = entry((count,), k_err, ms, plain_ms,
+                (4 * (3 * n + n + csr.row_ptr.numel() + tiles) + table_bytes
+                 + 4 * (n + 1) + 8 * count, 9 * visited))
+    print(f"parity pair_csr ({count},){label}: the same rows and slots as "
+          f"the plain version, constants max abs err {k_err:.3e}, max rel "
+          f"err {k_rel:.3e} (tol {KERNELS['pair_csr'][2]:g}); kernel "
+          f"{ms:.4f} ms (count, cumulative sum, fill), plain "
+          f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), library none", flush=True)
+    results.setdefault("pair_csr", []).append(rec)
+
+    list_bytes = 8 * count + 4 * (n + 1)
+    for name, x, walk_plain, pair_plain, library, work in (
+            ("hessian_apply_sparse", x3, matfree.hessian_apply_sparse_plain,
+             matfree.hessian_apply_pair_csr_plain, hessian,
+             (list_bytes + 4 * 3 * n + 2 * 4 * 3 * n * k,
+              count * (12 * k + 30))),
+            ("kirchhoff_apply_sparse", x1,
+             matfree.kirchhoff_apply_sparse_plain,
+             matfree.kirchhoff_apply_pair_csr_plain, kirchhoff,
+             (list_bytes + 2 * 4 * n * k, count * (2 * k + 2)))):
+        wrapper = getattr(matfree, name)
+
+        def kernel(wrapper=wrapper, x=x):
+            return matfree._apply_pairs(wrapper, c, x, pairs)
+
+        got = kernel()
+        for what, ref in (("the tile walk's plain version",
+                           walk_plain(c, x, sorted_params, csr, 256)),
+                          ("torch.sparse.mm", torch.sparse.mm(library, x))):
+            _, rel = max_errors(got, ref)
+            print(f"{name}{label} against {what}: max rel err {rel:.3e} "
+                  f"(tol 1e-5)", flush=True)
+            check(rel <= 1e-5, f"{name}{label}: {rel:.3e} off {what}")
+        check(torch.equal(got, kernel()), f"{name}{label}: two applies "
+              f"differ")
+        del got, ref
+        record(results, name, kernel,
+               lambda x=x, plain=pair_plain: plain(c, x, pairs), work,
+               lambda x=x, library=library: torch.sparse.mm(library, x),
+               plain_reps=3, label=label, turns=True)
 
 
 def dense_parity(results, params, label):
@@ -1479,7 +1540,7 @@ def dense_hessian(c, params):
     n = c.shape[0]
     out = torch.zeros((3 * n, 3 * n), device=c.device)
     csr = matfree._dense_csr(n, 256, c.device)
-    for _, rows, d, sq, kmat, slots in matfree._tile_pairs(c, csr, 256,
+    for rows, slots, d, sq, _, kmat in matfree._tile_pairs(c, csr, 256,
                                                           params):
         r = torch.arange(rows.start, min(rows.stop, n), device=c.device)
         keep = slots < n
@@ -1726,17 +1787,17 @@ def matfree_anchor(results):
     h32 = assembly_kernels.hessian_xyz_ensemble(c[None], params)[0]
     xk = torch.randn(3 * n, MATFREE_BLOCK, device=DEVICE,
                      generator=torch.Generator(DEVICE).manual_seed(3))
-    pairs = len(pair_list(c, params, csr)[0])
+    pairs = matfree.pair_csr(c, params, csr, 256)
+    count = int(pairs.slots.numel())
     record(results, "hessian_apply_sparse",
-           lambda: matfree._launch_hessian(c, xk, params, csr, 256),
-           lambda: matfree.hessian_apply_sparse_plain(c, xk, params, csr,
-                                                      256),
-           (4 * (4 * n + csr.row_ptr.numel() + csr.cols.numel()
-                 + 2 * 3 * n * MATFREE_BLOCK),
-            pairs * (12 * MATFREE_BLOCK + 30)),
+           lambda: matfree._apply_pairs(matfree.hessian_apply_sparse, c, xk,
+                                        pairs),
+           lambda: matfree.hessian_apply_pair_csr_plain(c, xk, pairs),
+           (8 * count + 4 * (4 * n + 1 + 2 * 3 * n * MATFREE_BLOCK),
+            count * (12 * MATFREE_BLOCK + 30)),
            lambda: torch.matmul(h32, xk), plain_reps=3,
            label=" (library: torch.matmul of the K5 Hessian, assembly "
-                 "excluded)")
+                 "and build excluded)")
 
 
 def make_patch(coord, cutoff, seed=0):
@@ -1916,7 +1977,8 @@ def large_assembly(results, card):
 
     torch.cuda.synchronize()
     y, seconds, launches = drive("assembly_large", path)
-    ref = matfree._launch_hessian(c30, x, invariant, csr, 256)
+    ref = matfree._apply_pairs(matfree.hessian_apply_sparse, c30, x,
+                               matfree.pair_csr(c30, invariant, csr, 256))
     err, rel = max_errors(y, ref)
     del y, ref
     torch.cuda.empty_cache()

@@ -123,7 +123,7 @@ def kernel_wrappers():
                                        hessian_xyz_ensemble,
                                        kirchhoff_ensemble, regularize_stitch)
     from .ops.matfree import (hessian_apply_dense, hessian_apply_sparse,
-                              kirchhoff_apply_sparse)
+                              kirchhoff_apply_sparse, pair_csr)
     from .ops.spd_linalg import (panel_cholesky, panel_inverse_batched,
                                  panel_inverse_full)
     from .ops.spectrum import banded_bisect, banded_eigvec
@@ -139,6 +139,7 @@ def kernel_wrappers():
         "hessian_apply_dense": hessian_apply_dense,
         "hessian_apply_sparse": hessian_apply_sparse,
         "kirchhoff_apply_sparse": kirchhoff_apply_sparse,
+        "pair_csr": pair_csr,
         "assembly_stitch": assembly_stitch,
         "panel_cholesky": panel_cholesky,
         "panel_inverse_full": panel_inverse_full,

@@ -71,18 +71,23 @@ _SIGNATURES = {
     # batch, n, w, n_shifts, idx0, n_solves, seed, stream
     "sc_banded_eigvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _D, _P),
-    # coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
+    # coords, ids, tile_ptr, col_tiles, counts, n, tile, kind, cutoff_sq,
     # has_cutoff, tables, edges_sq, atom_code (by slot), n_bins, n_edges,
     # stream
-    "sc_hessian_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                _I, _P, _P, _P, _I, _I, _P),
+    "sc_pair_csr_count": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
+                          _P, _I, _I, _P),
+    # coords, ids, tile_ptr, col_tiles, offsets, slots, k, then as
+    # sc_pair_csr_count from n on
+    "sc_pair_csr_fill": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                         _P, _P, _P, _I, _I, _P),
+    # coords, row_ptr, slots, k, x, out, n, k columns, stream
+    "sc_hessian_apply_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # row_ptr, slots, k, x, out, n, k columns, stream
+    "sc_kirchhoff_apply_pairs": (_P, _P, _P, _P, _P, _I, _I, _P),
     # coords, x, out, n, k, kind, cutoff_sq, has_cutoff, tables, edges_sq,
     # atom_code, n_bins, n_edges, stream
     "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P,
                                _I, _I, _P),
-    # as sc_hessian_apply_sparse
-    "sc_kirchhoff_apply_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _P, _P, _P, _I, _I, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

@@ -1,191 +1,153 @@
 // Matrix-free GNM Kirchhoff apply, Y = K X, without the Kirchhoff matrix:
-// coordinates (n, 3) and X (n, k) to Y (n, k),
+// X (n, k) to Y (n, k),
 //
-//   y_i = -sum_j k_ij x_j + (sum_j k_ij) x_i.
+//   y_i = -sum_j k_ij x_j + (sum_j k_ij) x_i,
+//
+// over the pair CSR that matfree_pairs.cu builds once per set-up (row_ptr,
+// slot j and k_ij of every ordered pair within the cutoff, Morton order).
 //
 // Replaces the TPU kernel springcraft_tpu/ops/matfree.py:964
 // `_sparse_kirchhoff_kernel` (K14, reached through
-// `kirchhoff_apply_pallas_sparse` and `_launch_sparse_segments`): the
-// row-sorted tile pairs of `tile_neighbor_lists` as a CSR, pairs masked by
-// original atom id.  Analytic families and the tabulated `table_compact`
-// family (the TPU kernel's table branch, matfree.py:1000-1010): a second
-// instantiation looks a passing pair up in the type tables, codes read by
-// slot, the bonded test by original id (see matfree_hessian.cu).
+// `kirchhoff_apply_pallas_sparse`), which multiplied the whole (T, T)
+// constant plane of every neighbour tile pair on its MXU, under 1% of it
+// within the cutoff.  Walking those tile pairs on every apply bound the
+// first port of this kernel by its instruction rate; over the list the
+// work is one FMA per gathered float, so the bound is the P x k x 4 bytes
+// of x_j rows read from L2 (X is 4 n k bytes and stays there).
 //
-// What bounds it on the H100: instruction issue for the cutoff tests, then
-// X's traffic.  Per pair that passes the cutoff the work is one FMA per
-// column (2 flops), so the arithmetic is small; X in and Y out are 4 n k
-// bytes each.  The TPU multiplied the whole (T, T) constant plane of every
-// visited tile pair on its MXU, under 1% of it within the cutoff at the
-// benchmark's density; here each pair is tested and only passing pairs
-// touch X.
-//
-// Design, as matfree_hessian.cu: a block owns 32 rows of one parent tile and
-// walks its CSR neighbour tiles, its four warps splitting the column atoms
-// (the walk is latency-bound) and meeting in shared memory at the end;
-// column coordinates and ids staged in shared memory 256 atoms at a time,
-// x_j of a passing pair read as warp-uniform loads through L1 (a staged
-// column block of X would be read over a hundred times more often than
-// used), kCols = 32 columns of Y and the degree in registers, each output
-// row written once, no atomics.
+// Design (pair_gather.cuh): a warp per row and up to 64 columns, lanes on
+// (neighbour, float4 column group); each lane reads one pair of a batch of
+// 32 (slot and constant, coalesced) and the lanes of a step take theirs by
+// __shfl_sync; the next step's x_j rows are in flight during this step's
+// FMAs; the degree is summed per lane and `+ deg_i x_i` comes last; each
+// output row is written once, no atomics, and no table branch (the
+// constant is in the list).
 
 #include <cuda_runtime.h>
 
-#include "spring.cuh"
+#include "pair_gather.cuh"
 
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kWarps = 4;
-constexpr int kThreads = kRows * kWarps;
-constexpr int kStage = 256;
-constexpr int kCols = 32;
+using springcraft::kFullMask;
 
-// What the table branch stages beside the column coordinates: nothing in
-// the analytic instance.
-template <bool kTable>
-struct TableStage {};
-template <>
-struct TableStage<true> {
-  int code[kStage];
-  float edges[springcraft::kMaxEdges];
-};
-
-template <bool kTable>
-__global__ void __launch_bounds__(kThreads)
-    kirchhoff_apply_kernel(const float* __restrict__ coords,
-                           const int* __restrict__ ids,
-                           const int* __restrict__ row_ptr,
-                           const int* __restrict__ col_tiles,
-                           const float* __restrict__ x,
-                           float* __restrict__ out, int n, int k, int tile,
-                           int kind, float cutoff_sq, int has_cutoff,
-                           springcraft::PairTable table,
-                           const float* __restrict__ edges_sq,
-                           const int* __restrict__ atom_code) {
-  __shared__ float sx[kStage], sy[kStage], sz[kStage];
-  __shared__ int sid[kStage];
-  __shared__ TableStage<kTable> staged;
-  __shared__ float partial[kWarps - 1][kCols + 1][kRows];
-  const int lane = threadIdx.x % kRows, warp = threadIdx.x / kRows;
-  if constexpr (kTable) {
-    // published by the first barrier of the walk
-    for (int e = threadIdx.x; e < table.n_edges; e += kThreads)
-      staged.edges[e] = edges_sq[e];
-    table.edges_sq = staged.edges;
-  }
-
-  const int per_tile = (tile + kRows - 1) / kRows;
-  const int t = blockIdx.x / per_tile;
-  const int row0 = t * tile + (blockIdx.x - t * per_tile) * kRows;
-  const int row_end = min(n, (t + 1) * tile);
-  if (row0 >= row_end) return;  // whole block
-  const int i = row0 + lane;
-  const bool active = i < row_end;
-  const int c0 = blockIdx.y * kCols;
-  const int kc = min(kCols, k - c0);
-
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  int pid = n;
-  int cp = 0;  // the row atom's code, by slot
-  if (active) {
-    px = coords[3 * i];
-    py = coords[3 * i + 1];
-    pz = coords[3 * i + 2];
-    pid = ids[i];
-    if constexpr (kTable) cp = atom_code[i];
-  }
-  const bool row_ok = pid < n;
-
-  float y[kCols];
+// Row i of Y for this warp's lane columns.
+template <int VEC, int GPL>
+__device__ __forceinline__ void kirchhoff_row(
+    int i, const springcraft::LaneColumns<VEC, GPL>& cols, int lane,
+    int lpn, const int* __restrict__ row_ptr, const int* __restrict__ slots,
+    const float* __restrict__ kvals, const float* __restrict__ x,
+    float* __restrict__ out, int k) {
+  float y[GPL][VEC];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) y[c] = 0.0f;
-  float deg = 0.0f;
-
-  for (int p = row_ptr[t]; p < row_ptr[t + 1]; ++p) {
-    const int col_begin = col_tiles[p] * tile;
-    const int col_end = min(n, col_begin + tile);
-    for (int j0 = col_begin; j0 < col_end; j0 += kStage) {
-      const int len = min(kStage, col_end - j0);
-      __syncthreads();
-      for (int q = threadIdx.x; q < len; q += kThreads) {
-        const int j = j0 + q;
-        sx[q] = coords[3 * j];
-        sy[q] = coords[3 * j + 1];
-        sz[q] = coords[3 * j + 2];
-        sid[q] = ids[j];
-        if constexpr (kTable) staged.code[q] = atom_code[j];
-      }
-      __syncthreads();
-      if (!row_ok) continue;
-#pragma unroll 4
-      for (int q = warp; q < len; q += kWarps) {
-        const int jid = sid[q];
-        const float sq = springcraft::squared_distance(
-            __fsub_rn(px, sx[q]), __fsub_rn(py, sy[q]), __fsub_rn(pz, sz[q]));
-        if (jid == pid || jid >= n || (has_cutoff && !(sq <= cutoff_sq)))
-          continue;
-        float kij;
-        if constexpr (kTable)
-          kij = springcraft::table_constant(table, cp, staged.code[q], pid,
-                                            jid, sq);
-        else
-          kij = springcraft::spring_constant(kind, sq);
-        deg += kij;
-        const float* xj = x + static_cast<size_t>(j0 + q) * k + c0;
+  for (int q = 0; q < GPL; ++q)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (c < kc) y[c] -= kij * __ldg(xj + c);
+    for (int c = 0; c < VEC; ++c) y[q][c] = 0.0f;
+  float deg = 0.0f;  // over the pairs this lane read
+
+  const int p1 = row_ptr[i + 1];
+  for (int base = row_ptr[i]; base < p1; base += 32) {
+    // this lane's pair of the batch; a lane past the end reads row i with
+    // k = 0
+    int mj = i;
+    float mk = 0.0f;
+    if (base + lane < p1) {
+      mj = slots[base + lane];
+      mk = kvals[base + lane];
+      deg += mk;
+    }
+    const int steps = (min(32, p1 - base) + cols.npw - 1) / cols.npw;
+    float cur[GPL][VEC], nxt[GPL][VEC];
+    int src = cols.ns;
+    cols.load(x + static_cast<size_t>(__shfl_sync(kFullMask, mj, src)) * k,
+              cur);
+    for (int s = 0; s < steps; ++s) {
+      const float kij = __shfl_sync(kFullMask, mk, src);
+      src += cols.npw;
+      if (s + 1 < steps)
+        cols.load(
+            x + static_cast<size_t>(__shfl_sync(kFullMask, mj, src)) * k,
+            nxt);
+#pragma unroll
+      for (int q = 0; q < GPL; ++q)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) y[q][c] -= kij * cur[q][c];
+      if (s + 1 < steps) {
+#pragma unroll
+        for (int q = 0; q < GPL; ++q)
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) cur[q][c] = nxt[q][c];
       }
     }
   }
-  // warps 1.. hand their partial sums to warp 0
-  if (warp > 0) {
+
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) partial[warp - 1][c][lane] = y[c];
-    partial[warp - 1][kCols][lane] = deg;
-  }
-  __syncthreads();
-  if (warp > 0 || !active) return;
+  for (int q = 0; q < GPL; ++q)
 #pragma unroll
-  for (int w = 0; w < kWarps - 1; ++w) {
+    for (int c = 0; c < VEC; ++c)
+      y[q][c] = springcraft::lane_sum(y[q][c], lpn);
+  deg = springcraft::lane_sum(deg, 1);
+  if (cols.ns != 0) return;  // lanes of neighbour 0 write the row
+  float xi[GPL][VEC];
+  cols.load(x + static_cast<size_t>(i) * k, xi);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) y[c] += partial[w][c][lane];
-    deg += partial[w][kCols][lane];
-  }
-  const float* xi = x + static_cast<size_t>(i) * k + c0;
-  float* yi = out + static_cast<size_t>(i) * k + c0;
+  for (int q = 0; q < GPL; ++q)
 #pragma unroll
-  for (int c = 0; c < kCols; ++c)
-    if (c < kc) yi[c] = y[c] + deg * xi[c];
+    for (int c = 0; c < VEC; ++c) y[q][c] += deg * xi[q][c];
+  cols.store(out + static_cast<size_t>(i) * k, y);
 }
+
+// One warp per row (kGatherWarps consecutive rows per block).
+template <int VEC, int GPL>
+__global__ void __launch_bounds__(springcraft::kGatherThreads)
+    kirchhoff_apply_pairs_kernel(const int* __restrict__ row_ptr,
+                                 const int* __restrict__ slots,
+                                 const float* __restrict__ kvals,
+                                 const float* __restrict__ x,
+                                 float* __restrict__ out, int n, int k,
+                                 int lpn) {
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * springcraft::kGatherWarps + threadIdx.x / 32;
+  if (i >= n) return;  // whole warp
+  kirchhoff_row<VEC, GPL>(i, springcraft::LaneColumns<VEC, GPL>(lane, lpn, k),
+                          lane, lpn, row_ptr, slots, kvals, x, out, k);
+}
+
+template <int VEC, int GPL>
+void launch_pairs(dim3 grid, cudaStream_t stream, const int* row_ptr,
+                  const int* slots, const float* kvals, const float* x,
+                  float* out, int n, int k, int lpn) {
+  kirchhoff_apply_pairs_kernel<VEC, GPL>
+      <<<grid, springcraft::kGatherThreads, 0, stream>>>(
+          row_ptr, slots, kvals, x, out, n, k, lpn);
+}
+
+using LaunchPairs = void (*)(dim3, cudaStream_t, const int*, const int*,
+                             const float*, const float*, float*, int, int,
+                             int);
+// by [VEC == 4][GPL - 1]
+constexpr LaunchPairs kLaunchPairs[2][4] = {
+    {&launch_pairs<1, 1>, &launch_pairs<1, 2>, &launch_pairs<1, 3>,
+     &launch_pairs<1, 4>},
+    {&launch_pairs<4, 1>, &launch_pairs<4, 2>, &launch_pairs<4, 3>,
+     &launch_pairs<4, 4>}};
 
 }  // namespace
 
-// tables (n_bins, 3, 20, 20), edges_sq (n_edges <= kMaxEdges) and atom_code
-// (n, by slot) are read only for kind == table_compact and may be null
-// otherwise.
-extern "C" int sc_kirchhoff_apply_sparse(const float* coords, const int* ids,
-                                         const int* row_ptr,
-                                         const int* col_tiles, const float* x,
-                                         float* out, int n, int k, int tile,
-                                         int kind, float cutoff_sq,
-                                         int has_cutoff, const float* tables,
-                                         const float* edges_sq,
-                                         const int* atom_code, int n_bins,
-                                         int n_edges, void* stream) {
-  if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
-  if (n > 0 && k > 0 && tile > 0) {
-    const int n_tiles = (n + tile - 1) / tile;
-    const dim3 grid(n_tiles * ((tile + kRows - 1) / kRows),
-                    (k + kCols - 1) / kCols);
-    const auto kernel = kind == springcraft::kTableCompact
-                            ? kirchhoff_apply_kernel<true>
-                            : kirchhoff_apply_kernel<false>;
-    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
-    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        coords, ids, row_ptr, col_tiles, x, out, n, k, tile, kind, cutoff_sq,
-        has_cutoff, table, edges_sq, atom_code);
+// The pair CSR of matfree_pairs.cu: row_ptr (n + 1), slots and k (P).
+extern "C" int sc_kirchhoff_apply_pairs(const int* row_ptr, const int* slots,
+                                        const float* kvals, const float* x,
+                                        float* out, int n, int k,
+                                        void* stream) {
+  if (n > 0 && k > 0) {
+    const springcraft::GatherShape s = springcraft::gather_shape(k, x, out);
+    const dim3 grid(
+        (n + springcraft::kGatherWarps - 1) / springcraft::kGatherWarps,
+        (k + springcraft::kGatherCols - 1) / springcraft::kGatherCols);
+    kLaunchPairs[s.vec == 4][s.gpl - 1](grid,
+                                        static_cast<cudaStream_t>(stream),
+                                        row_ptr, slots, kvals, x, out, n, k,
+                                        s.lpn);
   }
   return static_cast<int>(cudaGetLastError());
 }

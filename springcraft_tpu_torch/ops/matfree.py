@@ -23,15 +23,29 @@ plane layout ``(3n, k)`` of the JAX package.
   pairs as a CSR (row pointer from ``counts``, column tiles).  The JAX
   package splits the pair list into segments because its scalar-prefetch
   arrays live in a TPU's SMEM; the CUDA kernels take the whole CSR.
-* Three kernel wrappers, each with a plain version that walks the same
-  CSR with the same id masking and padded last tile:
-  :func:`hessian_apply_sparse` (K13, ``csrc/matfree_hessian.cu``),
-  :func:`hessian_apply_dense` (K12, the same kernel over every column
-  tile) and :func:`kirchhoff_apply_sparse` (K14,
-  ``csrc/matfree_kirchhoff.cu``).  A CPU tensor runs the plain version; a
-  CUDA tensor launches the kernel (float32, contiguous) or raises.
-  ``<wrapper>.launches`` counts kernel launches, ``.table_launches``
-  those through the kernel's table branch (``table_compact``).
+* The pair CSR (:class:`PairCSR`, :func:`pair_csr`, kernel
+  ``csrc/matfree_pairs.cu``): every ordered pair within the cutoff of
+  the tile CSR's neighbour tiles, as a row pointer, the slot and the
+  spring constant of each pair, 8 bytes a pair, built once per solver
+  set-up by the tile walk and the test of the TPU kernels (the table
+  lookup of ``table_compact`` included).  Its plain version
+  :func:`pair_csr_plain` reads the pairs off the plain tile walk.
+* Four kernel wrappers: :func:`pair_csr`; :func:`hessian_apply_sparse`
+  (K13, ``csrc/matfree_hessian.cu``) and :func:`kirchhoff_apply_sparse`
+  (K14, ``csrc/matfree_kirchhoff.cu``), gathers over the pair CSR, whose
+  plain versions :func:`hessian_apply_pair_csr_plain` /
+  :func:`kirchhoff_apply_pair_csr_plain` sum over the same list; and
+  :func:`hessian_apply_dense` (K12, the tile walk over every column atom
+  on every apply).  The public sparse wrappers take tile neighbour lists:
+  on CUDA they build the pair CSR and apply in one call, on the CPU they
+  run the tile walk's plain versions :func:`hessian_apply_sparse_plain` /
+  :func:`kirchhoff_apply_sparse_plain`, which keep the TPU kernels'
+  arithmetic.  A CPU tensor runs the plain version; a CUDA tensor
+  launches the kernel (float32, contiguous) or raises.
+  ``<wrapper>.launches`` counts kernel launches (one per build for
+  :func:`pair_csr`, whose kernel runs in two passes);
+  ``pair_csr.table_launches`` and ``hessian_apply_dense.table_launches``
+  those through the table branch (``table_compact``).
 * Patch overlays never reach a kernel: every operator runs the base
   family and adds the sparse correction :func:`overlay_apply_hessian` /
   :func:`overlay_apply_kirchhoff` over the pairs an overlay can touch.
@@ -43,11 +57,13 @@ plane layout ``(3n, k)`` of the JAX package.
   :func:`dcc_rows_matfree`, :func:`dcc_rows_matfree_gnm`.
 
 Routing (the JAX package's ``use_pallas = backend == "tpu"``, read as
-CUDA): float32 coordinates on CUDA take the kernels — block-sparse K13 /
-K14 when the family has a cutoff (``sparse`` default), the dense-grid K12
-otherwise — and keep the TPU's oversampling default ``max(k, 8, 48 - k)``;
-every other dtype or device runs the plain versions.  GNM without
-``sparse`` stays on the plain :func:`kirchhoff_apply`, as in JAX.
+CUDA): float32 coordinates on CUDA take the kernels — the pair CSR once
+per solver and K13 / K14 over it on every apply when the family has a
+cutoff (``sparse`` default), the dense-grid K12 otherwise — and keep the
+TPU's oversampling default ``max(k, 8, 48 - k)``; every other dtype or
+device runs the plain versions (the tile walk on the block-sparse
+route).  GNM without ``sparse`` stays on the plain :func:`kirchhoff_apply`,
+as in JAX.
 
 In Morton order (the block-sparse solvers) the per-atom codes of a
 tabulated family and the overlay masks are permuted with the atoms,
@@ -87,6 +103,11 @@ __all__ = [
     "hessian_apply_dense_plain",
     "TileCSR",
     "tile_csr",
+    "PairCSR",
+    "pair_csr",
+    "pair_csr_plain",
+    "hessian_apply_pair_csr_plain",
+    "kirchhoff_apply_pair_csr_plain",
     "spatial_sort_permutation",
     "tile_neighbor_lists",
     "estimate_lambda_max",
@@ -137,12 +158,20 @@ def _rect_constants(sq, rows, cols, n, params, row_ids=None, col_ids=None):
     cutoff, on self-pairs and on padding (id ``>= n``)."""
     rid = rows if row_ids is None else row_ids
     cid = cols if col_ids is None else col_ids
+    k = rect_base_constants(params, sq, rows, cols, rid, cid)
+    return torch.where(_interacting(sq, rid, cid, n, params), k,
+                       torch.zeros_like(sq))
+
+
+def _interacting(sq, rid, cid, n, params):
+    """Which pairs of an (R, C) block interact, by the kernels' test:
+    original ids `rid` / `cid` distinct and below `n` and, with a
+    cutoff, ``sq <= cutoff_sq``."""
     valid = (rid[:, None] != cid[None, :]) \
         & (rid < n)[:, None] & (cid < n)[None, :]
     if params.has_cutoff:
         valid = valid & (sq <= params.cutoff_sq)
-    k = rect_base_constants(params, sq, rows, cols, rid, cid)
-    return torch.where(valid, k, torch.zeros_like(sq))
+    return valid
 
 
 def _coord(coord, dtype, device):
@@ -533,16 +562,17 @@ def _dense_csr(n, tile, device):
 
 
 # ---------------------------------------------------------------------------
-# Plain versions of the kernels: the CSR walk, row tile by row tile
+# Plain versions of the kernels: the tile walk, row tile by row tile
 # ---------------------------------------------------------------------------
 
 def _tile_pairs(coord, csr, tile, params):
-    """Per row tile ``t``: ``(t, rows, d, kmat, cols)`` over the gathered
-    slots ``cols`` of its neighbour tiles (``d`` ``(tile, C, 3)``,
-    ``kmat`` of the base family masked by original id, cutoff and
-    padding), on coordinates and ids padded to whole tiles (padding
-    slots carry id ``n``).  A tabulated family's codes are read by slot,
-    its bonded test goes by id."""
+    """Per row tile: ``(rows, slots, d, sq, valid, kmat)`` over the
+    gathered slots ``slots`` ``(C,)`` of its neighbour tiles (``d``
+    ``(tile, C, 3)``, ``valid`` the kernels' test by original id, cutoff
+    and padding, ``kmat`` the base family's constants masked by it), on
+    coordinates and ids padded to whole tiles (padding slots carry id
+    ``n``).  A tabulated family's codes are read by slot, its bonded
+    test goes by id."""
     params = strip_overlays(params)
     n = coord.shape[0]
     params._check_atoms(n)
@@ -557,9 +587,12 @@ def _tile_pairs(coord, csr, tile, params):
                  + offs).reshape(-1)
         d = coord_p[rows, None, :] - coord_p[None, slots, :]
         sq = _squared_distance(d)
-        kmat = _rect_constants(sq, t * tile + offs, slots, n, params,
-                               ids[rows].long(), ids[slots].long())
-        yield t, rows, d, sq, kmat, slots
+        rid, cid = ids[rows].long(), ids[slots].long()
+        valid = _interacting(sq, rid, cid, n, params)
+        kmat = torch.where(valid, rect_base_constants(
+            params, sq, t * tile + offs, slots, rid, cid),
+            torch.zeros_like(sq))
+        yield rows, slots, d, sq, valid, kmat
 
 
 def hessian_apply_sparse_plain(coord, x, params, csr, tile):
@@ -574,7 +607,7 @@ def hessian_apply_sparse_plain(coord, x, params, csr, tile):
     n_pad = _round_up(n, tile)
     x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
     out = torch.empty_like(x_p)
-    for _, rows, d, sq, kmat, slots in _tile_pairs(coord, csr, tile,
+    for rows, slots, d, sq, _, kmat in _tile_pairs(coord, csr, tile,
                                                    params):
         g = -kmat / _safe(sq)
         xc = x_p[:, slots]
@@ -603,7 +636,7 @@ def kirchhoff_apply_sparse_plain(coord, x, params, csr, tile):
     n_pad = _round_up(n, tile)
     x_p = F.pad(x, (0, 0, 0, n_pad - n))
     out = torch.empty_like(x_p)
-    for _, rows, _, _, kmat, slots in _tile_pairs(coord, csr, tile,
+    for rows, slots, _, _, _, kmat in _tile_pairs(coord, csr, tile,
                                                   params):
         out[rows] = -(kmat @ x_p[slots]) + kmat.sum(dim=1)[:, None] \
             * x_p[rows]
@@ -611,13 +644,99 @@ def kirchhoff_apply_sparse_plain(coord, x, params, csr, tile):
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers (K12, K13, K14)
+# The pair CSR: every interacting pair of the tile CSR, built once per set-up
 # ---------------------------------------------------------------------------
 
-#: Columns of X per block of the Hessian and Kirchhoff kernels
-#: (``kCols`` in ``csrc/matfree_*.cu``) and the grid's y limit.
-_HESSIAN_COLS = 16
-_KIRCHHOFF_COLS = 32
+#: Warps of the tile walk's blocks (``kWalkWarps`` in
+#: ``csrc/tile_walk.cuh``): warp ``w`` takes the column atoms whose offset
+#: in their tile is ``w`` modulo 4, and a row's pairs in the pair CSR are
+#: warp 0's, then warp 1's, ..., each in walk order.
+_WALK_WARPS = 4
+
+
+class PairCSR(typing.NamedTuple):
+    """Every ordered pair ``(i, j)`` that interacts, by row: row ``i``
+    (a slot of the Morton order) holds ``slots[row_ptr[i]:row_ptr[i +
+    1]]`` with spring constants ``k`` (the base family's, no overlays);
+    ``row_ptr`` ``(n + 1,)`` and ``slots`` ``(P,)`` int32, ``k`` ``(P,)``
+    in the working dtype."""
+
+    row_ptr: torch.Tensor
+    slots: torch.Tensor
+    k: torch.Tensor
+
+
+def pair_csr_plain(coord, params, csr, tile):
+    """Plain version of the pair-CSR build: the pairs of the plain tile
+    walk (:func:`_tile_pairs`) that pass the kernels' test, each row in
+    the kernel's order (by walk warp, then by walk position), in the
+    dtype of `coord`."""
+    n = coord.shape[0]
+    rows, slots, ks = [], [], []
+    for row_slice, cols, _, _, valid, kmat in _tile_pairs(coord, csr, tile,
+                                                          params):
+        r, v = torch.nonzero(valid, as_tuple=True)
+        warp = v % tile % _WALK_WARPS
+        order = torch.argsort((r * _WALK_WARPS + warp) * cols.numel() + v)
+        r, v = r[order], v[order]
+        rows.append(r + row_slice.start)
+        slots.append(cols[v])
+        ks.append(kmat[r, v])
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=coord.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(torch.cat(rows), minlength=n),
+                               0)
+    return PairCSR(row_ptr.to(torch.int32), torch.cat(slots).to(torch.int32),
+                   torch.cat(ks))
+
+
+def _pair_rows(pairs):
+    """The row of every pair of `pairs` (int64)."""
+    n = pairs.row_ptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(n, device=pairs.row_ptr.device),
+        torch.diff(pairs.row_ptr.long()))
+
+
+def hessian_apply_pair_csr_plain(coord, x, pairs):
+    """Plain version of K13 over the pair CSR: ``H @ x`` (x ``(3n, k)``)
+    by ``index_add_`` over the list, ``y_i = sum_j g d (d . x_j)`` and the
+    diagonal blocks ``D_i = sum_j g d d^T``, then ``y_i -= D_i x_i``."""
+    n, k = coord.shape[0], x.shape[-1]
+    i, j = _pair_rows(pairs), pairs.slots.long()
+    d = coord[i] - coord[j]
+    g = -pairs.k / _safe(_squared_distance(d))
+    xb = x.reshape(3, n, k)
+    s = sum(d[:, a, None] * xb[a, j] for a in range(3))          # (P, k)
+    gd = g[:, None] * d                                         # (P, 3)
+    blocks = torch.zeros((n, 3, 3), dtype=x.dtype, device=x.device)\
+        .index_add_(0, i, gd[:, :, None] * d[:, None, :])
+    y = torch.zeros_like(xb)
+    for a in range(3):
+        y[a].index_add_(0, i, gd[:, a, None] * s)
+        y[a] -= sum(blocks[:, a, b, None] * xb[b] for b in range(3))
+    return y.reshape(3 * n, k)
+
+
+def kirchhoff_apply_pair_csr_plain(coord, x, pairs):
+    """Plain version of K14 over the pair CSR: ``K @ x`` (x ``(n, k)``),
+    ``-sum_j k_ij x_j`` by ``index_add_``, then ``+ deg_i x_i``."""
+    n = coord.shape[0]
+    i, j = _pair_rows(pairs), pairs.slots.long()
+    deg = torch.zeros(n, dtype=x.dtype, device=x.device)\
+        .index_add_(0, i, pairs.k)
+    return torch.zeros_like(x).index_add_(0, i, -pairs.k[:, None] * x[j]) \
+        + deg[:, None] * x
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (the pair CSR, K12, K13, K14)
+# ---------------------------------------------------------------------------
+
+#: Columns of X per block of K12 (``kCols`` in ``csrc/matfree_hessian.cu``)
+#: and per warp of the gathers K13, K14 (``kGatherCols`` in
+#: ``csrc/pair_gather.cuh``), and the grid's y limit.
+_DENSE_COLS = 16
+_GATHER_COLS = 64
 _MAX_GRID_Y = 65535
 #: Most bin edges the kernels stage (``kMaxEdges`` in ``csrc/spring.cuh``).
 _MAX_EDGES = 64
@@ -632,8 +751,9 @@ def _check_kernel_shape(name, coord, x, cols_per_block):
 
 
 def _kernel_args(params, n, device):
-    """Family arguments of the three kernels: kind, cutoff, and the table
-    branch's pointers (the per-atom codes in the order of `coord`)."""
+    """Family arguments of the walking kernels (the pair-CSR build, K12):
+    kind, cutoff, and the table branch's pointers (the per-atom codes in
+    the order of `coord`)."""
     if params.kind == "table_compact" and params.edges_sq is not None \
             and len(params.edges_sq) > _MAX_EDGES:
         raise ValueError(f"the matrix-free kernels stage at most "
@@ -654,61 +774,146 @@ def _with_overlay_apply(base, overlay_apply, coord, params, pos):
                                              dtype=coord.dtype, pos=pos)
 
 
-def _launch_hessian(coord, x, params, csr, tile):
-    """Route one Hessian apply (x ``(3n, k)``): the plain version on the
-    CPU; on CUDA the kernel — K13 over `csr`, or K12 (every column tile)
-    for ``csr=None``.  Patch overlays follow the base-family apply as a
-    sparse correction, `csr`'s ids giving the original positions."""
-    if params.overlays:
-        return _with_overlay_apply(
-            lambda v: _launch_hessian(coord, v, strip_overlays(params), csr,
-                                      tile),
-            overlay_apply_hessian, coord, params,
-            None if csr is None else csr.ids)(x)
-    wrapper = hessian_apply_dense if csr is None else hessian_apply_sparse
+def pair_csr(coord, params, csr, tile=256):
+    """
+    The pair CSR of `coord` ``(n, 3)`` (Morton order) over the tile
+    neighbour pairs `csr` (:func:`tile_csr` at `tile`): every ordered
+    pair that passes the test of the TPU kernels, with the base family's
+    spring constant (overlays are the caller's correction).  Built once
+    per solver set-up; K13 and K14 gather over it on every apply.
+
+    A CPU tensor runs :func:`pair_csr_plain`; a CUDA tensor launches the
+    kernel (float32; ``csrc/matfree_pairs.cu``: a counting pass, one
+    cumulative sum, a writing pass) or raises.  ``pair_csr.launches``
+    counts builds, ``.table_launches`` those through the table branch.
+    """
+    _check_params(params)
+    _check_tile(tile)
+    params = strip_overlays(params)
+    n = coord.shape[0]
+    n_tiles = _round_up(n, tile) // tile
+    if csr.ids.shape != (n,) or csr.row_ptr.shape != (n_tiles + 1,):
+        raise ValueError(f"pair_csr: the tile CSR (ids {tuple(csr.ids.shape)},"
+                         f" row_ptr {tuple(csr.row_ptr.shape)}) does not "
+                         f"describe {n} atoms in tiles of {tile}")
+    if _build.route("pair_csr", coord, *csr) == "cpu":
+        return pair_csr_plain(coord, params, csr, tile)
+    _build.require_cuda_f32("pair_csr", coord=coord)
+    if 3 * n >= 2**31:
+        raise ValueError(f"pair_csr: n = {n} exceeds the kernel's limit "
+                         f"(3n < 2^31)")
+    walk = (coord.data_ptr(), csr.ids.data_ptr(), csr.row_ptr.data_ptr(),
+            csr.cols.data_ptr())
+    family = _kernel_args(params, n, coord.device)
+    counts = torch.empty(_WALK_WARPS * n, dtype=torch.int32,
+                         device=coord.device)
+    _build.launch("sc_pair_csr_count", coord.device, *walk,
+                  counts.data_ptr(), n, tile, *family)
+    offsets = torch.zeros(_WALK_WARPS * n + 1, dtype=torch.int64,
+                          device=coord.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    total = int(offsets[-1])
+    if total >= 2**31:
+        raise ValueError(f"pair_csr: {total} pairs exceed the kernel's "
+                         f"int32 offsets")
+    offsets = offsets.to(torch.int32)
+    slots = torch.empty(total, dtype=torch.int32, device=coord.device)
+    k = torch.empty(total, dtype=torch.float32, device=coord.device)
+    _build.launch("sc_pair_csr_fill", coord.device, *walk,
+                  offsets.data_ptr(), slots.data_ptr(), k.data_ptr(), n,
+                  tile, *family)
+    pair_csr.launches += 1
+    pair_csr.table_launches += params.kind == "table_compact"
+    return PairCSR(offsets[::_WALK_WARPS].contiguous(), slots, k)
+
+
+def _check_pairs(name, coord, x, pairs):
+    """Raise unless `pairs` is a pair CSR of `coord`'s atoms, int32 and
+    contiguous, with constants in `x`'s dtype."""
+    n = coord.shape[0]
+    if pairs.row_ptr.shape != (n + 1,) or pairs.slots.ndim != 1 \
+            or pairs.k.shape != pairs.slots.shape:
+        raise ValueError(f"{name}: the pair list (row_ptr "
+                         f"{tuple(pairs.row_ptr.shape)}, slots "
+                         f"{tuple(pairs.slots.shape)}, k "
+                         f"{tuple(pairs.k.shape)}) does not fit {n} atoms")
+    if pairs.row_ptr.dtype != torch.int32 or pairs.slots.dtype != torch.int32:
+        raise TypeError(f"{name}: row_ptr and slots must be int32")
+    if pairs.k.dtype != x.dtype:
+        raise TypeError(f"{name}: the pair list's constants are "
+                        f"{pairs.k.dtype}, x is {x.dtype}")
+    if not (pairs.row_ptr.is_contiguous() and pairs.slots.is_contiguous()
+            and pairs.k.is_contiguous()):
+        raise ValueError(f"{name}: the pair list must be contiguous")
+
+
+def _apply_pairs(wrapper, coord, x, pairs):
+    """One K13 (`wrapper` :func:`hessian_apply_sparse`, x ``(3n, k)``) or
+    K14 (:func:`kirchhoff_apply_sparse`, x ``(n, k)``) apply over
+    `pairs`: the plain version on the CPU, the gather kernel on CUDA."""
     name = wrapper.__name__
-    if _build.route(name, coord, x, *(csr or ())) == "cpu":
-        if csr is None:
-            csr = _dense_csr(coord.shape[0], tile, coord.device)
-        return hessian_apply_sparse_plain(coord, x, params, csr, tile)
+    node = wrapper is kirchhoff_apply_sparse
+    _check_pairs(name, coord, x, pairs)
+    if _build.route(name, coord, x, *pairs) == "cpu":
+        plain = (kirchhoff_apply_pair_csr_plain if node
+                 else hessian_apply_pair_csr_plain)
+        return plain(coord, x, pairs)
     _build.require_cuda_f32(name, coord=coord, x=x)
-    _check_kernel_shape(name, coord, x, _HESSIAN_COLS)
+    _check_kernel_shape(name, coord, x, _GATHER_COLS)
     n, k = coord.shape[0], x.shape[1]
     out = torch.empty_like(x)
-    if csr is None:
-        _build.launch("sc_hessian_apply_dense", coord.device,
-                      coord.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
-                      *_kernel_args(params, n, coord.device))
+    lists = (pairs.row_ptr.data_ptr(), pairs.slots.data_ptr(),
+             pairs.k.data_ptr(), x.data_ptr(), out.data_ptr(), n, k)
+    if node:
+        _build.launch("sc_kirchhoff_apply_pairs", coord.device, *lists)
     else:
-        _build.launch("sc_hessian_apply_sparse", coord.device,
-                      coord.data_ptr(), csr.ids.data_ptr(),
-                      csr.row_ptr.data_ptr(), csr.cols.data_ptr(),
-                      x.data_ptr(), out.data_ptr(), n, k, tile,
-                      *_kernel_args(params, n, coord.device))
+        _build.launch("sc_hessian_apply_pairs", coord.device,
+                      coord.data_ptr(), *lists)
     wrapper.launches += 1
-    wrapper.table_launches += params.kind == "table_compact"
     return out
 
 
-def _launch_kirchhoff(coord, x, params, csr, tile):
+def _sparse_apply(wrapper, coord, x, params, csr, tile):
+    """The public block-sparse apply: the tile walk's plain version on
+    the CPU; on CUDA the pair CSR is built and the gather launched in
+    one call.  Patch overlays follow as the sparse correction, `csr`'s
+    ids giving the original positions."""
+    node = wrapper is kirchhoff_apply_sparse
+    name = wrapper.__name__
+    if _build.route(name, coord, x, *csr) == "cpu":
+        apply = functools.partial(
+            kirchhoff_apply_sparse_plain if node
+            else hessian_apply_sparse_plain, coord, params=params, csr=csr,
+            tile=tile)
+    else:
+        _build.require_cuda_f32(name, coord=coord, x=x)
+        pairs = pair_csr(coord, params, csr, tile)
+        apply = functools.partial(_apply_pairs, wrapper, coord, pairs=pairs)
+    return _with_overlay_apply(
+        apply, overlay_apply_kirchhoff if node else overlay_apply_hessian,
+        coord, params, csr.ids)(x)
+
+
+def _launch_dense(coord, x, params, tile):
+    """Route one dense-grid Hessian apply (x ``(3n, k)``): the plain
+    version on the CPU, K12 on CUDA.  Patch overlays follow the
+    base-family apply as a sparse correction."""
     if params.overlays:
         return _with_overlay_apply(
-            lambda v: _launch_kirchhoff(coord, v, strip_overlays(params),
-                                        csr, tile),
-            overlay_apply_kirchhoff, coord, params, csr.ids)(x)
-    name = "kirchhoff_apply_sparse"
-    if _build.route(name, coord, x, *csr) == "cpu":
-        return kirchhoff_apply_sparse_plain(coord, x, params, csr, tile)
+            lambda v: _launch_dense(coord, v, strip_overlays(params), tile),
+            overlay_apply_hessian, coord, params, None)(x)
+    name = "hessian_apply_dense"
+    if _build.route(name, coord, x) == "cpu":
+        return hessian_apply_dense_plain(coord, x, params, tile)
     _build.require_cuda_f32(name, coord=coord, x=x)
-    _check_kernel_shape(name, coord, x, _KIRCHHOFF_COLS)
+    _check_kernel_shape(name, coord, x, _DENSE_COLS)
+    n, k = coord.shape[0], x.shape[1]
     out = torch.empty_like(x)
-    _build.launch("sc_kirchhoff_apply_sparse", coord.device,
-                  coord.data_ptr(), csr.ids.data_ptr(),
-                  csr.row_ptr.data_ptr(), csr.cols.data_ptr(), x.data_ptr(),
-                  out.data_ptr(), coord.shape[0], x.shape[1], tile,
-                  *_kernel_args(params, coord.shape[0], coord.device))
-    kirchhoff_apply_sparse.launches += 1
-    kirchhoff_apply_sparse.table_launches += params.kind == "table_compact"
+    _build.launch("sc_hessian_apply_dense", coord.device, coord.data_ptr(),
+                  x.data_ptr(), out.data_ptr(), n, k,
+                  *_kernel_args(params, n, coord.device))
+    hessian_apply_dense.launches += 1
+    hessian_apply_dense.table_launches += params.kind == "table_compact"
     return out
 
 
@@ -720,9 +925,8 @@ def _check_tile(tile):
 def hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
                          tile=256, *, dtype=torch.float32, device=None):
     """
-    Block-sparse matrix-free ``H @ x`` (K13): only the tile pairs of
-    :func:`tile_neighbor_lists` are visited, and within them only pairs
-    inside the cutoff do per-column work.
+    Block-sparse matrix-free ``H @ x`` (K13): only the pairs within the
+    cutoff of the tile pairs of :func:`tile_neighbor_lists` do work.
 
     Parameters
     ----------
@@ -738,8 +942,10 @@ def hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
 
     Returns
     -------
-    y : Tensor, same shape as `x`.  A CPU tensor runs the plain version;
-    a CUDA tensor launches the kernel (float32, contiguous) or raises.
+    y : Tensor, same shape as `x`.  A CPU tensor runs the plain tile
+    walk; a CUDA tensor (float32, contiguous) builds the pair CSR and
+    launches the gather, or raises.  The solvers build the pair CSR once
+    and apply it many times.
     """
     _check_params(params)
     _check_tile(tile)
@@ -747,23 +953,24 @@ def hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
     n = coord.shape[0]
     xb, squeeze = _columns(x, 3 * n, coord)
     csr = tile_csr(nbr, counts, orig_ids, n, tile, coord.device)
-    y = _launch_hessian(coord, xb, params, csr, tile)
+    y = _sparse_apply(hessian_apply_sparse, coord, xb, params, csr, tile)
     return y[:, 0] if squeeze else y
 
 
 def hessian_apply_dense(coord, x, params, tile=256, *, dtype=torch.float32,
                         device=None):
-    """Dense-grid matrix-free ``H @ x`` (K12): every column tile is
+    """Dense-grid matrix-free ``H @ x`` (K12): every column atom is
     visited — the route of the families without a cutoff and of
     ``sparse=False``.  `tile` blocks the plain version's rows; the
-    kernel walks every column itself.  Routing as
-    :func:`hessian_apply_sparse`."""
+    kernel walks every column itself.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (float32, contiguous) or
+    raises."""
     _check_params(params)
     _check_tile(tile)
     coord = _coord(coord, dtype, device)
     n = coord.shape[0]
     xb, squeeze = _columns(x, 3 * n, coord)
-    y = _launch_hessian(coord, xb, params, None, tile)
+    y = _launch_dense(coord, xb, params, tile)
     return y[:, 0] if squeeze else y
 
 
@@ -778,46 +985,49 @@ def kirchhoff_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
     n = coord.shape[0]
     xb, squeeze = _columns(x, n, coord)
     csr = tile_csr(nbr, counts, orig_ids, n, tile, coord.device)
-    y = _launch_kirchhoff(coord, xb, params, csr, tile)
+    y = _sparse_apply(kirchhoff_apply_sparse, coord, xb, params, csr, tile)
     return y[:, 0] if squeeze else y
 
 
-for _wrapper in (hessian_apply_sparse, hessian_apply_dense,
+for _wrapper in (pair_csr, hessian_apply_sparse, hessian_apply_dense,
                  kirchhoff_apply_sparse):
     _wrapper.launches = 0
+for _wrapper in (pair_csr, hessian_apply_dense):
     _wrapper.table_launches = 0
 
 
-def _hessian_operator(coord, params, *, kernel, sparse, csr, tile, block):
-    """``x -> H @ x`` on `coord` for x ``(3n, p)``: K13 over `csr` or K12
-    on the kernel route, else the plain block-sparse walk or the
+def _hessian_operator(coord, params, *, kernel, sparse, csr, pairs, tile,
+                      block):
+    """``x -> H @ x`` on `coord` for x ``(3n, p)``: on the kernel route
+    K13 over `pairs` or K12, else the plain tile walk over `csr` or the
     row-blocked operator."""
-    if kernel:
-        # the solvers' blocks (QR factors among them) may be strided; the
-        # kernels take contiguous X
-        return lambda x: _launch_hessian(coord, x.contiguous(), params,
-                                         csr if sparse else None, tile)
+    # the solvers' blocks (QR factors among them) may be strided; the
+    # kernels take contiguous X
     if sparse:
-        return _with_overlay_apply(
-            functools.partial(hessian_apply_sparse_plain, coord,
-                              params=params, csr=csr, tile=tile),
-            overlay_apply_hessian, coord, params, csr.ids)
+        base = ((lambda x: _apply_pairs(hessian_apply_sparse, coord,
+                                        x.contiguous(), pairs)) if kernel
+                else functools.partial(hessian_apply_sparse_plain, coord,
+                                       params=params, csr=csr, tile=tile))
+        return _with_overlay_apply(base, overlay_apply_hessian, coord,
+                                   params, csr.ids)
+    if kernel:
+        return lambda x: _launch_dense(coord, x.contiguous(), params, tile)
     return functools.partial(hessian_apply, coord, params=params,
                              block=block, dtype=coord.dtype)
 
 
-def _kirchhoff_operator(coord, params, *, kernel, sparse, csr, tile, block):
-    """``x -> K @ x`` for x ``(n, p)``: K14 on the kernel route with
-    `sparse`, the plain block-sparse walk without the kernel route, the
-    row-blocked operator without `sparse`."""
-    if sparse and kernel:
-        return lambda x: _launch_kirchhoff(coord, x.contiguous(), params,
-                                           csr, tile)
+def _kirchhoff_operator(coord, params, *, kernel, sparse, csr, pairs, tile,
+                        block):
+    """``x -> K @ x`` for x ``(n, p)``: K14 over `pairs` on the kernel
+    route with `sparse`, the plain tile walk without the kernel route,
+    the row-blocked operator without `sparse`."""
     if sparse:
-        return _with_overlay_apply(
-            functools.partial(kirchhoff_apply_sparse_plain, coord,
-                              params=params, csr=csr, tile=tile),
-            overlay_apply_kirchhoff, coord, params, csr.ids)
+        base = ((lambda x: _apply_pairs(kirchhoff_apply_sparse, coord,
+                                        x.contiguous(), pairs)) if kernel
+                else functools.partial(kirchhoff_apply_sparse_plain, coord,
+                                       params=params, csr=csr, tile=tile))
+        return _with_overlay_apply(base, overlay_apply_kirchhoff, coord,
+                                   params, csr.ids)
     return functools.partial(kirchhoff_apply, coord, params=params,
                              block=block, dtype=coord.dtype)
 
@@ -911,12 +1121,14 @@ def _chebfsi(matvec, t, m, lam_max, *, k, oversample, degree, n_outer,
     return theta[:k], x[:, :k].T, res
 
 
-def _sparse_setup(coord, params, masses, tile):
-    """Host set-up shared by the block-sparse solvers: Morton sort, tile
-    neighbour lists and their CSR, permuted masses, and the parameters
-    with their per-atom codes and overlay masks in the sorted order
-    (a new record with device tensors of its own).  Returns ``(sorted
-    coord, permuted params, permuted masses, csr, perm)``."""
+def _sparse_setup(coord, params, masses, tile, kernel):
+    """Set-up shared by the block-sparse solvers: Morton sort, tile
+    neighbour lists and their CSR (host), permuted masses, the
+    parameters with their per-atom codes and overlay masks in the sorted
+    order (a new record with device tensors of its own) and, on the
+    `kernel` route, the pair CSR of the base family.  Returns ``(sorted
+    coord, permuted params, permuted masses, csr, perm, pairs)``
+    (``pairs`` None off the kernel route)."""
     host = coord.detach().cpu().double().numpy()
     params._check_atoms(host.shape[0])
     perm = spatial_sort_permutation(host)
@@ -931,7 +1143,8 @@ def _sparse_setup(coord, params, masses, tile):
         masses = masses[torch.as_tensor(perm, device=coord.device)]
     if params.kind == "table_compact" or params.overlays:
         params = params.permuted(perm)
-    return coord_s, params, masses, csr, perm
+    pairs = pair_csr(coord_s, params, csr, tile) if kernel else None
+    return coord_s, params, masses, csr, perm, pairs
 
 
 def _route(coord, params, matvec, sparse, tile):
@@ -997,7 +1210,8 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
         Outer (filter + Rayleigh-Ritz) iterations.
     sparse : bool, optional
         Block-sparse operator: Morton-sorted atoms, tile neighbour lists,
-        only interacting tile pairs visited (K13 on the kernel route).
+        only interacting tile pairs visited (on the kernel route the pair
+        CSR is built once and K13 gathers over it on every apply).
         Default: on for the kernel route with a cutoff and no `matvec`.
         Results come back in the original atom order.
     lambda_max : float, optional
@@ -1031,12 +1245,13 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     if matvec is not None:
         base = matvec
     else:
-        csr = None
+        csr = pairs = None
         if sparse:
-            coord, params, masses, csr, perm = _sparse_setup(
-                coord, params, masses, tile)
+            coord, params, masses, csr, perm, pairs = _sparse_setup(
+                coord, params, masses, tile, kernel)
         base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
-                                 csr=csr, tile=tile, block=block)
+                                 csr=csr, pairs=pairs, tile=tile,
+                                 block=block)
     w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
     t = rigid.rigid_modes_anm(coord, masses=masses)
     vals, vecs, res = _chebfsi(
@@ -1079,13 +1294,13 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     if matvec is not None:
         base = matvec
     else:
-        csr = None
+        csr = pairs = None
         if sparse:
-            coord, params, masses, csr, perm = _sparse_setup(
-                coord, params, masses, tile)
+            coord, params, masses, csr, perm, pairs = _sparse_setup(
+                coord, params, masses, tile, kernel)
         base = _kirchhoff_operator(coord, params, kernel=kernel,
-                                   sparse=sparse, csr=csr, tile=tile,
-                                   block=block)
+                                   sparse=sparse, csr=csr, pairs=pairs,
+                                   tile=tile, block=block)
     w = None if masses is None else 1.0 / torch.sqrt(masses)
     t = rigid.null_mode_gnm(n, masses=masses, dtype=dtype,
                             device=coord.device)
@@ -1213,15 +1428,16 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
     if matvec is not None:
         base = matvec
     else:
-        csr = None
+        csr = pairs = None
         if sparse:
-            coord, params, masses, csr, perm = _sparse_setup(
-                coord, params, masses, tile)
+            coord, params, masses, csr, perm, pairs = _sparse_setup(
+                coord, params, masses, tile, kernel)
             perm_t = torch.as_tensor(perm, device=coord.device)
             inv_blocks = inv_blocks[perm_t]
             rhs = rhs[torch.cat([a * n + perm_t for a in range(3)])]
         base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
-                                 csr=csr, tile=tile, block=block)
+                                 csr=csr, pairs=pairs, tile=tile,
+                                 block=block)
     w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
     t = rigid.rigid_modes_anm(coord, masses=masses)
     x, n_it, res = _deflated_pcg(_mass_weighted(base, w3), t, inv_blocks,
@@ -1260,15 +1476,15 @@ def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
         inv_diag = torch.ones(n, dtype=dtype, device=coord.device)
 
     perm = None
-    csr = None
+    csr = pairs = None
     if sparse:
-        coord, params, masses, csr, perm = _sparse_setup(coord, params,
-                                                         masses, tile)
+        coord, params, masses, csr, perm, pairs = _sparse_setup(
+            coord, params, masses, tile, kernel)
         perm_t = torch.as_tensor(perm, device=coord.device)
         inv_diag = inv_diag[perm_t]
         rhs = rhs[perm_t]
     base = _kirchhoff_operator(coord, params, kernel=kernel, sparse=sparse,
-                               csr=csr, tile=tile, block=block)
+                               csr=csr, pairs=pairs, tile=tile, block=block)
     w = None if masses is None else 1.0 / torch.sqrt(masses)
     t = rigid.null_mode_gnm(n, masses=masses, dtype=dtype,
                             device=coord.device)

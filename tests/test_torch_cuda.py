@@ -3,9 +3,9 @@ PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small and edge shapes, and the
 paths on CUDA (ANM plane traces, ANM covariance and PRS, GNM ensemble,
 single structures, the spectral pipelines, the matrix-free modes and CG
-solves, the tabulated families on all of them, patch overlays, single
-structures past 4,096 atoms) against the float64 engines, each with the
-launch counts of its own kernels.
+solves over the pair CSR, the tabulated families on all of them, patch
+overlays, single structures past 4,096 atoms) against the float64
+engines, each with the launch counts of its own kernels.
 
 Marked ``cuda``: every test skips without an NVIDIA GPU.  This file
 imports neither JAX nor the JAX package, so it runs on a machine that
@@ -14,11 +14,12 @@ has only PyTorch (skip the JAX test configuration there)::
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``: 1e-5 of max|x| for the assembly, the
-stitch and the bisection, 2e-5 absolute for unit-scale panels, 1e-4 of
-max|x| for the float32 paths against float64; eigenvectors by their
-residuals (5e-4 of the matrix norm after refinement, a median of 1e-3
-of the band's norm straight from inverse iteration) and orthonormality
-(1e-3).
+stitch, the bisection and the matrix-free applies, 1e-6 relative for the
+pair CSR's constants (its pairs exactly), 2e-5 absolute for unit-scale
+panels, 1e-4 of max|x| for the float32 paths against float64;
+eigenvectors by their residuals (5e-4 of the matrix norm after
+refinement, a median of 1e-3 of the band's norm straight from inverse
+iteration) and orthonormality (1e-3).
 """
 
 import numpy as np
@@ -511,7 +512,8 @@ def test_matfree_kernels(cuda, wrapper, n, k):
         n if node else 3 * n, k).astype(np.float32), device=cuda)
     c = torch.as_tensor(coord, device=cuda)
     fn = getattr(matfree, wrapper)
-    before = fn.launches
+    wrappers = sct.kernel_wrappers()
+    before = {name: w.launches for name, w in wrappers.items()}
     if wrapper == "hessian_apply_dense":
         got = fn(c, x, params)
         ref = matfree.hessian_apply_dense_plain(c, x, params)
@@ -522,7 +524,11 @@ def test_matfree_kernels(cuda, wrapper, n, k):
                  else matfree.hessian_apply_sparse_plain)
         ref = plain(c, x, params, csr, 256)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    # a sparse apply builds the pair CSR, then gathers over it
+    grew = {name: w.launches - before[name] for name, w in wrappers.items()}
+    assert grew == {name: int(name == wrapper or (
+        name == "pair_csr" and wrapper != "hessian_apply_dense"))
+        for name in wrappers}
     assert got.shape == x.shape and got.device == c.device
     assert _rel(got, ref) <= 1e-5
     # the sparse kernels agree with the row-blocked operator in float64
@@ -567,13 +573,164 @@ def test_matfree_kernels_refuse_what_they_do_not_take(cuda):
             fn(c, vec.cpu(), params, *args)
 
 
-#: matrix-free path -> the kernel it must launch
+def _pair_layout(n, seed, params, tile=256):
+    """Sorted coordinates on the card, the tile CSR with original ids and
+    `params` in the sorted order."""
+    coord, ids, nbr, counts = _sorted_layout(
+        n, seed, cutoff=float(np.sqrt(params.cutoff_sq)), tile=tile)
+    if params.kind == "table_compact":
+        params = params.permuted(ids)
+    return (torch.as_tensor(coord, device="cuda"), params,
+            matfree.tile_csr(nbr, counts, ids, n, tile, "cuda"))
+
+
+def _assert_same_pairs(got, ref):
+    """The build kernel's pair CSR against the plain one: the same rows
+    and slots in the same order, constants within 1e-6 relative."""
+    assert torch.equal(got.row_ptr, ref.row_ptr)
+    assert torch.equal(got.slots, ref.slots)
+    assert got.k.dtype == torch.float32
+    assert bool(((got.k - ref.k).abs() <= 1e-6 * ref.k.abs()).all())
+
+
+@pytest.mark.parametrize("n,tile", [(257, 256), (1000, 256), (300, 16),
+                                    (300, 100)])
+@pytest.mark.parametrize("family", ["invariant", "hinsen", "sd_enm"])
+def test_pair_csr_kernel(cuda, family, n, tile):
+    """The build kernel (both branches) against its plain version on the
+    same CUDA tensors, in Morton order with original ids; counted once
+    per build, through the table branch for ``table_compact``."""
+    if family == "sd_enm":
+        params = _table_params("sd_enm", _ca_atoms(n, seed=n, chains=3))
+    else:
+        params = getattr(sct, f"{family}_params")(13.0)
+    c, params, csr = _pair_layout(n, n + tile, params, tile)
+    build = matfree.pair_csr
+    before = build.launches, build.table_launches
+    got = build(c, params, csr, tile)
+    table = params.kind == "table_compact"
+    assert (build.launches, build.table_launches) == (before[0] + 1,
+                                                      before[1] + table)
+    ref = matfree.pair_csr_plain(c, params, csr, tile)
+    torch.cuda.synchronize()
+    assert got.slots.numel() > 0
+    _assert_same_pairs(got, ref)
+    # the same inputs give the same list bit for bit
+    again = build(c, params, csr, tile)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_pair_csr_kernel_on_the_cutoff_and_a_split_bond(cuda):
+    """sdENM pairs exactly on the first edge and on the cutoff (16.5) are
+    in the list with the constants of the bins the edges close, a pair
+    just past the cutoff is not, and a bonded pair whose atoms sit in
+    different tiles takes the bonded table; the analytic branch keeps
+    the pair on the cutoff too."""
+    n, tile = 40, 16
+    atoms = _ca_atoms(n, seed=1, chains=1)
+    atoms.res_id = np.arange(1, n + 1)
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    coord = np.zeros((n, 3), dtype=np.float32)
+    coord[:, 0] = [0.0, 0.25, 2.0, 4.0, 16.75] + [40.0 + 3.8 * i
+                                                  for i in range(n - 5)]
+    perm = np.array([0] + list(range(2, n)) + [1])
+    nbr = np.tile(np.arange(3, dtype=np.int32), (3, 1))
+    csr = matfree.tile_csr(nbr, np.full(3, 3, np.int32),
+                           perm.astype(np.int32), n, tile, cuda)
+    c = torch.as_tensor(coord[perm], device=cuda)
+    slot = np.argsort(perm)
+    t = params.type_idx
+    for family in (params.permuted(perm), sct.invariant_params(16.5)):
+        got = matfree.pair_csr(c, family, csr, tile)
+        _assert_same_pairs(got, matfree.pair_csr_plain(c, family, csr, tile))
+        row_ptr, slots, k = (v.cpu().numpy() for v in got)
+
+        def constant(i, j):
+            row = slots[row_ptr[slot[i]]:row_ptr[slot[i] + 1]]
+            found = np.flatnonzero(row == slot[j])
+            return k[row_ptr[slot[i]] + found[0]] if len(found) else None
+
+        assert constant(0, 4) is None                    # 16.75 > 16.5
+        if family.kind == "table_compact":
+            assert constant(0, 3) == params.intra_table[t[0], t[3], 0]
+            assert constant(1, 4) == params.intra_table[t[1], t[4], 25]
+            assert constant(0, 1) == params.bonded_table[t[0], t[1], 0]
+            assert constant(1, 2) == params.bonded_table[t[1], t[2], 0]
+        else:
+            assert constant(1, 4) == constant(4, 1) == 1.0
+
+
+@pytest.mark.parametrize("k", [1, 5, 24, 48, 130])
+@pytest.mark.parametrize("n", [257, 1000])
+@pytest.mark.parametrize("wrapper", ["hessian_apply_sparse",
+                                     "kirchhoff_apply_sparse"])
+def test_gather_applies_over_the_pair_csr(cuda, wrapper, n, k):
+    """K13 and K14 over the built list against both plain versions on the
+    same CUDA tensors (the sum over the same list, and the tile walk of
+    the TPU kernels' arithmetic), 1e-5 of max|y|, at every lane layout
+    the widths give (k = 130 takes three column chunks); two applies give
+    the same bits."""
+    params = sct.invariant_params(13.0)
+    c, params, csr = _pair_layout(n, n + k, params)
+    pairs = matfree.pair_csr(c, params, csr, 256)
+    fn = getattr(matfree, wrapper)
+    node = wrapper == "kirchhoff_apply_sparse"
+    x = torch.as_tensor(np.random.RandomState(k).randn(
+        n if node else 3 * n, k).astype(np.float32), device=cuda)
+    before = fn.launches
+    got = matfree._apply_pairs(fn, c, x, pairs)
+    again = matfree._apply_pairs(fn, c, x, pairs)
+    assert fn.launches == before + 2
+    over_list = (matfree.kirchhoff_apply_pair_csr_plain if node
+                 else matfree.hessian_apply_pair_csr_plain)(c, x, pairs)
+    walk = (matfree.kirchhoff_apply_sparse_plain if node
+            else matfree.hessian_apply_sparse_plain)(c, x, params, csr, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, over_list) <= 1e-5
+    assert _rel(got, walk) <= 1e-5
+    # an unaligned X takes the scalar loads
+    if k % 4 == 0:
+        store = torch.zeros(x.numel() + 1, device=cuda)
+        shifted = store[1:].view_as(x)
+        shifted.copy_(x)
+        assert _rel(matfree._apply_pairs(fn, c, shifted, pairs),
+                    over_list) <= 1e-5
+
+
+def test_gather_applies_refuse_what_they_do_not_take(cuda):
+    params = sct.invariant_params(13.0)
+    c, params, csr = _pair_layout(300, 0, params)
+    pairs = matfree.pair_csr(c, params, csr, 256)
+    other, _, other_csr = _pair_layout(200, 0, params)
+    for fn, rows in ((matfree.hessian_apply_sparse, 900),
+                     (matfree.kirchhoff_apply_sparse, 300)):
+        x = torch.zeros(rows, 4, device=cuda)
+        with pytest.raises(TypeError, match="float64"):
+            matfree._apply_pairs(fn, c.double(), x.double(), pairs)
+        with pytest.raises(ValueError, match="contiguous"):
+            matfree._apply_pairs(fn, c, x.t().contiguous().t(), pairs)
+        with pytest.raises(ValueError, match="device"):
+            matfree._apply_pairs(fn, c, x.cpu(), pairs)
+        with pytest.raises(ValueError, match="does not fit 300 atoms"):
+            matfree._apply_pairs(fn, c, x, matfree.pair_csr(
+                other, params, other_csr, 256))
+    with pytest.raises(TypeError, match="float32"):
+        matfree.pair_csr(c.double(), params, csr, 256)
+    with pytest.raises(ValueError, match="device"):
+        matfree.pair_csr(c.cpu(), params, csr, 256)
+    with pytest.raises(ValueError, match="does not describe 300 atoms"):
+        matfree.pair_csr(c, params, other_csr, 256)
+
+
+#: matrix-free path -> the kernels it must launch (the block-sparse paths
+#: build the pair CSR once, then gather over it)
 MATFREE_PATHS = {
-    "modes": "hessian_apply_sparse",
-    "modes_dense": "hessian_apply_dense",
-    "modes_gnm": "kirchhoff_apply_sparse",
-    "solve": "hessian_apply_sparse",
-    "solve_gnm": "kirchhoff_apply_sparse",
+    "modes": {"pair_csr", "hessian_apply_sparse"},
+    "modes_dense": {"hessian_apply_dense"},
+    "modes_gnm": {"pair_csr", "kirchhoff_apply_sparse"},
+    "solve": {"pair_csr", "hessian_apply_sparse"},
+    "solve_gnm": {"pair_csr", "kirchhoff_apply_sparse"},
 }
 
 
@@ -599,8 +756,9 @@ def _matfree_path(path, coord, device, dtype):
 
 @pytest.mark.parametrize("path", sorted(MATFREE_PATHS))
 def test_matfree_paths_on_cuda(cuda, path):
-    """Each float32 path launches its kernel and no other, and agrees
-    with the float64 plain route on the card: eigenvalues to 1e-4
+    """Each float32 path launches its kernels and no other (the pair CSR
+    once per solver call), and agrees with the float64 plain route on the
+    card: eigenvalues to 1e-4
     relative, eigenvectors by subspace overlap above 1 - 1e-4, CG rows to
     1e-3 of max (float32 CG to a relative residual of 1e-6)."""
     coord = _protein_blob(600, seed=11)
@@ -608,7 +766,9 @@ def test_matfree_paths_on_cuda(cuda, path):
     before = {k: w.launches for k, w in wrappers.items()}
     got = _matfree_path(path, coord, "cuda", torch.float32)
     torch.cuda.synchronize()
-    _check_launches(wrappers, before, {MATFREE_PATHS[path]})
+    _check_launches(wrappers, before, MATFREE_PATHS[path])
+    if "pair_csr" in MATFREE_PATHS[path]:
+        assert wrappers["pair_csr"].launches == before["pair_csr"] + 1
     ref = _matfree_path(path, coord.astype(np.float64), "cuda",
                         torch.float64)
     assert got[0].device.type == "cuda"
@@ -944,9 +1104,9 @@ def _sorted_table_layout(n, seed, maker="sd_enm", chains=2, tile=256):
 def test_table_branch_of_the_matfree_kernels(cuda, maker, n, tile, k):
     """K13 and K14 in Morton order (codes by slot, bonded pairs by original
     id: array neighbours land in different tiles) and K12 in atom order,
-    each against its plain version on the same CUDA tensors and counted as
-    a table launch; K13 also against the float64 row-blocked operator in
-    the original order."""
+    each against its plain version on the same CUDA tensors, the pair-CSR
+    build and K12 counted as table launches; K13 also against the float64
+    row-blocked operator in the original order."""
     coord, params, sorted_params, ids, nbr, counts = _sorted_table_layout(
         n, seed=n + k, maker=maker, tile=tile)
     c = torch.as_tensor(coord, device=cuda)
@@ -954,15 +1114,17 @@ def test_table_branch_of_the_matfree_kernels(cuda, maker, n, tile, k):
     x3 = torch.as_tensor(rng.randn(3 * n, k).astype(np.float32), device=cuda)
     x1 = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=cuda)
     csr = matfree.tile_csr(nbr, counts, ids, n, tile, cuda)
+    build = matfree.pair_csr
     for fn, plain, x in (
             (matfree.hessian_apply_sparse,
              matfree.hessian_apply_sparse_plain, x3),
             (matfree.kirchhoff_apply_sparse,
              matfree.kirchhoff_apply_sparse_plain, x1)):
-        before = fn.launches, fn.table_launches
+        before = fn.launches, build.launches, build.table_launches
         got = fn(c, x, sorted_params, nbr, counts, ids, tile=tile)
-        assert (fn.launches, fn.table_launches) == (before[0] + 1,
-                                                    before[1] + 1)
+        # the table branch is the build's; the gather reads the constants
+        assert (fn.launches, build.launches, build.table_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
         ref = plain(c, x, sorted_params, csr, tile)
         torch.cuda.synchronize()
         assert _rel(got, ref) <= 1e-5, fn.__name__
@@ -1192,8 +1354,8 @@ def test_overlays_on_the_matfree_paths_on_cuda(cuda, maker):
     before = {name: w.launches for name, w in wrappers.items()}
     vals, _, _ = sct.lowest_modes_matfree(atoms.coord, params, 5, degree=48,
                                           n_outer=16, tol=2e-4)
-    _check_launches(wrappers, before, {"hessian_apply_sparse"},
-                    ("hessian_apply_sparse",) if maker else ())
+    _check_launches(wrappers, before, {"hessian_apply_sparse", "pair_csr"},
+                    ("pair_csr",) if maker else ())
     ref = torch.linalg.eigvalsh(h64)[6:11]
     assert float(((vals.double() - ref).abs() / ref).max()) <= 1e-4
     vals, _, _ = sct.lowest_modes_matfree_gnm(atoms.coord, params, 5,

@@ -340,6 +340,6 @@ def test_spd_inverse_blocked_matches_jax(m):
 
 def test_kernel_wrappers_lists_the_new_kernels():
     wrappers = sct.kernel_wrappers()
-    assert len(wrappers) == 13
+    assert len(wrappers) == 14
     for name in ("assembly_stitch", "panel_cholesky", "panel_inverse_full"):
         assert wrappers[name].launches == 0

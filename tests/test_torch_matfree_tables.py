@@ -259,7 +259,9 @@ def test_sparse_setup_permutes_a_copy_of_the_parameters():
     code = tp.device_tables("cpu", torch.float64)["code"].clone()
     masks = tp.device_overlays("cpu", torch.float64)["off_any"].clone()
     c = torch.as_tensor(coord)
-    _, sorted_params, _, csr, perm = tmf._sparse_setup(c, tp, None, 16)
+    _, sorted_params, _, csr, perm, pairs = tmf._sparse_setup(c, tp, None,
+                                                              16, False)
+    assert pairs is None                # no kernel route, no pair CSR
     assert np.array_equal(sorted_params.type_idx, tp.type_idx[perm])
     assert torch.equal(tp.device_tables("cpu", torch.float64)["code"], code)
     assert torch.equal(

@@ -88,8 +88,9 @@ def test_every_c_entry_point_has_a_wrapper():
                        "sc_panel_inverse", "sc_panel_inverse_full",
                        "sc_panel_cholesky", "sc_assembly_stitch",
                        "sc_banded_bisect",
-                       "sc_banded_eigvec", "sc_hessian_apply_sparse",
-                       "sc_hessian_apply_dense", "sc_kirchhoff_apply_sparse"}
+                       "sc_banded_eigvec", "sc_pair_csr_count",
+                       "sc_pair_csr_fill", "sc_hessian_apply_pairs",
+                       "sc_hessian_apply_dense", "sc_kirchhoff_apply_pairs"}
     sources = "".join(p.read_text() for p in _build.SOURCES)
     for entry in entries:
         assert f'extern "C" int {entry}(' in sources, entry
@@ -120,8 +121,8 @@ def test_kernel_library_is_named_by_its_sources():
     assert {p.name for p in _build.SOURCES} >= {
         "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
         "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu",
-        "matfree_hessian.cu", "matfree_kirchhoff.cu", "assembly_stitch.cu",
-        "panel_cholesky.cu"}
+        "matfree_hessian.cu", "matfree_kirchhoff.cu", "matfree_pairs.cu",
+        "assembly_stitch.cu", "panel_cholesky.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
@@ -134,12 +135,12 @@ def test_kernel_library_is_named_by_its_sources():
                                           "kirchhoff_apply_sparse",
                                           "assembly_stitch",
                                           "panel_cholesky",
-                                          "panel_inverse_full"}
+                                          "panel_inverse_full",
+                                          "pair_csr"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
     for name in ("hessian_planes", "hessian_xyz", "kirchhoff",
-                 "hessian_apply_dense", "hessian_apply_sparse",
-                 "kirchhoff_apply_sparse"):
+                 "hessian_apply_dense", "pair_csr"):
         assert isinstance(sct.kernel_wrappers()[name].table_launches, int)
 
 

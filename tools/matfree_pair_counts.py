@@ -1,14 +1,20 @@
 """
-Pair counts of the matrix-free block-sparse operators (K13, K14).
+Pair counts of the matrix-free block-sparse operators (the pair CSR, K13,
+K14).
 
 For random atoms at protein density (the JAX package's matrix-free
 benchmark draw, ``bench.py:665-668``: ``rand(n, 3) * (n / rho) ** (1/3)``,
 seed 4) at a 13 A cutoff and 256-atom tiles, prints per n the row tiles,
 the neighbour tiles per row tile (mean / max), the atom pairs the tile
-walk visits, the ordered pairs within the cutoff and their share.  A
-count from the port's host set-up and plain tile walk
-(``springcraft_tpu_torch.ops.matfree``), not a timing: it runs on the CPU
-or, given ``--device cuda``, on the card.
+walk visits, the ordered pairs within the cutoff (the pair CSR) and
+their share; then, per block of 32 consecutive rows (Morton order), how
+many distinct neighbour slots the block reads and over how wide a range
+of slots they spread (10th / 50th / 90th percentile): a window of X
+staged per block in shared memory would have to hold that range, or
+that many rows gathered one by one.  A count from the port's host set-up
+and the plain pair-CSR build (``springcraft_tpu_torch.ops.matfree``),
+not a timing: it runs on the CPU or, given ``--device cuda``, on the
+card.
 
 Usage:  python tools/matfree_pair_counts.py [--n 10000 30000 100000]
             [--device cpu]
@@ -31,6 +37,7 @@ CUTOFF = 13.0
 TILE = 256
 SEED = 4
 CA_DENSITY = 300 / 34.0 ** 3
+BLOCK_ROWS = 32
 
 
 def counts(n, device):
@@ -40,11 +47,20 @@ def counts(n, device):
     nbr, per_row = matfree.tile_neighbor_lists(coord[perm], CUTOFF, TILE)
     csr = matfree.tile_csr(nbr, per_row, perm, n, TILE, device)
     c = torch.as_tensor(coord[perm], dtype=torch.float32, device=device)
-    params = sct.invariant_params(CUTOFF)
-    within = sum(int(torch.count_nonzero(kmat)) for _, _, _, _, kmat, _
-                 in matfree._tile_pairs(c, csr, TILE, params))
+    pairs = matfree.pair_csr_plain(c, sct.invariant_params(CUTOFF), csr,
+                                   TILE)
+    row_ptr = pairs.row_ptr.cpu().numpy()
+    slots = pairs.slots.cpu().numpy()
+    spans, distinct = [], []
+    for r0 in range(0, n, BLOCK_ROWS):
+        block = slots[row_ptr[r0]:row_ptr[min(n, r0 + BLOCK_ROWS)]]
+        if len(block):
+            spans.append(int(block.max()) - int(block.min()) + 1)
+            distinct.append(len(np.unique(block)))
     visited = int(per_row.sum()) * TILE ** 2
-    return len(per_row), per_row.mean(), per_row.max(), visited, within
+    return (len(per_row), per_row.mean(), per_row.max(), visited, len(slots),
+            np.percentile(distinct, [10, 50, 90]),
+            np.percentile(spans, [10, 50, 90]))
 
 
 def main():
@@ -53,12 +69,17 @@ def main():
                         default=[10_000, 30_000, 100_000])
     parser.add_argument("--device", default="cpu")
     args = parser.parse_args()
-    print("| n | row tiles | neighbour tiles per row, mean / max | atom "
-          "pairs visited | within 13 A | share |")
+    print(f"| n | row tiles | neighbour tiles per row, mean / max | atom "
+          f"pairs visited | within 13 A | share | distinct neighbour slots "
+          f"per {BLOCK_ROWS} rows, p10 / p50 / p90 | their slot range, "
+          f"p10 / p50 / p90 |")
     for n in args.n:
-        tiles, mean, most, visited, within = counts(n, args.device)
+        tiles, mean, most, visited, within, distinct, spans = counts(
+            n, args.device)
         print(f"| {n:,} | {tiles} | {mean:.1f} / {most} | {visited:.3e} | "
-              f"{within:,} | {within / visited:.4%} |", flush=True)
+              f"{within:,} | {within / visited:.4%} | "
+              + " / ".join(f"{v:.0f}" for v in distinct) + " | "
+              + " / ".join(f"{v:.0f}" for v in spans) + " |", flush=True)
 
 
 if __name__ == "__main__":
