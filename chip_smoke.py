@@ -16,9 +16,10 @@ Phases:
    tensors, at the shapes its paths give it, timed with CUDA events (the
    two banded kernels on the band of the first chunk's Hessians, the
    bisection also on the single structure's band at 8 halvings, their
-   slow plain versions timed over one call; the pair-CSR build, whose
-   rows and slots must equal its plain version's, and K13 / K14 over its
-   list, timed in turns with ``torch.sparse.mm``);
+   slow plain versions timed over one call; the full-window panel
+   inverse K9 in turns with ``torch.linalg.solve_triangular``; the
+   pair-CSR build, whose rows and slots must equal its plain version's,
+   and K13 / K14 over its list, timed in turns with ``torch.sparse.mm``);
 4. the paths, each driven once from zero launch counts and required to
    have launched its own kernels (``PATH_KERNELS``), with finiteness
    checks and a float32 result held against the port's float64 engines
@@ -624,16 +625,26 @@ def kernel_parity(coords, single, params):
            lambda: spd_linalg.panel_inverse_plain(panels),
            (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
            lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
-    record(results, "panel_inverse_full",
-           lambda: spd_linalg.panel_inverse_full(panels),
-           lambda: spd_linalg.panel_inverse_plain(panels),
-           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
-           lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
-    check(torch.equal(spd_linalg.panel_inverse_full(panels),
-                      spd_linalg.panel_inverse_batched(panels)),
-          "panel_inverse_full differs from panel_inverse in some bit")
-    print("parity panel_inverse_full == panel_inverse: bit for bit",
-          flush=True)
+    plain = record(
+        results, "panel_inverse_full",
+        lambda: spd_linalg.panel_inverse_full(panels),
+        lambda: spd_linalg.panel_inverse_plain(panels),
+        (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+        lambda: torch.linalg.solve_triangular(factor, eye, upper=False),
+        turns=True)
+    full = spd_linalg.panel_inverse_full(panels)
+    check(torch.equal(full, spd_linalg.panel_inverse_batched(panels))
+          and torch.equal(full, plain),
+          "panel_inverse_full differs from panel_inverse or from its plain "
+          "version in some bit")
+    bad = panels.clone()
+    bad[1, 5, 5] = -1.0
+    check(not bool(torch.isfinite(spd_linalg.panel_inverse_full(bad)[1]
+                                  ).all()),
+          "panel_inverse_full gives a finite inverse of a non-SPD panel")
+    print("parity panel_inverse_full == panel_inverse == plain: bit for "
+          "bit; a non-SPD panel gives a non-finite output", flush=True)
+    del full, plain, bad
     record(results, "panel_cholesky",
            lambda: spd_linalg.panel_cholesky(panels),
            lambda: spd_linalg.panel_cholesky_plain(panels),

@@ -25,22 +25,41 @@
 //   and y_i -= D_i x_i last, each output row written once, no atomics and
 //   no table branch (the constant is in the list).
 // * sc_hessian_apply_dense replaces matfree.py:385 `_apply_kernel` (K12,
-//   reached through `hessian_apply_pallas`): the tile walk of tile_walk.cuh
-//   over every column atom on every apply, ids = slots, analytic families
-//   and the table branch of `table_compact` (codes staged beside the
-//   column coordinates).  A cutoff-free family passes every pair, so the
-//   work is 12 k + 30 flops per pair and the walk's tests are not in the
-//   way.  A block owns 32 rows (one per lane) and kCols = 16 columns of X
-//   in registers (grid.y covers the rest of k); its four warps split the
-//   column atoms and meet in shared memory at the end.  X is not staged:
-//   under a cutoff a staged column block would be read far more often than
-//   used.
+//   reached through `hessian_apply_pallas`): every pair of the dense grid
+//   on every apply, ids = slots, analytic families and the table branch of
+//   `table_compact` (codes staged beside the column coordinates, edges in
+//   shared memory).  A cutoff-free family passes every pair: 12 k + 30
+//   flops per pair, 0.90 ms at n = 10,000, k = 48 at the H100's 67 TFLOP/s.
+//   A block of 32 rows covers up to 64 columns (grid.y chunks wider X), so
+//   each pair's two divisions run once per apply, and the column atoms
+//   come in tiles of 32 whose X rows, coordinates and codes cp.async stages
+//   while the tile before is computed.  Per tile, a pair pass computes
+//   each pair's test (`pair_passes` of tile_walk.cuh, the pair-CSR
+//   build's), g and d once per apply into shared memory, with per row warp
+//   masks of the atoms that interact (under a cutoff the others are
+//   skipped); after a barrier the FMA pass gives each lane a register tile
+//   of 2 rows x 8, 12 or 16 columns, so a float4 of x_j feeds both rows and
+//   a pair's values feed all the lane's columns.  What bounds it now: the FMA
+//   pass, at a third of the float32 peak over the kernel (2.46 ms against the
+//   0.90 ms bound), with the pair pass and its two divisions a pair beside it.
+//   These did not beat it: tiles of 3 or 4 rows (fewer shared-memory reads a
+//   FMA, registers that cost more in occupancy than they save), 4 x 6 lane
+//   tiles, reading the next atom's operands during this one's FMAs, and 3xTF32
+//   mma.sync on H planes formed in registers, whose accumulator adds with
+//   truncation: run over every k-step its error grew with n past float32's, and
+//   the unbiased forms gave back most of the gain.  The 4 blocks of a cluster
+//   (grid.z) take alternate column tiles of the same rows and sum their
+//   partials through distributed shared memory in a fixed order; y_i -= D_i x_i
+//   last, each output written once, no atomics on Y.
 //
 // Numerics: the pair values (d, |d|^2, k, g) follow the plain versions'
 // roundings (spring.cuh); the sums run pair by pair in float32, in another
 // order than the plain versions' plane products, so the two agree to a
 // stated tolerance, not bit for bit.
 
+#include <cstdint>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "pair_gather.cuh"
@@ -50,8 +69,6 @@
 namespace {
 
 using springcraft::kFullMask;
-using springcraft::kWalkRows;
-using springcraft::kWalkWarps;
 
 // ---------------------------------------------------------------------------
 // K13: the gather over the pair CSR
@@ -212,113 +229,398 @@ constexpr LaunchPairs kLaunchPairs[2][4] = {
      &launch_pairs<4, 4>}};
 
 // ---------------------------------------------------------------------------
-// K12: the tile walk over every column atom
+// K12: the register-tiled apply over every column atom
 // ---------------------------------------------------------------------------
 
-constexpr int kCols = 16;            // columns of X per block
-constexpr int kAcc = 3 * kCols + 6;  // a lane's sums: y and D
+namespace dense {
 
-template <bool kTable>
-__global__ void __launch_bounds__(springcraft::kWalkThreads)
+constexpr int kRows = 32;     // row atoms per block, one per lane of a warp
+constexpr int kTile = 32;     // column atoms per tile: one mask bit each
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxCols = 64;  // columns per block; wider X takes grid.y chunks
+constexpr int kStages = 2;    // tiles in flight: this one and the next
+// Blocks of a cluster: they split the column atoms of the same rows, which
+// evens out the row blocks over the SMs.
+constexpr int kCluster = 4;
+
+// The 32-bit mask of bits 0, step, 2 step, ...: shifted left by r, the
+// atoms q of a tile with q % step == r.
+__host__ __device__ constexpr unsigned every(int step) {
+  unsigned m = 0;
+  for (int q = 0; q < 32; q += step) m |= 1u << q;
+  return m;
+}
+
+// One instance: a lane holds RI rows x RC columns of Y (RC a multiple of 4,
+// read as float4 from the staged X), LC lanes across the columns.  A warp
+// covers kWarpRows rows and all kWidth columns; the kSplit warps on the same
+// rows take alternate atoms of each tile.
+template <int RI, int LC, int RC>
+struct Shape {
+  static constexpr int kWidth = LC * RC;
+  static constexpr int kLaneRows = 32 / LC;
+  static constexpr int kWarpRows = RI * kLaneRows;
+  static constexpr int kRowWarps = kRows / kWarpRows;
+  static constexpr int kSplit = kWarps / kRowWarps;
+  static constexpr int kGroups = RC / 4;
+  static_assert(RC % 4 == 0 && kWidth <= kMaxCols, "float4 groups");
+  static_assert(kRows % kWarpRows == 0 && kWarps % kRowWarps == 0, "rows");
+
+  // Shared memory, in floats.  Main loop: the X tiles (kStages, 3, kTile,
+  // kWidth), the pair values of a tile by (q, row) as float4 (dx, dy, dz,
+  // g), the column atoms' coordinates (kStages, 3, kTile) and codes
+  // (kStages, kTile), the bin edges, the active-atom masks (kStages,
+  // kRowWarps).
+  static constexpr int kXStage = 3 * kTile * kWidth;
+  static constexpr int kPairs = kStages * kXStage;
+  static constexpr int kCoords = kPairs + 4 * kTile * kRows;
+  static constexpr int kCodes = kCoords + kStages * 3 * kTile;
+  static constexpr int kEdges = kCodes + kStages * kTile;
+  static constexpr int kMasks = kEdges + springcraft::kMaxEdges;
+  static constexpr int kMain = kMasks + kStages * kRowWarps;
+  // Epilogue, over the same memory: each warp's partial Y (kSplit, 3,
+  // kRows, kWidth), each warp's partial D (kWarps, 6, kRows), the block's D
+  // (6, kRows).
+  static constexpr int kDPart = kSplit * 3 * kRows * kWidth;
+  static constexpr int kDSum = kDPart + kWarps * 6 * kRows;
+  static constexpr int kEpilogue = kDSum + 6 * kRows;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kMain > kEpilogue ? kMain : kEpilogue);
+};
+
+// Where D's entry (a, b) lies among (00, 01, 02, 11, 12, 22).
+__device__ __forceinline__ int entry(int a, int b) {
+  const int lo = min(a, b), hi = max(a, b);
+  return lo == 0 ? hi : lo == 1 ? 2 + hi : 5;
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [32 x, 32 x + 32) and columns [c0, c0 + kc) of Y, c0 = blockIdx.y
+// width; the cluster's blocks (grid.z) take alternate column tiles and sum
+// their partials through distributed shared memory.  `vec`: X and k allow
+// 16-byte copies.  MB: blocks per SM the registers are capped for.
+template <bool kTable, int RI, int LC, int RC, int MB>
+__global__ void __launch_bounds__(kThreads, MB)
     hessian_apply_dense_kernel(const float* __restrict__ coords,
                                const float* __restrict__ x,
                                float* __restrict__ out, int n, int k,
-                               int kind, float cutoff_sq, int has_cutoff,
-                               springcraft::PairTable table,
+                               int width, int vec, int kind, float cutoff_sq,
+                               int has_cutoff, springcraft::PairTable table,
                                const float* __restrict__ edges_sq,
                                const int* __restrict__ atom_code) {
-  __shared__ springcraft::TileWalk<kTable> walk;
-  __shared__ float partial[kWalkWarps - 1][kAcc][kWalkRows];
-  walk.stage_edges(table, edges_sq);
-  const int lane = threadIdx.x % kWalkRows, warp = threadIdx.x / kWalkRows;
-  const int i = blockIdx.x * kWalkRows + lane;
-  const bool active = i < n;
-  const int c0 = blockIdx.y * kCols;
-  const int kc = min(kCols, k - c0);
+  using S = Shape<RI, LC, RC>;
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float4* const pairs = reinterpret_cast<float4*>(smem + S::kPairs);
+  unsigned* const masks = reinterpret_cast<unsigned*>(smem + S::kMasks);
 
-  springcraft::WalkRow row{0.0f, 0.0f, 0.0f, n, 0};
-  if (active) {
-    row = springcraft::WalkRow{coords[3 * i], coords[3 * i + 1],
-                               coords[3 * i + 2], i,
-                               kTable ? atom_code[i] : 0};
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int splits = kCluster;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row0 = blockIdx.x * kRows;
+  const int c0 = blockIdx.y * width, kc = min(width, k - c0);
+  const size_t plane = static_cast<size_t>(n) * k;
+  const int n_tiles = (n + kTile - 1) / kTile;
+
+  if constexpr (kTable) {
+    float* const edges = smem + S::kEdges;
+    for (int e = tid; e < table.n_edges; e += kThreads)
+      edges[e] = edges_sq[e];
+    table.edges_sq = edges;
   }
+  if (tid < kStages * S::kRowWarps) masks[tid] = 0;
 
-  float y0[kCols], y1[kCols], y2[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) y0[c] = y1[c] = y2[c] = 0.0f;
+  // The pair pass: lane = row, warp w takes the tile's atoms q = w, w + 4,
+  // ..., and sums the lane's share of D_i.
+  const int gi = row0 + lane;
+  const bool row_ok = gi < n;
+  springcraft::WalkRow row{0.0f, 0.0f, 0.0f, n, 0};
+  if (row_ok)
+    row = springcraft::WalkRow{coords[3 * gi], coords[3 * gi + 1],
+                               coords[3 * gi + 2], gi,
+                               kTable ? atom_code[gi] : 0};
   float d00 = 0.0f, d01 = 0.0f, d02 = 0.0f, d11 = 0.0f, d12 = 0.0f,
         d22 = 0.0f;
-  const size_t plane = static_cast<size_t>(n) * k;
 
-  walk.walk(coords, nullptr, atom_code, 0, n, n, row, active, kind,
-            cutoff_sq, has_cutoff, table,
-            [&](int j, float dx, float dy, float dz, float sq, float kij) {
-              const float g = -__fdiv_rn(kij, sq == 0.0f ? 1.0f : sq);
-              const float gx = g * dx, gy = g * dy, gz = g * dz;
-              d00 += gx * dx;
-              d01 += gx * dy;
-              d02 += gx * dz;
-              d11 += gy * dy;
-              d12 += gy * dz;
-              d22 += gz * dz;
-              const float* xj = x + static_cast<size_t>(j) * k + c0;
+  // The FMA pass: warp (rw, js) holds rows rw kWarpRows + lr + kLaneRows ai
+  // and columns 4 (lc + LC g) + 0..3.
+  const int rw = warp % S::kRowWarps, js = warp / S::kRowWarps;
+  const int lr = lane % S::kLaneRows, lc = lane / S::kLaneRows;
+  const int rbase = rw * S::kWarpRows + lr;
+  const unsigned mine = every(S::kSplit) << js;
+  float y[3][RI][RC];
 #pragma unroll
-              for (int c = 0; c < kCols; ++c) {
-                if (c < kc) {
-                  const float s = dx * __ldg(xj + c) +
-                                  dy * __ldg(xj + plane + c) +
-                                  dz * __ldg(xj + 2 * plane + c);
-                  y0[c] += gx * s;
-                  y1[c] += gy * s;
-                  y2[c] += gz * s;
-                }
-              }
-            });
-  // warps 1.. hand their partial sums to warp 0
-  if (warp > 0) {
-    float(*mine)[kWalkRows] = partial[warp - 1];
+  for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      mine[c][lane] = y0[c];
-      mine[kCols + c][lane] = y1[c];
-      mine[2 * kCols + c][lane] = y2[c];
+    for (int ai = 0; ai < RI; ++ai)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) y[a][ai][c] = 0.0f;
+
+  // The copy of a tile's X rows walks (row, group of `step` floats) from
+  // this thread's start, kThreads groups at a time; the atoms' coordinates
+  // (and codes) come with them.
+  const int step = vec ? 4 : 1;
+  const int groups = (kc + step - 1) / step;
+  const int r_first = tid / groups, g_first = tid - r_first * groups;
+  const int r_step = kThreads / groups, g_step = kThreads - r_step * groups;
+  auto stage = [&](int t, int slot) {
+    const int j0 = t * kTile, len = min(kTile, n - j0);
+    float* const cdst = smem + S::kCoords + slot * 3 * kTile;
+    for (int e = tid; e < 3 * len; e += kThreads) {
+      const int atom = e / 3;
+      cp_async_4(cdst + (e - 3 * atom) * kTile + atom, coords + 3 * j0 + e);
     }
-    mine[3 * kCols][lane] = d00;
-    mine[3 * kCols + 1][lane] = d01;
-    mine[3 * kCols + 2][lane] = d02;
-    mine[3 * kCols + 3][lane] = d11;
-    mine[3 * kCols + 4][lane] = d12;
-    mine[3 * kCols + 5][lane] = d22;
+    if constexpr (kTable)
+      for (int e = tid; e < len; e += kThreads)
+        cp_async_4(smem + S::kCodes + slot * kTile + e, atom_code + j0 + e);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float* src = x + (static_cast<size_t>(a) * n + j0) * k + c0;
+      float* dst = smem + slot * S::kXStage + a * kTile * S::kWidth;
+      for (int r = r_first, g = g_first; r < len;) {
+        if (vec)
+          cp_async_16(dst + r * S::kWidth + 4 * g,
+                      src + static_cast<size_t>(r) * k + 4 * g);
+        else
+          cp_async_4(dst + r * S::kWidth + g,
+                     src + static_cast<size_t>(r) * k + g);
+        r += r_step;
+        g += g_step;
+        if (g >= groups) {
+          g -= groups;
+          ++r;
+        }
+      }
+    }
+  };
+
+  // Pair p of this lane (row) in tile t: atom q = warp + kWarps p.  Writes
+  // d and g when some row of the block interacts with q (zeros for the rows
+  // that do not), adds to this lane's D_i, and marks q in `bits` for the
+  // row warps whose rows interact with it.  The analytic constant is
+  // computed by every lane and then masked, so no branch separates the
+  // lane's pairs.
+  auto pair_values = [&](int p, int t, int slot,
+                         unsigned (&bits)[S::kRowWarps]) {
+    const int q = warp + kWarps * p, jid = t * kTile + q;
+    const float* cx = smem + S::kCoords + slot * 3 * kTile;
+    float dx, dy, dz;
+    const float sq = springcraft::pair_geometry(
+        row, cx[q], cx[kTile + q], cx[2 * kTile + q], dx, dy, dz);
+    const bool pass = row_ok && springcraft::pair_passes(
+                                    row, jid, n, sq, cutoff_sq, has_cutoff);
+    float g = 0.0f;
+    if constexpr (kTable) {
+      if (pass) {
+        const int jcode = reinterpret_cast<const int*>(
+            smem + S::kCodes + slot * kTile)[q];
+        g = -__fdiv_rn(springcraft::table_constant(table, row.code, jcode,
+                                                   row.id, jid, sq),
+                       sq == 0.0f ? 1.0f : sq);
+      }
+    } else {
+      g = -__fdiv_rn(springcraft::spring_constant(kind, sq),
+                     sq == 0.0f ? 1.0f : sq);
+    }
+    const unsigned b = __ballot_sync(kFullMask, pass);
+    if (b == 0) return;  // no row of the block: never read
+    if (!pass) g = dx = dy = dz = 0.0f;
+    const float gx = g * dx, gy = g * dy, gz = g * dz;
+    d00 += gx * dx;
+    d01 += gx * dy;
+    d02 += gx * dz;
+    d11 += gy * dy;
+    d12 += gy * dz;
+    d22 += gz * dz;
+    pairs[q * kRows + lane] = make_float4(dx, dy, dz, g);
+#pragma unroll
+    for (int r = 0; r < S::kRowWarps; ++r) {
+      const unsigned rows = S::kWarpRows == 32
+                                ? kFullMask
+                                : ((1u << S::kWarpRows) - 1)
+                                      << (r * S::kWarpRows);
+      if (b & rows) bits[r] |= 1u << q;
+    }
+  };
+
+  // y += g d (d . x_q) for atom q of the tile in X stage `slot`
+  auto accumulate = [&](int q, int slot) {
+    float4 pv[RI];
+    float gx[RI], gy[RI], gz[RI];
+#pragma unroll
+    for (int ai = 0; ai < RI; ++ai) {
+      pv[ai] = pairs[q * kRows + rbase + S::kLaneRows * ai];
+      gx[ai] = pv[ai].w * pv[ai].x;
+      gy[ai] = pv[ai].w * pv[ai].y;
+      gz[ai] = pv[ai].w * pv[ai].z;
+    }
+    const float4* xt =
+        reinterpret_cast<const float4*>(smem + slot * S::kXStage);
+#pragma unroll
+    for (int g = 0; g < S::kGroups; ++g) {
+      const int col = q * (S::kWidth / 4) + lc + LC * g;
+      const float4 x0 = xt[col];
+      const float4 x1 = xt[kTile * (S::kWidth / 4) + col];
+      const float4 x2 = xt[2 * kTile * (S::kWidth / 4) + col];
+      const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
+      const float a2[4] = {x2.x, x2.y, x2.z, x2.w};
+#pragma unroll
+      for (int ai = 0; ai < RI; ++ai)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float tt =
+              pv[ai].x * a0[c] + pv[ai].y * a1[c] + pv[ai].z * a2[c];
+          y[0][ai][4 * g + c] += gx[ai] * tt;
+          y[1][ai][4 * g + c] += gy[ai] * tt;
+          y[2][ai][4 * g + c] += gz[ai] * tt;
+        }
+    }
+  };
+
+  // Per tile: its pair pass, a barrier, its FMA pass, while the next tile's
+  // atoms and X rows are in flight.
+  int t = rank;
+  if (t < n_tiles) stage(t, 0);
+  cp_async_commit();
+  for (int it = 0; t < n_tiles; t += splits, ++it) {
+    const int s = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t staged; the previous tile's FMA pass is done
+    if (t + splits < n_tiles) stage(t + splits, s ^ 1);
+    cp_async_commit();
+    unsigned bits[S::kRowWarps] = {};
+#pragma unroll
+    for (int p = 0; p < kTile / kWarps; ++p) pair_values(p, t, s, bits);
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < S::kRowWarps; ++r)
+        if (bits[r]) atomicOr(&masks[s * S::kRowWarps + r], bits[r]);
+    if (tid < S::kRowWarps) masks[(s ^ 1) * S::kRowWarps + tid] = 0;
+    __syncthreads();  // the pair values and masks of tile t
+    for (unsigned m = masks[s * S::kRowWarps + rw] & mine; m; m &= m - 1)
+      accumulate(__ffs(m) - 1, s);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is out of the main loop's memory
+
+  // Epilogue: partials to shared memory, summed over the warps and the
+  // cluster in a fixed order; y_i -= D_i x_i; each output written once.
+  float* const ypart = smem;
+  float* const dpart = smem + S::kDPart;
+  float* const dsum = smem + S::kDSum;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int ai = 0; ai < RI; ++ai)
+#pragma unroll
+      for (int g = 0; g < S::kGroups; ++g)
+        *reinterpret_cast<float4*>(
+            ypart + ((js * 3 + a) * kRows + rbase + S::kLaneRows * ai) *
+                        S::kWidth +
+            4 * (lc + LC * g)) =
+            make_float4(y[a][ai][4 * g], y[a][ai][4 * g + 1],
+                        y[a][ai][4 * g + 2], y[a][ai][4 * g + 3]);
+  const float dl[6] = {d00, d01, d02, d11, d12, d22};
+#pragma unroll
+  for (int e = 0; e < 6; ++e) dpart[(warp * 6 + e) * kRows + lane] = dl[e];
+  __syncthreads();
+  cluster.sync();
+  for (int e = tid; e < 6 * kRows; e += kThreads) {
+    float sum = 0.0f;
+    for (int r = 0; r < splits; ++r) {
+      const float* dp = cluster.map_shared_rank(dpart, r);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += dp[w * 6 * kRows + e];
+    }
+    dsum[e] = sum;
   }
   __syncthreads();
-  if (warp > 0 || !active) return;
+  for (int u = rank * kThreads + tid; u < 3 * kRows * S::kWidth;
+       u += splits * kThreads) {
+    const int a = u / (kRows * S::kWidth);
+    const int rem = u - a * kRows * S::kWidth;
+    const int rr = rem / S::kWidth, c = rem - rr * S::kWidth;
+    const int i = row0 + rr;
+    if (i >= n || c >= kc) continue;
+    float sum = 0.0f;
+    for (int r = 0; r < splits; ++r) {
+      const float* yp = cluster.map_shared_rank(ypart, r);
 #pragma unroll
-  for (int w = 0; w < kWalkWarps - 1; ++w) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      y0[c] += partial[w][c][lane];
-      y1[c] += partial[w][kCols + c][lane];
-      y2[c] += partial[w][2 * kCols + c][lane];
+      for (int h = 0; h < S::kSplit; ++h)
+        sum += yp[(h * 3 + a) * kRows * S::kWidth + rem];
     }
-    d00 += partial[w][3 * kCols][lane];
-    d01 += partial[w][3 * kCols + 1][lane];
-    d02 += partial[w][3 * kCols + 2][lane];
-    d11 += partial[w][3 * kCols + 3][lane];
-    d12 += partial[w][3 * kCols + 4][lane];
-    d22 += partial[w][3 * kCols + 5][lane];
+    const float* xi = x + static_cast<size_t>(i) * k + c0 + c;
+    const float e0 = dsum[entry(a, 0) * kRows + rr];
+    const float e1 = dsum[entry(a, 1) * kRows + rr];
+    const float e2 = dsum[entry(a, 2) * kRows + rr];
+    out[a * plane + static_cast<size_t>(i) * k + c0 + c] =
+        sum - (e0 * xi[0] + e1 * xi[plane] + e2 * xi[2 * plane]);
   }
-  const float* xi = x + static_cast<size_t>(i) * k + c0;
-  float* yi = out + static_cast<size_t>(i) * k + c0;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    if (c < kc) {
-      const float a = xi[c], b = xi[plane + c], e = xi[2 * plane + c];
-      yi[c] = y0[c] - (d00 * a + d01 * b + d02 * e);
-      yi[plane + c] = y1[c] - (d01 * a + d11 * b + d12 * e);
-      yi[2 * plane + c] = y2[c] - (d02 * a + d12 * b + d22 * e);
-    }
-  }
+  cluster.sync();  // no block leaves while the others read its memory
 }
+
+template <bool kTable, int RI, int LC, int RC, int MB>
+cudaError_t launch(dim3 grid, cudaStream_t stream, const float* coords,
+                   const float* x, float* out, int n, int k, int width,
+                   int vec, int kind, float cutoff_sq, int has_cutoff,
+                   springcraft::PairTable table, const float* edges_sq,
+                   const int* atom_code) {
+  const auto kernel = hessian_apply_dense_kernel<kTable, RI, LC, RC, MB>;
+  const size_t bytes = Shape<RI, LC, RC>::kBytes;
+  const cudaError_t err = springcraft::allow_shared_memory(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = kCluster;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, coords, x, out, n, k, width, vec,
+                            kind, cutoff_sq, has_cutoff, table, edges_sq,
+                            atom_code);
+}
+
+using Launch = cudaError_t (*)(dim3, cudaStream_t, const float*,
+                               const float*, float*, int, int, int, int, int,
+                               float, int, springcraft::PairTable,
+                               const float*, const int*);
+// by [kTable][width <= 16, 32, 48, 64]
+constexpr Launch kLaunch[2][4] = {
+    {&launch<false, 2, 2, 8, 4>, &launch<false, 2, 4, 8, 4>,
+     &launch<false, 2, 4, 12, 4>, &launch<false, 2, 4, 16, 3>},
+    {&launch<true, 2, 2, 8, 4>, &launch<true, 2, 4, 8, 4>,
+     &launch<true, 2, 4, 12, 3>, &launch<true, 2, 4, 16, 3>}};
+
+}  // namespace dense
 
 }  // namespace
 
@@ -350,15 +652,22 @@ extern "C" int sc_hessian_apply_dense(const float* coords, const float* x,
                                       int n_edges, void* stream) {
   if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
   if (n > 0 && k > 0) {
-    const dim3 grid((n + kWalkRows - 1) / kWalkRows, (k + kCols - 1) / kCols);
-    const auto kernel = kind == springcraft::kTableCompact
-                            ? hessian_apply_dense_kernel<true>
-                            : hessian_apply_dense_kernel<false>;
+    // the widest column chunks of at most 64 (a multiple of 4 where k is)
+    const int chunks = (k + dense::kMaxCols - 1) / dense::kMaxCols;
+    int width = (k + chunks - 1) / chunks;
+    const bool vec4 = k % 4 == 0;
+    if (vec4) width = (width + 3) / 4 * 4;
+    const int vec =
+        vec4 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0 ? 1 : 0;
+    const dim3 grid((n + dense::kRows - 1) / dense::kRows, chunks,
+                    dense::kCluster);
+    const int shape = width <= 16 ? 0 : width <= 32 ? 1 : width <= 48 ? 2 : 3;
     const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
-    kernel<<<grid, springcraft::kWalkThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-        coords, x, out, n, k, kind, cutoff_sq, has_cutoff, table, edges_sq,
-        atom_code);
+    const cudaError_t err = dense::kLaunch[kind == springcraft::kTableCompact]
+                                          [shape](
+        grid, static_cast<cudaStream_t>(stream), coords, x, out, n, k, width,
+        vec, kind, cutoff_sq, has_cutoff, table, edges_sq, atom_code);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,8 @@
 // apply; here the test runs once per solver, and the table lookup of
 // `table_compact` with it, so the applies carry no table branch.
 //
-// Two passes of one kernel over the tile walk of tile_walk.cuh (the walk
-// and the test K12 runs): the first counts the passing pairs of each row
+// Two passes of one kernel over the tile walk of tile_walk.cuh (whose pair
+// test K12 runs too): the first counts the passing pairs of each row
 // per warp into counts (n, 4); the caller turns them into offsets with one
 // cumulative sum (row r starts at offsets[4 r]); the second walks again and
 // writes each warp's pairs from its offset on.  A row's list is warp 0's

@@ -35,10 +35,11 @@ plane layout ``(3n, k)`` of the JAX package.
   (K14, ``csrc/matfree_kirchhoff.cu``), gathers over the pair CSR, whose
   plain versions :func:`hessian_apply_pair_csr_plain` /
   :func:`kirchhoff_apply_pair_csr_plain` sum over the same list; and
-  :func:`hessian_apply_dense` (K12, the tile walk over every column atom
-  on every apply).  The public sparse wrappers take tile neighbour lists:
-  on CUDA they build the pair CSR and apply in one call, on the CPU they
-  run the tile walk's plain versions :func:`hessian_apply_sparse_plain` /
+  :func:`hessian_apply_dense` (K12, every pair tested on every apply,
+  the same test, then register-tiled FMAs over the staged X).  The
+  public sparse wrappers take tile neighbour lists: on CUDA they build
+  the pair CSR and apply in one call, on the CPU they run the tile
+  walk's plain versions :func:`hessian_apply_sparse_plain` /
   :func:`kirchhoff_apply_sparse_plain`, which keep the TPU kernels'
   arithmetic.  A CPU tensor runs the plain version; a CUDA tensor
   launches the kernel (float32, contiguous) or raises.
@@ -732,10 +733,12 @@ def kirchhoff_apply_pair_csr_plain(coord, x, pairs):
 # Kernel wrappers (the pair CSR, K12, K13, K14)
 # ---------------------------------------------------------------------------
 
-#: Columns of X per block of K12 (``kCols`` in ``csrc/matfree_hessian.cu``)
-#: and per warp of the gathers K13, K14 (``kGatherCols`` in
-#: ``csrc/pair_gather.cuh``), and the grid's y limit.
-_DENSE_COLS = 16
+#: Columns of X per block of K12 (``kMaxCols`` in
+#: ``csrc/matfree_hessian.cu``: wider X takes the fewest equal column
+#: chunks of at most 64) and per warp of the gathers K13, K14
+#: (``kGatherCols`` in ``csrc/pair_gather.cuh``), and the grid's y limit
+#: on the chunks.
+_DENSE_COLS = 64
 _GATHER_COLS = 64
 _MAX_GRID_Y = 65535
 #: Most bin edges the kernels stage (``kMaxEdges`` in ``csrc/spring.cuh``).
@@ -746,8 +749,9 @@ def _check_kernel_shape(name, coord, x, cols_per_block):
     n, k = coord.shape[0], x.shape[1]
     if k > _MAX_GRID_Y * cols_per_block or 3 * n >= 2**31:
         raise ValueError(f"{name}: (n, k) = ({n}, {k}) exceeds the kernel's "
-                         f"limits (k <= {_MAX_GRID_Y * cols_per_block}, "
-                         f"3n < 2^31)")
+                         f"limits (k <= {_MAX_GRID_Y * cols_per_block}: "
+                         f"{_MAX_GRID_Y} column chunks of at most "
+                         f"{cols_per_block}; 3n < 2^31)")
 
 
 def _kernel_args(params, n, device):
@@ -959,10 +963,10 @@ def hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids=None,
 
 def hessian_apply_dense(coord, x, params, tile=256, *, dtype=torch.float32,
                         device=None):
-    """Dense-grid matrix-free ``H @ x`` (K12): every column atom is
-    visited — the route of the families without a cutoff and of
-    ``sparse=False``.  `tile` blocks the plain version's rows; the
-    kernel walks every column itself.  A CPU tensor runs the plain
+    """Dense-grid matrix-free ``H @ x`` (K12): every pair is tested —
+    the route of the families without a cutoff and of ``sparse=False``.
+    `tile` blocks the plain version's rows; the kernel tiles rows and
+    column atoms by 32 itself.  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (float32, contiguous) or
     raises."""
     _check_params(params)

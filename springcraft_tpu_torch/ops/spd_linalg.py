@@ -125,8 +125,9 @@ def panel_inverse_batched(panels, shrink_block=8):
 def panel_inverse_full(panels):
     """:func:`panel_inverse_batched` by the full-window elimination:
     every step updates all ``pb`` rows over all ``2 pb`` columns of
-    ``[M | I]``.  On an SPD panel its output equals the other kernel's
-    bit for bit (the extra updates are exact zeros)."""
+    ``[M | I]``, the state held in registers.  On an SPD panel its output
+    equals the other kernel's and the plain version's bit for bit (the
+    extra updates are exact zeros)."""
     return _launch_panels(panel_inverse_full, "sc_panel_inverse_full",
                           panel_inverse_plain, panels, LEAF)
 

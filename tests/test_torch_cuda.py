@@ -556,6 +556,67 @@ def test_matfree_kernels_take_other_tiles(cuda, tile):
         assert _rel(got, ref.to(cuda)) <= 1e-5
 
 
+def _dense_family(family, n):
+    if family == "sd_enm":
+        return _table_params("sd_enm", _ca_atoms(n, seed=n, chains=3))
+    if family == "invariant":
+        return sct.invariant_params(13.0)
+    return sct.pfenm_params(None)
+
+
+@pytest.mark.parametrize("k", [1, 4, 24, 48, 50, 96])
+@pytest.mark.parametrize("family", ["pfenm", "invariant", "sd_enm"])
+def test_dense_apply_kernel_at_every_column_layout(cuda, family, k):
+    """K12 against its plain version at n = 1000 (a ragged last block of
+    rows and tile of atoms) for every column layout (k = 1, 4: 16 columns
+    a block; 24: 32; 48: 48; 50: 64; 96: two chunks of 48), 1e-5 of
+    max|y|; two applies give the same bits; an unaligned X takes the
+    4-byte copies."""
+    n = 1000
+    params = _dense_family(family, n)
+    c = torch.as_tensor(_protein_blob(n, seed=k), device=cuda)
+    x = torch.as_tensor(np.random.RandomState(k).randn(3 * n, k).astype(
+        np.float32), device=cuda)
+    ref = matfree.hessian_apply_dense_plain(c, x, params)
+    store = torch.zeros(x.numel() + 1, device=cuda)
+    shifted = store[1:].view_as(x)
+    shifted.copy_(x)
+    fn = matfree.hessian_apply_dense
+    before = fn.launches, fn.table_launches
+    got = fn(c, x, params)
+    again = fn(c, x, params)
+    table = params.kind == "table_compact"
+    assert (fn.launches, fn.table_launches) == (before[0] + 2,
+                                                before[1] + 2 * table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= 1e-5
+    assert _rel(fn(c, shifted, params), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["invariant", "sd_enm"])
+def test_dense_apply_kernel_and_the_pair_csr_pass_the_same_pairs(cuda,
+                                                                 family):
+    """Under a cutoff K12 (every pair tested on every apply) equals K13
+    over the pair CSR (the pairs the build's walk passed) within 1e-5 of
+    max|y|: both call the same pair test, so they keep the same pairs."""
+    n = 2000
+    params = _dense_family(family, n)
+    cutoff = float(np.sqrt(params.cutoff_sq))
+    coord, _, nbr, counts = _sorted_layout(n, seed=7, cutoff=cutoff)
+    c = torch.as_tensor(coord, device=cuda)
+    x = torch.as_tensor(np.random.RandomState(3).randn(3 * n, 48).astype(
+        np.float32), device=cuda)
+    # ids = slots: the sorted order is the structure's own order here
+    csr = matfree.tile_csr(nbr, counts, None, n, 256, cuda)
+    pairs = matfree.pair_csr(c, params, csr, 256)
+    gathered = matfree._apply_pairs(matfree.hessian_apply_sparse, c, x, pairs)
+    dense = matfree.hessian_apply_dense(c, x, params)
+    torch.cuda.synchronize()
+    assert pairs.slots.numel() > 0
+    assert _rel(dense, gathered) <= 1e-5
+
+
 def test_matfree_kernels_refuse_what_they_do_not_take(cuda):
     coord, ids, nbr, counts = _sorted_layout(300, seed=0)
     c = torch.as_tensor(coord, device=cuda)
@@ -961,24 +1022,29 @@ def test_panel_cholesky_kernel_breakdown_is_not_finite(cuda):
     assert bool(torch.isfinite(got[2]).all())
 
 
-@pytest.mark.parametrize("pb", [8, 16, 64])
+@pytest.mark.parametrize("pb", [8, 16, 24, 32, 64])
 def test_panel_inverse_full_kernel_equals_the_shrink_kernel(cuda, pb):
-    panels = torch.as_tensor(_spd_panels(5, pb, seed=pb), device=cuda)
+    """K9 equals K3 and the plain version bit for bit (128 panels at
+    pb = 64, the main path's shape); a non-SPD panel gives a non-finite
+    output."""
+    panels = torch.as_tensor(_spd_panels(128 if pb == 64 else 5, pb,
+                                         seed=pb), device=cuda)
+    shrink = sct.panel_inverse_batched(panels, shrink_block=8)
+    ref = spd_linalg.panel_inverse_plain(panels)
     before = (spd_linalg.panel_inverse_full.launches,
               spd_linalg.panel_inverse_batched.launches)
     got = sct.panel_inverse_batched(panels, shrink_block=None)
     assert (spd_linalg.panel_inverse_full.launches,
             spd_linalg.panel_inverse_batched.launches) == (before[0] + 1,
                                                            before[1])
-    shrink = sct.panel_inverse_batched(panels, shrink_block=8)
-    ref = spd_linalg.panel_inverse_plain(panels)
     torch.cuda.synchronize()
     assert torch.equal(got, shrink)
-    assert float((got - ref).abs().max()) <= 2e-5
+    assert torch.equal(got, ref)
     bad = panels.clone()
     bad[1, 5, 5] = -1.0
-    assert not bool(torch.isfinite(spd_linalg.panel_inverse_full(bad)[1]
-                                   ).all())
+    out = spd_linalg.panel_inverse_full(bad)
+    assert not bool(torch.isfinite(out[1]).all())
+    assert bool(torch.isfinite(out[0]).all())
 
 
 def test_spd_inverse_blocked_on_cuda(cuda):

@@ -285,7 +285,7 @@ def test_panel_cholesky_rejects_bad_shapes(shape):
         spd_linalg.panel_inverse_full(torch.zeros(shape))
 
 
-@pytest.mark.parametrize("pb", [16, 64])
+@pytest.mark.parametrize("pb", [8, 16, 24, 32, 64])
 def test_panel_inverse_full_window_matches_jax_kernel(pb):
     panels = _equilibrated_spd(5, pb, seed=pb)
     ref = np.asarray(pallas_linalg.panel_inverse_batched(

@@ -100,13 +100,14 @@ WRAPPERS = {
 }
 
 
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("k", [1, 5, 24, 50, 96])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
 def test_kernel_plain_routes_match_pallas(wrapper, dtype, k):
     """Each kernel wrapper's CPU route (its plain version: the CSR walk,
     id masking, padded last tile) against the Pallas kernel in interpret
-    mode; k = 1 as a vector."""
+    mode; k = 1 as a vector, 24, 50 and 96 the widths of the kernels'
+    other column layouts."""
     jname, (kind, cutoff), node = WRAPPERS[wrapper]
     jp, tp = _params(kind, cutoff)
     coord, ids, nbr, counts = _sorted_layout()
@@ -126,6 +127,51 @@ def test_kernel_plain_routes_match_pallas(wrapper, dtype, k):
     assert fn.launches == before                    # no kernel on the CPU
     assert got.dtype == dtype and got.shape == np.shape(ref)
     assert _rel(got, ref) < (1e-10 if dtype == torch.float64 else 5e-6)
+
+
+@pytest.mark.parametrize("cols", ["dense", "gather"])
+def test_kernel_shape_limits_name_the_column_chunks(cols):
+    """The matrix-free kernels take X in at most 65535 column chunks of
+    64 (K12's blocks, K13/K14's warps) and 3n < 2^31; the message names
+    both limits.  Only shapes are read: the tensors are views of one
+    float."""
+    per = tmf._DENSE_COLS if cols == "dense" else tmf._GATHER_COLS
+    assert per == 64
+    widest = tmf._MAX_GRID_Y * per
+    one = torch.zeros(1)
+    coord = one.expand(10, 3)
+    tmf._check_kernel_shape("k12", coord, one.expand(30, widest), per)
+    with pytest.raises(ValueError, match=r"k <= 4194240: 65535 column "
+                       r"chunks of at most 64; 3n < 2\^31"):
+        tmf._check_kernel_shape("k12", coord, one.expand(30, widest + 1),
+                                per)
+    with pytest.raises(ValueError, match=r"\(n, k\) = \(715827883, 4\)"):
+        tmf._check_kernel_shape("k12", one.expand(715827883, 3),
+                                one.expand(3, 4), per)
+
+
+def test_wrapper_limits_mirror_the_kernel_sources():
+    """The wrappers' column widths and panel limit are the ones the CUDA
+    sources instantiate."""
+    import pathlib
+    import re
+
+    from springcraft_tpu_torch.ops import spd_linalg
+
+    csrc = pathlib.Path(tmf.__file__).resolve().parent.parent / "csrc"
+
+    def constant(source, name):
+        text = (csrc / source).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert tmf._DENSE_COLS == constant("matfree_hessian.cu", "kMaxCols")
+    assert tmf._GATHER_COLS == constant("pair_gather.cuh", "kGatherCols")
+    assert spd_linalg.LEAF == constant("panel_inverse.cu", "kMaxPanel")
+    rows = constant("panel_inverse.cu", "kFullRows")
+    # every panel the wrapper passes fits one block: pb^2 / (2 rows)
+    # threads of at most 1024, a whole number of thread rows
+    for pb in range(8, spd_linalg.LEAF + 1, 8):
+        assert pb * pb // (2 * rows) <= 1024 and pb % rows == 0
 
 
 def test_dense_plain_equals_the_row_blocked_operator():
