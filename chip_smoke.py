@@ -15,8 +15,12 @@ Phases:
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors, at the shapes its paths give it, timed with CUDA events (the
    two banded kernels on the band of the first chunk's Hessians, the
-   bisection also on the single structure's band at 8 halvings, their
-   slow plain versions timed over one call; the full-window panel
+   bisection also on the single structure's band at 8 halvings and at
+   its path's 40, their slow plain versions timed over one call, and the
+   bisection again at the paths' 40 halvings on the chunk's band, each
+   bisection with its bound on the halvings this run's data needs and
+   with every eigenvalue taking them all; the inverse iteration per call
+   of four launches and per launch; the full-window panel
    inverse K9 in turns with ``torch.linalg.solve_triangular``; the
    pair-CSR build, whose rows and slots must equal its plain version's,
    and K13 / K14 over its list, timed in turns with ``torch.sparse.mm``);
@@ -308,8 +312,10 @@ DEVICE = "cuda"
 N_MODES = 20
 N_ITER_BISECT = 32
 #: Halvings at which K10 is held against its plain version on the single
-#: structure's band.
-SINGLE_PARITY_HALVINGS = 8
+#: structure's band (1, 9, 5328): 8, all from the shared tree of its first
+#: 12; and the path's 40, the tree, nine rounds of three halvings, a
+#: partial round of one and the early stop.
+SINGLE_PARITY_HALVINGS = (8, 40)
 #: Subspace iterations of the GNM mode shapes.  The benchmark has no GNM
 #: spectral setting, and the default 16 leaves the 20th Kirchhoff mode at
 #: N=300 with a residual of 1.9e-3 ||K|| even in float64 (its lowest
@@ -684,6 +690,62 @@ def dense_band(diags):
     return band
 
 
+def halvings_needed(feed, lo, hi, n_iter):
+    """Halvings after which each eigenvalue's result no longer changes,
+    ``(B, n)``: the work this run's data needs (the kernel's exact early
+    stop ends an eigenvalue's loop about there), from one launch of the
+    kernel under test at each depth (its plain version would take minutes
+    a depth), so the bound it gives is a design count taken from the
+    kernel's own results; :func:`bisect_work_every_halving` prints beside
+    it."""
+    import torch
+
+    from springcraft_tpu_torch.ops import spectrum
+
+    final = spectrum.banded_bisect(feed, lo, hi, n_iter).view(torch.int32)
+    needed = torch.zeros_like(final)
+    for k in range(n_iter):
+        moved = spectrum.banded_bisect(feed, lo, hi, k).view(
+            torch.int32) != final
+        needed = torch.where(moved, k + 1, needed)
+    return needed
+
+
+def bisect_work(feed, lo, hi, n_iter):
+    """``(bytes, flops, rate)`` of K10 on this feed: float64 Sturm counts,
+    one at each distinct mid of the first floor(log2 n) halvings (shared by
+    a matrix's eigenvalues) and one per eigenvalue for each later halving
+    its data needs; per count and band row the window's W (W - 1)
+    eliminations, W - 1 multipliers and the pivot."""
+    batch, w, n = feed.shape[0], feed.shape[1], feed.shape[2] - feed.shape[1]
+    tree = min(n_iter, n.bit_length() - 1)
+    later = (halvings_needed(feed, lo, hi, n_iter) - tree).clamp(min=0)
+    steps = (int(later.sum()) + batch * (2 ** tree - 1)) * n
+    return (4 * (w * (n + w) * batch + 2 * batch + batch * n),
+            steps * (w * w + 1), F64_FLOPS)
+
+
+def bisect_work_every_halving(feed, n_iter):
+    """``(bytes, flops, rate)`` of every eigenvalue taking all `n_iter`
+    halvings, each a full count: the bound K10 was held to before its
+    shared tree and early stop, independent of any kernel's output."""
+    batch, w, n = feed.shape[0], feed.shape[1], feed.shape[2] - feed.shape[1]
+    return (4 * (w * (n + w) * batch + 2 * batch + batch * n),
+            batch * n * n_iter * n * (w * w + 1), F64_FLOPS)
+
+
+def bisect_bounds(feed, lo, hi, n_iter):
+    """``(work, text)``: K10's work on this run's data (:func:`bisect_work`)
+    and a line naming both bounds."""
+    work = bisect_work(feed, lo, hi, n_iter)
+    data_ms, data_by = bound(*work)
+    every_ms, every_by = bound(*bisect_work_every_halving(feed, n_iter))
+    return work, (f"bound {data_ms:.4f} ms ({data_by}; the halvings this "
+                  f"run's data needs, counted from the kernel's results at "
+                  f"each depth), {every_ms:.4f} ms ({every_by}) with every "
+                  f"eigenvalue through all {n_iter} halvings")
+
+
 def bisect_parity(diags, n_iter, results, library_band=None):
     """K10 against its plain version on band diagonals `diags` ``(B, w,
     n)``, the plain version (a Python loop over the band) timed over one
@@ -712,22 +774,30 @@ def bisect_parity(diags, n_iter, results, library_band=None):
     if library_band is not None:
         library_ms = cuda_ms(lambda: torch.linalg.eigvalsh(library_band),
                              reps=3)
-    # float64 Sturm counts: per eigenvalue, per halving, per band row the
-    # window's W (W - 1) eliminations, W - 1 multipliers and the pivot
-    rec = entry((batch, w, n), err, ms, plain_ms,
-                (4 * (w * (n + w) * batch + 2 * batch + batch * n),
-                 batch * n * n_iter * n * (w * w + 1), F64_FLOPS),
-                library_ms)
+    work, bounds = bisect_bounds(feed, lo, hi, n_iter)
+    rec = entry((batch, w, n), err, ms, plain_ms, work, library_ms)
     print(f"parity banded_bisect {(batch, w, n)} (feed "
           f"{4 * w * (n + w) / 1024:.1f} KB), {n_iter} halvings: max abs err "
           f"{err:.3e}, max rel err {rel:.3e} (tol {tol:g}); kernel {ms:.4f} "
-          f"ms (5 calls), plain {plain_ms:.4f} ms (1 call), bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+          f"ms (5 calls), plain {plain_ms:.4f} ms (1 call), {bounds}, "
+          "library "
           + ("none" if library_ms is None else
              f"eigvalsh of the dense band {library_ms:.4f} ms (3 calls)"),
           flush=True)
     results.setdefault("banded_bisect", []).append(rec)
     return vals, lo, hi
+
+
+def bisect_at_40(diags):
+    """K10 timed at the default 40 halvings on band diagonals `diags`, with
+    its bounds on this run's data."""
+    from springcraft_tpu_torch.ops import spectrum
+
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    ms = cuda_ms(lambda: spectrum.banded_bisect(feed, lo, hi, 40), 5)
+    print(f"banded_bisect {tuple(diags.shape)} at the path's 40 halvings: "
+          f"kernel {ms:.4f} ms (5 calls), "
+          f"{bisect_bounds(feed, lo, hi, 40)[1]}", flush=True)
 
 
 def banded_parity(coords, single, params, results):
@@ -745,18 +815,16 @@ def banded_parity(coords, single, params, results):
     batch, w, n = diags.shape
     band = dense_band(diags)
     vals, lo, hi = bisect_parity(diags, N_ITER_BISECT, results, band)
+    # the banded paths run the default 40 halvings
+    bisect_at_40(diags)
     # the single structure's path runs the default 40 halvings; its plain
-    # version (a Python loop over 5328 band rows for every halving) takes a
-    # minute at that depth, so both routes are held and timed at 8 (the
-    # work is the same per halving), and the kernel timed at 40 as well
+    # version is a Python loop over 5328 band rows for every halving
     single_diags = spectrum.band_reduce(
         assembly_kernels.hessian_xyz_ensemble(single, params), 8)
-    bisect_parity(single_diags, SINGLE_PARITY_HALVINGS, results)
-    feed, lo1, hi1 = spectrum.bisect_inputs(single_diags)
-    ms = cuda_ms(lambda: spectrum.banded_bisect(feed, lo1, hi1, 40), 5)
-    print(f"banded_bisect {tuple(single_diags.shape)} at the path's 40 "
-          f"halvings: kernel {ms:.4f} ms (5 calls)", flush=True)
-    del single_diags, feed
+    for n_iter in SINGLE_PARITY_HALVINGS:
+        bisect_parity(single_diags, n_iter, results,
+                      dense_band(single_diags) if n_iter == 40 else None)
+    del single_diags
 
     feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
 
@@ -794,7 +862,17 @@ def banded_parity(coords, single, params, results):
           f"banded_eigvec: 1 - |overlap| {worst:.3e}, sign-aligned max "
           f"abs err {err:.3e} on separated eigenvalues")
     ms = cuda_ms(lambda: eigvec(spectrum.banded_eigvec), reps=5)
+    first = shifts[:, :256].contiguous()
+    launch_ms = cuda_ms(lambda: spectrum.banded_eigvec(feed, first, 0, floor,
+                                                       2, 1.0), reps=5)
     library_ms = cuda_ms(lambda: torch.linalg.eigh(band), reps=3)
+    # what the kernel's design moves a shift: its window checkpoints
+    # written once and read by both backward sweeps, the float64 iterate
+    # written by the first forward sweep, read and written by the next
+    # three sweeps and read by the output pass, the float32 output
+    design_bytes = batch * n * (
+        3 * 8 * spectrum.eigvec_checkpoint_len(n, w)
+        + 8 * 8 * n + 4 * n)
     # float64: per shift the band's LDL^T (n rows of W^2 + 1) and two
     # solves (forward and back, 4 (W - 1) + 3 a row)
     rec = entry((batch, n, n), err, ms, plain_ms,
@@ -809,10 +887,13 @@ def banded_parity(coords, single, params, results):
           f"(tol {EIGVEC_MAX_RESIDUAL:g}); on {int(apart.sum())} of "
           f"{apart.numel()} separated eigenvalues 1 - |u_k . u_p| <= "
           f"{worst:.3e} (tol {EIGVEC_OVERLAP_TOL:g}), sign-aligned max abs "
-          f"err {err:.3e} (tol {tol:g}); kernel {ms:.4f} ms (5 calls, 4 "
-          f"launches each), plain {plain_ms:.4f} ms (1 call), bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library eigh of "
-          f"the dense band {library_ms:.4f} ms (3 calls)", flush=True)
+          f"err {err:.3e} (tol {tol:g}); kernel {ms:.4f} ms per call (5 "
+          f"calls, {-(-n // 256)} launches each), {launch_ms:.4f} ms per "
+          f"launch of 256 shifts, plain {plain_ms:.4f} ms (1 call), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; the design moves "
+          f"{design_bytes / 1e9:.2f} GB a call, "
+          f"{design_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), library eigh "
+          f"of the dense band {library_ms:.4f} ms (3 calls)", flush=True)
     results["banded_eigvec"] = [rec]
 
 

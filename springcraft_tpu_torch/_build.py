@@ -45,6 +45,7 @@ _HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 
@@ -65,11 +66,11 @@ _SIGNATURES = {
     "sc_panel_inverse": (_P, _P, _I, _I, _P),
     "sc_panel_inverse_full": (_P, _P, _I, _I, _P),
     "sc_panel_cholesky": (_P, _P, _I, _I, _P),
-    # feed, lo, hi, out, batch, n, w, n_iter, stream
-    "sc_banded_bisect": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # feed, shifts, pivot_floor, l_scratch, d_scratch, x_scratch, out,
-    # batch, n, w, n_shifts, idx0, n_solves, seed, stream
-    "sc_banded_eigvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # feed, lo, hi, counts, out, batch, n, w, n_iter, levels, stream
+    "sc_banded_bisect": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # feed, shifts, pivot_floor, checkpoints, checkpoint_len, x_scratch,
+    # out, batch, n, w, n_shifts, idx0, n_solves, seed, stream
+    "sc_banded_eigvec": (_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                          _D, _P),
     # coords, ids, tile_ptr, col_tiles, counts, n, tile, kind, cutoff_sq,
     # has_cutoff, tables, edges_sq, atom_code (by slot), n_bins, n_edges,

@@ -49,6 +49,7 @@ __all__ = [
     "band_feed",
     "bisect_inputs",
     "eigvec_inputs",
+    "eigvec_checkpoint_len",
     "banded_bisect",
     "banded_bisect_plain",
     "banded_eigenvalues",
@@ -419,14 +420,35 @@ def banded_bisect(feed, lo, hi, n_iter):
     _build.require_cuda_f32("banded_bisect", feed=feed, lo=lo, hi=hi)
     _check_kernel_limits("banded_bisect", batch, w)
     out = torch.empty((batch, n), dtype=torch.float32, device=feed.device)
+    # the Sturm counts of the kernel's shared tree of first halvings
+    # (floor(log2 n) levels, fewer than n nodes)
+    counts = torch.empty((batch, n), dtype=torch.int32, device=feed.device)
+    sms = torch.cuda.get_device_properties(feed.device).multi_processor_count
     _build.launch("sc_banded_bisect", feed.device, feed.data_ptr(),
-                  lo.data_ptr(), hi.data_ptr(), out.data_ptr(), batch, n, w,
-                  int(n_iter))
+                  lo.data_ptr(), hi.data_ptr(), counts.data_ptr(),
+                  out.data_ptr(), batch, n, w, int(n_iter),
+                  _bisect_levels(batch, n, sms))
     banded_bisect.launches += 1
     return out
 
 
 banded_bisect.launches = 0
+
+
+def _bisect_levels(batch, n, sms):
+    """Halvings an eigenvalue takes at once in the bisection kernel
+    (multisection: ``2**k - 1`` lanes count at the mids of its next ``k``
+    halvings): the smallest ``k`` in 1..3 that gives a launch of `batch`
+    matrices of `n` eigenvalues at least two warps for each of the four
+    warp schedulers of each of the device's `sms` multiprocessors, else
+    3.  Large batches take 1; single structures up to about 10,500 rows
+    take 3."""
+    for k in (1, 2):
+        per_warp = 32 // (2 ** k - 1)
+        if batch * -(-n // per_warp) >= 8 * sms:
+            return k
+    return 3
+
 
 _MAX_GRID_Y = 65535
 
@@ -615,24 +637,32 @@ def banded_eigvec(feed, shifts, idx0, pivot_floor, n_solves, seed):
                             pivot_floor=pivot_floor)
     _check_kernel_limits("banded_eigvec", batch, w)
     s = shifts.shape[1]
-    # per-shift float64 factors and iterate in device memory, shift-minor
-    # ([i][shift]) so that a warp's loads coalesce; the caller bounds S
-    # (shift_chunk)
-    l_scratch = torch.empty((batch, (w - 1) * n, s), dtype=torch.float64,
+    # per-shift float64 scratch in device memory, shift-minor ([.][shift])
+    # so that a warp's loads coalesce: the factorization's window
+    # checkpoints and the iterate; the caller bounds S (shift_chunk)
+    held = eigvec_checkpoint_len(n, w)
+    checkpoints = torch.empty((batch, held, s), dtype=torch.float64,
+                              device=feed.device)
+    x_scratch = torch.empty((batch, n, s), dtype=torch.float64,
                             device=feed.device)
-    d_scratch, x_scratch = torch.empty((2, batch, n, s), dtype=torch.float64,
-                                       device=feed.device)
     out = torch.empty((batch, n, s), dtype=torch.float32, device=feed.device)
     _build.launch("sc_banded_eigvec", feed.device, feed.data_ptr(),
                   shifts.data_ptr(), pivot_floor.data_ptr(),
-                  l_scratch.data_ptr(), d_scratch.data_ptr(),
-                  x_scratch.data_ptr(), out.data_ptr(), batch, n, w, s,
-                  int(idx0), int(n_solves), float(seed))
+                  checkpoints.data_ptr(), held, x_scratch.data_ptr(),
+                  out.data_ptr(), batch, n, w, s, int(idx0), int(n_solves),
+                  float(seed))
     banded_eigvec.launches += 1
     return out
 
 
 banded_eigvec.launches = 0
+
+def eigvec_checkpoint_len(n, w):
+    """Doubles of window checkpoints :func:`banded_eigvec`'s kernel keeps
+    a (matrix, shift): the window but its last column, ``w (w - 1) / 2``
+    doubles, at the first of every 8 rows (``kSegment`` in
+    ``csrc/banded_eigvec.cu``, whose entry refuses a shorter buffer)."""
+    return -(-n // 8) * (w * (w - 1) // 2)
 
 
 def eigvec_inputs(diags, eigvals):
@@ -678,9 +708,11 @@ def banded_eigenvectors(diags, eigvals, n_solves=2, shift_chunk=256,
     clamp pivots at ``span * eps`` of each matrix (the JAX package's
     Pallas route; its XLA route uses the batch's largest span, ``:1040``),
     so kernel and plain version compute the same thing; both factor in
-    float64.  Shifts go in chunks of `shift_chunk`, which bounds the
-    factor storage at ``B shift_chunk (b + 2) n`` doubles (2.4 GB at
-    ``(128, 900)``, ``b = 8``).  From ``n >= 2048`` columns that come out
+    float64 (the kernel with fused multiply-adds).  Shifts go in chunks of
+    `shift_chunk`, which bounds the kernel's scratch (the factorization's
+    window every 8 rows and the iterate) at
+    ``B shift_chunk (w (w - 1) / 16 + 1) n`` doubles (1.3 GB at
+    ``(128, 900)``, ``w = 9``).  From ``n >= 2048`` columns that come out
     non-finite (element growth of the unpivoted LDL^t) are
     solved again with shifts moved by ``5 sep``, and then replaced by
     their start vector (``:1042-1083``).

@@ -365,6 +365,120 @@ def test_banded_eigvec_kernel(cuda, w, b, n):
     assert float(overlap.min()) >= 1 - 1e-3
 
 
+@pytest.mark.parametrize("w", [2, 5, 9])
+def test_banded_bisect_kernel_stops_early_exactly(cuda, w):
+    """At 48 halvings nearly every eigenvalue reaches float32 resolution
+    and leaves its halving loop early: the kernel against its plain version
+    at 48 halvings and against float64 eigvalsh."""
+    diags = _band_diags(2, 130, w, cuda, seed=7 * w)
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    got = spectrum.banded_bisect(feed, lo, hi, 48)
+    ref = spectrum.banded_bisect_plain(feed, lo, hi, 48)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    exact = torch.linalg.eigvalsh(_dense_band(diags.double()))
+    assert _rel(got, exact) <= 1e-5
+
+
+@pytest.mark.parametrize("levels", [3, 2, 1])
+def test_banded_bisect_kernel_at_each_multisection_depth(cuda, levels):
+    """Each depth the wrapper can pick on this card, against the plain
+    version on a batch of (B, 9, 64) bands, B the smallest batch that takes
+    `levels`: at 13 halvings, 6 from the shared tree and 7 in rounds of
+    `levels` (two full rounds and a partial one at depth 3, three and a
+    partial one at depth 2; a wrong step there moves a result by 2^-13 of
+    the span, far past the tolerance), and at 47, past float32 resolution,
+    where the early stop ends every loop.  Then a single band matrix just
+    large enough for `levels` against float64 LAPACK eigenvalues of the
+    band at 40 halvings (its plain loop over the rows would take seconds
+    a halving)."""
+    linalg = pytest.importorskip("scipy.linalg")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    batch = {3: 1, 2: -(-8 * sms // 7), 1: 4 * sms}[levels]
+    assert spectrum._bisect_levels(batch, 64, sms) == levels
+    diags = _band_diags(batch, 64, 9, cuda, seed=levels)
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    for halvings in (13, 47):
+        got = spectrum.banded_bisect(feed, lo, hi, halvings)
+        ref = spectrum.banded_bisect_plain(feed, lo, hi, halvings)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 1e-5, halvings
+
+    per_warp = 32 // (2 ** levels - 1)
+    n = {3: 200, 2: 8 * sms * per_warp, 1: 8 * sms * per_warp}[levels]
+    assert spectrum._bisect_levels(1, n, sms) == levels
+    w = {3: 9, 2: 3, 1: 2}[levels]
+    gen = torch.Generator(cuda).manual_seed(levels)
+    diags = torch.zeros(1, w, n, device=cuda)
+    diags[:, 0] = torch.linspace(-3.0, 3.0, n, device=cuda)
+    diags[:, 1:] = 0.1 * torch.randn(1, w - 1, n, device=cuda,
+                                     generator=gen)
+    vals = spectrum.banded_bisect(*spectrum.bisect_inputs(diags), 40)
+    # band_reduce's diagonals are LAPACK's lower band storage
+    exact = linalg.eigvals_banded(diags[0].double().cpu().numpy(),
+                                  lower=True)
+    assert _rel(vals, torch.from_numpy(exact)[None].to(cuda)) <= 1e-5
+
+
+def _eigvec_against_plain(diags, vals, cols):
+    """K11 on the shifts of columns `cols` against its plain version
+    (overlap on eigenvalues at least a quarter of the mean spacing from
+    both neighbours) and by its band residuals."""
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    pick = shifts[:, cols].contiguous()
+    before = spectrum.banded_eigvec.launches
+    x = spectrum.banded_eigvec(feed, pick, 0, floor, 2, 1.0)
+    assert spectrum.banded_eigvec.launches == before + 1
+    x_plain = spectrum.banded_eigvec_plain(feed, pick, 0, floor, 2, 1.0)
+    torch.cuda.synchronize()
+    b, n = diags.shape[0], diags.shape[-1]
+    assert x.shape == (b, n, pick.shape[1]) and bool(torch.isfinite(x).all())
+    picked = vals[:, cols]
+    norm = vals.abs().amax(dim=1)[:, None]
+    for u in (x, x_plain):
+        res = torch.linalg.vector_norm(
+            torch.bmm(_dense_band(diags), u) - u * picked[:, None, :],
+            dim=1) / norm
+        assert float(res.median()) <= 1e-3
+        assert float(res.max()) <= 1e-4
+    gaps = torch.diff(vals, dim=1)
+    big = torch.full_like(vals[:, :1], float("inf"))
+    gap = torch.minimum(torch.cat([big, gaps], 1), torch.cat([gaps, big], 1))
+    spacing = (vals[:, -1:] - vals[:, :1]) / n
+    apart = (gap > 0.25 * spacing)[:, cols]
+    assert bool(apart.any())
+    overlap = (x * x_plain).sum(dim=1).abs()[apart]
+    assert float(overlap.min()) >= 1 - 1e-3
+
+
+@pytest.mark.parametrize("n,step", [(41, 1), (130, 1), (300, 1),
+                                    (1500, 10)])
+def test_banded_eigvec_kernel_on_ragged_segments(cuda, n, step):
+    """n not a multiple of the kernel's 8-row segments and a shift count
+    not a multiple of its 256-shift blocks (41, 130, 300 and 150 shifts);
+    at n = 1500 the feed is staged as float32 beside the segment store."""
+    gen = torch.Generator(cuda).manual_seed(n)
+    diags = torch.zeros(2, 9, n, device=cuda)
+    diags[:, 0] = torch.linspace(-3.0, 3.0, n, device=cuda)
+    diags[:, 1:] = 0.1 * torch.randn(2, 8, n, device=cuda, generator=gen)
+    vals = spectrum.banded_bisect(*spectrum.bisect_inputs(diags), 40)
+    _eigvec_against_plain(diags, vals, slice(0, n, step))
+
+
+def test_banded_eigvec_kernel_reads_device_memory_past_shared(cuda):
+    """A feed over what the segment store leaves of the per-block shared
+    memory (n = 6500 at w = 9) is read from device memory: eight shifts
+    across the spectrum against the plain version."""
+    n = 6500
+    diags = torch.zeros(1, 9, n, device=cuda)
+    diags[:, 0] = torch.linspace(-3.0, 3.0, n, device=cuda)
+    diags[:, 1:] = 0.1 * torch.randn(1, 8, n, device=cuda,
+                                     generator=torch.Generator(cuda)
+                                     .manual_seed(0))
+    vals = spectrum.banded_bisect(*spectrum.bisect_inputs(diags), 40)
+    _eigvec_against_plain(diags, vals, slice(17, n, 811))
+
+
 def test_banded_kernels_refuse_what_they_do_not_take(cuda):
     diags = _band_diags(2, 30, 9, cuda, seed=0)
     feed, lo, hi = spectrum.bisect_inputs(diags)

@@ -328,3 +328,242 @@ def test_rescue_solves_non_finite_columns_again():
     start = spectrum._start_vector(6, torch.tensor([6.0], dtype=torch.float64),
                                    1.0, torch.float64, "cpu")[:, 0]
     torch.testing.assert_close(got[0, :, 2], start / start.norm())
+
+
+# ---------------------------------------------------------------------------
+# Invariants the bisection and inverse-iteration kernels rely on, on the
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _small_bands(b, n, w, seed):
+    """Float32 band diagonals ``(b, w, n)`` of random symmetric matrices."""
+    return spectrum.band_reduce(torch.from_numpy(
+        _symmetric(b, n, seed=seed, dtype=np.float32)), w - 1)
+
+
+def _sturm_counts(feed64, mids):
+    """Negative pivots of ``B - mid I`` for float32 `mids` ``(B, S)``, the
+    count of :func:`spectrum.banded_bisect_plain`."""
+    w = feed64.shape[1]
+    n = feed64.shape[-1] - w
+    win = spectrum._Window(feed64, mids.double())
+    counts = torch.zeros(mids.shape, dtype=torch.int32)
+    for i in range(n):
+        pivot = win.pivot()
+        counts += pivot < 0
+        win.eliminate(1.0 / spectrum._clamp_pivot(pivot, spectrum._TINY),
+                      i + w)
+    return counts
+
+
+def _halve(feed64, lo, hi, targets):
+    """One halving of every eigenvalue's float32 interval, as
+    :func:`spectrum.banded_bisect_plain` takes it."""
+    mid = 0.5 * (lo + hi)
+    go_up = _sturm_counts(feed64, mid) <= targets
+    return torch.where(go_up, mid, lo), torch.where(go_up, hi, mid)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def test_bisection_halvings_repeat_once_the_interval_stops_moving():
+    """(i) Halvings one at a time on (2, 9, 60) float32 bands to 56: once a
+    halving leaves an eigenvalue's (lo, hi) unchanged, every later one
+    does, so ``banded_bisect_plain`` returns the same bits at 40 and 56
+    halvings for it (the kernel's exact early stop)."""
+    diags = _small_bands(2, 60, 9, seed=21)
+    feed, lo0, hi0 = spectrum.bisect_inputs(diags)
+    feed64 = feed.double()
+    n = diags.shape[-1]
+    targets = torch.arange(n)
+    lo, hi = lo0[:, None].expand(2, n), hi0[:, None].expand(2, n)
+    fixed = torch.zeros((2, n), dtype=torch.bool)
+    fixed_at_40 = None
+    for it in range(56):
+        new_lo, new_hi = _halve(feed64, lo, hi, targets)
+        same = (_bits(new_lo) == _bits(lo)) & (_bits(new_hi) == _bits(hi))
+        assert bool(same[fixed].all()), f"halving {it} moved a fixed pair"
+        fixed |= same
+        lo, hi = new_lo, new_hi
+        if it + 1 == 40:
+            fixed_at_40 = fixed.clone()
+    assert float(fixed_at_40.float().mean()) > 0.5
+    at_40 = spectrum.banded_bisect_plain(feed, lo0, hi0, 40)
+    at_56 = spectrum.banded_bisect_plain(feed, lo0, hi0, 56)
+    assert torch.equal(_bits(at_56), _bits(0.5 * (lo + hi)))
+    assert torch.equal(_bits(at_40)[fixed_at_40], _bits(at_56)[fixed_at_40])
+
+
+def _node_mid(lo, hi, node):
+    """The kernel's mid of heap node `node` of the tree of the next
+    halvings of float32 ``[lo, hi]``: the digits of ``node + 1`` after its
+    leading one are the path, 1 above a mid."""
+    path = node + 1
+    for bit in reversed(range(path.bit_length() - 1)):
+        mid = 0.5 * (lo + hi)
+        if (path >> bit) & 1:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
+def _multisect(feed64, lo, hi, targets, n_iter, levels):
+    """The kernel's multisection: each round counts at the mids of all
+    ``2**levels - 1`` nodes at once, then walks the tree with the counts;
+    returns the float32 pairs after each round and the mids each round's
+    walk passed through."""
+    rounds, passed = [], []
+    for it in range(0, n_iter, levels):
+        depth = min(levels, n_iter - it)
+        nodes = 2 ** levels - 1
+        mids = [_node_mid(lo, hi, m) for m in range(nodes)]
+        counts = _sturm_counts(feed64, torch.stack(mids, -1).flatten(-2))
+        counts = counts.view(lo.shape + (nodes,))
+        m = torch.zeros(lo.shape, dtype=torch.long)
+        a, c = lo, hi
+        walk = []
+        for _ in range(depth):
+            mid = 0.5 * (a + c)
+            assert torch.equal(_bits(mid), _bits(torch.gather(
+                torch.stack(mids, -1), -1, m[..., None])[..., 0]))
+            up = torch.gather(counts, -1, m[..., None])[..., 0] <= targets
+            a = torch.where(up, mid, a)
+            c = torch.where(up, c, mid)
+            m = torch.where(up, 2 * m + 2, 2 * m + 1)
+            walk.append(mid)
+        lo, hi = a, c
+        rounds.append((lo, hi))
+        passed.append(walk)
+    return rounds, passed
+
+
+@pytest.mark.parametrize("levels,n_iter", [(2, 12), (3, 12), (3, 13)])
+def test_multisection_takes_the_sequential_halvings(levels, n_iter):
+    """(ii) The mids of two and three halvings taken at once (the kernel's
+    node mids) are the sequential mids bit for bit, and so are the
+    intervals after each round and the result, also where `n_iter` is not
+    a multiple of the depth."""
+    diags = _small_bands(2, 40, 9, seed=22)
+    feed, lo0, hi0 = spectrum.bisect_inputs(diags)
+    feed64 = feed.double()
+    n = diags.shape[-1]
+    targets = torch.arange(n)
+    lo, hi = lo0[:, None].expand(2, n), hi0[:, None].expand(2, n)
+    rounds, passed = _multisect(feed64, lo, hi, targets, n_iter, levels)
+    seq_lo, seq_hi = lo, hi
+    for (r_lo, r_hi), walk in zip(rounds, passed):
+        for mid in walk:
+            assert torch.equal(_bits(mid), _bits(0.5 * (seq_lo + seq_hi)))
+            seq_lo, seq_hi = _halve(feed64, seq_lo, seq_hi, targets)
+        assert torch.equal(_bits(r_lo), _bits(seq_lo))
+        assert torch.equal(_bits(r_hi), _bits(seq_hi))
+    final = 0.5 * (rounds[-1][0] + rounds[-1][1])
+    ref = spectrum.banded_bisect_plain(feed, lo0, hi0, n_iter)
+    assert torch.equal(_bits(final), _bits(ref))
+
+
+def test_shared_tree_walk_takes_the_first_halvings():
+    """The kernel's shared tree: Sturm counts at the nodes of the first
+    floor(log2 n) levels of the halving tree of each matrix's [lo, hi],
+    taken once a matrix and walked by every eigenvalue, give its first
+    halvings bit for bit."""
+    n = 40
+    diags = _small_bands(2, n, 9, seed=23)
+    feed, lo0, hi0 = spectrum.bisect_inputs(diags)
+    feed64 = feed.double()
+    targets = torch.arange(n)
+    tree = n.bit_length() - 1
+    counts = _sturm_counts(feed64, torch.stack(
+        [_node_mid(lo0, hi0, m) for m in range(2 ** tree - 1)], -1))
+    lo, hi = lo0[:, None].expand(2, n), hi0[:, None].expand(2, n)
+    seq_lo, seq_hi = lo, hi
+    m = torch.zeros((2, n), dtype=torch.long)
+    for _ in range(tree):
+        mid = 0.5 * (lo + hi)
+        up = torch.gather(counts, 1, m) <= targets
+        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
+        m = torch.where(up, 2 * m + 2, 2 * m + 1)
+        seq_lo, seq_hi = _halve(feed64, seq_lo, seq_hi, targets)
+        assert torch.equal(_bits(lo), _bits(seq_lo))
+        assert torch.equal(_bits(hi), _bits(seq_hi))
+
+
+def test_bisect_levels_fill_the_card():
+    """One lane an eigenvalue for batches, multisection for single
+    structures, on the H100's 132 SMs."""
+    assert spectrum._bisect_levels(128, 900, 132) == 1
+    assert spectrum._bisect_levels(128, 300, 132) == 1
+    assert spectrum._bisect_levels(1, 5328, 132) == 3
+    assert spectrum._bisect_levels(1, 1776, 132) == 3
+    assert spectrum._bisect_levels(1, 40, 132) == 3
+    assert spectrum._bisect_levels(1, 10560, 132) == 2
+    assert spectrum._bisect_levels(1, 33792, 132) == 1
+
+
+def _checkpointed_eigvec(feed, shifts, idx0, pivot_floor, n_solves, seed,
+                         segment):
+    """The kernel's inverse iteration: each forward sweep runs the
+    factorization alongside it (the first saving the window's eliminated
+    entries, all but its last column, every `segment` rows), each backward
+    sweep refactors every segment from its saved entries and the band's
+    column, last segment first; returns the factors of the last backward
+    sweep and the normalized iterate."""
+    w = feed.shape[1]
+    n = feed.shape[-1] - w
+    floor = pivot_floor[:, None]
+    idx = torch.arange(idx0, idx0 + shifts.shape[-1], dtype=torch.float64)
+    rhs = spectrum._start_vector(n, idx, seed, torch.float64, "cpu")[:, None]
+    rhs = rhs.expand((n,) + shifts.shape)
+    saved = {}
+    d, l = [None] * n, [None] * n
+    for _ in range(n_solves):
+        win = spectrum._Window(feed, shifts)
+        acc = rhs.new_zeros(shifts.shape + (w - 1,))
+        z = []
+        for i in range(n):
+            if i % segment == 0:                   # the first sweep's
+                saved.setdefault(i // segment, win.tri[..., :-w].clone())
+            safe = spectrum._clamp_pivot(win.pivot(), floor)
+            l_i = win.eliminate(1.0 / safe, i + w).contiguous()
+            z_i = rhs[i] - acc[..., 0]
+            acc = torch.cat([acc[..., 1:], torch.zeros_like(acc[..., :1])],
+                            -1)
+            acc = acc + l_i * z_i[..., None]
+            z.append(z_i)
+        xwin = torch.zeros_like(acc)
+        sumsq = torch.zeros_like(rhs[0])
+        x = [None] * n
+        for sg in reversed(range(-(-n // segment))):
+            rows = range(sg * segment, min(n, (sg + 1) * segment))
+            col = win.feed[:, None, :, sg * segment + w - 1] - win.col_shift
+            win.tri = torch.cat([saved[sg], col], -1)
+            for i in rows:
+                d[i] = spectrum._clamp_pivot(win.pivot(), floor)
+                l[i] = win.eliminate(1.0 / d[i], i + w).contiguous()
+            for i in reversed(rows):
+                x[i] = z[i] / d[i] - (l[i] * xwin).sum(-1)
+                xwin = torch.cat([x[i][..., None], xwin[..., :-1]], -1)
+                sumsq = sumsq + x[i] * x[i]
+        rhs = torch.stack(x) / torch.sqrt(torch.clamp(sumsq, min=1e-30))
+    return torch.stack(d), torch.stack(l), rhs.permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("n,segment", [(45, 8), (48, 8), (45, 7)])
+def test_checkpointed_backward_sweep_is_the_plain_solve(n, segment):
+    """(iii) Refactoring each segment from a window saved by the forward
+    sweep (its last column read again from the band) gives the plain
+    factorization's L and D and the plain inverse iteration's vectors bit
+    for bit in float64, also where n is not a multiple of the segment."""
+    diags = _small_bands(2, n, 9, seed=n + segment).double()
+    vals = torch.linalg.eigvalsh(torch.from_numpy(_band(diags.numpy())))
+    feed, shifts, floor, _ = spectrum.eigvec_inputs(diags, vals)
+    pick = shifts[:, 3:11].contiguous()
+    d, l, x = _checkpointed_eigvec(feed, pick, 3, floor, 2, 1.0, segment)
+    ref_d, ref_l = spectrum._banded_factorize(feed, pick, floor)
+    assert torch.equal(d, ref_d) and torch.equal(l, ref_l)
+    ref = spectrum.banded_eigvec_plain(feed, pick, 3, floor, 2, 1.0)
+    assert torch.equal(x, ref)
