@@ -20,8 +20,13 @@ Phases:
    bisection again at the paths' 40 halvings on the chunk's band, each
    bisection with its bound on the halvings this run's data needs and
    with every eigenvalue taking them all; the inverse iteration per call
-   of four launches and per launch; the full-window panel
-   inverse K9 in turns with ``torch.linalg.solve_triangular``; the
+   of four launches and per launch; the leaf panel inverse K3 on the
+   chunk's first leaf (128, 64, 64) and on one panel, bit for bit its
+   plain version and K9, timed by replaying a CUDA graph of 20 calls (the
+   host's enqueue time per call drops out) in turns with K9 and
+   ``torch.linalg.solve_triangular``, beside its time per eager call; the
+   full-window panel inverse K9 in turns with
+   ``torch.linalg.solve_triangular``; K2 also on the sdENM chunk; the
    pair-CSR build, whose rows and slots must equal its plain version's,
    and K13 / K14 over its list, timed in turns with ``torch.sparse.mm``);
 4. the paths, each driven once from zero launch counts and required to
@@ -120,6 +125,8 @@ N_SINGLE = 1776
 CUTOFF = 13.0
 SEED = 3
 TIMING_REPS = 20
+#: Replays of a CUDA graph of TIMING_REPS calls (``graph_ms``).
+GRAPH_REPLAYS = 10
 
 #: Kernel name -> (source, the TPU kernel(s) it replaces, tolerance of
 #: max|kernel - plain| / max|plain| at its paths' shapes).
@@ -418,6 +425,38 @@ def cuda_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls=TIMING_REPS, replays=GRAPH_REPLAYS):
+    """Device time of one call of `fn` in milliseconds: a CUDA graph of
+    `calls` back-to-back calls, captured after a warm-up call on the
+    capture's side stream and replayed `replays` times between CUDA
+    events.  The host's time to enqueue a call (a wrapper's checks, the
+    ``ctypes`` call) drops out, which eager calls timed with events keep
+    once it exceeds the kernel's time."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
+
+
 def timed_once(fn):
     """``(fn(), device ms)`` of one call, from CUDA events: for the plain
     versions whose Python loops take seconds."""
@@ -524,7 +563,8 @@ def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
     print(f"parity {name} {tuple(got.shape)}{label}: max abs err {err:.3e}, "
           f"max rel err {rel:.3e} (tol {KERNELS[name][2]:g}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{rec['bound_ms'] / ms:.1%} of it), library "
           + ("none" if library_ms is None else f"{library_ms:.4f} ms")
           + turn, flush=True)
     results.setdefault(name, []).append(rec)
@@ -558,7 +598,8 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
     trace ``(1, 1776)``.  The branch writes what the analytic one writes,
     so the bounds are the same bytes; it also reads the tables (at most
     125 KB) and 4 bytes of codes per atom."""
-    from springcraft_tpu_torch.ops import assembly, assembly_kernels
+    from springcraft_tpu_torch.ops import assembly, assembly_kernels, rigid
+    from springcraft_tpu_torch.ops import spd_linalg
 
     def nbytes(b, n, per_pair, p):
         tables = 4 * (p.n_bins * 1200 + len(p.edges_sq or ()) + n)
@@ -580,6 +621,101 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
                lambda: assembly_kernels.kirchhoff_ensemble(c, p),
                lambda: assembly.kirchhoff_plain(c, p),
                (nbytes(b, n, 1, p), 10 * b * n * n), label=label)
+    # K2 on the sdENM chunk's planes: the same shape and bytes as the
+    # invariant chunk's
+    b, n = coords.shape[:2]
+    m, mp = 3 * n, spd_linalg.padded_size(3 * n)
+    planes = assembly_kernels.hessian_planes_ensemble(coords, sd_enm)
+    _, _, scale_h, ts = rigid.stitch_inputs(planes,
+                                            rigid.rigid_modes_anm(coords))
+    record(results, "regularize_stitch",
+           lambda: assembly_kernels.regularize_stitch(planes, scale_h, ts,
+                                                      mp),
+           lambda: assembly_kernels.regularize_stitch_plain(planes, scale_h,
+                                                            ts, mp),
+           (4 * (9 * b * n * n + 7 * b * m + b * mp * mp), 14 * b * m * m),
+           label=" sdENM")
+
+
+def panel_inverse_parity(results, panels):
+    """K3 and K9 on the first leaf `panels` of a chunk's factor input,
+    and K3 on its first panel alone, the single-structure leaf.  Both
+    kernels must equal the plain version bit for bit, and give a
+    non-finite output on a non-SPD panel.  At each shape K3 is timed by
+    graph replay (``graph_ms``, its record's ``ms``) in turns with K9 and
+    the library call (``torch.linalg.solve_triangular`` of the panels'
+    Cholesky factor, factor excluded): K3, K9, library, library, K9, K3;
+    its CUDA-event time per eager call is ``event_ms``.  K9's own record
+    keeps CUDA events in turns with the library call."""
+    import torch
+
+    from springcraft_tpu_torch.ops import spd_linalg
+
+    bad = panels.clone()
+    bad[1, 5, 5] = -1.0
+    for fn in (spd_linalg.panel_inverse_batched,
+               spd_linalg.panel_inverse_full):
+        out = fn(bad)
+        check(not bool(torch.isfinite(out[1]).all())
+              and bool(torch.isfinite(out[0]).all()),
+              f"{fn.__name__} on a non-SPD panel: not a non-finite output "
+              f"in that panel alone")
+    print("parity panel_inverse, panel_inverse_full: a non-SPD panel gives "
+          "a non-finite output", flush=True)
+    del bad
+
+    def library_of(p):
+        factor = torch.linalg.cholesky(p)
+        eye = torch.eye(p.shape[-1], device=p.device).expand_as(factor)
+        return lambda: torch.linalg.solve_triangular(factor, eye,
+                                                     upper=False)
+
+    for p in (panels, panels[:1].contiguous()):
+        batch, pb = p.shape[:2]
+
+        def k3(p=p):
+            return spd_linalg.panel_inverse_batched(p)
+
+        def k9(p=p):
+            return spd_linalg.panel_inverse_full(p)
+
+        library = library_of(p)
+        plain = spd_linalg.panel_inverse_plain(p)
+        plain_ms = cuda_ms(lambda p=p: spd_linalg.panel_inverse_plain(p))
+        got, full = k3(), k9()
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain) and torch.equal(full, plain),
+              f"panel_inverse or panel_inverse_full {tuple(p.shape)} "
+              f"differs from the plain version in some bit")
+        turns = {"panel_inverse": [], "panel_inverse_full": [],
+                 "library": []}
+        for name, fn in (("panel_inverse", k3), ("panel_inverse_full", k9),
+                         ("library", library), ("library", library),
+                         ("panel_inverse_full", k9), ("panel_inverse", k3)):
+            turns[name].append(graph_ms(fn))
+        rec = entry(got.shape, max_errors(got, plain)[0],
+                    sum(turns["panel_inverse"]) / 2, plain_ms,
+                    (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+                    sum(turns["library"]) / 2)
+        rec["event_ms"] = cuda_ms(k3)
+        rec["graph_turns"] = turns
+        results.setdefault("panel_inverse", []).append(rec)
+        print(f"parity panel_inverse {tuple(got.shape)}: bit for bit, and "
+              f"panel_inverse_full; kernel {rec['ms']:.4f} ms by graph "
+              f"replay ({rec['event_ms']:.4f} ms per eager call, CUDA "
+              f"events), plain {plain_ms:.4f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}), library "
+              f"{rec['library_ms']:.4f} ms; in turns by graph replay: "
+              + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in times)
+                          for name, times in turns.items()), flush=True)
+        del got, full, plain
+
+    batch, pb = panels.shape[:2]
+    record(results, "panel_inverse_full",
+           lambda: spd_linalg.panel_inverse_full(panels),
+           lambda: spd_linalg.panel_inverse_plain(panels),
+           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+           library_of(panels), turns=True)
 
 
 def kernel_parity(coords, single, params):
@@ -619,44 +755,17 @@ def kernel_parity(coords, single, params):
     stitch_parity(results, coords, params, " invariant 13 A")
     stitch_parity(results, coords, sct.hinsen_params(), " hinsen")
 
-    # the first leaf of the recursion: an equilibrated SPD 64-panel; the
-    # library call inverts the panels' Cholesky factor (factor excluded)
+    # the first leaf of the recursion: an equilibrated SPD 64-panel
     panels = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     del reg
     pb = spd_linalg.LEAF
-    factor = torch.linalg.cholesky(panels)
-    eye = torch.eye(pb, device=panels.device).expand_as(factor)
-    record(results, "panel_inverse",
-           lambda: spd_linalg.panel_inverse_batched(panels),
-           lambda: spd_linalg.panel_inverse_plain(panels),
-           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
-           lambda: torch.linalg.solve_triangular(factor, eye, upper=False))
-    plain = record(
-        results, "panel_inverse_full",
-        lambda: spd_linalg.panel_inverse_full(panels),
-        lambda: spd_linalg.panel_inverse_plain(panels),
-        (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
-        lambda: torch.linalg.solve_triangular(factor, eye, upper=False),
-        turns=True)
-    full = spd_linalg.panel_inverse_full(panels)
-    check(torch.equal(full, spd_linalg.panel_inverse_batched(panels))
-          and torch.equal(full, plain),
-          "panel_inverse_full differs from panel_inverse or from its plain "
-          "version in some bit")
-    bad = panels.clone()
-    bad[1, 5, 5] = -1.0
-    check(not bool(torch.isfinite(spd_linalg.panel_inverse_full(bad)[1]
-                                  ).all()),
-          "panel_inverse_full gives a finite inverse of a non-SPD panel")
-    print("parity panel_inverse_full == panel_inverse == plain: bit for "
-          "bit; a non-SPD panel gives a non-finite output", flush=True)
-    del full, plain, bad
+    panel_inverse_parity(results, panels)
     record(results, "panel_cholesky",
            lambda: spd_linalg.panel_cholesky(panels),
            lambda: spd_linalg.panel_cholesky_plain(panels),
            (4 * 2 * batch * pb * pb, batch * pb ** 3 / 3),
            lambda: torch.linalg.cholesky(panels))
-    del factor, eye, panels
+    del panels
 
     # the GNM ensemble's chunk, then the single structure
     for c in (coords, single):

@@ -18,20 +18,32 @@
 // detects a matrix that is not SPD.
 //
 // What bounds the shrink kernel (K3) on the H100: latency.  A panel is
-// pb = 64 dependent steps of ~4k multiply-subtracts each; the main path
-// runs 128 panels per launch and 16 dependent launches per chunk.
+// pb = 64 dependent steps of at most 64 x 64 multiply-subtracts each; the
+// main path runs 128 panels per launch (one block an SM, nothing else to
+// hide latency) and 16 dependent launches per chunk.
 //
-// Its design: one thread block per panel with the whole augmented state
-// in shared memory (64 x 128 floats = 32 KB), so the 64 steps touch no device
-// memory.  Rows above the pivot are final (the shrink form of the TPU
-// kernel), and only columns i+1 .. i+pb change anything the output depends
-// on: left-half columns <= i are never read again, and right-half columns
-// past pb + i are exact zeros in row i.  So each step updates the rows
-// r >= i over a window of exactly pb columns — one thread per column
-// (blockDim.x = pb) times blockDim.y row lanes.  Two barriers per step: all
-// threads read the pivot row into registers before any thread overwrites
-// it.  The _rn intrinsics keep the multiply and subtract separate, as in
-// the plain PyTorch version (ops/spd_linalg.py).
+// Its design.  In place: at step i only the columns i + 1 .. i + pb of
+// [M | I] change anything the output reads (left-half columns <= i are
+// never read again; right-half columns past pb + i are exact zeros in row
+// i), and modulo pb they are one column each.  So the state is pb x pb:
+// slot j holds left column j up to step j, whose coefficients it gives,
+// and right column pb + j from then on (its value delta(r, j) before the
+// step's update, the pivot row's 1 there).  The state lives in registers
+// with fixed ownership: a row is 8 lanes of one warp holding pb / 8 slots
+// each, a warp 4 rows (pb = 64: 16 warps).  Warp k runs the steps of its
+// own 4 pivots alone, every value it needs passed by shuffles, and
+// publishes each pivot row and its rs^2 to shared memory; the warps below
+// apply each step as soon as it is published, meeting warp k on a named
+// barrier per step (no block-wide barrier), so the next owner has the
+// block's last step applied soon after it is published; a row's next
+// coefficient input is shuffled before it waits.  Rows above the pivot
+// are final and do no work (the shrink form).  Steps are unrolled, so a
+// step's slot is a register known at compile time; each pb is its own
+// instance.  Every element sees the same __fmul_rn / __fsub_rn sequence,
+// and each pivot the same IEEE square root and reciprocal, as in the plain
+// version, so the output equals it and K9 bit for bit.  A row's slots move
+// as 16- or 8-byte accesses, so the panels must start on a 16-byte
+// boundary (the wrapper checks).
 //
 // The full-window entry (K9) applies every step's rank-1 update to all pb
 // rows and all 2 pb columns, as the TPU kernel it replaces does: rows above
@@ -57,41 +69,156 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// The shrink kernel's layout: a row is kLanes consecutive lanes of one warp,
+// each holding kCols consecutive slots, so a warp holds kRows rows; warp w
+// owns rows w kRows .. w kRows + kRows - 1 and the steps of those pivots.
+template <int PB>
+struct ShrinkLayout {
+  static constexpr int kLanes = 8;
+  static constexpr int kCols = PB / kLanes;
+  static constexpr int kRows = 32 / kLanes;
+  static constexpr int kWarps = PB / kRows;
+  static constexpr int kThreads = 32 * kWarps;
+};
 
-__global__ void panel_inverse_kernel(const float* __restrict__ panels,
-                                     float* __restrict__ out, int pb) {
-  extern __shared__ float s[];  // pb rows x 2 pb columns
-  const int w = 2 * pb;
-  const float* a = panels + static_cast<size_t>(blockIdx.x) * pb * pb;
-  float* o = out + static_cast<size_t>(blockIdx.x) * pb * pb;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-
-  for (int e = tid; e < pb * w; e += nthreads) {
-    const int r = e / w, c = e - r * w;
-    s[e] = c < pb ? a[r * pb + c] : (c - pb == r ? 1.0f : 0.0f);
-  }
-  __syncthreads();
-
-  for (int i = 0; i < pb; ++i) {
-    const int c = i + 1 + threadIdx.x;  // window [i + 1, i + pb]
-    const float row_i = s[i * w + c];
-    const float rs = __fdiv_rn(1.0f, __fsqrt_rn(s[i * w + i]));
-    const float rs2 = __fmul_rn(rs, rs);
-    __syncthreads();
-    for (int r = i + threadIdx.y; r < pb; r += blockDim.y) {
-      const float coef =
-          r == i ? __fsub_rn(1.0f, rs) : __fmul_rn(s[r * w + i], rs2);
-      s[r * w + c] = __fsub_rn(s[r * w + c], __fmul_rn(coef, row_i));
+// n consecutive floats between registers and memory (global or shared),
+// as 16- or 8-byte accesses where n allows (the caller keeps alignment).
+template <int N>
+__device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + k);
+      v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
     }
-    __syncthreads();
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + k);
+      v[k] = t.x, v[k + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = p[k];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 2)
+      *reinterpret_cast<float2*>(p + k) = make_float2(v[k], v[k + 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = v[k];
+  }
+}
+
+// (1 - rs, rs^2) of the pivot x, rs = 1 / sqrt(x) by the IEEE square root
+// and reciprocal, as in the plain version and K9; a pivot that is not
+// positive gives a non-finite pair, so a panel that is not SPD gives a
+// non-finite output.
+__device__ __forceinline__ float2 pivot_coefficients(float x) {
+  const float rs = __frcp_rn(__fsqrt_rn(x));
+  return make_float2(__fsub_rn(1.0f, rs), __fmul_rn(rs, rs));
+}
+
+// One block per panel, ShrinkLayout<PB>::kThreads threads: lane g kLanes + l
+// of warp w holds slots kCols l .. kCols l + kCols - 1 of row w kRows + g.
+template <int PB>
+__global__ void __launch_bounds__(ShrinkLayout<PB>::kThreads)
+    panel_inverse_kernel(const float* __restrict__ panels,
+                         float* __restrict__ out) {
+  constexpr int L = ShrinkLayout<PB>::kLanes;
+  constexpr int C = ShrinkLayout<PB>::kCols;
+  constexpr int R = ShrinkLayout<PB>::kRows;
+  constexpr int W = ShrinkLayout<PB>::kWarps;
+  constexpr unsigned kAll = 0xffffffffu;
+  // double-buffered by block of steps: the block's pivot rows as they
+  // enter their steps (slot i set to the 1 of the identity), and each
+  // pivot's rs^2
+  __shared__ __align__(16) float s_row[2][R][PB];
+  __shared__ __align__(16) float s_rs2[2][R];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / L, l = lane % L, c0 = l * C, r = w * R + g;
+  const size_t offset = static_cast<size_t>(blockIdx.x) * PB * PB + r * PB;
+
+  float v[C];
+  load_floats(v, panels + offset + c0);
+
+  // slot i of this row before step i: the row's coefficient is col rs^2
+  float col = __shfl_sync(kAll, v[0], g * L);
+  // block k: the steps i = k R + j of warp k's pivots.  Step j of every
+  // block meets on named barrier 1 + j: warp k arrives when it has
+  // published the step, the W - k - 1 warps below wait for it.  Two
+  // buffers suffice: a warp writes block k + 2 only after it has waited
+  // for every warp below at each step of block k + 1, so none of them
+  // still reads block k.
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int buf = k & 1;
+    const int waiting = 32 * (W - k);
+    if (w == k) {
+      // the block's steps inside the owning warp, pivots and rows by
+      // shuffles; rows above the pivot are final
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int i = k * R + j, li = i / C, qi = i % C;
+        float row[C];
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          row[q] = __shfl_sync(kAll, v[q], j * L + l);
+        if (l == li) row[qi] = 1.0f;
+        col = __shfl_sync(kAll, v[qi], g * L + li);
+        const float2 piv =
+            pivot_coefficients(__shfl_sync(kAll, v[qi], j * L + li));
+        // every row group holds the pivot row: all publish the same bits
+        store_floats(&s_row[buf][j][c0], row);
+        s_rs2[buf][j] = piv.y;
+        if (k + 1 < W)
+          asm volatile("bar.arrive %0, %1;" ::"r"(1 + j), "r"(waiting)
+                       : "memory");
+        if (g >= j) {
+          const float coef = g == j ? piv.x : __fmul_rn(col, piv.y);
+          // slot i turns into column pb + i: delta(r, i) before the update
+          if (l == li) v[qi] = g == j ? 1.0f : 0.0f;
+#pragma unroll
+          for (int q = 0; q < C; ++q)
+            v[q] = __fsub_rn(v[q], __fmul_rn(coef, row[q]));
+        }
+      }
+    } else if (w > k) {
+      // the rows below apply each step as soon as it is published
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int i = k * R + j, li = i / C, qi = i % C;
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + j), "r"(waiting)
+                     : "memory");
+        float row[C];
+        load_floats(row, &s_row[buf][j][c0]);
+        const float coef = __fmul_rn(col, s_rs2[buf][j]);
+        if (l == li) v[qi] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          v[q] = __fsub_rn(v[q], __fmul_rn(coef, row[q]));
+        // the next step's slot, ahead of its barrier
+        if (i + 1 < PB)
+          col = __shfl_sync(kAll, v[(i + 1) % C], g * L + (i + 1) / C);
+      }
+    }
   }
 
-  for (int e = tid; e < pb * pb; e += nthreads) {
-    const int r = e / pb, c = e - r * pb;
-    o[e] = c <= r ? s[r * w + pb + c] : 0.0f;
-  }
+  // slots c <= r hold L^-1; the rest of the row is zero
+  float res[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) res[q] = c0 + q <= r ? v[q] : 0.0f;
+  store_floats(out + offset + c0, res);
 }
 
 // Rows and columns of [M | I] per thread of the full-window kernel, and
@@ -192,14 +319,28 @@ extern "C" int sc_panel_inverse_full(const float* panels, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int PB>
+void launch_shrink(const float* panels, float* out, int count,
+                   cudaStream_t stream) {
+  panel_inverse_kernel<PB>
+      <<<count, ShrinkLayout<PB>::kThreads, 0, stream>>>(panels, out);
+}
+
 extern "C" int sc_panel_inverse(const float* panels, float* out, int count,
                                 int pb, void* stream) {
+  if (pb % 8 != 0 || pb <= 0 || pb > kMaxPanel) return cudaErrorInvalidValue;
   if (count > 0) {
-    const dim3 block(pb, kThreads / pb > 0 ? kThreads / pb : 1);
-    const size_t smem = 2 * static_cast<size_t>(pb) * pb * sizeof(float);
-    panel_inverse_kernel<<<count, block, smem,
-                           static_cast<cudaStream_t>(stream)>>>(panels, out,
-                                                                pb);
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (pb) {
+      case 8: launch_shrink<8>(panels, out, count, s); break;
+      case 16: launch_shrink<16>(panels, out, count, s); break;
+      case 24: launch_shrink<24>(panels, out, count, s); break;
+      case 32: launch_shrink<32>(panels, out, count, s); break;
+      case 40: launch_shrink<40>(panels, out, count, s); break;
+      case 48: launch_shrink<48>(panels, out, count, s); break;
+      case 56: launch_shrink<56>(panels, out, count, s); break;
+      default: launch_shrink<64>(panels, out, count, s); break;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

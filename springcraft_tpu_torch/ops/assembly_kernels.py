@@ -205,6 +205,9 @@ def regularize_stitch(planes, scale_h, ts, mp):
     if mp > _MAX_GRID_YZ or batch > _MAX_GRID_YZ:
         raise ValueError(f"regularize_stitch: (B, mp) = ({batch}, {mp}) "
                          f"exceeds the kernel's grid limit {_MAX_GRID_YZ}")
+    if mp % 4:
+        raise ValueError(f"regularize_stitch: mp={mp} must be a multiple "
+                         f"of 4 on CUDA (the kernel writes 16-byte groups)")
     out = torch.empty((batch, mp, mp), dtype=torch.float32,
                       device=planes.device)
     _build.launch("sc_regularize_stitch", planes.device, planes.data_ptr(),

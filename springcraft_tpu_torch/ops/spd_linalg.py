@@ -46,8 +46,8 @@ __all__ = [
 ]
 
 #: Leaf-panel size of the recursion (the JAX package's default
-#: ``block``), and the largest panel the kernel takes: its ``[M | I]``
-#: state, 2 pb^2 floats, lives in shared memory (32 KB).
+#: ``block``), and the largest panel the two panel-inverse kernels take:
+#: one block holds a panel's elimination state in registers.
 LEAF = 64
 #: Largest panel the Cholesky kernel takes (66 KB of shared memory).
 MAX_CHOLESKY_PANEL = 128
@@ -83,9 +83,10 @@ def panel_inverse_plain(panels):
     return torch.tril(s[:, :, pb:])
 
 
-def _launch_panels(wrapper, entry, plain, panels, limit):
-    """Run a panel kernel (C entry `entry`, panels up to `limit` rows)
-    on `panels`, or its plain version on a CPU tensor."""
+def _launch_panels(wrapper, entry, plain, panels, limit, align=4):
+    """Run a panel kernel (C entry `entry`, panels up to `limit` rows,
+    starting on an `align`-byte boundary) on `panels`, or its plain
+    version on a CPU tensor."""
     name = wrapper.__name__
     _check_panels(panels)
     if _build.route(name, panels) == "cpu":
@@ -94,7 +95,10 @@ def _launch_panels(wrapper, entry, plain, panels, limit):
     count, pb, _ = panels.shape
     if pb > limit:
         raise ValueError(f"{name}: pb={pb} exceeds {limit}, the largest "
-                         f"panel the kernel holds in shared memory")
+                         f"panel the kernel takes")
+    if panels.data_ptr() % align:
+        raise ValueError(f"{name}: the panels must start on a {align}-byte "
+                         f"boundary (the kernel's vector loads)")
     out = torch.empty_like(panels)
     _build.launch(entry, panels.device, panels.data_ptr(), out.data_ptr(),
                   count, pb)
@@ -105,7 +109,7 @@ def _launch_panels(wrapper, entry, plain, panels, limit):
 def panel_inverse_batched(panels, shrink_block=8):
     """``L^-1`` (lower triangular, strict upper exactly zero) of a batch
     of SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
-    ``LEAF`` on CUDA).
+    ``LEAF`` on CUDA, where the panels start on a 16-byte boundary).
 
     `shrink_block` keeps the JAX package's switch: any block size that
     divides ``pb`` takes the kernel that leaves finished rows alone (it
@@ -119,7 +123,7 @@ def panel_inverse_batched(panels, shrink_block=8):
         raise ValueError(f"shrink_block must divide pb={panels.shape[-1]}, "
                          f"got {shrink_block}")
     return _launch_panels(panel_inverse_batched, "sc_panel_inverse",
-                          panel_inverse_plain, panels, LEAF)
+                          panel_inverse_plain, panels, LEAF, align=16)
 
 
 def panel_inverse_full(panels):

@@ -232,6 +232,30 @@ def test_regularize_stitch_matches_concatenated_prep():
         assert _rel(g, r) <= 1e-6
 
 
+@pytest.mark.parametrize("n", [7, 41, 100])
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_ordered_stitch_reference_matches_the_plain_version(n, with_masses):
+    """The card tests hold K2 bit for bit against an ordered reference
+    (the rank-6 sum in k order, each float32 product and sum rounded on
+    its own); that reference is the plain version up to the order of the
+    sum (1e-6 of max|reg|) and equal to it on the pad."""
+    from .test_torch_cuda import ordered_regularize_stitch
+
+    coords = torch.from_numpy(_dense_coords(2, n, seed=n))
+    planes = assembly.hessian_planes_plain(coords, tff.invariant_params(7.0))
+    masses = torch.linspace(0.8, 2.5, n) if with_masses else None
+    bases = trigid.rigid_modes_anm(coords, masses=masses)
+    _, _, scale_h, ts = trigid.stitch_inputs(planes, bases, masses=masses)
+    m = 3 * n
+    mp = m + 8 - m % 8 + 8
+    got = ordered_regularize_stitch(planes, scale_h, ts, mp)
+    ref = assembly_kernels.regularize_stitch_plain(planes, scale_h, ts, mp)
+    assert got.shape == ref.shape == (2, mp, mp)
+    assert _rel(got, ref) <= 1e-6
+    assert torch.equal(got[:, m:, :], ref[:, m:, :])
+    assert torch.equal(got[:, :, m:], ref[:, :, m:])
+
+
 @pytest.mark.parametrize("bad", ["planes", "scale_h", "ts", "mp"])
 def test_regularize_stitch_rejects_bad_shapes(bad):
     b, n = 2, 10

@@ -98,44 +98,136 @@ def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
         assert _rel(got, ref) <= 1e-5, wrapper.__name__
 
 
-@pytest.mark.parametrize("b,n,mp", [(3, 41, 128), (2, 32, 96),
-                                    (2, 100, 384)])
-def test_regularize_stitch_kernel(cuda, b, n, mp):
-    coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
+def ordered_regularize_stitch(planes, scale_h, ts, mp):
+    """The regularize/stitch as its kernel orders the float32 arithmetic,
+    over tensors: the rank-6 sum in k order, each product and each sum
+    rounded on its own, then ``(h sr) sc + rank``; identity on the pad.
+    (``regularize_stitch_plain`` sums the rank-6 term with a matmul.)"""
+    batch, m = scale_h.shape
+    rank = ts[:, :, None, 0] * ts[:, None, :, 0]
+    for k in range(1, 6):
+        rank = rank + ts[:, :, None, k] * ts[:, None, :, k]
+    reg = (assembly.planes_to_xyz(planes) * scale_h[:, :, None]
+           * scale_h[:, None, :] + rank)
+    out = torch.zeros((batch, mp, mp), dtype=reg.dtype, device=reg.device)
+    out[:, :m, :m] = reg
+    idx = torch.arange(m, mp, device=reg.device)
+    out[:, idx, idx] = 1.0
+    return out
+
+
+def _stitch_case(cuda, b, n, with_masses, seed):
+    coords = torch.as_tensor(_coords(b, n, seed=seed), device=cuda)
     planes = assembly.hessian_planes_plain(coords, sct.invariant_params(7.0))
-    masses = torch.linspace(0.8, 2.5, n, device=cuda)
+    masses = torch.linspace(0.8, 2.5, n, device=cuda) if with_masses \
+        else None
     bases = rigid.rigid_modes_anm(coords, masses=masses)
     _, _, scale_h, ts = rigid.stitch_inputs(planes, bases, masses=masses)
+    return planes, scale_h, ts
+
+
+@pytest.mark.parametrize("n", [7, 41, 100, 300])
+@pytest.mark.parametrize("larger_mp", [False, True])
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_regularize_stitch_kernel(cuda, n, larger_mp, b, with_masses):
+    """K2 equals the ordered reference bit for bit and the plain version
+    within 1e-6 of max: n = 7 and 41 put column groups across plane
+    boundaries and across the 3n edge, 100 and 300 take the 16-byte
+    loads; the larger mp (136 more, past one column tile at n = 300)
+    widens the pad."""
+    planes, scale_h, ts = _stitch_case(cuda, b, n, with_masses, seed=n)
+    mp = spd_linalg.padded_size(3 * n) + (136 if larger_mp else 0)
     before = assembly_kernels.regularize_stitch.launches
     got = assembly_kernels.regularize_stitch(planes, scale_h, ts, mp)
     assert assembly_kernels.regularize_stitch.launches == before + 1
-    ref = assembly_kernels.regularize_stitch_plain(planes, scale_h, ts, mp)
+    ref = ordered_regularize_stitch(planes, scale_h, ts, mp)
+    plain = assembly_kernels.regularize_stitch_plain(planes, scale_h, ts, mp)
     torch.cuda.synchronize()
     assert got.shape == (b, mp, mp)
-    assert _rel(got, ref) <= 1e-5
-    assert torch.equal(got[:, 3 * n:, :], ref[:, 3 * n:, :])
+    assert torch.equal(got, ref)
+    assert _rel(got, plain) <= 1e-6
 
 
-@pytest.mark.parametrize("pb", [8, 16, 64])
-def test_panel_inverse_kernel(cuda, pb):
-    panels = torch.as_tensor(_spd_panels(5, pb, seed=pb), device=cuda)
+def test_regularize_stitch_kernel_on_unaligned_planes(cuda):
+    """Planes that start 4 bytes past a 16-byte boundary take the
+    column-by-column loads, with the same bits."""
+    planes, scale_h, ts = _stitch_case(cuda, 3, 100, True, seed=2)
+    shifted = torch.empty(planes.numel() + 1, device=cuda)[1:].view(
+        planes.shape).copy_(planes)
+    assert shifted.data_ptr() % 16 != 0
+    mp = spd_linalg.padded_size(300)
+    got = assembly_kernels.regularize_stitch(shifted, scale_h, ts, mp)
+    assert torch.equal(got, ordered_regularize_stitch(planes, scale_h, ts,
+                                                      mp))
+
+
+@pytest.mark.parametrize("count", [1, 3, 128, 2048])
+@pytest.mark.parametrize("pb", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_panel_inverse_kernel(cuda, pb, count):
+    """K3 equals the plain version and K9 bit for bit at every panel
+    size and at one, a few, the main path's 128 and many panels."""
+    panels = torch.as_tensor(_spd_panels(count, pb, seed=pb + count),
+                             device=cuda)
     before = spd_linalg.panel_inverse_batched.launches
     got = spd_linalg.panel_inverse_batched(panels)
     assert spd_linalg.panel_inverse_batched.launches == before + 1
     ref = spd_linalg.panel_inverse_plain(panels)
+    full = spd_linalg.panel_inverse_full(panels)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= 2e-5
+    assert torch.equal(got, ref)
+    assert torch.equal(got, full)
     upper = torch.triu(got, diagonal=1)
     assert torch.equal(upper, torch.zeros_like(upper))
 
 
-def test_panel_inverse_kernel_breakdown_is_not_finite(cuda):
-    panels = _spd_panels(3, 64, seed=1)
+def test_panel_inverse_kernel_on_a_chunk_leaf(cuda):
+    """The first leaf of a trace chunk's factor input (equilibrated,
+    regularized, 300 residues in a 34 A cube at 13 A), the panels the
+    main path gives K3, and their first one alone."""
+    coords = torch.as_tensor(_coords(8, 300, seed=11, spread=34.0),
+                             device=cuda)
+    planes = assembly_kernels.hessian_planes_ensemble(
+        coords, sct.invariant_params(13.0))
+    _, _, scale_h, ts = rigid.stitch_inputs(planes,
+                                            rigid.rigid_modes_anm(coords))
+    reg = assembly_kernels.regularize_stitch(planes, scale_h, ts,
+                                             spd_linalg.padded_size(900))
+    leaf = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
+    for panels in (leaf, leaf[:1].contiguous()):
+        got = spd_linalg.panel_inverse_batched(panels)
+        assert torch.equal(got, spd_linalg.panel_inverse_plain(panels))
+        assert torch.equal(got, spd_linalg.panel_inverse_full(panels))
+
+
+@pytest.mark.parametrize("pb", [16, 64])
+def test_panel_inverse_kernel_on_offset_panels(cuda, pb):
+    """K3 moves a row's slots as vector accesses: contiguous panels that
+    start one float past a 16-byte boundary are refused before any
+    launch; a view from a later panel of a batch is aligned and taken."""
+    panels = torch.as_tensor(_spd_panels(3, pb, seed=pb), device=cuda)
+    shifted = torch.empty(panels.numel() + 1, device=cuda)[1:].view(
+        panels.shape).copy_(panels)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    before = spd_linalg.panel_inverse_batched.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        spd_linalg.panel_inverse_batched(shifted)
+    assert spd_linalg.panel_inverse_batched.launches == before
+    later = panels[1:]
+    assert later.storage_offset() > 0
+    assert torch.equal(spd_linalg.panel_inverse_batched(later),
+                       spd_linalg.panel_inverse_plain(later))
+
+
+@pytest.mark.parametrize("pb", [8, 40, 64])
+def test_panel_inverse_kernel_breakdown_is_not_finite(cuda, pb):
+    panels = _spd_panels(3, pb, seed=1)
     panels[1, 5, 5] = -1.0
     got = spd_linalg.panel_inverse_batched(torch.as_tensor(panels,
                                                            device=cuda))
     assert not bool(torch.isfinite(got[1]).all())
     assert bool(torch.isfinite(got[0]).all())
+    assert bool(torch.isfinite(got[2]).all())
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -150,6 +242,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         assembly_kernels.regularize_stitch(
             torch.zeros(9, 2, 10, 10, device=cuda), torch.ones(2, 30),
             torch.zeros(2, 30, 6, device=cuda), 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        assembly_kernels.regularize_stitch(
+            torch.zeros(9, 2, 10, 10, device=cuda),
+            torch.ones(2, 30, device=cuda),
+            torch.zeros(2, 30, 6, device=cuda), 34)
     with pytest.raises(TypeError, match="float32"):
         spd_linalg.panel_inverse_batched(
             torch.eye(16, device=cuda, dtype=torch.float64).expand(2, 16,
