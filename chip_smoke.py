@@ -21,11 +21,12 @@ Phases:
    bisection with its bound on the halvings this run's data needs and
    with every eigenvalue taking them all; the inverse iteration per call
    of four launches and per launch; the leaf panel inverse K3 on the
-   chunk's first leaf (128, 64, 64) and on one panel, bit for bit its
-   plain version and K9, timed by replaying a CUDA graph of 20 calls (the
-   host's enqueue time per call drops out) in turns with K9 and
-   ``torch.linalg.solve_triangular``, beside its time per eager call; the
-   full-window panel inverse K9 in turns with
+   chunk's first leaf (128, 64, 64) and on one panel, then on the largest
+   leaf (128, 128, 128) and (1, 128, 128), bit for bit its plain version
+   and K9, a non-SPD panel non-finite, timed by replaying a CUDA graph of
+   20 calls (the host's enqueue time per call drops out) in turns with K9
+   and ``torch.linalg.solve_triangular``, beside its time per eager call;
+   the full-window panel inverse K9 at both sizes in turns with
    ``torch.linalg.solve_triangular``; K2 also on the sdENM chunk; the
    pair-CSR build, whose rows and slots must equal its plain version's,
    and K13 / K14 over its list, timed in turns with ``torch.sparse.mm``);
@@ -100,7 +101,23 @@ Phases:
    * the public panel functions ``panel_cholesky_batched``,
      ``panel_inverse_batched(shrink_block=None)`` and
      ``spd_inverse_blocked`` on a chunk's equilibrated factor input
-     ``(128, 1024, 1024)``.
+     ``(128, 1024, 1024)``; then at the largest leaf,
+     ``spd_inverse_factor_parts(block=128)`` and
+     ``spd_inverse_blocked(block=128)`` (K3 at (128, 128, 128), eight
+     leaves a call) and ``panel_inverse_batched`` (K9 by default) on the
+     first 128-block, against float64 ``cho_solve``; and the leaf as a
+     measurement, the factor at ``block=64`` and ``block=128`` in turns;
+   * a structure's lowest modes by shift-invert and their float64
+     refinement: 7cal's CA trace under eANM (K5 through its table branch,
+     ``lowest_modes_anm`` with the ``"invfactor"`` engine, K3 at the
+     inverse factor's leaves, ``refine_modes_f64``), its GNM twin (K6,
+     ``lowest_modes_shift_invert``, ``refine_modes_f64_gnm``) and 8,192
+     atoms under the invariant field (``"chol"``, the sparse refinement):
+     24 modes, the 20 lowest held against float64 ``eigvalsh`` of the
+     same matrix (1e-4 of max|lambda|, residuals, orthonormality) and,
+     refined, to 1e-6 relative of the float64 matrix's; at 8,192 atoms
+     the refined residuals to 1e-3; time per structure, first and second
+     call.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -238,6 +255,13 @@ PATH_KERNELS = {
     "gnm_matfree_overlay_tabulated": ("pair_csr", "kirchhoff_apply_sparse"),
     # single structures past 4,096 atoms
     "assembly_large": ("hessian_xyz", "kirchhoff", "hessian_planes"),
+    # the blocked inverse at its largest leaf (block=128)
+    "panel_functions_128": ("panel_inverse", "panel_inverse_full"),
+    # a structure's lowest modes by shift-invert: K3 through the inverse
+    # factor of "invfactor" (7cal), the chol engine at 8,192 atoms
+    "anm_7cal_modes": ("hessian_xyz", "panel_inverse"),
+    "gnm_7cal_modes": ("kirchhoff", "panel_inverse"),
+    "anm_modes_8192": ("hessian_xyz",),
 }
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
@@ -250,7 +274,8 @@ TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "anm_matfree_modes_dense_tabulated", "anm_7cal_overlay",
                "gnm_7cal_overlay", "gnm_spectral_7cal_overlay",
                "anm_matfree_overlay_tabulated",
-               "gnm_matfree_overlay_tabulated")
+               "gnm_matfree_overlay_tabulated", "anm_7cal_modes",
+               "gnm_7cal_modes")
 #: Paths that mix both branches (each family is launched once).
 MIXED_PATHS = ("assembly_large",)
 #: The float32 MSF of 7cal under eANM against the float64 engine, relative
@@ -317,6 +342,13 @@ F64_FLOPS = 34e12
 DEVICE = "cuda"
 #: Spectral settings of the JAX package's benchmark (bench.py:328-331).
 N_MODES = 20
+#: Modes solved past the N_MODES held by the mode paths, as the JAX
+#: package's ``ANM.lowest_modes(refine=True)`` pads its solve: the last
+#: modes of a subspace converge slowest.
+MODE_BUFFER = 4
+#: Refined float64 eigenvalues against float64 ``eigh``, relative: the
+#: north-star rtol of BASELINE.md.
+REFINED_RTOL = 1e-6
 N_ITER_BISECT = 32
 #: Halvings at which K10 is held against its plain version on the single
 #: structure's band (1, 9, 5328): 8, all from the shared tree of its first
@@ -638,9 +670,10 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
 
 
 def panel_inverse_parity(results, panels):
-    """K3 and K9 on the first leaf `panels` of a chunk's factor input,
-    and K3 on its first panel alone, the single-structure leaf.  Both
-    kernels must equal the plain version bit for bit, and give a
+    """K3 and K9 on the first leaf `panels` of a chunk's factor input
+    (``(128, pb, pb)``, the default leaf pb = 64 and then the largest,
+    128), and K3 on its first panel alone, the single-structure leaf.
+    Both kernels must equal the plain version bit for bit, and give a
     non-finite output on a non-SPD panel.  At each shape K3 is timed by
     graph replay (``graph_ms``, its record's ``ms``) in turns with K9 and
     the library call (``torch.linalg.solve_triangular`` of the panels'
@@ -653,15 +686,16 @@ def panel_inverse_parity(results, panels):
 
     bad = panels.clone()
     bad[1, 5, 5] = -1.0
-    for fn in (spd_linalg.panel_inverse_batched,
-               spd_linalg.panel_inverse_full):
+    for name, fn in (("panel_inverse", lambda p: spd_linalg.
+                      panel_inverse_batched(p, shrink_block=8)),
+                     ("panel_inverse_full", spd_linalg.panel_inverse_full)):
         out = fn(bad)
         check(not bool(torch.isfinite(out[1]).all())
               and bool(torch.isfinite(out[0]).all()),
-              f"{fn.__name__} on a non-SPD panel: not a non-finite output "
-              f"in that panel alone")
-    print("parity panel_inverse, panel_inverse_full: a non-SPD panel gives "
-          "a non-finite output", flush=True)
+              f"{name} {tuple(bad.shape)} on a non-SPD panel: not a "
+              f"non-finite output in that panel alone")
+    print(f"parity panel_inverse, panel_inverse_full {tuple(bad.shape)}: a "
+          f"non-SPD panel gives a non-finite output", flush=True)
     del bad
 
     def library_of(p):
@@ -674,7 +708,7 @@ def panel_inverse_parity(results, panels):
         batch, pb = p.shape[:2]
 
         def k3(p=p):
-            return spd_linalg.panel_inverse_batched(p)
+            return spd_linalg.panel_inverse_batched(p, shrink_block=8)
 
         def k9(p=p):
             return spd_linalg.panel_inverse_full(p)
@@ -755,11 +789,15 @@ def kernel_parity(coords, single, params):
     stitch_parity(results, coords, params, " invariant 13 A")
     stitch_parity(results, coords, sct.hinsen_params(), " hinsen")
 
-    # the first leaf of the recursion: an equilibrated SPD 64-panel
+    # the first leaf of the recursion: an equilibrated SPD 64-panel, then
+    # the largest leaf, 128 (``block=128``)
     panels = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
+    largest = reg[:, :spd_linalg.MAX_LEAF, :spd_linalg.MAX_LEAF].contiguous()
     del reg
     pb = spd_linalg.LEAF
     panel_inverse_parity(results, panels)
+    panel_inverse_parity(results, largest)
+    del largest
     record(results, "panel_cholesky",
            lambda: spd_linalg.panel_cholesky(panels),
            lambda: spd_linalg.panel_cholesky_plain(panels),
@@ -1460,7 +1498,211 @@ def panel_function_path(conformers, params):
           + f" (tol {SLICE_TOL:g})", flush=True)
     for key, err in errs.items():
         check(err <= SLICE_TOL, f"panel_functions: {key} {err:.3e}")
-    return {"panel_functions": launches}
+    del l, w, w_full, inv, panels
+    return {"panel_functions": launches, **leaf_128_path(reg)}
+
+
+def _gram_of_parts(parts):
+    """``G^T G`` of the inverse factor from its top-split blocks."""
+    import torch
+    import torch.nn.functional as F
+
+    g11, g21, g22 = parts
+    if g21 is None:
+        return g11.mT @ g11
+    h = g11.shape[-1]
+    g = torch.cat([F.pad(g11, (0, g22.shape[-1])),
+                   torch.cat([g21, g22], dim=-1)], dim=-2)
+    return g.mT @ g
+
+
+def leaf_128_path(reg):
+    """The blocked inverse at its largest leaf on a chunk's factor input
+    `reg` ``(128, 1024, 1024)``: ``spd_inverse_factor_parts(block=128)``
+    and ``spd_inverse_blocked(block=128)`` (K3 at (128, 128, 128), eight
+    leaves a call) and ``panel_inverse_batched`` (K9 by default) on the
+    first 128-block, from zero launch counts; both inverses against
+    float64 ``cho_solve``.  Then the leaf as a measurement: the factor
+    at ``block=64`` and ``block=128`` timed in turns (64, 128, 128, 64,
+    CUDA events over TIMING_REPS calls each), both held against the same
+    float64 inverse.  Returns ``{path: launches}``."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import spd_linalg
+
+    big = spd_linalg.MAX_LEAF
+    block = reg[:, :big, :big].contiguous()
+    leaves = reg.shape[-1] // big
+
+    def run():
+        return (spd_linalg.spd_inverse_factor_parts(reg, block=big),
+                sct.spd_inverse_blocked(reg, block=big),
+                sct.panel_inverse_batched(block))
+
+    (parts, inv, w_full), _, launches = drive("panel_functions_128", run)
+    check(launches["panel_inverse"] == 2 * leaves,
+          f"panel_functions_128: {launches['panel_inverse']} leaf launches, "
+          f"not {2 * leaves} (leaves of {big} rows)")
+    reg64 = reg.double()
+    eye = torch.eye(reg.shape[-1], device=reg.device, dtype=torch.float64)
+    ref = torch.cholesky_solve(eye.expand_as(reg64),
+                               torch.linalg.cholesky(reg64))
+    del reg64, eye
+    b64 = block.double()
+    eye = torch.eye(big, device=reg.device, dtype=torch.float64)
+    errs = {
+        "parts": max_errors(_gram_of_parts(parts), ref)[1],
+        "blocked": max_errors(inv, ref)[1],
+        "W_full A W_full^T - I": float(
+            (w_full.double() @ b64 @ w_full.double().mT - eye).abs().max()),
+    }
+    del parts, inv, w_full, b64
+    for key, err in errs.items():
+        check(err <= SLICE_TOL, f"panel_functions_128: {key} {err:.3e}")
+    print(f"panel_functions_128 on {tuple(reg.shape)}: K3 launches "
+          f"{launches['panel_inverse']} ({leaves} leaves of {big} a call), "
+          + ", ".join(f"{key} {err:.3e}" for key, err in errs.items())
+          + f" (tol {SLICE_TOL:g}; inverses as max rel err against float64 "
+          f"cho_solve)", flush=True)
+
+    def factor(b):
+        return lambda: spd_linalg.spd_inverse_factor_parts(reg, block=b)
+
+    turns = {spd_linalg.LEAF: [], big: []}
+    for b in (spd_linalg.LEAF, big, big, spd_linalg.LEAF):
+        turns[b].append(cuda_ms(factor(b)))
+    errs = {b: max_errors(_gram_of_parts(factor(b)()), ref)[1]
+            for b in turns}
+    del ref
+    for b, err in errs.items():
+        check(err <= SLICE_TOL, f"inverse factor at block={b}: {err:.3e}")
+    print(f"leaf turns: spd_inverse_factor_parts {tuple(reg.shape)}, CUDA "
+          f"events over {TIMING_REPS} calls, in turns 64, 128, 128, 64: "
+          + "; ".join(f"block={b} " + ", ".join(f"{t:.3f}" for t in ms)
+                      + f" ms (mean {sum(ms) / len(ms):.3f}; G^T G vs "
+                      f"float64 cho_solve max rel err {errs[b]:.3e})"
+                      for b, ms in turns.items()), flush=True)
+    torch.cuda.empty_cache()
+    return {"panel_functions_128": launches}
+
+
+def _eig_checks(label, vals, vecs, matrix64, ref_vals, norm):
+    """Float32 modes (rows) against `ref_vals`, their float64 eigenvalues
+    of the same matrix, whose largest |lambda| is `norm` (``||M||_2``):
+    eigenvalues within SLICE_TOL of it, ``||M u - lambda u|| <=
+    RESIDUAL_TOL ||M||_2``, ``|U U^T - I| <= ORTHO_TOL``."""
+    import torch
+
+    k = vals.shape[0]
+    val_err = float((vals.double() - ref_vals[:k]).abs().max()) / norm
+    u = vecs.double()
+    res = float(torch.linalg.vector_norm(
+        matrix64 @ u.T - u.T * vals.double()[None, :], dim=0).max()) / norm
+    orth = float((u @ u.T - torch.eye(k, device=u.device,
+                                      dtype=u.dtype)).abs().max())
+    print(f"{label}: float32 eigenvalues vs float64 eigh max err "
+          f"{val_err:.3e} of max|lambda| (tol {SLICE_TOL:g}); residual "
+          f"{res:.3e} ||M||_2 (tol {RESIDUAL_TOL:g}); |UU^T - I| {orth:.3e} "
+          f"(tol {ORTHO_TOL:g})", flush=True)
+    check(val_err <= SLICE_TOL, f"{label}: eigenvalues {val_err:.3e}")
+    check(res <= RESIDUAL_TOL, f"{label}: residual {res:.3e}")
+    check(orth <= ORTHO_TOL, f"{label}: orthonormality {orth:.3e}")
+
+
+def _refined_checks(label, theta, res, ref_vals, wanted):
+    """Refined float64 eigenvalues of the `wanted` lowest modes against
+    the float64 spectrum `ref_vals`, within REFINED_RTOL relative."""
+    rel = float(((theta[:wanted] - ref_vals[:wanted]).abs()
+                 / ref_vals[:wanted].abs()).max())
+    print(f"{label}: refined float64 eigenvalues vs float64 eigh max rel "
+          f"err {rel:.3e} (tol {REFINED_RTOL:g}), refined residuals max "
+          f"{float(res[:wanted].max()):.3e}", flush=True)
+    check(rel <= REFINED_RTOL, f"{label}: refined eigenvalues {rel:.3e}")
+
+
+def mode_paths(ca_7cal, e_anm, card):
+    """A structure's lowest modes by shift-invert, then float64
+    refinement: 7cal's CA trace under eANM (K5 through its table branch,
+    ``lowest_modes_anm(engine="auto")`` = ``"invfactor"``, K3 at the
+    recursion's 64-wide leaves, ``refine_modes_f64``), its GNM twin (K6,
+    ``lowest_modes_shift_invert`` with ``null_mode_gnm``,
+    ``refine_modes_f64_gnm``) and 8,192 random atoms under the invariant
+    field (``"chol"``, ``refine_modes_f64(method="sparse")``).  Each
+    solves N_MODES + MODE_BUFFER modes and holds the N_MODES lowest;
+    returns ``{path: launches}``."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import assembly, assembly_kernels, rigid
+
+    k = N_MODES + MODE_BUFFER
+    c = torch.as_tensor(ca_7cal, device="cuda")
+    n = c.shape[0]
+    launches = {}
+
+    def anm():
+        h = assembly_kernels.hessian_xyz_ensemble(c[None], e_anm)[0]
+        vals, vecs = sct.lowest_modes_anm(h, c, k, engine="auto")
+        return h, vals, vecs, sct.refine_modes_f64(c, e_anm, vecs)
+
+    def gnm():
+        kirchhoff = assembly_kernels.kirchhoff_ensemble(c[None], e_anm)[0]
+        vals, vecs = sct.lowest_modes_shift_invert(
+            kirchhoff, rigid.null_mode_gnm(n, device=c.device), k=k,
+            engine="auto")
+        return (kirchhoff, vals, vecs,
+                sct.refine_modes_f64_gnm(c, e_anm, vecs))
+
+    c64 = c.double()
+    for path, run, trivial, exact in (
+            ("anm_7cal_modes", anm, 6, lambda: assembly.hessian_matrix(
+                c64, e_anm, layout="xyz")),
+            ("gnm_7cal_modes", gnm, 1, lambda: assembly.kirchhoff_matrix(
+                c64, e_anm))):
+        (matrix, vals, vecs, (theta, _, res)), seconds, launches[path] = \
+            drive(path, run)
+        again = timed(run)
+        m64 = matrix.double()
+        del matrix
+        ref = torch.linalg.eigvalsh(m64)
+        _eig_checks(path, vals[:N_MODES], vecs[:N_MODES], m64,
+                    ref[trivial:], float(ref.abs().max()))
+        del m64
+        ref = torch.linalg.eigvalsh(exact())[trivial:]
+        _refined_checks(path, theta, res, ref, N_MODES)
+        print(f"{path}: N={n} float32, {k} modes ({N_MODES} held), "
+              f"{seconds * 1e3:.1f} ms per structure (first call), "
+              f"{again * 1e3:.1f} ms (second) on [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+    invariant = sct.invariant_params(MATFREE_CUTOFF)
+    c8 = torch.as_tensor(matfree_coord(N_LARGE), device="cuda")
+
+    def large():
+        h = assembly_kernels.hessian_xyz_ensemble(c8[None], invariant)[0]
+        vals, vecs = sct.lowest_modes_anm(h, c8, k)
+        del h
+        return vals, vecs, sct.refine_modes_f64(c8, invariant, vecs,
+                                                method="sparse")
+
+    path = "anm_modes_8192"
+    (vals, vecs, (theta, _, res)), seconds, launches[path] = drive(path,
+                                                                  large)
+    torch.cuda.empty_cache()
+    again = timed(large)
+    worst = float(res[:N_MODES].max())
+    shift = float(((theta[:N_MODES] - vals[:N_MODES].double()).abs()
+                   / theta[:N_MODES].abs()).max())
+    print(f"{path}: N={N_LARGE} float32 (chol engine), refined float64 "
+          f"residuals max {worst:.3e} (tol {MATFREE_RESIDUAL_TOL:g}), "
+          f"float32 eigenvalues within {shift:.3e} of the refined ones; "
+          f"{seconds * 1e3:.1f} ms per structure (first call), "
+          f"{again * 1e3:.1f} ms (second) on [{card}]", flush=True)
+    check(worst <= MATFREE_RESIDUAL_TOL,
+          f"{path}: refined residual {worst:.3e}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def paths(conformers, single, params, card):
@@ -2236,6 +2478,7 @@ def main():
                                     card))
     launches.update(direct_paths(conformers, params, card))
     launches.update(panel_function_path(conformers, params))
+    launches.update(mode_paths(ca_7cal.coord, e_anm, card))
     launches.update(overlay_paths(conformers, ca_7cal, e_anm, card))
     launches.update(matfree_paths(card))
     launches.update(matfree_paths(card, tabulated=True))

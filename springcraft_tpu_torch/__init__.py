@@ -26,7 +26,12 @@ kernels): the lowest modes by Chebyshev-filtered subspace iteration
 preconditioned CG (:func:`covariance_solve_matfree`,
 :func:`covariance_solve_matfree_gnm`, :func:`linear_response_matfree`,
 :func:`prs_rows_matfree`, :func:`dcc_rows_matfree`,
-:func:`dcc_rows_matfree_gnm`).
+:func:`dcc_rows_matfree_gnm`); and for one structure's lowest modes
+without a full eigendecomposition, shift-invert subspace iteration
+(:func:`lowest_modes_anm`, :func:`lowest_modes_shift_invert`, the inverse
+factor's leaf kernel on CUDA) or LOBPCG (:func:`lowest_modes`), refined
+in float64 on the card (:func:`refine_modes_f64`,
+:func:`refine_modes_f64_gnm`).
 
 Entry points run on the current CUDA device unless the caller passes a
 tensor that lies elsewhere or ``device="cpu"``.
@@ -61,6 +66,9 @@ from .ops.matfree import (covariance_solve_matfree,
                           dcc_rows_matfree_gnm, estimate_lambda_max,
                           linear_response_matfree, lowest_modes_matfree,
                           lowest_modes_matfree_gnm, prs_rows_matfree)
+from .ops.modes import (lowest_modes, lowest_modes_anm,
+                        lowest_modes_shift_invert, refine_modes_f64,
+                        refine_modes_f64_gnm)
 from .utils.config import resolve_device, synchronize
 
 __all__ = [
@@ -109,6 +117,11 @@ __all__ = [
     "prs_rows_matfree",
     "dcc_rows_matfree",
     "dcc_rows_matfree_gnm",
+    "lowest_modes",
+    "lowest_modes_anm",
+    "lowest_modes_shift_invert",
+    "refine_modes_f64",
+    "refine_modes_f64_gnm",
     "resolve_device",
     "synchronize",
     "kernel_wrappers",

@@ -18,9 +18,11 @@
 // detects a matrix that is not SPD.
 //
 // What bounds the shrink kernel (K3) on the H100: latency.  A panel is
-// pb = 64 dependent steps of at most 64 x 64 multiply-subtracts each; the
-// main path runs 128 panels per launch (one block an SM, nothing else to
-// hide latency) and 16 dependent launches per chunk.
+// pb dependent steps of at most pb x pb multiply-subtracts each; the main
+// path runs 128 panels of pb = 64 per launch (one block an SM, nothing
+// else to hide latency) and 16 dependent launches per chunk.  Both
+// entries take every pb that is a multiple of 8 up to 128, the largest
+// leaf of the JAX package's blocked inverse (its `block=` clamp).
 //
 // Its design.  In place: at step i only the columns i + 1 .. i + pb of
 // [M | I] change anything the output reads (left-half columns <= i are
@@ -30,7 +32,8 @@
 // and right column pb + j from then on (its value delta(r, j) before the
 // step's update, the pivot row's 1 there).  The state lives in registers
 // with fixed ownership: a row is 8 lanes of one warp holding pb / 8 slots
-// each, a warp 4 rows (pb = 64: 16 warps).  Warp k runs the steps of its
+// each, a warp 4 rows (pb = 64: 16 warps; pb = 128: 32 warps, the most a
+// block has, and 16 slots a lane).  Warp k runs the steps of its
 // own 4 pivots alone, every value it needs passed by shuffles, and
 // publishes each pivot row and its rs^2 to shared memory; the warps below
 // apply each step as soon as it is published, meeting warp k on a named
@@ -54,14 +57,16 @@
 // What bounds K9: the chain of 64 dependent steps, each a broadcast of the
 // pivot row and column and 2 pb^2 multiply-subtracts, so each step's
 // latency counts.  The design keeps the state in registers, so no step
-// round-trips it through shared memory: a thread owns a fixed patch of 4
-// rows x 4 columns of [M | I] (at pb = 64: 512 threads, 16 elements
-// each).  At step i the owners of row i and of column i publish the pivot
+// round-trips it through shared memory: a thread owns a fixed patch of R
+// rows x 4 columns of [M | I]: R = 4 up to pb = 64 (512 threads, 16
+// elements each), R = 8 above (pb = 128: 1,024 threads, the most a block
+// has, 32 elements each; 64 registers a thread, so ptxas spills about 90
+// bytes).  At step i the owners of row i and of column i publish the pivot
 // row, the column M[:, i] and the pivot's two coefficients (1 - rs, rs^2)
 // into a double-buffered slot in shared memory; one barrier; then every
-// thread applies its 16 independent updates from three vector loads.  The
-// step loop is unrolled by 4, so which register holds row i and column i
-// is known at compile time.  The updates keep the plain version's
+// thread applies its 4 R independent updates from 1 + R / 4 vector loads.
+// The step loop is unrolled by max(R, 4), so which register holds row i and
+// column i is known at compile time.  The updates keep the plain version's
 // __fmul_rn / __fsub_rn order, so the output equals it and the shrink
 // kernel bit for bit.
 
@@ -221,27 +226,40 @@ __global__ void __launch_bounds__(ShrinkLayout<PB>::kThreads)
   store_floats(out + offset + c0, res);
 }
 
-// Rows and columns of [M | I] per thread of the full-window kernel, and
-// the largest panel it takes.
-constexpr int kFullRows = 4;
+// The largest panel either kernel takes, and the largest the full-window
+// kernel takes at 4 rows of [M | I] a thread (8 rows above it).
+constexpr int kMaxPanel = 128;
+constexpr int kFullNarrowPanel = 64;
+// Columns of [M | I] per thread of the full-window kernel; its rows per
+// thread R, the largest panel each R takes, so that 2 pb^2 / (4 R) threads
+// stay within a block's 1,024, and the step unroll that keeps the owners'
+// registers known at compile time.
 constexpr int kFullCols = 4;
-constexpr int kMaxPanel = 64;
+template <int R>
+struct FullLayout {
+  static constexpr int kMaxPanel = R == 4 ? kFullNarrowPanel : 128;
+  static constexpr int kThreads = 2 * kMaxPanel * kMaxPanel / (R * kFullCols);
+  static constexpr int kUnroll = R > kFullCols ? R : kFullCols;
+};
+static_assert(FullLayout<8>::kMaxPanel == kMaxPanel &&
+                  FullLayout<8>::kThreads <= 1024,
+              "the widest instance takes the largest panel in one block");
 
-// One block per panel, pb^2 / (2 R) threads (R = kFullRows): thread (ty,
-// tx) holds rows ty R .. ty R + R - 1 and columns 4 tx .. 4 tx + 3 of
-// [M | I].
-__global__ void __launch_bounds__(2 * kMaxPanel * kMaxPanel /
-                                  (kFullRows * kFullCols))
+// One block per panel, pb^2 / (2 R) threads: thread (ty, tx) holds rows
+// ty R .. ty R + R - 1 and columns 4 tx .. 4 tx + 3 of [M | I].
+template <int R>
+__global__ void __launch_bounds__(FullLayout<R>::kThreads)
     panel_inverse_full_kernel(const float* __restrict__ panels,
                               float* __restrict__ out, int pb) {
-  constexpr int R = kFullRows;
-  // step i's row and column are register s % 4 of their owners
-  constexpr int kUnroll = kFullCols;
-  static_assert(R == kFullCols, "one unroll serves rows and columns");
+  constexpr int kMax = FullLayout<R>::kMaxPanel;
+  // step i's row and column are register s % R and s % 4 of their owners
+  constexpr int kUnroll = FullLayout<R>::kUnroll;
+  static_assert(R % 4 == 0 && kUnroll % R == 0 && kUnroll % kFullCols == 0,
+                "one unroll serves rows and columns");
   // double-buffered step slots: the pivot row, the pivot column, and
   // (1 - rs, rs^2) of the pivot
-  __shared__ float4 s_row[2][2 * kMaxPanel / kFullCols];
-  __shared__ __align__(16) float s_col[2][kMaxPanel];
+  __shared__ float4 s_row[2][2 * kMax / kFullCols];
+  __shared__ __align__(16) float s_col[2][kMax];
   __shared__ float2 s_piv[2];
   const int tx_count = 2 * pb / kFullCols;
   const int tx = threadIdx.x % tx_count, ty = threadIdx.x / tx_count;
@@ -257,6 +275,7 @@ __global__ void __launch_bounds__(2 * kMaxPanel * kMaxPanel /
       v[p][q] = c < pb ? a[r * pb + c] : (c - pb == r ? 1.0f : 0.0f);
     }
 
+  // pb is a multiple of 8, so of kUnroll
   for (int i0 = 0; i0 < pb; i0 += kUnroll) {
 #pragma unroll
     for (int s = 0; s < kUnroll; ++s) {
@@ -277,20 +296,25 @@ __global__ void __launch_bounds__(2 * kMaxPanel * kMaxPanel /
       __syncthreads();
       const float4 row = s_row[b][tx];
       const float2 piv = s_piv[b];
-      const float4 t = *reinterpret_cast<const float4*>(&s_col[b][r0]);
-      const float col[R] = {t.x, t.y, t.z, t.w};
+      // the pivot column four rows at a time, so that at R = 8 no more
+      // than four of its values are live beside the state
 #pragma unroll
-      for (int p = 0; p < R; ++p) {
-        const int r = r0 + p;
-        // rows above the pivot take 0 (a non-finite pivot row still reaches
-        // them, as in the TPU kernel)
-        const float coef = r < i    ? 0.0f
-                           : r == i ? piv.x
-                                    : __fmul_rn(col[p], piv.y);
-        v[p][0] = __fsub_rn(v[p][0], __fmul_rn(coef, row.x));
-        v[p][1] = __fsub_rn(v[p][1], __fmul_rn(coef, row.y));
-        v[p][2] = __fsub_rn(v[p][2], __fmul_rn(coef, row.z));
-        v[p][3] = __fsub_rn(v[p][3], __fmul_rn(coef, row.w));
+      for (int p4 = 0; p4 < R; p4 += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(&s_col[b][r0 + p4]);
+        const float col[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = p4 + q, r = r0 + p;
+          // rows above the pivot take 0 (a non-finite pivot row still
+          // reaches them, as in the TPU kernel)
+          const float coef = r < i    ? 0.0f
+                             : r == i ? piv.x
+                                      : __fmul_rn(col[q], piv.y);
+          v[p][0] = __fsub_rn(v[p][0], __fmul_rn(coef, row.x));
+          v[p][1] = __fsub_rn(v[p][1], __fmul_rn(coef, row.y));
+          v[p][2] = __fsub_rn(v[p][2], __fmul_rn(coef, row.z));
+          v[p][3] = __fsub_rn(v[p][3], __fmul_rn(coef, row.w));
+        }
       }
     }
   }
@@ -311,11 +335,16 @@ __global__ void __launch_bounds__(2 * kMaxPanel * kMaxPanel /
 
 extern "C" int sc_panel_inverse_full(const float* panels, float* out,
                                      int count, int pb, void* stream) {
-  if (pb % 8 != 0 || pb > kMaxPanel) return cudaErrorInvalidValue;
-  if (count > 0)
-    panel_inverse_full_kernel<<<count, pb * pb / (2 * kFullRows), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        panels, out, pb);
+  if (pb % 8 != 0 || pb <= 0 || pb > kMaxPanel) return cudaErrorInvalidValue;
+  if (count > 0) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (pb <= kFullNarrowPanel)
+      panel_inverse_full_kernel<4><<<count, pb * pb / (2 * 4), 0, s>>>(
+          panels, out, pb);
+    else
+      panel_inverse_full_kernel<8><<<count, pb * pb / (2 * 8), 0, s>>>(
+          panels, out, pb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,21 +355,24 @@ void launch_shrink(const float* panels, float* out, int count,
       <<<count, ShrinkLayout<PB>::kThreads, 0, stream>>>(panels, out);
 }
 
+// The shrink kernel's instance of pb, for every multiple of 8 up to
+// kMaxPanel.
+template <int PB = 8>
+void launch_shrink_of(int pb, const float* panels, float* out, int count,
+                      cudaStream_t stream) {
+  if constexpr (PB <= kMaxPanel) {
+    if (pb == PB)
+      launch_shrink<PB>(panels, out, count, stream);
+    else
+      launch_shrink_of<PB + 8>(pb, panels, out, count, stream);
+  }
+}
+
 extern "C" int sc_panel_inverse(const float* panels, float* out, int count,
                                 int pb, void* stream) {
   if (pb % 8 != 0 || pb <= 0 || pb > kMaxPanel) return cudaErrorInvalidValue;
-  if (count > 0) {
-    const auto s = static_cast<cudaStream_t>(stream);
-    switch (pb) {
-      case 8: launch_shrink<8>(panels, out, count, s); break;
-      case 16: launch_shrink<16>(panels, out, count, s); break;
-      case 24: launch_shrink<24>(panels, out, count, s); break;
-      case 32: launch_shrink<32>(panels, out, count, s); break;
-      case 40: launch_shrink<40>(panels, out, count, s); break;
-      case 48: launch_shrink<48>(panels, out, count, s); break;
-      case 56: launch_shrink<56>(panels, out, count, s); break;
-      default: launch_shrink<64>(panels, out, count, s); break;
-    }
-  }
+  if (count > 0)
+    launch_shrink_of(pb, panels, out, count,
+                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

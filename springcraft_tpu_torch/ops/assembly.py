@@ -1,7 +1,7 @@
 """
-Dense batched ANM Hessian (xyz plane layout) and GNM Kirchhoff assembly.
+Dense ANM Hessian and GNM Kirchhoff assembly.
 
-Counterpart of ``springcraft_tpu/ops/assembly.py:43-181, 266-307`` for
+Counterpart of ``springcraft_tpu/ops/assembly.py:43-325`` for
 the analytic and the tabulated families, with or without patch overlays
 (spring constants from :func:`.ffparams.force_constants`: an analytic
 rule or a table lookup, then the overlays' adjacency and value
@@ -17,15 +17,31 @@ the diagonal and the row sum of ``k`` on it.
 to matrices assembled for the base family, which is how the kernels
 carry a ``PatchedForceField``.  They are scatters, not kernels, in the
 JAX package too.
+
+The JAX package's single-structure functions, on one ``(n, 3)``
+structure in any float dtype: :func:`kirchhoff_matrix` and
+:func:`hessian_matrix` (``layout="atom"``, the reference's interleaved
+components, or ``"xyz"``, the component planes), and the row panels
+:func:`kirchhoff_rows` and :func:`hessian_rows` (atom layout) that the
+float64 refinement of :mod:`.modes` streams without a resident matrix;
+:func:`atom_to_xyz_permutation` and :func:`mass_weights`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ffparams import force_constants, overlay_pair_delta
+from .ffparams import (_bin_indices, _within_cutoff, force_constant_matrix,
+                       force_constants, overlay_pair_delta,
+                       pairwise_sq_distance, rect_base_constants)
 
 __all__ = [
+    "kirchhoff_matrix",
+    "kirchhoff_rows",
+    "hessian_matrix",
+    "hessian_rows",
+    "atom_to_xyz_permutation",
+    "mass_weights",
     "overlay_correction_hessian_xyz",
     "overlay_correction_kirchhoff",
     "kirchhoff_plain",
@@ -131,3 +147,129 @@ def overlay_correction_kirchhoff(kirchhoff, coord, params):
     return _scatter_pairs(
         kirchhoff, torch.cat([ii, jj, ii, jj]), torch.cat([jj, ii, ii, jj]),
         torch.cat([-delta, -delta, delta, delta], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Single structures: dense matrices and row panels
+# ---------------------------------------------------------------------------
+
+def _as_coord(coord, dtype):
+    coord = torch.as_tensor(coord)
+    return coord if dtype is None else coord.to(dtype)
+
+
+def kirchhoff_matrix(coord, params, dtype=None):
+    """Dense Kirchhoff matrix ``(n, n)`` of one structure ``(n, 3)``:
+    ``-k_ij`` off the diagonal, the column sums of ``k`` on it
+    (reference ``interaction.py:14-54``)."""
+    coord = _as_coord(coord, dtype)
+    _, sq = pairwise_sq_distance(coord)
+    k = force_constant_matrix(sq, params, dtype=coord.dtype)
+    return torch.diag(k.sum(dim=0)) - k
+
+
+def _row_force_constants(sq, params, row_start, block):
+    """Masked spring constants ``(block, n)`` of the rows ``row_start``
+    ... ``row_start + block - 1``: an analytic family or a table, no
+    overlays (their O(n^2) masks go through the dense functions)."""
+    if params.overlays:
+        raise NotImplementedError(
+            "Blocked assembly does not support patch overlays; use the "
+            "dense path")
+    n = sq.shape[-1]
+    params._check_atoms(n)
+    rows = torch.arange(row_start, row_start + block, device=sq.device)
+    cols = torch.arange(n, device=sq.device)
+    if params.kind == "table_pair":
+        dev = params.device_tables(sq.device, sq.dtype)
+        table = dev["pair_table"][row_start:row_start + block]
+        bins = _bin_indices(sq, params, dev["edges"])
+        k = table[..., 0] if bins is None else torch.gather(
+            table, -1, bins[..., None])[..., 0]
+    else:
+        k = rect_base_constants(params, sq, rows, cols)
+    adj = rows[:, None] != cols[None, :]
+    if params.has_cutoff:
+        adj = adj & _within_cutoff(sq, params)
+    return torch.where(adj, k, torch.zeros_like(k))
+
+
+def _row_geometry(coord, row_start, block):
+    rows = coord[row_start:row_start + block]
+    disp = rows[:, None, :] - coord[None, :, :]
+    return disp, (disp * disp).sum(dim=-1)
+
+
+def _row_diagonal_mask(row_start, block, n, device):
+    rows = torch.arange(row_start, row_start + block, device=device)
+    return rows[:, None] == torch.arange(n, device=device)[None, :]
+
+
+def kirchhoff_rows(coord, params, row_start, block, dtype=None):
+    """Rows ``row_start`` ... ``row_start + block - 1`` ``(block, n)`` of
+    the Kirchhoff matrix without the rest of it: each row's diagonal is
+    its own row sum of spring constants."""
+    coord = _as_coord(coord, dtype)
+    _, sq = _row_geometry(coord, row_start, block)
+    k = _row_force_constants(sq, params, row_start, block)
+    eye = _row_diagonal_mask(row_start, block, coord.shape[0], coord.device)
+    return torch.where(eye, k.sum(dim=1)[:, None], -k)
+
+
+def _superelements(g, disp):
+    """``g d d^T`` as ``(..., 3, 3)`` superelements, ``d`` the pair
+    displacements ``(..., 3)``."""
+    return g[..., None, None] * disp[..., :, None] * disp[..., None, :]
+
+
+def hessian_matrix(coord, params, dtype=None, layout="atom"):
+    """Dense ``(3n, 3n)`` Hessian of one structure ``(n, 3)``: ``-k / d^2
+    d d^T`` superelements off the diagonal, the negated column sums on it
+    (reference ``interaction.py:57-111``).  `layout` ``"atom"``
+    interleaves the components per atom (the reference's layout),
+    ``"xyz"`` groups them in component planes (the kernels' layout)."""
+    if layout not in ("atom", "xyz"):
+        raise ValueError(f"Unknown layout '{layout}'")
+    coord = _as_coord(coord, dtype)
+    n = coord.shape[0]
+    disp, sq = pairwise_sq_distance(coord)
+    k = force_constant_matrix(sq, params, dtype=coord.dtype)
+    off = _superelements(-k / torch.where(sq == 0, torch.ones_like(sq), sq),
+                         disp)
+    eye = torch.eye(n, dtype=torch.bool, device=coord.device)[..., None, None]
+    full = torch.where(eye, -off.sum(dim=0)[:, None], off)
+    perm = (0, 2, 1, 3) if layout == "atom" else (2, 0, 3, 1)
+    return full.permute(perm).reshape(3 * n, 3 * n)
+
+
+def hessian_rows(coord, params, row_start, block, dtype=None):
+    """Atom rows ``row_start`` ... ``row_start + block - 1`` of the
+    atom-layout Hessian, ``(3 block, 3n)``, without the rest of it: the
+    diagonal superelement of a row is the negated sum of its own row's
+    superelements (equal to the column sum by symmetry)."""
+    coord = _as_coord(coord, dtype)
+    n = coord.shape[0]
+    disp, sq = _row_geometry(coord, row_start, block)
+    k = _row_force_constants(sq, params, row_start, block)
+    off = _superelements(-k / torch.where(sq == 0, torch.ones_like(sq), sq),
+                         disp)
+    eye = _row_diagonal_mask(row_start, block, n, coord.device)
+    full = torch.where(eye[..., None, None], -off.sum(dim=1)[:, None], off)
+    return full.permute(0, 2, 1, 3).reshape(3 * block, 3 * n)
+
+
+def atom_to_xyz_permutation(n, device=None):
+    """Permutation ``p`` with ``H_xyz = H_atom[p][:, p]``: index ``(a,
+    i)`` of the xyz layout is ``3 i + a`` of the atom layout."""
+    return (torch.arange(3, device=device)[:, None]
+            + 3 * torch.arange(n, device=device)[None, :]).reshape(-1)
+
+
+def mass_weights(masses, repeat3=False):
+    """Mass-weight matrix ``outer(1/sqrt(m), 1/sqrt(m))``, each weight
+    repeated three times for a Hessian with `repeat3` (reference
+    ``anm.py:89-96``, ``gnm.py:85-89``)."""
+    w = 1.0 / torch.sqrt(torch.as_tensor(masses))
+    if repeat3:
+        w = w.repeat_interleave(3)
+    return torch.outer(w, w)

@@ -2,9 +2,10 @@
 Force-field parameters for the PyTorch port: the analytic families and
 the two tabulated ones, and patch overlays on top of any of them.
 
-Counterpart of ``springcraft_tpu/ops/ffparams.py:63-337, 395-456`` (the
+Counterpart of ``springcraft_tpu/ops/ffparams.py:63-485`` (the
 ``FFParams`` record with its ``PatchOverlay`` entries, its constructors,
-the dense spring-constant rules and the sparse per-pair overlay
+the dense spring-constant rules with :func:`pairwise_sq_distance` and
+:func:`force_constant_matrix`, and the sparse per-pair overlay
 correction) and of ``springcraft_tpu/ops/pallas_kernels.py:95-185`` (the
 rules the assembly kernels evaluate).  The port cannot import the JAX
 package (its ``ffparams`` imports ``jax``), so :func:`from_numpy_params`
@@ -56,6 +57,8 @@ __all__ = [
     "overlay_pair_delta",
     "effective_adjacency",
     "force_constants",
+    "pairwise_sq_distance",
+    "force_constant_matrix",
     "ANALYTIC_KINDS",
     "TABLE_KINDS",
     "KERNEL_KINDS",
@@ -598,6 +601,25 @@ def force_constants(params, sq):
             sq.device, sq.dtype)["layers"])
     return torch.where(effective_adjacency(sq, params), k,
                        torch.zeros_like(k))
+
+
+def pairwise_sq_distance(coord):
+    """Displacements ``coord[i] - coord[j]`` ``(..., n, n, 3)`` and
+    squared distances ``(..., n, n)`` of all atom pairs of `coord`
+    ``(..., n, 3)``, by the exact difference (not the ``|x|^2 - 2 x.y``
+    product), so that the cutoff decision matches a brute-force
+    reference bit for bit."""
+    disp = coord[..., :, None, :] - coord[..., None, :, :]
+    return disp, (disp * disp).sum(dim=-1)
+
+
+def force_constant_matrix(sq_dist, params, dtype=None):
+    """Dense masked force constants ``k[i, j]`` ``(..., n, n)`` at squared
+    distances `sq_dist`, overlays applied (zero on the diagonal and
+    outside the interaction set): :func:`force_constants` with the JAX
+    package's argument order, cast to `dtype` when given."""
+    k = force_constants(params, sq_dist)
+    return k if dtype is None else k.to(dtype)
 
 
 def _overlay_from_fields(entry):

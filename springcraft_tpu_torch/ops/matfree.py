@@ -71,8 +71,11 @@ tabulated family and the overlay masks are permuted with the atoms,
 while the bonded test of the table lookup goes by original atom id, the
 ids that also mask self-pairs and padding.
 
-Not ported: ``checkpoint=`` / ``retries=``, the stochastic estimators and
-effector/sensor routes (ROADMAP.md).
+The solvers take the JAX package's ``use_pallas=`` (``False`` refused on
+CUDA), ``matvec_precision="highest"`` and ``checkpoint=None`` /
+``retries=0``.  Not ported: the elastic loop behind ``checkpoint=`` /
+``retries=``, the stochastic estimators and effector/sensor routes
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..utils.config import as_tensor, resolve_device
+from ..utils.config import (as_tensor, check_elastic, check_use_pallas,
+                            resolve_device)
 from . import rigid
 from .assembly_kernels import _table_args
 from .ffparams import (KERNEL_KINDS, FFParams, overlay_pair_delta,
@@ -1184,8 +1188,10 @@ def _mass_weighted(base, w):
 
 def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
                          degree=96, n_outer=10, tile=256, block=512,
-                         sparse=None, dtype=torch.float32, lambda_max=None,
-                         seed=0, matvec=None, tol=None, device=None):
+                         use_pallas=None, sparse=None, dtype=torch.float32,
+                         lambda_max=None, seed=0, matvec=None, tol=None,
+                         matvec_precision="highest", checkpoint=None,
+                         retries=0, device=None):
     """
     The `k` lowest non-trivial ANM modes **without materializing the
     Hessian** — Chebyshev-filtered subspace iteration over the
@@ -1225,6 +1231,14 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     matvec : callable, optional
         Override the operator: ``matvec(x)`` with x ``(3n, p)`` returns
         ``H @ x``; mass weighting still wraps it.
+    use_pallas : {None, "auto", True, False}
+        The JAX package's switch: the kernels on CUDA, their plain
+        versions on the CPU; ``False`` raises on CUDA.
+    matvec_precision : {"highest"}
+        Full float32 products, the only setting (as in the JAX package).
+    checkpoint, retries
+        ``None`` and ``0`` only: the elastic loop is not ported yet
+        (:func:`..utils.config.check_elastic`).
 
     Returns
     -------
@@ -1234,7 +1248,12 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
         ``|H u - lambda u| / lambda``.
     """
     _check_params(params)
+    if matvec_precision != "highest":
+        raise ValueError(f"matvec_precision must be 'highest' (full "
+                         f"float32 products), got {matvec_precision!r}")
+    check_elastic(checkpoint, retries)
     coord = _coord(coord, dtype, device)
+    check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
     kernel, sparse = _route(coord, params, matvec, sparse, tile)
     q = _oversample(oversample, k, kernel, matvec)
@@ -1271,9 +1290,10 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
 
 def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
                              oversample=None, degree=96, n_outer=10,
-                             tile=256, block=512, sparse=None,
-                             dtype=torch.float32, lambda_max=None, seed=0,
-                             matvec=None, tol=None, device=None):
+                             tile=256, block=512, use_pallas=None,
+                             sparse=None, dtype=torch.float32,
+                             lambda_max=None, seed=0, matvec=None, tol=None,
+                             checkpoint=None, retries=0, device=None):
     """
     The `k` lowest non-trivial GNM modes without materializing the
     Kirchhoff matrix: :func:`lowest_modes_matfree` over the Kirchhoff
@@ -1281,10 +1301,13 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     operators), with the constant vector as the deflated null space.
 
     Returns ``(eig_values (k,), eig_vectors (k, n), residuals (k,))`` in
-    the original atom order.
+    the original atom order.  `use_pallas`, `checkpoint` and `retries` as
+    in :func:`lowest_modes_matfree`.
     """
     _check_params(params)
+    check_elastic(checkpoint, retries)
     coord = _coord(coord, dtype, device)
+    check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
     kernel, sparse = _route(coord, params, matvec, sparse, tile)
     q = _oversample(oversample, k, kernel, matvec)
@@ -1381,8 +1404,8 @@ def _deflated_pcg_gnm(op, t, inv_diag, rhs, n, *, tol, max_iter):
 
 def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
                              max_iter=1000, tile=256, block=512,
-                             sparse=None, dtype=torch.float32, matvec=None,
-                             device=None):
+                             use_pallas=None, sparse=None,
+                             dtype=torch.float32, matvec=None, device=None):
     """
     ``pinv(H) @ rhs`` without materializing the Hessian or its
     covariance: deflated, block-Jacobi-preconditioned CG on the implicit
@@ -1398,7 +1421,7 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
         Relative residual target per column.
     max_iter : int
         CG iteration cap.
-    sparse, matvec, device :
+    use_pallas, sparse, matvec, device :
         As :func:`lowest_modes_matfree` (kernel route: float32 on CUDA).
 
     Returns
@@ -1411,6 +1434,7 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
     """
     _check_params(params)
     coord = _coord(coord, dtype, device)
+    check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
     kernel, sparse = _route(coord, params, matvec, sparse, tile)
     rhs, squeeze = _columns(rhs, 3 * n, coord, "rhs")
@@ -1454,17 +1478,20 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
 
 def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
                                  tol=1e-6, max_iter=1000, tile=256,
-                                 block=512, sparse=None, dtype=torch.float32,
-                                 precond=True, device=None):
+                                 block=512, use_pallas=None, sparse=None,
+                                 dtype=torch.float32, precond=True,
+                                 device=None):
     """
     ``pinv(K) @ rhs`` for the GNM Kirchhoff matrix without materializing
     it — the GNM twin of :func:`covariance_solve_matfree` (constant-mode
     deflation, degree Jacobi preconditioner, per-column CG step sizes).
     `rhs` is ``(n, k)`` or ``(n,)``; ``precond=False`` skips the O(n^2)
-    degree pass.  Returns ``(x, n_iter, residuals)``.
+    degree pass; `use_pallas` as in :func:`lowest_modes_matfree`.
+    Returns ``(x, n_iter, residuals)``.
     """
     _check_params(params)
     coord = _coord(coord, dtype, device)
+    check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
     kernel, sparse = _route(coord, params, None, sparse, tile)
     rhs, squeeze = _columns(rhs, n, coord, "rhs")

@@ -10,6 +10,12 @@ a connected network with orthonormal null basis ``T`` and any
 so the covariance comes from an SPD inverse.  Everything here is
 batched over a leading conformer axis (the JAX package vmaps).
 
+Every covariance function takes the JAX package's ``sigma=``, the weight
+of the null space (default: the mean diagonal of the matrix), and
+:func:`covariance_cholesky` its ``block_size=`` (the identity solved in
+column blocks); :func:`pinv_diagonal` gives the covariance diagonal alone
+from one factor and column-block solves.
+
 Two engines give the covariance ``pinv(M)`` (:func:`covariance_cholesky`,
 ANM and GNM) or, for an xyz-layout ANM Hessian, only its plane traces
 ``traces[i, j] = sum_a pinv(H)[a n + i, a n + j]`` that MSF, B-factors
@@ -54,14 +60,19 @@ __all__ = [
     "covariance_plane_traces_from_planes",
     "covariance_plane_traces_direct",
     "direct_prep_applies",
+    "pinv_diagonal",
 ]
 
 
-def rigid_modes_anm(coords, masses=None):
-    """Orthonormal xyz-layout basis ``(..., 3n, 6)`` of the six rigid-body
-    modes (translations, rotations about the centroid) of conformers
-    ``(..., n, 3)``; with `masses` the modes of the mass-weighted
-    Hessian ``W H W`` (scaled by ``sqrt(m)``)."""
+def rigid_modes_anm(coords, masses=None, layout="xyz"):
+    """Orthonormal basis ``(..., 3n, 6)`` of the six rigid-body modes
+    (translations, rotations about the centroid) of conformers ``(...,
+    n, 3)``; with `masses` the modes of the mass-weighted Hessian ``W H
+    W`` (scaled by ``sqrt(m)``).  `layout` ``"xyz"`` (component planes,
+    the kernels' layout) or ``"atom"`` (components interleaved per
+    atom)."""
+    if layout not in ("xyz", "atom"):
+        raise ValueError(f"Unknown layout '{layout}'")
     n = coords.shape[-2]
     centered = coords - coords.mean(dim=-2, keepdim=True)
     x, y, z = centered[..., 0], centered[..., 1], centered[..., 2]
@@ -76,7 +87,9 @@ def rigid_modes_anm(coords, masses=None):
         torch.stack([-y, x, zero], dim=-2),         # Rz
     ], dim=-1)                                      # (..., 3, n, 6)
     if masses is not None:
-        modes = modes * torch.sqrt(masses)[:, None]
+        modes = modes * torch.sqrt(torch.as_tensor(masses))[:, None]
+    if layout == "atom":
+        modes = modes.transpose(-3, -2)
     q, _ = torch.linalg.qr(modes.reshape(modes.shape[:-3] + (3 * n, 6)))
     return q
 
@@ -94,25 +107,34 @@ def null_mode_gnm(n, masses=None, dtype=torch.float32, device=None):
     return v / torch.linalg.norm(v)
 
 
-def _equilibration(diag_m, t):
+def _sigma(diag_m, sigma):
+    """The null-space weight ``(..., 1, 1)``: `sigma` (a number, or one
+    per matrix of the batch) or, for ``None``, the mean diagonal."""
+    if sigma is None:
+        return diag_m.mean(dim=-1)[..., None, None]
+    sigma = torch.as_tensor(sigma, dtype=diag_m.dtype, device=diag_m.device)
+    return sigma[..., None, None]
+
+
+def _equilibration(diag_m, t, sigma=None):
     """``(scale, sigma, ts)`` of the null-space-regularized Jacobi
-    equilibration with ``sigma`` the mean of the diagonal:
+    equilibration, ``sigma`` by default the mean of the diagonal:
     ``scale = (diag + sigma |t_row|^2)^-1/2`` and
     ``ts = t * scale sqrt(sigma)``."""
-    sigma = diag_m.mean(dim=-1)[..., None, None]
+    sigma = _sigma(diag_m, sigma)
     tn2 = (t * t).sum(dim=-1)
     scale = torch.rsqrt(diag_m + sigma[..., 0] * tn2)
     ts = t * (scale * torch.sqrt(sigma[..., 0]))[..., None]
     return scale, sigma, ts
 
 
-def _regularize_equilibrated(matrix, t, pad_to=None):
+def _regularize_equilibrated(matrix, t, pad_to=None, sigma=None):
     """``reg = S (M + sigma T T^t) S`` with ``S = diag(reg)^-1/2`` from
     the analytic diagonal, optionally identity-padded to ``pad_to``.
     Returns ``(reg, scale, sigma)``; ``scale`` stays unpadded."""
     m = matrix.shape[-1]
     diag_m = torch.diagonal(matrix, dim1=-2, dim2=-1)
-    scale, sigma, ts = _equilibration(diag_m, t)
+    scale, sigma, ts = _equilibration(diag_m, t, sigma)
     reg = (matrix * scale[..., :, None] * scale[..., None, :]
            + ts @ ts.transpose(-1, -2))
     if pad_to is not None and pad_to != m:
@@ -122,7 +144,7 @@ def _regularize_equilibrated(matrix, t, pad_to=None):
     return reg, scale, sigma
 
 
-def _stitch_inputs_from_diag(diag_m, t, masses):
+def _stitch_inputs_from_diag(diag_m, t, masses, sigma=None):
     """``(scale, sigma, scale_h, ts)`` of the stitch kernels from the
     raw Hessian diagonal ``(B, 3n)``: mass weights ``w = 1 / sqrt(m)``
     of ``M' = W H W`` scale the diagonal and fold into the kernel's row
@@ -132,7 +154,7 @@ def _stitch_inputs_from_diag(diag_m, t, masses):
     if masses is not None:
         w_xyz = (1.0 / torch.sqrt(masses.to(diag_m.dtype))).repeat(3)
         diag_m = diag_m * (w_xyz * w_xyz)[None]
-    scale, sigma, ts = _equilibration(diag_m, t)
+    scale, sigma, ts = _equilibration(diag_m, t, sigma)
     scale_h = scale if w_xyz is None else scale * w_xyz[None]
     if ts.shape[-2] != diag_m.shape[-1]:
         raise ValueError(f"null basis has {ts.shape[-2]} rows, the "
@@ -140,16 +162,16 @@ def _stitch_inputs_from_diag(diag_m, t, masses):
     return scale, sigma, scale_h.contiguous(), ts.contiguous()
 
 
-def stitch_inputs(planes, t, masses=None):
+def stitch_inputs(planes, t, masses=None, sigma=None):
     """Everything the regularize/stitch kernel needs besides the planes
     (see :func:`_stitch_inputs_from_diag`), the diagonal read off the
     three diagonal planes."""
     diag_m = torch.cat([torch.diagonal(planes[4 * a], dim1=-2, dim2=-1)
                         for a in range(3)], dim=-1)          # (B, 3n)
-    return _stitch_inputs_from_diag(diag_m, t, masses)
+    return _stitch_inputs_from_diag(diag_m, t, masses, sigma)
 
 
-def _regularize_equilibrated_planes(planes, n, t, masses=None):
+def _regularize_equilibrated_planes(planes, n, t, masses=None, sigma=None):
     """Semantic twin of ``_regularize_equilibrated(pad_to=padded_size(3
     n))`` starting from the nine raw Hessian planes ``(9, B, n, n)``,
     through the regularize/stitch kernel.  `t` is the (mass-adjusted)
@@ -157,7 +179,7 @@ def _regularize_equilibrated_planes(planes, n, t, masses=None):
     if planes.shape[-1] != n:
         raise ValueError(f"planes are {tuple(planes.shape)}, n={n}")
     t = t.to(planes.dtype)
-    scale, sigma, scale_h, ts = stitch_inputs(planes, t, masses)
+    scale, sigma, scale_h, ts = stitch_inputs(planes, t, masses, sigma)
     mp = spd_linalg.padded_size(3 * n)
     return regularize_stitch(planes, scale_h, ts, mp), scale, sigma
 
@@ -182,7 +204,8 @@ def direct_prep_applies(params, n):
         and n <= MAX_ATOMS_STITCH
 
 
-def _regularize_equilibrated_direct(coords, params, t, masses=None):
+def _regularize_equilibrated_direct(coords, params, t, masses=None,
+                                    sigma=None):
     """Semantic twin of :func:`_regularize_equilibrated_planes` that
     starts from the coordinates ``(B, n, 3)``: the pair planes are
     recomputed inside the assembly-fused stitch kernel and never reach
@@ -191,7 +214,7 @@ def _regularize_equilibrated_direct(coords, params, t, masses=None):
     sigma)``."""
     t = t.to(coords.dtype)
     scale, sigma, scale_h, ts = _stitch_inputs_from_diag(
-        _hessian_diag_xyz_batched(coords, params), t, masses)
+        _hessian_diag_xyz_batched(coords, params), t, masses, sigma)
     mp = spd_linalg.padded_size(3 * coords.shape[1])
     return assembly_stitch(coords, params, scale_h, ts, mp), scale, sigma
 
@@ -300,49 +323,52 @@ def _plane_traces_from_w(w, t, sigma, n):
     return traces - _null_correction(t, sigma, n)
 
 
-def covariance_plane_traces_from_planes(planes, n, null_basis,
+def covariance_plane_traces_from_planes(planes, n, null_basis, sigma=None,
                                         masses=None):
     """Blocked-engine plane traces ``(B, n, n)`` of the pseudo-inverse
     covariance straight from the raw Hessian planes ``(9, B, n, n)`` —
-    the main path.  Optional `masses` fold into the stitch's scale."""
+    the main path.  Optional `masses` fold into the stitch's scale;
+    `sigma` as in :func:`covariance_cholesky`."""
     t = null_basis.to(planes.dtype)
     reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, masses=masses)
+        planes, n, t, masses=masses, sigma=sigma)
     parts = _w_parts_from_reg_blocked(reg, scale)
     return _plane_traces_from_w_parts(parts, t, sigma, n)
 
 
-def covariance_cholesky_from_planes(planes, n, null_basis, masses=None):
+def covariance_cholesky_from_planes(planes, n, null_basis, sigma=None,
+                                    masses=None):
     """Blocked-engine pseudo-inverse covariance ``(B, 3n, 3n)`` (xyz
     layout) straight from the raw Hessian planes ``(9, B, n, n)``.
     Optional `masses` fold into the stitch's scale."""
     t = null_basis.to(planes.dtype)
     reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, masses=masses)
+        planes, n, t, masses=masses, sigma=sigma)
     m = 3 * n
     w = _w_from_reg_blocked(reg, scale)
     return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
 
 
-def covariance_plane_traces_direct(coords, params, null_basis,
+def covariance_plane_traces_direct(coords, params, null_basis, sigma=None,
                                    masses=None):
     """:func:`covariance_plane_traces_from_planes` straight from the
     coordinates ``(B, n, 3)`` through the assembly-fused prep."""
     n = coords.shape[1]
     t = null_basis.to(coords.dtype)
     reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, masses=masses)
+        coords, params, t, masses=masses, sigma=sigma)
     parts = _w_parts_from_reg_blocked(reg, scale)
     return _plane_traces_from_w_parts(parts, t, sigma, n)
 
 
-def covariance_cholesky_direct(coords, params, null_basis, masses=None):
+def covariance_cholesky_direct(coords, params, null_basis, sigma=None,
+                               masses=None):
     """:func:`covariance_cholesky_from_planes` straight from the
     coordinates ``(B, n, 3)`` through the assembly-fused prep."""
     m = 3 * coords.shape[1]
     t = null_basis.to(coords.dtype)
     reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, masses=masses)
+        coords, params, t, masses=masses, sigma=sigma)
     w = _w_from_reg_blocked(reg, scale)
     return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
 
@@ -366,19 +392,31 @@ def _factor_in(factor_dtype, inverse, matrix, null_basis):
     return matrix.to(factor_dtype), null_basis.to(factor_dtype)
 
 
-def covariance_cholesky(matrix, null_basis, inverse="cho_solve",
-                        factor_dtype=None):
+def _identity_columns(m, start, count, like):
+    """Columns ``start`` ... ``start + count - 1`` of the ``(m, m)``
+    identity."""
+    rows = torch.arange(m, device=like.device)[:, None]
+    cols = torch.arange(start, start + count, device=like.device)[None, :]
+    return (rows == cols).to(like.dtype)
+
+
+def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
+                        inverse="cho_solve", factor_dtype=None):
     """Pseudo-inverse ``(..., m, m)`` of PSD interaction matrices
     ``(..., m, m)`` with a known orthonormal null basis ``(..., m, k)``
     (the six rigid modes of an ANM Hessian, the constant mode of a GNM
     Kirchhoff matrix; leading dimensions broadcast).
 
-    ``inverse="cho_solve"`` factors with ``torch.linalg.cholesky_ex`` and
-    solves against the identity (any dtype); ``inverse="blocked"`` runs
-    the divide-and-conquer inverse factor and the Gram of its
-    column-scaled form.  `factor_dtype` runs the Cholesky engine,
-    regularization included, in another dtype than `matrix`'s and casts
-    the result back (the single-structure entry points: float64).
+    `sigma` weighs the null space (default: the mean diagonal; one
+    number, or one per matrix).  ``inverse="cho_solve"`` factors with
+    ``torch.linalg.cholesky_ex`` and solves against the identity (any
+    dtype), for an unbatched matrix in column blocks of `block_size`
+    when given (it must divide ``m``; the blocked engine refuses it);
+    ``inverse="blocked"`` runs the divide-and-conquer inverse factor and
+    the Gram of its column-scaled form.  `factor_dtype` runs the
+    Cholesky engine, regularization included, in another dtype than
+    `matrix`'s and casts the result back (the single-structure entry
+    points: float64).
     """
     out_dtype = matrix.dtype
     matrix, null_basis = _factor_in(factor_dtype, inverse, matrix,
@@ -386,29 +424,45 @@ def covariance_cholesky(matrix, null_basis, inverse="cho_solve",
     m = matrix.shape[-1]
     t = null_basis.to(matrix.dtype)
     if inverse == "blocked":
+        if block_size is not None:
+            raise ValueError(
+                "block_size (column-blocked identity solves, the "
+                "memory-lean cho_solve path) is incompatible with "
+                "inverse='blocked', which materializes dense (m, m) "
+                "factor/inverse temporaries")
         reg, scale, sigma = _regularize_equilibrated(
-            matrix, t, pad_to=spd_linalg.padded_size(m))
+            matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
         inv = _gram_lower(_w_from_reg_blocked(reg, scale))[..., :m, :m]
     elif inverse == "cho_solve":
-        reg, scale, sigma = _regularize_equilibrated(matrix, t)
+        reg, scale, sigma = _regularize_equilibrated(matrix, t,
+                                                     sigma=sigma)
         chol = _cholesky_factor(reg)
-        eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
-        inv = torch.cholesky_solve(eye.expand_as(chol), chol)
+        if block_size is None or matrix.ndim > 2:
+            eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
+            inv = torch.cholesky_solve(eye.expand_as(chol), chol)
+        else:
+            if m % block_size:
+                raise ValueError(f"block_size={block_size} must divide "
+                                 f"m={m}")
+            inv = torch.cat([
+                torch.cholesky_solve(
+                    _identity_columns(m, start, block_size, chol), chol)
+                for start in range(0, m, block_size)], dim=1)
         inv = inv * scale[..., :, None] * scale[..., None, :]
     else:
         raise ValueError(f"unknown inverse engine {inverse!r}")
     return (inv - _null_projector(t, sigma)).to(out_dtype)
 
 
-def covariance_plane_traces(matrix, null_basis, inverse="cho_solve",
-                            factor_dtype=None):
+def covariance_plane_traces(matrix, null_basis, sigma=None,
+                            inverse="cho_solve", factor_dtype=None):
     """Plane traces ``(..., n, n)`` of the pseudo-inverse of xyz-layout
     ANM Hessians ``(..., 3n, 3n)``.
 
     ``inverse="cho_solve"`` factors with ``torch.linalg.cholesky`` and a
     triangular solve against the identity (any dtype);
     ``inverse="blocked"`` runs the divide-and-conquer inverse factor.
-    `factor_dtype` as in :func:`covariance_cholesky`.
+    `sigma` and `factor_dtype` as in :func:`covariance_cholesky`.
     """
     out_dtype = matrix.dtype
     matrix, null_basis = _factor_in(factor_dtype, inverse, matrix,
@@ -421,14 +475,44 @@ def covariance_plane_traces(matrix, null_basis, inverse="cho_solve",
     t = null_basis.to(matrix.dtype)
     if inverse == "blocked":
         reg, scale, sigma = _regularize_equilibrated(
-            matrix, t, pad_to=spd_linalg.padded_size(m))
+            matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
         parts = _w_parts_from_reg_blocked(reg, scale)
         return _plane_traces_from_w_parts(parts, t, sigma, n)
     if inverse != "cho_solve":
         raise ValueError(f"unknown inverse engine {inverse!r}")
-    reg, scale, sigma = _regularize_equilibrated(matrix, t)
+    reg, scale, sigma = _regularize_equilibrated(matrix, t, sigma=sigma)
     chol = _cholesky_factor(reg)
     eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
     w = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
     w = w * scale[..., None, :]
     return _plane_traces_from_w(w, t, sigma, n).to(out_dtype)
+
+
+def pinv_diagonal(matrix, null_basis, sigma=None, block_size=1024,
+                  donate=False):
+    """Diagonal ``(m,)`` of the pseudo-inverse of one PSD matrix ``(m,
+    m)`` with a known null basis, without the inverse: one Cholesky
+    factor and solves against `block_size` identity columns at a time
+    (it must divide ``m``), of which only the diagonal block is kept.
+    Peak memory is the factor plus ``m * block_size`` per block.  With
+    `donate` the regularization overwrites `matrix` in place (its
+    contents are gone afterwards), so that at most two ``(m, m)``
+    tensors are live.  For an xyz-layout ANM Hessian ``msf_i = sum_a
+    diag[a n + i]``."""
+    if matrix.ndim != 2:
+        raise ValueError("pinv_diagonal expects an unbatched matrix")
+    m = matrix.shape[-1]
+    if m % block_size:
+        raise ValueError(f"block_size={block_size} must divide m={m}")
+    t = null_basis.to(matrix.dtype)
+    scale, sigma, ts = _equilibration(torch.diagonal(matrix), t, sigma)
+    outer = scale[:, None] * scale[None, :]
+    reg = matrix.mul_(outer) if donate else matrix * outer
+    chol = _cholesky_factor(reg.addmm_(ts, ts.T))
+    del reg
+    diag = torch.cat([
+        torch.diagonal(torch.cholesky_solve(
+            _identity_columns(m, start, block_size, chol),
+            chol)[start:start + block_size])
+        for start in range(0, m, block_size)])
+    return diag * scale * scale - (t * t).sum(dim=1) / sigma[0, 0]

@@ -13,13 +13,15 @@ block skips, so that both packages factor the SAME padded problem:
     G21 = -G22 (L21 G11)
 
 The node products are plain ``torch.matmul`` (the JAX package leaves
-them to XLA).  The leaves, ``L^-1`` of SPD panels of at most ``LEAF``
-rows, are the kernel ``csrc/panel_inverse.cu`` behind
-:func:`panel_inverse_batched`, with :func:`panel_inverse_plain` beside
-it.  Two more public panel functions stand beside the recursion, as in
-the JAX package: the full-window form of the same elimination
-(:func:`panel_inverse_full`, the kernel's second entry, reached through
-``panel_inverse_batched(shrink_block=None)``) and the panel Cholesky
+them to XLA).  The leaves, ``L^-1`` of SPD panels of at most ``block``
+rows (``LEAF`` = 64 by default, clamped to 8-``MAX_LEAF`` as in the
+JAX package), are the kernel ``csrc/panel_inverse.cu`` behind
+:func:`panel_inverse_batched` with ``shrink_block=8``, with
+:func:`panel_inverse_plain` beside it.  Two more public panel functions
+stand beside the recursion, as in the JAX package: the full-window form
+of the same elimination (:func:`panel_inverse_full`, the kernel's second
+entry, reached through ``panel_inverse_batched(shrink_block=None)``, the
+default) and the panel Cholesky
 factor (:func:`panel_cholesky_batched`, kernel
 ``csrc/panel_cholesky.cu``, plain version :func:`panel_cholesky_plain`).
 """
@@ -33,6 +35,7 @@ from .. import _build
 
 __all__ = [
     "LEAF",
+    "MAX_LEAF",
     "panel_inverse_batched",
     "panel_inverse_full",
     "panel_inverse_plain",
@@ -45,10 +48,12 @@ __all__ = [
     "padded_size",
 ]
 
-#: Leaf-panel size of the recursion (the JAX package's default
-#: ``block``), and the largest panel the two panel-inverse kernels take:
-#: one block holds a panel's elimination state in registers.
+#: Leaf-panel size of the recursion: the JAX package's default ``block``.
 LEAF = 64
+#: The largest leaf, the clamp of ``block`` (``pallas_linalg.py:429``),
+#: and the largest panel the two panel-inverse kernels take: one block
+#: holds a panel's elimination state in registers.
+MAX_LEAF = 128
 #: Largest panel the Cholesky kernel takes (66 KB of shared memory).
 MAX_CHOLESKY_PANEL = 128
 
@@ -106,16 +111,19 @@ def _launch_panels(wrapper, entry, plain, panels, limit, align=4):
     return out
 
 
-def panel_inverse_batched(panels, shrink_block=8):
+def panel_inverse_batched(panels, shrink_block=None):
     """``L^-1`` (lower triangular, strict upper exactly zero) of a batch
     of SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
-    ``LEAF`` on CUDA, where the panels start on a 16-byte boundary).
+    ``MAX_LEAF`` on CUDA).
 
-    `shrink_block` keeps the JAX package's switch: any block size that
-    divides ``pb`` takes the kernel that leaves finished rows alone (it
-    retires them one by one, and every block size gives the same bits);
-    ``None`` takes the full-window kernel, :func:`panel_inverse_full`,
-    with the same result."""
+    `shrink_block` is the JAX package's switch, with its default:
+    ``None`` takes the full-window kernel K9, :func:`panel_inverse_full`;
+    any block size that divides ``pb`` takes the kernel K3 that leaves
+    finished rows alone (it retires them one by one, so every block size
+    gives the same bits, and on CUDA its panels must start on a 16-byte
+    boundary).  Both give the plain version's output bit for bit; the
+    recursion's leaves take ``shrink_block=8``, as in the JAX
+    package."""
     if shrink_block is None:
         return panel_inverse_full(panels)
     _check_panels(panels)
@@ -123,7 +131,7 @@ def panel_inverse_batched(panels, shrink_block=8):
         raise ValueError(f"shrink_block must divide pb={panels.shape[-1]}, "
                          f"got {shrink_block}")
     return _launch_panels(panel_inverse_batched, "sc_panel_inverse",
-                          panel_inverse_plain, panels, LEAF, align=16)
+                          panel_inverse_plain, panels, MAX_LEAF, align=16)
 
 
 def panel_inverse_full(panels):
@@ -133,7 +141,7 @@ def panel_inverse_full(panels):
     equals the other kernel's and the plain version's bit for bit (the
     extra updates are exact zeros)."""
     return _launch_panels(panel_inverse_full, "sc_panel_inverse_full",
-                          panel_inverse_plain, panels, LEAF)
+                          panel_inverse_plain, panels, MAX_LEAF)
 
 
 def panel_cholesky_plain(panels):
@@ -187,9 +195,26 @@ def panel_cholesky_batched(panels):
     return l, _tri_inverse_newton(l)
 
 
-def padded_size(m):
-    """Padded size of the recursion for an ``(m, m)`` input."""
-    return _choose_padding(m, LEAF)
+def _leaf_cap(block):
+    """The recursion's leaf cap: `block` clamped to 8-``MAX_LEAF``, as the
+    JAX package clamps it, so both factor the same padded problem with
+    the same leaves."""
+    return max(8, min(MAX_LEAF, int(block)))
+
+
+def _check_precision(precision):
+    """Every product runs in full float32 (TF32 stays off, the JAX
+    package's ``precision='highest'``): `precision` is ``None`` or
+    ``"highest"``."""
+    if precision not in (None, "highest"):
+        raise ValueError(f"precision must be None or 'highest' (full "
+                         f"float32 products), got {precision!r}")
+
+
+def padded_size(m, block=LEAF):
+    """Padded size of the recursion for an ``(m, m)`` input with leaves
+    of at most `block` rows."""
+    return _choose_padding(m, _leaf_cap(block))
 
 
 def _choose_padding(m, base_max):
@@ -204,14 +229,15 @@ def _choose_padding(m, base_max):
     return _round_up(m, 128)
 
 
-def _identity_padded(a):
+def _identity_padded(a, base):
     """The SPD batch ``a`` (``(..., m, m)``) as ``(b, mp, mp)``,
-    identity-padded to the recursion's size (exact: the pad decouples)."""
+    identity-padded to the recursion's size for leaves of at most
+    `base` rows (exact: the pad decouples)."""
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., m, m), got {tuple(a.shape)}")
     m = a.shape[-1]
     a = a.reshape((-1, m, m))
-    mp = padded_size(m)
+    mp = _choose_padding(m, base)
     if mp != m:
         a = F.pad(a, (0, mp - m, 0, mp - m))
         idx = torch.arange(m, mp, device=a.device)
@@ -219,53 +245,62 @@ def _identity_padded(a):
     return a
 
 
-def spd_inverse_factor(a):
+def spd_inverse_factor(a, block=LEAF, precision=None):
     """Inverse factor ``G = L^-1`` ``(..., mp, mp)`` of the
     identity-padded SPD batch ``a`` (``(..., m, m)``, ``mp =
-    padded_size(m)``), so that ``A^-1 = (G^T G)[:m, :m]``; the strict
-    upper triangle is exactly zero."""
-    g = _recursive_inverse_factor(_identity_padded(a))
+    padded_size(m, block)``), so that ``A^-1 = (G^T G)[:m, :m]``; the
+    strict upper triangle is exactly zero.  `block` caps the leaf
+    panels (clamped to 8-``MAX_LEAF``); `precision` is ``None`` or
+    ``"highest"``."""
+    _check_precision(precision)
+    base = _leaf_cap(block)
+    g = _recursive_inverse_factor(_identity_padded(a, base), base)
     return g.reshape(a.shape[:-2] + g.shape[-2:])
 
 
-def spd_inverse_blocked(a):
+def spd_inverse_blocked(a, block=LEAF, precision=None):
     """Dense inverse ``(..., m, m)`` of a batch of SPD matrices by the
     divide-and-conquer inverse factor and one Gram product,
-    ``A^-1 = (G^T G)[:m, :m]``."""
+    ``A^-1 = (G^T G)[:m, :m]``; `block` and `precision` as in
+    :func:`spd_inverse_factor`."""
     m = a.shape[-1]
-    g = spd_inverse_factor(a)
+    g = spd_inverse_factor(a, block=block, precision=precision)
     return (g.transpose(-1, -2) @ g)[..., :m, :m]
 
 
-def spd_inverse_factor_parts(a):
+def spd_inverse_factor_parts(a, block=LEAF, precision=None):
     """Top-split blocks ``(g11, g21, g22)`` of :func:`spd_inverse_factor`,
     ``G = [[g11, 0], [g21, g22]]``, without the final concatenation;
     ``g21`` and ``g22`` are ``None`` when the padded problem is a single
     leaf."""
-    parts = _top_inverse_factor_parts(_identity_padded(a))
+    _check_precision(precision)
+    base = _leaf_cap(block)
+    parts = _top_inverse_factor_parts(_identity_padded(a, base), base)
     return tuple(None if p is None else p.reshape(a.shape[:-2]
                                                   + p.shape[-2:])
                  for p in parts)
 
 
-def _top_inverse_factor_parts(a):
+def _top_inverse_factor_parts(a, base):
     """One node of the recursion, final concat left to the caller."""
     s = a.shape[-1]
-    if s <= LEAF:
-        return panel_inverse_batched(a.contiguous()), None, None
+    if s <= base:
+        return panel_inverse_batched(a.contiguous(), shrink_block=8), \
+            None, None
     h = _round_up(s // 2, 128)
     if h >= s:
         h = s // 2
-    g11 = _recursive_inverse_factor(a[:, :h, :h])
+    g11 = _recursive_inverse_factor(a[:, :h, :h], base)
     l21, s22 = _schur_lower(a, h, g11)
-    g22 = _recursive_inverse_factor(s22)
+    g22 = _recursive_inverse_factor(s22, base)
     g21 = -_tri_left_mm(g22, _tri_right_mm(l21, g11))
     return g11, g21, g22
 
 
-def _recursive_inverse_factor(a):
-    """``G = L^-1`` of a batched SPD ``(b, s, s)``."""
-    g11, g21, g22 = _top_inverse_factor_parts(a)
+def _recursive_inverse_factor(a, base):
+    """``G = L^-1`` of a batched SPD ``(b, s, s)``, leaves of at most
+    `base` rows."""
+    g11, g21, g22 = _top_inverse_factor_parts(a, base)
     if g21 is None:
         return g11
     h = g11.shape[-1]

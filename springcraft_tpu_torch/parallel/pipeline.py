@@ -49,7 +49,11 @@ any mass weighting; the planes form and ``prep="direct"`` do not apply,
 so the blocked engine then takes dense Hessians (``:942, 957-960``).
 ``inverse="auto"`` takes
 ``"blocked"`` for float32 on CUDA and ``"cho_solve"`` otherwise
-(``:785-794``, the TPU read as CUDA).
+(``:785-794``, the TPU read as CUDA).  Every entry point takes the JAX
+package's ``use_pallas=`` (default ``"auto"``, ``:49-61``): ``"auto"``,
+``None`` and ``True`` run as above; ``False`` (the plain versions) is
+taken on the CPU and refused on CUDA
+(:func:`..utils.config.check_use_pallas`).
 
 **Spectral pipelines** (``:74-196, 268-598, 1003-1032``), over dense
 Hessians or Kirchhoff matrices from the same assembly:
@@ -83,7 +87,7 @@ from ..ops.assembly_kernels import (hessian_planes_ensemble,
                                     hessian_xyz_ensemble,
                                     kirchhoff_ensemble)
 from ..ops.ffparams import KERNEL_KINDS, FFParams
-from ..utils.config import as_tensor
+from ..utils.config import as_tensor, check_use_pallas
 
 __all__ = [
     "anm_fluctuations",
@@ -303,7 +307,8 @@ def _single(run, coord):
 def ensemble_anm_fluctuations(coords, params, masses=None, *,
                               inverse="auto", with_covariance=True,
                               with_dcc=True, dtype=torch.float32,
-                              chunk=None, device=None, with_prs=False,
+                              chunk=None, device=None,
+                              use_pallas="auto", with_prs=False,
                               prep="planes"):
     """Fast-covariance ANM fluctuation observables of a conformer
     ensemble.
@@ -339,6 +344,9 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     device : str or torch.device, optional
         Where a non-tensor `coords` goes; by default the current CUDA
         device (``"cpu"`` to run on the CPU).
+    use_pallas : {"auto", None, True, False}
+        The JAX package's switch: the kernels on CUDA, their plain
+        versions on the CPU; ``False`` raises on CUDA.
     with_prs : bool
         Also return the PRS matrix ``prs`` ``(B, n, n)`` and its
         ``effector`` and ``sensor`` profiles ``(B, n)``; needs
@@ -362,6 +370,7 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     _check_prs(with_covariance, with_prs)
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
@@ -370,7 +379,8 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
 
 def ensemble_gnm_fluctuations(coords, params, masses=None, *,
                               inverse="auto", with_dcc=True,
-                              dtype=torch.float32, chunk=None, device=None):
+                              dtype=torch.float32, chunk=None, device=None,
+                              use_pallas="auto"):
     """GNM twin of :func:`ensemble_anm_fluctuations`: covariance
     ``(B, n, n)``, ``msf``, ``bfactor`` and, with `with_dcc`, ``dcc``
     of each conformer's Kirchhoff matrix, whose null space is the
@@ -379,6 +389,7 @@ def ensemble_gnm_fluctuations(coords, params, masses=None, *,
     picks as :func:`ensemble_anm_fluctuations` does."""
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(
         lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc), coords,
@@ -387,7 +398,8 @@ def ensemble_gnm_fluctuations(coords, params, masses=None, *,
 
 def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
                      with_prs=False, with_covariance=True,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device=None,
+                     use_pallas="auto"):
     """Covariance-derived ANM observables of one structure ``(n, 3)``
     through a regularized Cholesky solve, no eigendecomposition: the
     keys of :func:`ensemble_anm_fluctuations` without the batch axis.
@@ -397,16 +409,19 @@ def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
     in float64 and the result comes back in `dtype`."""
     _check_prs(with_covariance, with_prs)
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     return _single(lambda c: _anm_chunk(
         c, params, masses, "cho_solve", with_covariance, with_dcc, with_prs,
         factor_dtype=torch.float64), coord)
 
 
 def gnm_fluctuations(coord, params, masses=None, *, with_dcc=True,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device=None,
+                     use_pallas="auto"):
     """GNM twin of :func:`anm_fluctuations`: covariance ``(n, n)``,
     ``msf``, ``bfactor`` and ``dcc`` of one structure."""
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     return _single(lambda c: _gnm_chunk(c, params, masses, "cho_solve",
                                         with_dcc, torch.float64), coord)
 
@@ -474,7 +489,8 @@ def _gnm_eigen_chunk(coords, params, masses, solver, options):
 def anm_observables(coord, params, masses=None, *, with_dcc=False,
                     with_covariance=False, n_modes=None,
                     dtype=torch.float32, tem=None,
-                    tem_factors=nma_core.K_B, device=None):
+                    tem_factors=nma_core.K_B, device=None,
+                    use_pallas="auto"):
     """
     ANM of one structure ``(n, 3)`` by a dense ``torch.linalg.eigh`` of
     its (mass-weighted) xyz-layout Hessian, the six trivial modes left
@@ -488,6 +504,7 @@ def anm_observables(coord, params, masses=None, *, with_dcc=False,
     the observables to the lowest non-trivial modes.
     """
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     return _single(lambda c: _anm_eigen_chunk(c, params, masses,
@@ -496,10 +513,12 @@ def anm_observables(coord, params, masses=None, *, with_dcc=False,
 
 def gnm_observables(coord, params, masses=None, *, with_dcc=False,
                     n_modes=None, dtype=torch.float32, tem=None,
-                    tem_factors=nma_core.K_B, device=None):
+                    tem_factors=nma_core.K_B, device=None,
+                    use_pallas="auto"):
     """GNM twin of :func:`anm_observables` over the Kirchhoff matrix
     (one trivial mode, no ``covariance``)."""
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     return _single(lambda c: _gnm_eigen_chunk(c, params, masses,
@@ -509,12 +528,14 @@ def gnm_observables(coord, params, masses=None, *, with_dcc=False,
 def ensemble_anm(coords, params, masses=None, *, with_dcc=False,
                  with_covariance=False, n_modes=None, dtype=torch.float32,
                  tem=None, tem_factors=nma_core.K_B, chunk=None,
-                 device=None):
+                 device=None,
+                 use_pallas="auto"):
     """:func:`anm_observables` over a conformer ensemble ``(B, n, 3)``
     (batched ``eigh``); `chunk` and `device` as in
     :func:`ensemble_anm_fluctuations`."""
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     return _run_chunked(lambda c: _anm_eigen_chunk(
@@ -523,10 +544,12 @@ def ensemble_anm(coords, params, masses=None, *, with_dcc=False,
 
 def ensemble_gnm(coords, params, masses=None, *, with_dcc=False,
                  n_modes=None, dtype=torch.float32, tem=None,
-                 tem_factors=nma_core.K_B, chunk=None, device=None):
+                 tem_factors=nma_core.K_B, chunk=None, device=None,
+                 use_pallas="auto"):
     """:func:`gnm_observables` over a conformer ensemble ``(B, n, 3)``."""
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     return _run_chunked(lambda c: _gnm_eigen_chunk(
@@ -537,7 +560,8 @@ def ensemble_anm_banded(coords, params, masses=None, *, with_dcc=False,
                         with_covariance=False, n_modes=None,
                         dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
                         tem=None, tem_factors=nma_core.K_B, chunk=None,
-                        device=None):
+                        device=None,
+                        use_pallas="auto"):
     """
     :func:`ensemble_anm` with the full eigensystem from the two-stage
     banded solver (:func:`.ops.spectrum.eigh_banded`, no dense ``eigh``):
@@ -548,6 +572,7 @@ def ensemble_anm_banded(coords, params, masses=None, *, with_dcc=False,
     """
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     options = dict(with_dcc=with_dcc, with_covariance=with_covariance,
                    n_modes=n_modes, tem=tem, tem_factors=tem_factors)
     solver = _banded_eigh(bandwidth, n_iter_bisect)
@@ -558,11 +583,13 @@ def ensemble_anm_banded(coords, params, masses=None, *, with_dcc=False,
 def ensemble_gnm_banded(coords, params, masses=None, *, with_dcc=False,
                         n_modes=None, dtype=torch.float32, bandwidth=8,
                         n_iter_bisect=40, tem=None, tem_factors=nma_core.K_B,
-                        chunk=None, device=None):
+                        chunk=None, device=None,
+                        use_pallas="auto"):
     """GNM twin of :func:`ensemble_anm_banded` over the Kirchhoff
     matrices."""
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     options = dict(with_dcc=with_dcc, n_modes=n_modes, tem=tem,
                    tem_factors=tem_factors)
     solver = _banded_eigh(bandwidth, n_iter_bisect)
@@ -614,7 +641,8 @@ def _gnm_spectral_chunk(coords, params, masses, inverse, n_modes, with_dcc,
 def ensemble_anm_spectral(coords, params, masses=None, *, n_modes=None,
                           with_dcc=True, dtype=torch.float32, bandwidth=8,
                           n_iter_bisect=40, n_iter_modes=16, inverse="auto",
-                          chunk=None, device=None):
+                          chunk=None, device=None,
+                          use_pallas="auto"):
     """
     Spectral ANM of a conformer ensemble without a dense ``eigh``
     (``pipeline.py:416-492``): all eigenvalues and frequencies from the
@@ -627,6 +655,7 @@ def ensemble_anm_spectral(coords, params, masses=None, *, n_modes=None,
     """
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(lambda c: _anm_spectral_chunk(
         c, params, masses, inverse, n_modes, with_dcc, bandwidth,
@@ -636,11 +665,13 @@ def ensemble_anm_spectral(coords, params, masses=None, *, n_modes=None,
 def ensemble_gnm_spectral(coords, params, masses=None, *, n_modes=None,
                           with_dcc=True, dtype=torch.float32, bandwidth=8,
                           n_iter_bisect=40, n_iter_modes=16, inverse="auto",
-                          chunk=None, device=None):
+                          chunk=None, device=None,
+                          use_pallas="auto"):
     """GNM twin of :func:`ensemble_anm_spectral` over the Kirchhoff
     matrices (``pipeline.py:535-598``)."""
     coords, params, masses = _prepare(coords, params, masses, dtype, device,
                                       3)
+    check_use_pallas(use_pallas, coords.device)
     inverse = _resolve_inverse(inverse, coords)
     return _run_chunked(lambda c: _gnm_spectral_chunk(
         c, params, masses, inverse, n_modes, with_dcc, bandwidth,
@@ -649,10 +680,12 @@ def ensemble_gnm_spectral(coords, params, masses=None, *, n_modes=None,
 
 def anm_spectral(coord, params, masses=None, *, n_modes=None, with_dcc=True,
                  dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
-                 n_iter_modes=24, device=None):
+                 n_iter_modes=24, device=None,
+                 use_pallas="auto"):
     """:func:`ensemble_anm_spectral` for one structure ``(n, 3)``, with the
     Cholesky engine (``pipeline.py:347-413``)."""
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     return _single(lambda c: _anm_spectral_chunk(
         c, params, masses, "cho_solve", n_modes, with_dcc, bandwidth,
         n_iter_bisect, n_iter_modes), coord)
@@ -660,10 +693,12 @@ def anm_spectral(coord, params, masses=None, *, n_modes=None, with_dcc=True,
 
 def gnm_spectral(coord, params, masses=None, *, with_dcc=True,
                  dtype=torch.float32, bandwidth=8, n_iter_bisect=40,
-                 device=None):
+                 device=None,
+                 use_pallas="auto"):
     """GNM twin of :func:`anm_spectral`, without mode shapes
     (``pipeline.py:495-532``)."""
     coord, params, masses = _prepare(coord, params, masses, dtype, device, 2)
+    check_use_pallas(use_pallas, coord.device)
     return _single(lambda c: _gnm_spectral_chunk(
         c, params, masses, "cho_solve", None, with_dcc, bandwidth,
         n_iter_bisect, None), coord)

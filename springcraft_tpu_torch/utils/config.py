@@ -27,6 +27,8 @@ __all__ = [
     "resolve_device",
     "as_tensor",
     "synchronize",
+    "check_use_pallas",
+    "check_elastic",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -70,3 +72,32 @@ def synchronize(device=None):
         torch.cuda.synchronize()
     elif torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_use_pallas(use_pallas, device):
+    """The JAX package's ``use_pallas=`` switch, read on `device`.
+
+    ``"auto"``, ``None`` and ``True`` mean what every entry point of the
+    port does anyway: the kernels on CUDA, their plain versions on the
+    CPU.  ``False`` asks for the plain versions; they are for the CPU,
+    so on a CUDA device it raises instead of running them on the card.
+    """
+    if use_pallas not in ("auto", None, True, False):
+        raise ValueError(f"use_pallas must be 'auto', None, True or False, "
+                         f"got {use_pallas!r}")
+    if use_pallas is False and torch.device(device).type == "cuda":
+        raise ValueError(
+            "use_pallas=False asks for the plain PyTorch versions, which "
+            "are for the CPU; on CUDA the port runs its kernels (pass "
+            "use_pallas='auto', or device='cpu' for the plain versions)")
+
+
+def check_elastic(checkpoint=None, retries=0):
+    """``checkpoint=`` / ``retries=`` of the JAX package's long solvers:
+    the port has no elastic loop yet (``utils/elastic.py``, ROADMAP.md
+    queue 1 item 5), so only ``None`` and ``0`` are taken."""
+    if checkpoint is not None or retries != 0:
+        raise NotImplementedError(
+            "checkpoint= and retries= need the elastic loop of "
+            "utils/elastic.py, not ported yet (ROADMAP.md queue 1 item 5); "
+            "pass checkpoint=None, retries=0")

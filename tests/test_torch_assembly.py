@@ -13,6 +13,7 @@ and sigma are short float32 reductions (1e-6 relative).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -277,3 +278,155 @@ def test_wrappers_refuse_other_devices():
         assembly_kernels.regularize_stitch(
             torch.zeros(9, 2, 10, 10), torch.ones(2, 30),
             torch.zeros(2, 30, 6, device="meta"), 32)
+
+
+# ---------------------------------------------------------------------------
+# Single structures: dense matrices, row panels and their helpers (float64)
+# ---------------------------------------------------------------------------
+
+from springcraft_tpu.ops import assembly as jassembly  # noqa: E402
+
+SINGLE_FAMILIES = ("invariant", "hinsen", "pfenm", "hinsen_nocut",
+                   "pfenm_nocut")
+
+
+def _single_params(family):
+    kind, _, nocut = family.partition("_")
+    cutoff = None if nocut else 7.0
+    return _jax_params(kind, cutoff), getattr(tff, f"{kind}_params")(cutoff)
+
+
+def _single_coord(n=41, seed=7, dtype=np.float64):
+    return _dense_coords(1, n, seed)[0].astype(dtype)
+
+
+def test_pairwise_sq_distance_matches_jax():
+    coord = _single_coord()
+    disp, sq = jff.pairwise_sq_distance(coord, np)
+    tdisp, tsq = tff.pairwise_sq_distance(torch.from_numpy(coord))
+    assert torch.equal(tdisp, torch.from_numpy(np.asarray(disp)))
+    assert torch.equal(tsq, torch.from_numpy(np.asarray(sq)))
+
+
+@pytest.mark.parametrize("family", SINGLE_FAMILIES)
+def test_force_constant_matrix_matches_jax(family):
+    jparams, tparams = _single_params(family)
+    coord = _single_coord()
+    _, sq = jff.pairwise_sq_distance(coord, np)
+    ref = jff.force_constant_matrix(sq, jparams, np, dtype=np.float64)
+    got = tff.force_constant_matrix(torch.from_numpy(sq), tparams)
+    assert got.dtype == torch.float64
+    assert _rel(got, ref) <= 1e-12
+    assert tff.force_constant_matrix(torch.from_numpy(sq), tparams,
+                                     dtype=torch.float32).dtype \
+        == torch.float32
+
+
+@pytest.mark.parametrize("layout", ["atom", "xyz"])
+@pytest.mark.parametrize("family", SINGLE_FAMILIES)
+def test_hessian_and_kirchhoff_matrix_match_jax(family, layout):
+    jparams, tparams = _single_params(family)
+    coord = _single_coord()
+    ref = jassembly.hessian_matrix(coord, jparams, np, dtype=np.float64,
+                                   layout=layout)
+    got = assembly.hessian_matrix(torch.from_numpy(coord), tparams,
+                                  layout=layout)
+    assert got.shape == (123, 123) and _rel(got, ref) <= 1e-12
+    ref = jassembly.kirchhoff_matrix(coord, jparams, np, dtype=np.float64)
+    got = assembly.kirchhoff_matrix(torch.from_numpy(coord), tparams)
+    assert _rel(got, ref) <= 1e-12
+    with pytest.raises(ValueError, match="layout"):
+        assembly.hessian_matrix(torch.from_numpy(coord), tparams,
+                                layout="planes")
+
+
+def test_hessian_matrix_layouts_are_one_permutation():
+    _, tparams = _single_params("hinsen")
+    coord = torch.from_numpy(_single_coord())
+    p = assembly.atom_to_xyz_permutation(41)
+    assert np.array_equal(p.numpy(), jassembly.atom_to_xyz_permutation(41))
+    atom = assembly.hessian_matrix(coord, tparams, layout="atom")
+    xyz = assembly.hessian_matrix(coord, tparams, layout="xyz")
+    assert torch.equal(atom[p][:, p], xyz)
+    # the kernels' plain xyz-layout assembly agrees
+    assert _rel(assembly.hessian_xyz_plain(coord[None], tparams)[0],
+                xyz) <= 1e-12
+
+
+@pytest.mark.parametrize("start,block", [(0, 41), (0, 8), (16, 10), (33, 8)])
+@pytest.mark.parametrize("family", SINGLE_FAMILIES)
+def test_row_panels_match_jax(family, start, block):
+    jparams, tparams = _single_params(family)
+    coord = _single_coord()
+    ref = jassembly.hessian_rows(coord, jparams, start, block, np,
+                                 dtype=np.float64)
+    got = assembly.hessian_rows(torch.from_numpy(coord), tparams, start,
+                                block)
+    assert got.shape == (3 * block, 123) and _rel(got, ref) <= 1e-12
+    full = assembly.hessian_matrix(torch.from_numpy(coord), tparams)
+    assert _rel(got, full[3 * start:3 * (start + block)]) <= 1e-12
+    ref = jassembly.kirchhoff_rows(coord, jparams, start, block, np,
+                                   dtype=np.float64)
+    got = assembly.kirchhoff_rows(torch.from_numpy(coord), tparams, start,
+                                  block)
+    assert got.shape == (block, 41) and _rel(got, ref) <= 1e-12
+
+
+@pytest.mark.parametrize("maker", ["sd_enm", "e_anm", "table_pair"])
+def test_row_panels_of_tables_match_jax(maker):
+    import springcraft_tpu as sc
+    from springcraft_tpu.structure import load_structure as jload
+
+    import springcraft_tpu_torch as sct
+
+    path = os.path.join(os.path.dirname(os.path.realpath(__file__)), "data",
+                        "1l2y.pdb")
+    params = []
+    for module, load in ((sc, jload), (sct, sct.load_structure)):
+        atoms = load(path, model=1)
+        ca = atoms[(atoms.atom_name == "CA") & (atoms.element == "C")]
+        ff = getattr(module.TabulatedForceField,
+                     "e_anm" if maker == "table_pair" else maker)(ca)
+        params.append(ff.to_params() if maker == "table_pair"
+                      else ff.to_compact_params())
+    coord = np.asarray(ca.coord, np.float64)
+    for start, block in ((0, 20), (5, 7)):
+        ref = jassembly.hessian_rows(coord, params[0], start, block, np,
+                                     dtype=np.float64)
+        got = assembly.hessian_rows(torch.from_numpy(coord), params[1],
+                                    start, block)
+        assert _rel(got, ref) <= 1e-12
+        ref = jassembly.kirchhoff_rows(coord, params[0], start, block, np,
+                                       dtype=np.float64)
+        got = assembly.kirchhoff_rows(torch.from_numpy(coord), params[1],
+                                      start, block)
+        assert _rel(got, ref) <= 1e-12
+
+
+def test_row_panels_refuse_overlays():
+    coord = torch.from_numpy(_single_coord(n=10))
+    n = 10
+    params = tff.with_overlay(tff.invariant_params(7.0),
+                              np.zeros((n, n), bool), np.zeros((n, n), bool),
+                              np.zeros((n, n)), np.zeros((n, n), bool))
+    for fn in (assembly.hessian_rows, assembly.kirchhoff_rows):
+        with pytest.raises(NotImplementedError, match="overlays"):
+            fn(coord, params, 0, 4)
+
+
+@pytest.mark.parametrize("repeat3", [False, True])
+def test_mass_weights_match_jax(repeat3):
+    masses = np.linspace(0.8, 2.5, 13)
+    ref = jassembly.mass_weights(masses, np, repeat3=repeat3)
+    got = assembly.mass_weights(torch.from_numpy(masses), repeat3=repeat3)
+    assert _rel(got, ref) <= 1e-15
+
+
+def test_single_structure_matrices_keep_float32():
+    _, tparams = _single_params("invariant")
+    coord = torch.from_numpy(_single_coord(dtype=np.float32))
+    assert assembly.hessian_matrix(coord, tparams).dtype == torch.float32
+    assert assembly.kirchhoff_rows(coord, tparams, 0, 5).dtype \
+        == torch.float32
+    assert assembly.hessian_matrix(coord, tparams, dtype=torch.float64
+                                   ).dtype == torch.float64

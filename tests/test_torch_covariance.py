@@ -277,3 +277,161 @@ def test_xyz_prs_matches_jax_pipeline_fold():
             np.testing.assert_allclose(got[key][i].numpy(),
                                        np.asarray(ref[key]), rtol=1e-12,
                                        err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# sigma=, block_size=, layout="atom", pinv_diagonal (float64 against JAX)
+# ---------------------------------------------------------------------------
+
+SIGMAS = (None, 2.5, "per-matrix")
+
+
+def _sigma(sigma, batch):
+    if sigma == "per-matrix":
+        return np.linspace(1.5, 4.0, batch)
+    return sigma
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+@pytest.mark.parametrize("problem", [_anm_problem, _gnm_problem])
+def test_covariance_cholesky_sigma_matches_jax(problem, sigma):
+    matrix, basis = problem(np.float64)
+    s = _sigma(sigma, matrix.shape[0])
+    ref = jrigid.covariance_cholesky(jnp.asarray(matrix.numpy()),
+                                     jnp.asarray(basis.numpy()), sigma=s)
+    got = trigid.covariance_cholesky(matrix, basis, sigma=s)
+    assert _rel(got, ref) <= 1e-10
+    # the pseudo-inverse does not depend on the weight of the null space
+    assert _rel(got, trigid.covariance_cholesky(matrix, basis)) <= 1e-10
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_covariance_plane_traces_sigma_matches_jax(sigma):
+    matrix, basis = _anm_problem(np.float64)
+    s = _sigma(sigma, matrix.shape[0])
+    ref = jrigid.covariance_plane_traces(jnp.asarray(matrix.numpy()),
+                                         jnp.asarray(basis.numpy()), sigma=s)
+    got = trigid.covariance_plane_traces(matrix, basis, sigma=s)
+    assert _rel(got, ref) <= 1e-10
+
+
+@pytest.mark.parametrize("sigma", [2.5, "per-matrix"])
+@pytest.mark.parametrize("route", ["dense", "planes", "direct"])
+@pytest.mark.parametrize("what", ["traces", "covariance"])
+def test_blocked_engines_take_sigma(route, what, sigma):
+    """The three float32 blocked routes with a given sigma: the
+    regularized factor input is JAX's for that sigma, and the result
+    stays the float64 pseudo-inverse."""
+    coords = torch.from_numpy(_dense_coords(2, 30, seed=24))
+    params = sct.invariant_params(7.0)
+    basis = trigid.rigid_modes_anm(coords)
+    s = _sigma(sigma, 2)
+    h32 = assembly.hessian_xyz_plain(coords, params)
+    fn = {"traces": "covariance_plane_traces",
+          "covariance": "covariance_cholesky"}[what]
+    if route == "dense":
+        got = getattr(trigid, fn)(h32, basis, sigma=s, inverse="blocked")
+        reg, _, sig = trigid._regularize_equilibrated(h32, basis, sigma=s)
+    elif route == "planes":
+        planes = assembly.hessian_planes_plain(coords, params)
+        got = getattr(trigid, f"{fn}_from_planes")(planes, 30, basis,
+                                                   sigma=s)
+        reg, _, sig = trigid._regularize_equilibrated_planes(
+            planes, 30, basis, sigma=s)
+        reg = reg[:, :90, :90]
+    else:
+        got = getattr(trigid, f"{fn}_direct")(coords, params, basis,
+                                              sigma=s)
+        reg, _, sig = trigid._regularize_equilibrated_direct(
+            coords, params, basis, sigma=s)
+        reg = reg[:, :90, :90]
+    assert torch.equal(sig.reshape(-1).double(),
+                       torch.as_tensor(s, dtype=torch.float64).reshape(-1)
+                       .expand(sig.numel()))
+    jreg, _, _ = jrigid._regularize_equilibrated(
+        jnp.asarray(h32.numpy()), jnp.asarray(basis.numpy()),
+        jnp.asarray(s, jnp.float32) if s is not None else None)
+    assert _rel(reg, jreg) <= 1e-5
+    ref = getattr(trigid, fn)(h32.double(), basis.double())
+    assert _rel(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("block_size", [10, 45, 90])
+@pytest.mark.parametrize("sigma", [None, 2.5])
+def test_covariance_cholesky_block_size_matches_jax(block_size, sigma):
+    matrix, basis = _anm_problem(np.float64)
+    matrix, basis = matrix[0], basis[0]
+    ref = jrigid.covariance_cholesky(jnp.asarray(matrix.numpy()),
+                                     jnp.asarray(basis.numpy()), sigma=sigma,
+                                     block_size=block_size)
+    got = trigid.covariance_cholesky(matrix, basis, sigma=sigma,
+                                     block_size=block_size)
+    assert _rel(got, ref) <= 1e-10
+    assert _rel(got, trigid.covariance_cholesky(matrix, basis)) <= 1e-12
+
+
+def test_covariance_cholesky_block_size_rules():
+    matrix, basis = _anm_problem(np.float64)
+    with pytest.raises(ValueError, match="divide"):
+        trigid.covariance_cholesky(matrix[0], basis[0], block_size=7)
+    with pytest.raises(ValueError, match="block_size"):
+        trigid.covariance_cholesky(matrix[0].float(), basis[0].float(),
+                                   block_size=10, inverse="blocked")
+    # a batch solves the whole identity at once, as in the JAX package
+    assert _rel(trigid.covariance_cholesky(matrix, basis, block_size=7),
+                trigid.covariance_cholesky(matrix, basis)) <= 1e-12
+
+
+@pytest.mark.parametrize("masses", [False, True])
+def test_rigid_modes_atom_layout_matches_jax(masses):
+    coords = _dense_coords(1, 30, seed=25)[0].astype(np.float64)
+    m = np.linspace(0.8, 2.5, 30) if masses else None
+    for layout in ("atom", "xyz"):
+        ref = np.asarray(jrigid.rigid_modes_anm(coords, masses=m,
+                                                layout=layout))
+        got = trigid.rigid_modes_anm(
+            torch.from_numpy(coords),
+            masses=None if m is None else torch.from_numpy(m),
+            layout=layout).numpy()
+        # same span: the projectors agree
+        assert np.max(np.abs(got @ got.T - ref @ ref.T)) <= 1e-10
+        assert np.max(np.abs(got.T @ got - np.eye(6))) <= 1e-12
+    atom = trigid.rigid_modes_anm(torch.from_numpy(coords), layout="atom")
+    hessian = assembly.hessian_matrix(torch.from_numpy(coords),
+                                      sct.invariant_params(7.0))
+    assert float((hessian @ atom).abs().max()) <= 1e-10
+    with pytest.raises(ValueError, match="layout"):
+        trigid.rigid_modes_anm(torch.from_numpy(coords), layout="planes")
+
+
+@pytest.mark.parametrize("block_size", [15, 45, 90])
+@pytest.mark.parametrize("sigma", [None, 2.5])
+@pytest.mark.parametrize("problem", [_anm_problem, _gnm_problem])
+def test_pinv_diagonal_matches_jax(problem, sigma, block_size):
+    matrix, basis = problem(np.float64)
+    matrix, basis = matrix[0], basis[0] if basis.ndim == 3 else basis
+    m = matrix.shape[0]
+    if m % block_size:
+        block_size = m
+    ref = jrigid.pinv_diagonal(jnp.asarray(matrix.numpy()),
+                               jnp.asarray(basis.numpy()), sigma=sigma,
+                               block_size=block_size)
+    got = trigid.pinv_diagonal(matrix, basis, sigma=sigma,
+                               block_size=block_size)
+    assert got.shape == (m,) and _rel(got, ref) <= 1e-10
+    full = trigid.covariance_cholesky(matrix, basis)
+    assert _rel(got, torch.diagonal(full)) <= 1e-10
+
+
+def test_pinv_diagonal_donate_overwrites_its_input():
+    matrix, basis = _anm_problem(np.float64)
+    matrix, basis = matrix[0].clone(), basis[0]
+    ref = trigid.pinv_diagonal(matrix, basis, block_size=45)
+    kept = matrix.clone()
+    got = trigid.pinv_diagonal(matrix, basis, block_size=45, donate=True)
+    assert _rel(got, ref) <= 1e-12
+    assert not torch.equal(matrix, kept)
+    with pytest.raises(ValueError, match="unbatched"):
+        trigid.pinv_diagonal(kept[None], basis)
+    with pytest.raises(ValueError, match="divide"):
+        trigid.pinv_diagonal(kept, basis, block_size=7)

@@ -170,7 +170,7 @@ def test_panel_inverse_kernel(cuda, pb, count):
     panels = torch.as_tensor(_spd_panels(count, pb, seed=pb + count),
                              device=cuda)
     before = spd_linalg.panel_inverse_batched.launches
-    got = spd_linalg.panel_inverse_batched(panels)
+    got = spd_linalg.panel_inverse_batched(panels, shrink_block=8)
     assert spd_linalg.panel_inverse_batched.launches == before + 1
     ref = spd_linalg.panel_inverse_plain(panels)
     full = spd_linalg.panel_inverse_full(panels)
@@ -179,6 +179,31 @@ def test_panel_inverse_kernel(cuda, pb, count):
     assert torch.equal(got, full)
     upper = torch.triu(got, diagonal=1)
     assert torch.equal(upper, torch.zeros_like(upper))
+
+
+@pytest.mark.parametrize("count", [1, 3, 128])
+@pytest.mark.parametrize("pb", list(range(72, 129, 8)))
+def test_panel_inverse_kernels_past_64_rows(cuda, pb, count):
+    """K3 and K9 at the leaves of ``block`` 72-128: both equal the plain
+    version and each other bit for bit, each counting its launch."""
+    panels = torch.as_tensor(_spd_panels(count, pb, seed=pb + count),
+                             device=cuda)
+    before = (spd_linalg.panel_inverse_batched.launches,
+              spd_linalg.panel_inverse_full.launches)
+    got = spd_linalg.panel_inverse_batched(panels, shrink_block=8)
+    full = spd_linalg.panel_inverse_batched(panels)
+    assert (spd_linalg.panel_inverse_batched.launches,
+            spd_linalg.panel_inverse_full.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    ref = spd_linalg.panel_inverse_plain(panels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(full, ref)
+    upper = torch.triu(got, diagonal=1)
+    assert torch.equal(upper, torch.zeros_like(upper))
+    eye = torch.eye(pb, device=cuda, dtype=torch.float64)
+    p64, g64 = panels.double(), got.double()
+    assert float((g64 @ p64 @ g64.mT - eye).abs().max()) <= 1e-4
 
 
 def test_panel_inverse_kernel_on_a_chunk_leaf(cuda):
@@ -195,12 +220,12 @@ def test_panel_inverse_kernel_on_a_chunk_leaf(cuda):
                                              spd_linalg.padded_size(900))
     leaf = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     for panels in (leaf, leaf[:1].contiguous()):
-        got = spd_linalg.panel_inverse_batched(panels)
+        got = spd_linalg.panel_inverse_batched(panels, shrink_block=8)
         assert torch.equal(got, spd_linalg.panel_inverse_plain(panels))
         assert torch.equal(got, spd_linalg.panel_inverse_full(panels))
 
 
-@pytest.mark.parametrize("pb", [16, 64])
+@pytest.mark.parametrize("pb", [16, 64, 128])
 def test_panel_inverse_kernel_on_offset_panels(cuda, pb):
     """K3 moves a row's slots as vector accesses: contiguous panels that
     start one float past a 16-byte boundary are refused before any
@@ -211,23 +236,25 @@ def test_panel_inverse_kernel_on_offset_panels(cuda, pb):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     before = spd_linalg.panel_inverse_batched.launches
     with pytest.raises(ValueError, match="16-byte boundary"):
-        spd_linalg.panel_inverse_batched(shifted)
+        spd_linalg.panel_inverse_batched(shifted, shrink_block=8)
     assert spd_linalg.panel_inverse_batched.launches == before
     later = panels[1:]
     assert later.storage_offset() > 0
-    assert torch.equal(spd_linalg.panel_inverse_batched(later),
+    assert torch.equal(spd_linalg.panel_inverse_batched(later,
+                                                        shrink_block=8),
                        spd_linalg.panel_inverse_plain(later))
 
 
-@pytest.mark.parametrize("pb", [8, 40, 64])
+@pytest.mark.parametrize("pb", [8, 40, 64, 72, 128])
 def test_panel_inverse_kernel_breakdown_is_not_finite(cuda, pb):
     panels = _spd_panels(3, pb, seed=1)
     panels[1, 5, 5] = -1.0
-    got = spd_linalg.panel_inverse_batched(torch.as_tensor(panels,
-                                                           device=cuda))
-    assert not bool(torch.isfinite(got[1]).all())
-    assert bool(torch.isfinite(got[0]).all())
-    assert bool(torch.isfinite(got[2]).all())
+    for shrink_block in (8, None):
+        got = spd_linalg.panel_inverse_batched(
+            torch.as_tensor(panels, device=cuda), shrink_block=shrink_block)
+        assert not bool(torch.isfinite(got[1]).all())
+        assert bool(torch.isfinite(got[0]).all())
+        assert bool(torch.isfinite(got[2]).all())
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -250,10 +277,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         spd_linalg.panel_inverse_batched(
             torch.eye(16, device=cuda, dtype=torch.float64).expand(2, 16,
-                                                                  16))
+                                                                  16),
+            shrink_block=8)
     with pytest.raises(ValueError, match="exceeds"):
         spd_linalg.panel_inverse_batched(
-            torch.eye(72, device=cuda).expand(2, 72, 72).contiguous())
+            torch.eye(136, device=cuda).expand(2, 136, 136).contiguous(),
+            shrink_block=8)
     with pytest.raises(TypeError, match="float32"):
         sct.ensemble_anm_fluctuations(coords, params, inverse="blocked",
                                       dtype=torch.float64)
@@ -1171,7 +1200,7 @@ def test_table_kernels_refuse_what_they_do_not_take(cuda):
             torch.eye(136, device=cuda).expand(2, 136, 136).contiguous())
     with pytest.raises(ValueError, match="exceeds"):
         spd_linalg.panel_inverse_full(
-            torch.eye(72, device=cuda).expand(2, 72, 72).contiguous())
+            torch.eye(136, device=cuda).expand(2, 136, 136).contiguous())
 
 
 @pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
@@ -1648,3 +1677,59 @@ def test_overlays_on_the_matfree_paths_on_cuda(cuda, maker):
     base_apply = matfree.hessian_apply_dense(
         torch.as_tensor(atoms.coord, device=cuda), x, base)
     assert _rel(base_apply, h64 @ x.double()) > 1e-3
+
+
+def test_use_pallas_false_is_refused_on_cuda(cuda):
+    """``use_pallas=False`` asks for the plain versions, which are for the
+    CPU: on CUDA the entry points and the matrix-free solvers raise
+    before any launch; the other values run the kernels."""
+    coords = torch.as_tensor(_coords(2, 30, seed=5), device=cuda)
+    params = sct.invariant_params(7.0)
+    wrappers = sct.kernel_wrappers()
+    before = {name: w.launches for name, w in wrappers.items()}
+    for call in (
+            lambda: sct.ensemble_anm_fluctuations(coords, params,
+                                                  use_pallas=False),
+            lambda: sct.gnm_fluctuations(coords[0], params,
+                                         use_pallas=False),
+            lambda: sct.anm_spectral(coords[0], params, use_pallas=False),
+            lambda: sct.lowest_modes_matfree(coords[0], params, 3,
+                                             use_pallas=False),
+            lambda: sct.covariance_solve_matfree_gnm(
+                coords[0], params, torch.ones(30, device=cuda),
+                use_pallas=False)):
+        with pytest.raises(ValueError, match="for the CPU"):
+            call()
+    assert all(w.launches == before[name] for name, w in wrappers.items())
+    for value in ("auto", None, True):
+        out = sct.ensemble_anm_fluctuations(coords, params,
+                                            use_pallas=value)
+        assert out["msf"].device.type == "cuda"
+    assert wrappers["panel_inverse"].launches > before["panel_inverse"]
+
+
+@pytest.mark.parametrize("engine", ["auto", "invfactor", "chol"])
+def test_lowest_modes_anm_on_cuda(cuda, engine):
+    """The lowest modes of a 300-residue structure in float32 on the card
+    (``"auto"`` takes ``"invfactor"``: K3 at the inverse factor's
+    leaves) against float64 ``eigh``, then refined in float64 on the
+    card to 1e-6 relative."""
+    coord = torch.as_tensor(_coords(1, 300, seed=8, spread=34.0)[0],
+                            device=cuda)
+    params = sct.invariant_params(13.0)
+    h = assembly_kernels.hessian_xyz_ensemble(coord[None], params)[0]
+    before = spd_linalg.panel_inverse_batched.launches
+    vals, vecs = sct.lowest_modes_anm(h, coord, 14, engine=engine)
+    launched = spd_linalg.panel_inverse_batched.launches > before
+    assert launched == (engine != "chol")
+    h64 = assembly.hessian_matrix(coord.double(), params, layout="xyz")
+    ref = torch.linalg.eigvalsh(h64)
+    norm = float(ref.abs().max())
+    assert float((vals[:10].double() - ref[6:16]).abs().max()) <= 1e-4 * norm
+    u = vecs[:10].double()
+    res = torch.linalg.vector_norm(h64 @ u.T - u.T * vals[:10].double(),
+                                   dim=0)
+    assert float(res.max()) <= 5e-4 * norm
+    theta, refined, _ = sct.refine_modes_f64(coord, params, vecs)
+    assert refined.dtype == torch.float64 and refined.device.type == "cuda"
+    assert float(((theta[:10] - ref[6:16]).abs() / ref[6:16]).max()) <= 1e-6

@@ -44,7 +44,8 @@ def test_panel_inverse_matches_jax_shrink_kernel(pb):
         jnp.asarray(panels), shrink_block=8, interpret=True))
 
     before = spd_linalg.panel_inverse_batched.launches
-    got = spd_linalg.panel_inverse_batched(torch.from_numpy(panels))
+    got = spd_linalg.panel_inverse_batched(torch.from_numpy(panels),
+                                           shrink_block=8)
     assert spd_linalg.panel_inverse_batched.launches == before
     assert got.dtype == torch.float32 and got.shape == (5, pb, pb)
     assert np.max(np.abs(got.numpy() - ref)) <= 2e-5

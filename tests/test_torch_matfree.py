@@ -166,11 +166,13 @@ def test_wrapper_limits_mirror_the_kernel_sources():
 
     assert tmf._DENSE_COLS == constant("matfree_hessian.cu", "kMaxCols")
     assert tmf._GATHER_COLS == constant("pair_gather.cuh", "kGatherCols")
-    assert spd_linalg.LEAF == constant("panel_inverse.cu", "kMaxPanel")
-    rows = constant("panel_inverse.cu", "kFullRows")
-    # every panel the wrapper passes fits one block: pb^2 / (2 rows)
-    # threads of at most 1024, a whole number of thread rows
-    for pb in range(8, spd_linalg.LEAF + 1, 8):
+    assert spd_linalg.MAX_LEAF == constant("panel_inverse.cu", "kMaxPanel")
+    narrow = constant("panel_inverse.cu", "kFullNarrowPanel")
+    # every panel the wrapper passes fits one block of the full-window
+    # kernel: pb^2 / (2 rows) threads of at most 1024, a whole number of
+    # thread rows (4 rows a thread up to `narrow`, 8 above)
+    for pb in range(8, spd_linalg.MAX_LEAF + 1, 8):
+        rows = 4 if pb <= narrow else 8
         assert pb * pb // (2 * rows) <= 1024 and pb % rows == 0
 
 

@@ -119,14 +119,15 @@ def main():
     # K3, K9, solve_triangular on the first leaf and on its first panel
     leaf = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     for panels in (leaf, leaf[:1].contiguous()):
-        got = spd_linalg.panel_inverse_batched(panels)
+        got = spd_linalg.panel_inverse_batched(panels, shrink_block=8)
         cs.check(torch.equal(got, spd_linalg.panel_inverse_plain(panels))
                  and torch.equal(got, spd_linalg.panel_inverse_full(panels)),
                  "K3 differs from K9 or its plain version")
         factor = torch.linalg.cholesky(panels)
         eye = torch.eye(panels.shape[-1], device="cuda").expand_as(factor)
         fns = {
-            "K3": lambda p=panels: spd_linalg.panel_inverse_batched(p),
+            "K3": lambda p=panels: spd_linalg.panel_inverse_batched(
+                p, shrink_block=8),
             "K9": lambda p=panels: spd_linalg.panel_inverse_full(p),
             "solve_triangular":
                 lambda f=factor, e=eye: torch.linalg.solve_triangular(

@@ -104,7 +104,7 @@ def stage_times(dev, params, reps, label=""):
         "6 observables":
             lambda: pipeline._anm_trace_observables(traces, True),
         f"K3, one launch of {leaves.shape[0]} panels":
-            lambda: spd_linalg.panel_inverse_batched(leaves),
+            lambda: spd_linalg.panel_inverse_batched(leaves, shrink_block=8),
         "whole chunk": lambda: run(c, params),
     }
     m = 3 * n

@@ -54,14 +54,16 @@ def time_k9(reps):
     got = spd_linalg.panel_inverse_full(panels)
     torch.cuda.synchronize()
     cs.check(torch.equal(got, spd_linalg.panel_inverse_plain(panels))
-             and torch.equal(got, spd_linalg.panel_inverse_batched(panels)),
+             and torch.equal(got, spd_linalg.panel_inverse_batched(
+                 panels, shrink_block=8)),
              "K9 differs from the plain version or K3")
     factor = torch.linalg.cholesky(panels)
     eye = torch.eye(spd_linalg.LEAF, device="cuda").expand_as(factor)
     times = in_turns(
         [lambda: torch.linalg.solve_triangular(factor, eye, upper=False),
          lambda: spd_linalg.panel_inverse_full(panels),
-         lambda: spd_linalg.panel_inverse_batched(panels)], reps)
+         lambda: spd_linalg.panel_inverse_batched(panels, shrink_block=8)],
+        reps)
     print(f"K9 (128, 64, 64): solve_triangular {times[0]:.4f} ms; K9 "
           f"{times[1]:.4f} ms; K3 {times[2]:.4f} ms", flush=True)
 
