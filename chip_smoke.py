@@ -27,9 +27,14 @@ Phases:
    20 calls (the host's enqueue time per call drops out) in turns with K9
    and ``torch.linalg.solve_triangular``, beside its time per eager call;
    the full-window panel inverse K9 at both sizes in turns with
-   ``torch.linalg.solve_triangular``; K2 also on the sdENM chunk; the
-   pair-CSR build, whose rows and slots must equal its plain version's,
-   and K13 / K14 over its list, timed in turns with ``torch.sparse.mm``);
+   ``torch.linalg.solve_triangular``; K2 also on the sdENM chunk; K7
+   (its row-sum pass and store pass together) under the invariant field
+   and hinsen and on a chunk of 299 atoms, the row-sum pass alone against
+   its plain version; the Kirchhoff kernel on the chunk and on the single
+   structures (1776 atoms, eANM on 7cal) timed by replaying a CUDA graph,
+   beside its time per eager call; the pair-CSR build, whose rows and
+   slots must equal its plain version's, and K13 / K14 over its list,
+   timed in turns with ``torch.sparse.mm``);
 4. the paths, each driven once from zero launch counts and required to
    have launched its own kernels (``PATH_KERNELS``), with finiteness
    checks and a float32 result held against the port's float64 engines
@@ -97,7 +102,10 @@ Phases:
    * ``prep="direct"`` of ``ensemble_anm_fluctuations`` (the
      coordinates-to-factor-input kernel, invariant field), plane traces
      and covariance, held against float64 ``cho_solve`` and against the
-     planes path of the same call, with both rates in turns;
+     planes path of the same call, with both rates in turns, and the two
+     prep stages of a chunk beside each other in turns (direct: the
+     row-sum pass, the stitch inputs and K7's store pass; planes: K1, the
+     stitch inputs and K2);
    * the public panel functions ``panel_cholesky_batched``,
      ``panel_inverse_batched(shrink_block=None)`` and
      ``spd_inverse_blocked`` on a chunk's equilibrated factor input
@@ -565,12 +573,16 @@ def entry(shape, err, ms, plain_ms, work, library_ms=None):
 
 
 def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
-           reps=TIMING_REPS, plain_reps=TIMING_REPS, label="", turns=False):
+           reps=TIMING_REPS, plain_reps=TIMING_REPS, label="", turns=False,
+           graph=False):
     """Hold `kernel_fn` against `plain_fn` on the same CUDA tensors, time
     both (and `library_fn`, one PyTorch call of the same function) with
     CUDA events, and append the record to ``results[name]``; returns the
     plain output.  With `turns` the kernel and the library call are timed
-    in turns (kernel, library, library, kernel) and their means kept."""
+    in turns (kernel, library, library, kernel) and their means kept.
+    With `graph` the kernel's ``ms`` is its time by graph replay
+    (``graph_ms``: a call too short for its host's enqueue time) and its
+    CUDA-event time per eager call is ``event_ms``."""
     import torch
 
     got, ref = kernel_fn(), plain_fn()
@@ -591,7 +603,12 @@ def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
         ms = cuda_ms(kernel_fn, reps)
         library_ms = None if library_fn is None else cuda_ms(library_fn,
                                                              reps)
+    if graph:
+        event_ms, ms = ms, graph_ms(kernel_fn)
+        turn += f" (graph replay; {event_ms:.4f} ms per eager call)"
     rec = entry(got.shape, err, ms, plain_ms, work, library_ms)
+    if graph:
+        rec["event_ms"] = event_ms
     print(f"parity {name} {tuple(got.shape)}{label}: max abs err {err:.3e}, "
           f"max rel err {rel:.3e} (tol {KERNELS[name][2]:g}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -604,9 +621,11 @@ def record(results, name, kernel_fn, plain_fn, work, library_fn=None,
 
 
 def stitch_parity(results, coords, params, label):
-    """K7 against its plain version (the plain planes through the plain
-    stitch) on a chunk, with the scale and basis its path computes; the
-    bound is the one write of ``reg`` plus the small inputs."""
+    """K7, its row-sum pass and its store pass in one call, against its
+    plain version (the plain planes through the plain stitch) on a chunk,
+    with the scale and basis its path computes; the bound is the one
+    write of ``reg`` plus the small inputs.  The row-sum pass alone
+    against its plain version is printed beside it."""
     from springcraft_tpu_torch.ops import assembly_kernels, rigid, spd_linalg
 
     batch, n = coords.shape[:2]
@@ -615,9 +634,19 @@ def stitch_parity(results, coords, params, label):
     _, _, scale_h, ts = rigid._stitch_inputs_from_diag(
         rigid._hessian_diag_xyz_batched(coords, params),
         rigid.rigid_modes_anm(coords), None)
+    got = assembly_kernels.assembly_row_sums(coords, params)
+    err, rel = max_errors(got, assembly_kernels.assembly_row_sums_plain(
+        coords, params))
+    check(rel <= KERNELS["assembly_stitch"][2],
+          f"assembly_stitch row-sum pass{label}: max rel err {rel:.3e}")
+    ms = cuda_ms(lambda: assembly_kernels.assembly_row_sums(coords, params))
+    print(f"parity assembly_stitch row-sum pass {tuple(got.shape)}{label}: "
+          f"max abs err {err:.3e}, max rel err {rel:.3e} (tol "
+          f"{KERNELS['assembly_stitch'][2]:g}); {ms:.4f} ms", flush=True)
     record(results, "assembly_stitch",
-           lambda: assembly_kernels.assembly_stitch(coords, params, scale_h,
-                                                    ts, mp),
+           lambda: assembly_kernels.assembly_stitch(
+               coords, params, scale_h, ts, mp,
+               assembly_kernels.assembly_row_sums(coords, params)),
            lambda: assembly_kernels.assembly_stitch_plain(coords, params,
                                                           scale_h, ts, mp),
            (4 * (3 * batch * n + 7 * batch * m + batch * mp * mp),
@@ -652,7 +681,8 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
         record(results, "kirchhoff",
                lambda: assembly_kernels.kirchhoff_ensemble(c, p),
                lambda: assembly.kirchhoff_plain(c, p),
-               (nbytes(b, n, 1, p), 10 * b * n * n), label=label)
+               (nbytes(b, n, 1, p), 10 * b * n * n), label=label,
+               graph=True)
     # K2 on the sdENM chunk's planes: the same shape and bytes as the
     # invariant chunk's
     b, n = coords.shape[:2]
@@ -788,6 +818,9 @@ def kernel_parity(coords, single, params):
     del planes
     stitch_parity(results, coords, params, " invariant 13 A")
     stitch_parity(results, coords, sct.hinsen_params(), " hinsen")
+    # n % 4 != 0: the store pass's per-column instance
+    stitch_parity(results, coords[:, :n - 1].contiguous(), params,
+                  " invariant 13 A, n % 4 != 0")
 
     # the first leaf of the recursion: an equilibrated SPD 64-panel, then
     # the largest leaf, 128 (``block=128``)
@@ -805,13 +838,15 @@ def kernel_parity(coords, single, params):
            lambda: torch.linalg.cholesky(panels))
     del panels
 
-    # the GNM ensemble's chunk, then the single structure
+    # the GNM ensemble's chunk, then the single structure (by graph
+    # replay: either call is shorter than its host's enqueue)
     for c in (coords, single):
         b, nc = c.shape[:2]
         record(results, "kirchhoff",
                lambda c=c: assembly_kernels.kirchhoff_ensemble(c, params),
                lambda c=c: assembly.kirchhoff_plain(c, params),
-               (4 * (3 * b * nc + b * nc * nc), 10 * b * nc * nc))
+               (4 * (3 * b * nc + b * nc * nc), 10 * b * nc * nc),
+               graph=True)
     # the single structure (its path), then an ensemble chunk
     for c in (single, coords):
         b, nc = c.shape[:2]
@@ -1057,6 +1092,7 @@ def drive(path, fn):
         wrapper.launches = 0
     for name in TABLE_KERNELS:
         wrappers[name].table_launches = 0
+    wrappers["assembly_stitch"].row_sum_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1065,12 +1101,16 @@ def drive(path, fn):
     seconds = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     table = {name: wrappers[name].table_launches for name in TABLE_KERNELS}
+    row_sums = wrappers["assembly_stitch"].row_sum_launches
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"{path} launches: {json.dumps(launches)}; of these through the "
-          f"table branch: {json.dumps(table)}; peak device memory "
-          f"{peak:.1f} MiB", flush=True)
+          f"table branch: {json.dumps(table)}; K7 row-sum passes "
+          f"{row_sums}; peak device memory {peak:.1f} MiB", flush=True)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} never launched kernel {name}")
+        if name == "assembly_stitch":
+            check(row_sums == launches[name], f"{path}: {row_sums} row-sum "
+                  f"passes of K7 for {launches[name]} store passes")
         if name in TABLE_KERNELS and path in MIXED_PATHS:
             check(0 < table[name] < launches[name],
                   f"{path}: kernel {name} took its table branch "
@@ -1456,7 +1496,42 @@ def direct_paths(conformers, params, card):
               f"direct, planes: {rates['planes'][0]:.1f}, "
               f"{rates['direct'][0]:.1f}, {rates['direct'][1]:.1f}, "
               f"{rates['planes'][1]:.1f} solves/s on [{card}]", flush=True)
+    prep_stages(conformers, params, card)
     return launches
+
+
+def prep_stages(conformers, params, card):
+    """The two preps of one chunk beside each other, CUDA events over
+    TIMING_REPS calls in turns (planes, direct, direct, planes): direct,
+    the row-sum pass, the stitch inputs and K7's store pass; planes, K1,
+    the stitch inputs and K2.  Both outputs agree to float32 summation
+    order."""
+    import torch
+
+    from springcraft_tpu_torch.ops import assembly_kernels, rigid
+
+    chunk = torch.as_tensor(conformers[:CHUNK], device="cuda")
+    n = chunk.shape[1]
+    bases = rigid.rigid_modes_anm(chunk)
+    stages = {
+        "direct": lambda: rigid._regularize_equilibrated_direct(
+            chunk, params, bases),
+        "planes": lambda: rigid._regularize_equilibrated_planes(
+            assembly_kernels.hessian_planes_ensemble(chunk, params), n,
+            bases),
+    }
+    _, rel = max_errors(stages["direct"]()[0], stages["planes"]()[0])
+    check(rel <= KERNELS["assembly_stitch"][2],
+          f"prep stages: direct and planes differ by {rel:.3e}")
+    times = {"direct": [], "planes": []}
+    for name in ("planes", "direct", "direct", "planes"):
+        times[name].append(cuda_ms(stages[name]))
+    print(f"prep stages of a chunk {tuple(chunk.shape)} in turns planes, "
+          f"direct, direct, planes: direct (row sums, stitch inputs, K7) "
+          + ", ".join(f"{t:.4f}" for t in times["direct"])
+          + " ms, planes (K1, stitch inputs, K2) "
+          + ", ".join(f"{t:.4f}" for t in times["planes"])
+          + f" ms; outputs {rel:.3e} apart, on [{card}]", flush=True)
 
 
 def panel_function_path(conformers, params):

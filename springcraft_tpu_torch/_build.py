@@ -57,9 +57,11 @@ _SIGNATURES = {
     "sc_hessian_planes": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
     "sc_hessian_xyz": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
     "sc_kirchhoff": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P),
-    # coords, scale_h, ts, out, batch, n, mp, kind, cutoff_sq, has_cutoff,
-    # stream
-    "sc_assembly_stitch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # coords, row_sums, batch, n, kind, cutoff_sq, has_cutoff, stream
+    "sc_assembly_row_sums": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # coords, scale_h, ts, row_sums, out, batch, n, mp, kind, cutoff_sq,
+    # has_cutoff, stream
+    "sc_assembly_stitch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # planes, scale_h, ts, out, batch, n, mp, stream
     "sc_regularize_stitch": (_P, _P, _P, _P, _I, _I, _I, _P),
     # panels, out, count, pb, stream

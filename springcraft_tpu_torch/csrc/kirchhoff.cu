@@ -10,82 +10,253 @@
 //   GNM pipelines for the analytic families) runs at B = chunk.
 // Analytic families and the tabulated `table_compact` family, whose
 // one-hot products (`_kirchhoff_kernel`) and precomputed pair planes
-// (`_kirchhoff_ensemble_kernel`) are one per-pair lookup here (spring.cuh,
-// `table_constant`; see hessian_planes.cu).
+// (`_kirchhoff_ensemble_kernel`) are one per-pair lookup here (spring.cuh
+// `table_entry`, with the bin below; see hessian_planes.cu).
 //
 // What bounds it on the H100: memory writes.  Each conformer writes n^2
-// floats (46 MB for a 128-conformer chunk at n = 300) and reads 12 n bytes
-// of coordinates; the arithmetic per pair is ~10 flops.
+// floats (46 MB for a 128-conformer chunk at n = 300, 12.6 MB for one
+// structure of 1,776 atoms) and reads 12 n bytes of coordinates; the
+// arithmetic per pair is ~10 flops, and the table branch adds a bin
+// lookup and a table read per pair within the cutoff.
 //
-// Design, as in hessian_planes.cu: the TPU kernels carry the row sum across
-// a sequential column-tile grid and write the diagonal tile last; here one
-// WARP owns one whole row p of one conformer, its lanes sweep the columns
-// (one coalesced 128-byte store per step), the row sum stays in a register
-// and is reduced by warp shuffle, and lane 0 writes the diagonal.  No
-// cross-block reduction.  A block of 8 warps stages the column atoms'
-// coordinates in shared memory (12 bytes an atom, 16 plus the edges for the
-// tabulated family): the whole conformer up to 4,096 atoms, tiles of 2,048
-// with a barrier per tile beyond, so any size assembles.  The column sweep
-// is unrolled fourfold, as in hessian_planes.cu.
+// Design: a row belongs to `lanes` lanes of one warp (32, or 16 or 8 when
+// they waste fewer lanes on the row's last columns: 16 at n = 300), so a
+// warp has one to four rows in flight and no row needs shared memory or a
+// barrier.  A row's columns from its first 16-byte boundary on are
+// groups of 4: each lane takes every lanes-th group, reads the 4 column
+// atoms straight from device memory through L1 (three 16-byte loads where
+// n % 4 == 0, kVectorLoads), computes their constants and writes -k with
+// one 16-byte streaming store.  Where n % 4 != 0 a row starts 0-3 columns
+// before a boundary: the row's lanes write those and the 0-3 after the
+// last group with 4-byte stores, one a lane (writing the whole row 4 bytes at a
+// time took 0.0369 ms at (128, 299) on an H100, against 0.0211 ms at
+// (128, 300)).
+// The row sum is finished in a fixed order without atomics: each lane sums
+// its constants in order, in float64 (float32 sums of 256 terms a lane
+// missed 1e-6 of max of the plain version at n = 8,192 without a cutoff),
+// the row's lanes reduce by a fixed shuffle tree, and the diagonal is
+// written last (the lane that holds its group writes that group, the
+// diagonal in place; outside the groups, the row's first lane).  The TPU
+// kernels carry the row sum across a sequential column-tile grid
+// instead.
+//
+// The table branch's bin: a halving search over the edges (spring.cuh,
+// table_bin) is five dependent shared-memory reads a pair; here a
+// squared distance's cell (kCells cells up to the last edge) gives the
+// count of the edges of the cells below it, and a climb over the edges of
+// its own cell (about one) finishes it: the same bin, bit for bit.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "spring.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+// Cells of the table branch's bin lookup.
+constexpr int kCells = 256;
 
-template <bool kTable>
-__global__ void kirchhoff_kernel(const float* __restrict__ coords,
-                                 float* __restrict__ out, int n, int tile,
-                                 int kind, float cutoff_sq, int has_cutoff,
-                                 springcraft::PairTable table,
-                                 const float* __restrict__ edges_sq,
-                                 const int* __restrict__ atom_code) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const float* conformer = coords + static_cast<size_t>(b) * n * 3;
-  springcraft::ColumnTile<kTable> cols(smem, tile, edges_sq, table);
+// Cell of a squared distance: floor(x * inv), at most kCells - 1; monotone
+// in x (0 for NaN).
+__device__ __forceinline__ int cell_of(float x, float inv) {
+  return min(__float2int_rz(__fmul_rn(x, inv)), kCells - 1);
+}
 
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const bool active = p < n;  // a warp past the last row only helps staging
+// Distance bins by cells: lo[c] is the count of edges whose cell is below
+// c.  Every edge below a squared distance's cell lies below it (cells are
+// monotone), so the count of edges below it starts at lo[cell] and climbs
+// over the edges of its own cell, about one: the bin of
+// springcraft::table_bin, bit for bit, in two dependent shared-memory
+// reads instead of a halving search's five.
+struct CellBins {
+  const float* edges;
+  const int* lo;
+  float inv;
+  int n_edges;
+  int n_bins;
 
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  int cp = 0;
-  if (active) {
-    px = conformer[3 * static_cast<size_t>(p)];
-    py = conformer[3 * static_cast<size_t>(p) + 1];
-    pz = conformer[3 * static_cast<size_t>(p) + 2];
-    if constexpr (kTable) cp = atom_code[p];
+  __device__ __forceinline__ int bin(float sq) const {
+    if (n_bins <= 1 || n_edges <= 0) return 0;
+    int b = lo[cell_of(sq, inv)];
+    while (b < n_edges && sq > edges[b]) ++b;
+    return min(b, n_bins - 1);
   }
-  float* row = out + (static_cast<size_t>(b) * n + p) * n;
-  float acc = 0.0f;
-  for (int j0 = 0; j0 < n; j0 += tile) {
-    const int len = min(tile, n - j0);
-    cols.load(conformer, atom_code, j0, len);
-    if (!active) continue;
-    const float* x = cols.xyz;
-    const float* y = x + cols.stride;
-    const float* z = y + cols.stride;
-#pragma unroll 4
-    for (int s = lane; s < len; s += 32) {
-      const int q = j0 + s;
-      const float sq = springcraft::squared_distance(
-          __fsub_rn(px, x[s]), __fsub_rn(py, y[s]), __fsub_rn(pz, z[s]));
-      const float k = springcraft::masked_pair_constant<kTable>(
-          kind, table, cp, kTable ? cols.code[s] : 0, p, q, sq, cutoff_sq,
-          has_cutoff);
-      acc += k;
-      if (q != p) row[q] = -k;
+};
+
+// Stage the edges and their cells in shared memory at `smem` (n_edges
+// floats, then kCells ints).  Every thread calls it; the caller sets the
+// barrier.
+__device__ __forceinline__ CellBins stage_bins(
+    float* smem, const float* __restrict__ edges_sq, int n_edges,
+    int n_bins) {
+  int* lo = reinterpret_cast<int*>(smem + n_edges);
+  for (int i = threadIdx.x; i < n_edges; i += blockDim.x)
+    smem[i] = edges_sq[i];
+  const float last = n_edges > 0 ? __ldg(edges_sq + n_edges - 1) : 0.0f;
+  const float inv =
+      last > 0.0f ? __fdiv_rn(static_cast<float>(kCells - 1), last) : 0.0f;
+  if (n_bins > 1 && n_edges > 0) {
+    const int top = 1 << (31 - __clz(n_edges));
+    for (int c = threadIdx.x; c < kCells; c += blockDim.x) {
+      // the count of edges whose cell is below c (cells ascend with them)
+      int k = 0;
+      for (int step = top; step > 0; step >>= 1)
+        if (k + step <= n_edges &&
+            cell_of(__ldg(edges_sq + k + step - 1), inv) < c)
+          k += step;
+      lo[c] = k;
     }
   }
-  if (!active) return;
+  return CellBins{smem, lo, inv, n_edges, n_bins};
+}
+
+// Spring constant of row atom p and column atom q (codes cp, cq): zero
+// unless p != q and, with a cutoff, sq <= cutoff_sq.
+template <bool kTable>
+__device__ __forceinline__ float pair_constant(
+    int kind, float cutoff_sq, int has_cutoff,
+    const springcraft::PairTable& table, const CellBins& bins, int p,
+    float px, float py, float pz, int cp, int q, float x, float y, float z,
+    int cq) {
+  const float sq = springcraft::squared_distance(
+      __fsub_rn(px, x), __fsub_rn(py, y), __fsub_rn(pz, z));
+  if constexpr (kTable) {
+    const bool valid = q != p && (!has_cutoff || sq <= cutoff_sq);
+    return valid ? __ldg(springcraft::table_entry(table, bins.bin(sq), cp,
+                                                  cq, p, q))
+                 : 0.0f;
+  } else {
+    return springcraft::masked_spring_constant(kind, sq, q != p, cutoff_sq,
+                                               has_cutoff);
+  }
+}
+
+template <bool kTable, bool kVectorLoads>
+__global__ void __launch_bounds__(kThreads)
+    kirchhoff_kernel(const float* __restrict__ coords,
+                     float* __restrict__ out, int n, int lanes, int kind,
+                     float cutoff_sq, int has_cutoff,
+                     springcraft::PairTable table,
+                     const float* __restrict__ edges_sq,
+                     const int* __restrict__ atom_code) {
+  extern __shared__ float s_bins[];
+  CellBins bins{};
+  if constexpr (kTable) {
+    bins = stage_bins(s_bins, edges_sq, table.n_edges, table.n_bins);
+    __syncthreads();
+  }
+  const int b = blockIdx.y;
+  const float* conformer = coords + static_cast<size_t>(b) * n * 3;
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / lanes, sub = lane - seg * lanes;
+  const int p = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) *
+                    (32 / lanes) + seg;
+  float* row = out + (static_cast<size_t>(b) * n + p) * n;
+  // the row's columns: `head` before its first 16-byte boundary (none
+  // where n % 4 == 0), then `body` groups of 4 from there, then the rest
+  // from `tail`
+  const int head = min(
+      static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15)
+                       >> 2),
+      n);
+  const int body = (n - head) >> 2, tail = head + 4 * body;
+  const int diag_group = p >= head && p < tail ? (p - head) >> 2 : -1;
+  double partial = 0.0;
+  float kd[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the diagonal's group
+  if (p < n) {
+    const float px = __ldg(conformer + 3 * p);
+    const float py = __ldg(conformer + 3 * p + 1);
+    const float pz = __ldg(conformer + 3 * p + 2);
+    const int cp = kTable ? __ldg(atom_code + p) : 0;
+    const int steps = (body - sub + lanes - 1) / lanes;
+#pragma unroll 1
+    for (int step = 0; step < steps; ++step) {
+      const int g = sub + step * lanes, q0 = head + 4 * g;
+      float x[4], y[4], z[4];
+      int cq[4] = {0, 0, 0, 0};
+      if constexpr (kVectorLoads) {  // head == 0
+        const float4* c4 = reinterpret_cast<const float4*>(conformer) + 3 * g;
+        const float4 u = __ldg(c4), v = __ldg(c4 + 1), w = __ldg(c4 + 2);
+        x[0] = u.x, y[0] = u.y, z[0] = u.z, x[1] = u.w;
+        y[1] = v.x, z[1] = v.y, x[2] = v.z, y[2] = v.w;
+        z[2] = w.x, x[3] = w.y, y[3] = w.z, z[3] = w.w;
+        if constexpr (kTable) {
+          const int4 c = __ldg(reinterpret_cast<const int4*>(atom_code) + g);
+          cq[0] = c.x, cq[1] = c.y, cq[2] = c.z, cq[3] = c.w;
+        }
+      } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) row[p] = acc;
+        for (int j = 0; j < 4; ++j) {
+          x[j] = __ldg(conformer + 3 * (q0 + j));
+          y[j] = __ldg(conformer + 3 * (q0 + j) + 1);
+          z[j] = __ldg(conformer + 3 * (q0 + j) + 2);
+          if constexpr (kTable) cq[j] = __ldg(atom_code + q0 + j);
+        }
+      }
+      float k[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        k[j] = pair_constant<kTable>(kind, cutoff_sq, has_cutoff, table,
+                                     bins, p, px, py, pz, cp, q0 + j, x[j],
+                                     y[j], z[j], cq[j]);
+        partial += k[j];
+      }
+      if (g != diag_group) {
+        __stcs(reinterpret_cast<float4*>(row + q0),
+               make_float4(-k[0], -k[1], -k[2], -k[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kd[j] = -k[j];
+      }
+    }
+    // the at most 6 columns outside the groups, one a lane (lanes >= 8)
+    if (sub < head + n - tail) {
+      const int q = sub < head ? sub : tail + sub - head;
+      const float k = pair_constant<kTable>(
+          kind, cutoff_sq, has_cutoff, table, bins, p, px, py, pz, cp, q,
+          __ldg(conformer + 3 * q), __ldg(conformer + 3 * q + 1),
+          __ldg(conformer + 3 * q + 2), kTable ? __ldg(atom_code + q) : 0);
+      partial += k;
+      if (q != p) __stcs(row + q, -k);
+    }
+  }
+  // the row sum: the row's lanes in a fixed shuffle tree (rows past n add
+  // zeros), then the diagonal: the lane that holds its group writes that
+  // group, the diagonal in place; outside the groups, the row's first lane
+  // (the lane that took its column wrote nothing there)
+  for (int off = lanes / 2; off > 0; off >>= 1)
+    partial += __shfl_xor_sync(0xffffffffu, partial, off);
+  if (p < n) {
+    if (diag_group < 0) {
+      if (sub == 0) __stcs(row + p, static_cast<float>(partial));
+    } else if (sub == diag_group % lanes) {
+      const int jd = (p - head) & 3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j == jd) kd[j] = static_cast<float>(partial);
+      __stcs(reinterpret_cast<float4*>(row + head + 4 * diag_group),
+             make_float4(kd[0], kd[1], kd[2], kd[3]));
+    }
+  }
+}
+
+template <bool kTable>
+cudaError_t launch(bool vector, const dim3& grid, size_t smem,
+                   cudaStream_t stream, const float* coords, float* out,
+                   int n, int lanes, int kind, float cutoff_sq,
+                   int has_cutoff, const springcraft::PairTable& table,
+                   const float* edges_sq, const int* atom_code) {
+  if (vector)
+    kirchhoff_kernel<kTable, true><<<grid, kThreads, smem, stream>>>(
+        coords, out, n, lanes, kind, cutoff_sq, has_cutoff, table, edges_sq,
+        atom_code);
+  else
+    kirchhoff_kernel<kTable, false><<<grid, kThreads, smem, stream>>>(
+        coords, out, n, lanes, kind, cutoff_sq, has_cutoff, table, edges_sq,
+        atom_code);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -98,19 +269,32 @@ extern "C" int sc_kirchhoff(const float* coords, float* out, int batch, int n,
                             const int* atom_code, int n_bins, int n_edges,
                             void* stream) {
   if (batch > 0 && n > 0) {
-    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-    const int tile = springcraft::assembly_column_tile(n);
-    const size_t smem = springcraft::assembly_smem_bytes(tile, kind, n_edges);
-    const auto kernel = kind == springcraft::kTableCompact
-                            ? kirchhoff_kernel<true>
-                            : kirchhoff_kernel<false>;
-    const cudaError_t opt = springcraft::allow_shared_memory(kernel, smem);
-    if (opt != cudaSuccess) return static_cast<int>(opt);
-    const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
-    kernel<<<grid, 32 * kWarpsPerBlock, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        coords, out, n, tile, kind, cutoff_sq, has_cutoff, table, edges_sq,
-        atom_code);
+    // lanes of a row: 32, unless a half or a quarter warp wastes fewer
+    // lanes on the row's last column groups
+    const int groups = (n + 3) / 4;
+    int lanes = 32;
+    while (lanes > 8 && 10 * ((groups + lanes - 1) / lanes) * lanes >
+                            11 * groups)
+      lanes /= 2;
+    const int rows_per_block = kThreads / lanes;
+    const dim3 grid((n + rows_per_block - 1) / rows_per_block, batch);
+    const bool table = kind == springcraft::kTableCompact;
+    // 16-byte column loads: rows start on 16-byte boundaries (head == 0),
+    // conformers and codes aligned
+    const bool vector =
+        n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(coords) % 16 == 0 &&
+        (!table || reinterpret_cast<uintptr_t>(atom_code) % 16 == 0);
+    const springcraft::PairTable t{tables, nullptr, n_bins, n_edges};
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (table)
+      return static_cast<int>(launch<true>(
+          vector, grid, n_edges * sizeof(float) + kCells * sizeof(int), s,
+          coords, out, n, lanes, kind, cutoff_sq, has_cutoff, t, edges_sq,
+          atom_code));
+    return static_cast<int>(launch<false>(vector, grid, 0, s, coords, out, n,
+                                          lanes, kind, cutoff_sq, has_cutoff,
+                                          t, edges_sq, atom_code));
   }
   return static_cast<int>(cudaGetLastError());
 }

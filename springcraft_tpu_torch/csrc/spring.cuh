@@ -75,33 +75,46 @@ constexpr int kTypes = 20;
 // kernels; sdENM has 26).
 constexpr int kMaxEdges = 64;
 
-// Tabulated spring constant of a pair of distinct atoms at squared distance
-// `sq`: bin = min(#{edges_sq < sq}, n_bins - 1); context bonded for
-// neighbours in the original array whose lower one is flagged, else
-// intra-chain for equal chain codes, else inter-chain.  `cp`, `cq` are the
-// atoms' packed codes (type in bits 0-4, bonded-to-next flag in bit 5, chain
-// code from bit 6) and `pos_p`, `pos_q` their positions in the original
-// array: the assembly kernels pass the atom indices, the matrix-free kernels
-// read the codes by slot of the Morton order and pass the original ids.
-__device__ __forceinline__ float table_constant(const PairTable& t, int cp,
-                                                int cq, int pos_p, int pos_q,
-                                                float sq) {
+// Distance bin of squared distance `sq`: min(#{edges_sq < sq}, n_bins - 1),
+// the count by halving steps from the largest power of two <= n_edges (a
+// lower bound over the ascending edges): the same number of steps on every
+// lane, no divergent loop.
+__device__ __forceinline__ int table_bin(const PairTable& t, float sq) {
   int bin = 0;
-  if (t.n_bins > 1) {
-    // lower bound over the ascending edges: the count of edges below sq
-    int hi = t.n_edges;
-    while (bin < hi) {
-      const int mid = (bin + hi) >> 1;
-      if (sq > t.edges_sq[mid]) bin = mid + 1; else hi = mid;
-    }
+  if (t.n_bins > 1 && t.n_edges > 0) {
+    for (int step = 1 << (31 - __clz(t.n_edges)); step > 0; step >>= 1)
+      if (bin + step <= t.n_edges && sq > t.edges_sq[bin + step - 1])
+        bin += step;
     bin = min(bin, t.n_bins - 1);
   }
+  return bin;
+}
+
+// Table entry of a pair of distinct atoms in distance bin `bin`: context
+// bonded for neighbours in the original array whose lower one is flagged,
+// else intra-chain for equal chain codes, else inter-chain.  `cp`, `cq` are
+// the atoms' packed codes (type in bits 0-4, bonded-to-next flag in bit 5,
+// chain code from bit 6) and `pos_p`, `pos_q` their positions in the
+// original array: the assembly kernels pass the atom indices, the
+// matrix-free kernels read the codes by slot of the Morton order and pass
+// the original ids.
+__device__ __forceinline__ const float* table_entry(const PairTable& t,
+                                                    int bin, int cp, int cq,
+                                                    int pos_p, int pos_q) {
   const int lower = pos_p < pos_q ? cp : cq;
   const int gap = pos_p < pos_q ? pos_q - pos_p : pos_p - pos_q;
   int context = (cp >> 6) == (cq >> 6) ? 0 : 1;
   if (gap == 1 && (lower & 32)) context = 2;
-  return __ldg(t.tables + ((bin * 3 + context) * kTypes + (cp & 31)) * kTypes +
-               (cq & 31));
+  return t.tables + ((bin * 3 + context) * kTypes + (cp & 31)) * kTypes +
+         (cq & 31);
+}
+
+// Tabulated spring constant of a pair of distinct atoms at squared distance
+// `sq` (table_bin, table_entry).
+__device__ __forceinline__ float table_constant(const PairTable& t, int cp,
+                                                int cq, int pos_p, int pos_q,
+                                                float sq) {
+  return __ldg(table_entry(t, table_bin(t, sq), cp, cq, pos_p, pos_q));
 }
 
 // Spring constant of the pair of atoms p, q (array positions, codes cp, cq),

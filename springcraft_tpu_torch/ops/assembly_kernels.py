@@ -24,13 +24,18 @@ TPU kernels do.
   plain version :func:`regularize_stitch_plain`.
 * :func:`assembly_stitch` — kernel ``csrc/assembly_stitch.cu``: the same
   factor input straight from the coordinates; plain version
-  :func:`assembly_stitch_plain`.
+  :func:`assembly_stitch_plain`.  Its first pass,
+  :func:`assembly_row_sums` (entry ``sc_assembly_row_sums``), writes the
+  Hessian's diagonal superelements, whose diagonal the prep needs for its
+  scale; plain version :func:`assembly_row_sums_plain`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (float32 only) or raises.  It never falls back
 from one to the other.  ``<wrapper>.launches`` counts kernel launches;
 the three assembly wrappers also count in ``.table_launches`` those that
-took the kernel's table branch (a ``table_compact`` family).
+took the kernel's table branch (a ``table_compact`` family), and
+:func:`assembly_stitch` counts its row-sum pass in
+``.row_sum_launches``.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .assembly import (hessian_planes_plain, hessian_xyz_plain,
-                       kirchhoff_plain, overlay_correction_hessian_xyz,
+from .assembly import (_pair_geometry, hessian_planes_plain,
+                       hessian_xyz_plain, kirchhoff_plain,
+                       overlay_correction_hessian_xyz,
                        overlay_correction_kirchhoff, planes_to_xyz)
 from .ffparams import ANALYTIC_KINDS, strip_overlays
 
@@ -51,6 +57,8 @@ __all__ = [
     "regularize_stitch_plain",
     "assembly_stitch",
     "assembly_stitch_plain",
+    "assembly_row_sums",
+    "assembly_row_sums_plain",
     "MAX_ATOMS_STITCH",
 ]
 
@@ -59,8 +67,9 @@ __all__ = [
 #: conformer in shared memory, beyond that tiles of 2048 column atoms:
 #: ``kWholeConformer``, ``kColumnTile`` in ``csrc/spring.cuh``.)
 _MAX_ATOMS = 2**29
-#: Largest conformer :func:`assembly_stitch` stages (coordinates and
-#: scale, 24 n bytes, in the default 48 KB).
+#: Largest conformer :func:`assembly_stitch` takes: its store pass
+#: stages the column side (coordinates, scale and basis, 96 n bytes) in
+#: shared memory, the JAX package's plan limit.
 MAX_ATOMS_STITCH = 2048
 _MAX_GRID_YZ = 65535
 
@@ -220,7 +229,7 @@ def regularize_stitch(planes, scale_h, ts, mp):
 regularize_stitch.launches = 0
 
 
-def _check_stitch_inputs(name, coords, params, scale_h, ts, mp):
+def _check_stitch_family(name, coords, params):
     if params.kind not in ANALYTIC_KINDS or params.overlays:
         raise ValueError(f"{name} takes the analytic families "
                          f"{ANALYTIC_KINDS} without patch overlays, got "
@@ -229,6 +238,18 @@ def _check_stitch_inputs(name, coords, params, scale_h, ts, mp):
     if coords.ndim != 3 or coords.shape[-1] != 3:
         raise ValueError(f"{name}: coords must be (B, n, 3), got "
                          f"{tuple(coords.shape)}")
+
+
+def _check_stitch_size(name, batch, n):
+    if n > MAX_ATOMS_STITCH or batch > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: (B, n) = ({batch}, {n}) exceeds the "
+                         f"kernel's limits (B <= {_MAX_GRID_YZ}, n <= "
+                         f"{MAX_ATOMS_STITCH})")
+
+
+def _check_stitch_inputs(name, coords, params, scale_h, ts, mp,
+                         row_sums=None):
+    _check_stitch_family(name, coords, params)
     batch, n, _ = coords.shape
     m = 3 * n
     if tuple(scale_h.shape) != (batch, m) \
@@ -236,24 +257,61 @@ def _check_stitch_inputs(name, coords, params, scale_h, ts, mp):
         raise ValueError(
             f"{name}: scale_h must be ({batch}, {m}) and ts ({batch}, "
             f"{m}, 6), got {tuple(scale_h.shape)} and {tuple(ts.shape)}")
+    if row_sums is not None and tuple(row_sums.shape) != (batch, n, 9):
+        raise ValueError(f"{name}: row_sums must be ({batch}, {n}, 9), got "
+                         f"{tuple(row_sums.shape)}")
     if mp < m:
         raise ValueError(f"{name}: mp={mp} must be >= 3n={m}")
 
 
-def assembly_stitch_plain(coords, params, scale_h, ts, mp):
+def assembly_row_sums_plain(coords, params):
+    """Plain version of :func:`assembly_row_sums`: the negated row sums
+    of the nine plain Hessian planes, ``-sum_q (g d_a) d_e``."""
+    disp, sq, k = _pair_geometry(coords, params)
+    g = -k / torch.where(sq == 0, torch.ones_like(sq), sq)
+    return -torch.stack([((g * disp[a]) * disp[e]).sum(dim=-1)
+                         for a in range(3) for e in range(3)], dim=-1)
+
+
+def assembly_row_sums(coords, params):
+    """The diagonal superelements of the xyz-layout Hessians of a
+    conformer batch, ``(B, n, 3) -> (B, n, 9)``: ``out[b, p, 3 a + e] =
+    H[b, a n + p, e n + p]``, the first pass of :func:`assembly_stitch`
+    (its ``a == e`` entries are the Hessian's diagonal).  Analytic
+    families without overlays, ``n <= MAX_ATOMS_STITCH`` on CUDA."""
+    _check_stitch_family("assembly_row_sums", coords, params)
+    if _build.route("assembly_row_sums", coords) == "cpu":
+        return assembly_row_sums_plain(coords, params)
+    _build.require_cuda_f32("assembly_row_sums", coords=coords)
+    batch, n, _ = coords.shape
+    _check_stitch_size("assembly_row_sums", batch, n)
+    out = torch.empty((batch, n, 9), dtype=torch.float32,
+                      device=coords.device)
+    _build.launch("sc_assembly_row_sums", coords.device, coords.data_ptr(),
+                  out.data_ptr(), batch, n, params.kind_code,
+                  float(params.cutoff_sq) if params.has_cutoff else 0.0,
+                  int(params.has_cutoff))
+    assembly_stitch.row_sum_launches += 1
+    return out
+
+
+def assembly_stitch_plain(coords, params, scale_h, ts, mp, row_sums=None):
     """Plain version of :func:`assembly_stitch`: the plain Hessian
-    planes through the plain stitch."""
+    planes through the plain stitch, their diagonal superelements
+    replaced by `row_sums` when given."""
     _check_stitch_inputs("assembly_stitch_plain", coords, params, scale_h,
-                         ts, mp)
-    return regularize_stitch_plain(hessian_planes_plain(coords, params),
-                                   scale_h, ts, mp)
+                         ts, mp, row_sums)
+    planes = hessian_planes_plain(coords, params)
+    if row_sums is not None:
+        idx = torch.arange(coords.shape[1], device=coords.device)
+        planes[:, :, idx, idx] = row_sums.permute(2, 0, 1).to(planes.dtype)
+    return regularize_stitch_plain(planes, scale_h, ts, mp)
 
 
-def assembly_stitch(coords, params, scale_h, ts, mp):
+def assembly_stitch(coords, params, scale_h, ts, mp, row_sums):
     """The factor input of :func:`regularize_stitch` straight from the
-    coordinates, in one kernel: the nine Hessian planes are recomputed
-    where they are scaled and never reach device memory.  Analytic
-    families.
+    coordinates: the nine Hessian planes are recomputed where they are
+    scaled and never reach device memory.  Analytic families.
 
     Parameters
     ----------
@@ -262,27 +320,33 @@ def assembly_stitch(coords, params, scale_h, ts, mp):
     scale_h : Tensor, shape=(B, 3n)
     ts : Tensor, shape=(B, 3n, 6)
     mp : int
-        As for :func:`regularize_stitch`.
+        As for :func:`regularize_stitch` (a multiple of 4 on CUDA).
+    row_sums : Tensor, shape=(B, n, 9)
+        The diagonal superelements from :func:`assembly_row_sums`, the
+        kernel's first pass, which the prep runs for its scale.
 
     Returns
     -------
     reg : Tensor, shape=(B, mp, mp)
     """
-    _check_stitch_inputs("assembly_stitch", coords, params, scale_h, ts, mp)
-    if _build.route("assembly_stitch", coords, scale_h, ts) == "cpu":
-        return assembly_stitch_plain(coords, params, scale_h, ts, mp)
+    _check_stitch_inputs("assembly_stitch", coords, params, scale_h, ts, mp,
+                         row_sums)
+    if _build.route("assembly_stitch", coords, scale_h, ts,
+                    row_sums) == "cpu":
+        return assembly_stitch_plain(coords, params, scale_h, ts, mp,
+                                     row_sums)
     _build.require_cuda_f32("assembly_stitch", coords=coords,
-                            scale_h=scale_h, ts=ts)
+                            scale_h=scale_h, ts=ts, row_sums=row_sums)
     batch, n, _ = coords.shape
-    if n > MAX_ATOMS_STITCH or batch > _MAX_GRID_YZ:
-        raise ValueError(f"assembly_stitch: (B, n) = ({batch}, {n}) exceeds "
-                         f"the kernel's limits (B <= {_MAX_GRID_YZ}, n <= "
-                         f"{MAX_ATOMS_STITCH})")
+    _check_stitch_size("assembly_stitch", batch, n)
+    if mp % 4:
+        raise ValueError(f"assembly_stitch: mp={mp} must be a multiple of "
+                         f"4 on CUDA (the kernel writes 16-byte groups)")
     out = torch.empty((batch, mp, mp), dtype=torch.float32,
                       device=coords.device)
     _build.launch("sc_assembly_stitch", coords.device, coords.data_ptr(),
-                  scale_h.data_ptr(), ts.data_ptr(), out.data_ptr(), batch,
-                  n, mp, params.kind_code,
+                  scale_h.data_ptr(), ts.data_ptr(), row_sums.data_ptr(),
+                  out.data_ptr(), batch, n, mp, params.kind_code,
                   float(params.cutoff_sq) if params.has_cutoff else 0.0,
                   int(params.has_cutoff))
     assembly_stitch.launches += 1
@@ -290,3 +354,4 @@ def assembly_stitch(coords, params, scale_h, ts, mp):
 
 
 assembly_stitch.launches = 0
+assembly_stitch.row_sum_launches = 0

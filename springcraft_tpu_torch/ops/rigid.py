@@ -46,8 +46,8 @@ import torch.nn.functional as F
 
 from . import spd_linalg
 from .assembly import _pair_geometry
-from .assembly_kernels import (MAX_ATOMS_STITCH, assembly_stitch,
-                               regularize_stitch)
+from .assembly_kernels import (MAX_ATOMS_STITCH, assembly_row_sums,
+                               assembly_stitch, regularize_stitch)
 from .ffparams import ANALYTIC_KINDS
 
 __all__ = [
@@ -189,10 +189,19 @@ def _hessian_diag_xyz_batched(coords, params):
     coordinates: all the assembly-fused prep needs ahead of its kernel
     (the Jacobi scale is a global function of the diagonal through
     ``sigma``, so the kernel cannot compute it row by row).  Plain
-    PyTorch, O(n) output."""
+    PyTorch, O(n) output, as the JAX package computes it; the prep
+    takes it from the kernel's row-sum pass
+    (:func:`_diagonal_of_row_sums`)."""
     disp, sq, k = _pair_geometry(coords, params)
     g = k / torch.where(sq == 0, torch.ones_like(sq), sq)
     return torch.cat([(g * d * d).sum(dim=-1) for d in disp], dim=-1)
+
+
+def _diagonal_of_row_sums(row_sums):
+    """``(B, 3n)`` Hessian diagonal from the diagonal superelements
+    ``(B, n, 9)`` of :func:`.assembly_kernels.assembly_row_sums`."""
+    batch, n, _ = row_sums.shape
+    return row_sums[..., ::4].transpose(-1, -2).reshape(batch, 3 * n)
 
 
 def direct_prep_applies(params, n):
@@ -209,14 +218,18 @@ def _regularize_equilibrated_direct(coords, params, t, masses=None,
     """Semantic twin of :func:`_regularize_equilibrated_planes` that
     starts from the coordinates ``(B, n, 3)``: the pair planes are
     recomputed inside the assembly-fused stitch kernel and never reach
-    device memory.  ``scale`` and ``sigma`` match the planes path to
+    device memory.  The kernel's row-sum pass gives the diagonal
+    superelements: their diagonal sets the scale, and the store pass
+    writes all nine.  ``scale`` and ``sigma`` match the planes path to
     the summation order of the diagonal.  Returns ``(reg, scale,
     sigma)``."""
     t = t.to(coords.dtype)
+    row_sums = assembly_row_sums(coords, params)
     scale, sigma, scale_h, ts = _stitch_inputs_from_diag(
-        _hessian_diag_xyz_batched(coords, params), t, masses, sigma)
+        _diagonal_of_row_sums(row_sums), t, masses, sigma)
     mp = spd_linalg.padded_size(3 * coords.shape[1])
-    return assembly_stitch(coords, params, scale_h, ts, mp), scale, sigma
+    return (assembly_stitch(coords, params, scale_h, ts, mp, row_sums),
+            scale, sigma)
 
 
 def _padded_scale(scale, mp):

@@ -79,10 +79,25 @@ def test_hessian_planes_kernel(cuda, kind, cutoff, b, n):
     assert _rel(got, ref) <= 1e-5
 
 
+def _assert_kirchhoff_parts(got, ref):
+    """Off-diagonal entries bit for bit (the same ``-k``), the diagonal
+    (the row sum, in another order) within 1e-6 of max|ref|."""
+    n = ref.shape[-1]
+    off = ~torch.eye(n, dtype=torch.bool, device=ref.device)
+    assert torch.equal(got[:, off], ref[:, off])
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)
+    ref_diag = torch.diagonal(ref, dim1=-2, dim2=-1)
+    assert float((diag.double() - ref_diag.double()).abs().max()) \
+        <= 1e-6 * float(ref.double().abs().max())
+
+
 @pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
                                          ("hinsen", None), ("pfenm", 7.0)])
-@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776)])
+@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776),
+                                 (2, 1777), (1, 8192)])
 def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
+    """n % 4 != 0 takes the Kirchhoff kernel's 4-byte stores; 1,776 and
+    8,192 are the single structures of its paths."""
     params = getattr(sct, f"{kind}_params")(cutoff)
     coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
     for wrapper, plain in (
@@ -96,6 +111,17 @@ def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.device == coords.device
         assert _rel(got, ref) <= 1e-5, wrapper.__name__
+        if wrapper is assembly_kernels.kirchhoff_ensemble:
+            _assert_kirchhoff_parts(got, ref)
+        del got, ref
+    # coordinates that start 4 bytes past a 16-byte boundary: the kernel
+    # reads and writes them 4 bytes at a time
+    shifted = torch.empty(coords.numel() + 1, device=cuda)[1:].view_as(
+        coords)
+    shifted.copy_(coords)
+    _assert_kirchhoff_parts(assembly_kernels.kirchhoff_ensemble(shifted,
+                                                                params),
+                            assembly.kirchhoff_plain(coords, params))
 
 
 def ordered_regularize_stitch(planes, scale_h, ts, mp):
@@ -1121,10 +1147,11 @@ def _table_params(maker, atoms):
 
 @pytest.mark.parametrize("maker", ["sd_enm", "e_anm", "d_enm", "no_cutoff"])
 @pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776),
-                                 (1, 3100)])
+                                 (1, 3100), (2, 1777), (1, 8192)])
 def test_table_branch_of_the_assembly_kernels(cuda, maker, b, n):
-    """n = 3100 stages 49.7 KB (coordinates, codes, edges): the opt-in
-    past the default 48 KB of shared memory."""
+    """n = 3100 stages 49.7 KB (coordinates, codes, edges) in K1 and K5:
+    the opt-in past the default 48 KB of shared memory; n % 4 != 0 the
+    Kirchhoff kernel's 4-byte stores; 8,192 its largest path."""
     atoms = _ca_atoms(n, seed=n)
     params = _table_params(maker, atoms)
     rng = np.random.RandomState(n)
@@ -1145,12 +1172,12 @@ def test_table_branch_of_the_assembly_kernels(cuda, maker, b, n):
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.device == coords.device
         assert _rel(got, ref) <= 1e-5, wrapper.__name__
+        del got, ref
     # same table entries pair for pair: the off-diagonal Kirchhoff
     # entries are the table's own values, so they agree bit for bit
-    got = assembly_kernels.kirchhoff_ensemble(coords, params)
-    ref = assembly.kirchhoff_plain(coords, params)
-    off = ~torch.eye(n, dtype=torch.bool, device=cuda)
-    assert torch.equal(got[:, off], ref[:, off])
+    _assert_kirchhoff_parts(assembly_kernels.kirchhoff_ensemble(coords,
+                                                                params),
+                            assembly.kirchhoff_plain(coords, params))
 
 
 def test_table_branch_on_a_bin_edge(cuda):
@@ -1183,18 +1210,31 @@ def test_table_kernels_refuse_what_they_do_not_take(cuda):
             coords[:, :20].contiguous(), ff.to_compact_params())
     scale_h = torch.ones(1, 90, device=cuda)
     ts = torch.zeros(1, 90, 6, device=cuda)
+    row_sums = torch.zeros(1, 30, 9, device=cuda)
     with pytest.raises(ValueError, match="analytic"):
         assembly_kernels.assembly_stitch(coords, ff.to_compact_params(),
-                                         scale_h, ts, 128)
+                                         scale_h, ts, 128, row_sums)
     with pytest.raises(TypeError, match="float32"):
         assembly_kernels.assembly_stitch(coords.double(),
                                          sct.invariant_params(7.0),
-                                         scale_h.double(), ts.double(), 128)
+                                         scale_h.double(), ts.double(), 128,
+                                         row_sums.double())
     with pytest.raises(ValueError, match="exceeds"):
         assembly_kernels.assembly_stitch(
             torch.zeros(1, 2049, 3, device=cuda), sct.invariant_params(7.0),
             torch.ones(1, 6147, device=cuda),
-            torch.zeros(1, 6147, 6, device=cuda), 6272)
+            torch.zeros(1, 6147, 6, device=cuda), 6272,
+            torch.zeros(1, 2049, 9, device=cuda))
+    with pytest.raises(ValueError, match="exceeds"):
+        assembly_kernels.assembly_row_sums(
+            torch.zeros(1, 2049, 3, device=cuda), sct.invariant_params(7.0))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        assembly_kernels.assembly_stitch(
+            coords, sct.invariant_params(7.0), scale_h, ts, 126, row_sums)
+    with pytest.raises(TypeError, match="float32"):
+        assembly_kernels.assembly_stitch(
+            coords, sct.invariant_params(7.0), scale_h, ts, 128,
+            torch.zeros(1, 30, 9, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="exceeds"):
         spd_linalg.panel_cholesky(
             torch.eye(136, device=cuda).expand(2, 136, 136).contiguous())
@@ -1206,9 +1246,14 @@ def test_table_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
                                          ("hinsen", None), ("pfenm", 7.0)])
 @pytest.mark.parametrize("b,n,mp", [(3, 41, 128), (2, 32, 96),
-                                    (2, 100, 384), (1, 5, 16)])
+                                    (2, 100, 384), (1, 5, 16),
+                                    (1, 300, 1024), (2, 30, 512),
+                                    (1, 2047, 6144), (1, 2048, 6144)])
 @pytest.mark.parametrize("with_masses", [False, True])
 def test_assembly_stitch_kernel(cuda, kind, cutoff, b, n, mp, with_masses):
+    """Both passes against the plain version: n % 4 != 0 (the store
+    pass's per-column instance), n = 2048 (196 KB of staged column side,
+    the opt-in), one conformer, mp far past 3 n (pad columns)."""
     params = getattr(sct, f"{kind}_params")(cutoff)
     coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
     masses = torch.linspace(0.8, 2.5, n, device=cuda) if with_masses \
@@ -1216,9 +1261,14 @@ def test_assembly_stitch_kernel(cuda, kind, cutoff, b, n, mp, with_masses):
     bases = rigid.rigid_modes_anm(coords, masses=masses)
     _, _, scale_h, ts = rigid._stitch_inputs_from_diag(
         rigid._hessian_diag_xyz_batched(coords, params), bases, masses)
-    before = assembly_kernels.assembly_stitch.launches
-    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, mp)
-    assert assembly_kernels.assembly_stitch.launches == before + 1
+    before = (assembly_kernels.assembly_stitch.launches,
+              assembly_kernels.assembly_stitch.row_sum_launches)
+    row_sums = assembly_kernels.assembly_row_sums(coords, params)
+    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, mp,
+                                           row_sums)
+    assert (assembly_kernels.assembly_stitch.launches,
+            assembly_kernels.assembly_stitch.row_sum_launches) == (
+                before[0] + 1, before[1] + 1)
     ref = assembly_kernels.assembly_stitch_plain(coords, params, scale_h,
                                                  ts, mp)
     torch.cuda.synchronize()
@@ -1226,11 +1276,39 @@ def test_assembly_stitch_kernel(cuda, kind, cutoff, b, n, mp, with_masses):
     assert _rel(got, ref) <= 1e-5
     assert torch.equal(got[:, 3 * n:, :], ref[:, 3 * n:, :])
     assert torch.equal(got[:, :, 3 * n:], ref[:, :, 3 * n:])
+    # the store pass is deterministic, and the plain version handed the
+    # same row sums agrees as closely
+    again = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, mp,
+                                             row_sums)
+    assert torch.equal(again, got)
+    assert _rel(got, assembly_kernels.assembly_stitch_plain(
+        coords, params, scale_h, ts, mp, row_sums)) <= 1e-5
+    del ref, again
     # and the two-kernel route it fuses
     two = assembly_kernels.regularize_stitch(
         assembly_kernels.hessian_planes_ensemble(coords, params), scale_h,
         ts, mp)
     assert _rel(got, two) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
+                                         ("hinsen", None), ("pfenm", 7.0)])
+@pytest.mark.parametrize("b,n", [(3, 41), (128, 300), (1, 5), (1, 2048)])
+def test_assembly_row_sums_kernel(cuda, kind, cutoff, b, n):
+    """The first pass of K7 against its plain version: the nine diagonal
+    superelements in another summation order, 1e-5 of max as the
+    assembly."""
+    params = getattr(sct, f"{kind}_params")(cutoff)
+    coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
+    before = assembly_kernels.assembly_stitch.row_sum_launches
+    got = assembly_kernels.assembly_row_sums(coords, params)
+    assert assembly_kernels.assembly_stitch.row_sum_launches == before + 1
+    ref = assembly_kernels.assembly_row_sums_plain(coords, params)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, 9) and got.device == coords.device
+    assert _rel(got, ref) <= 1e-5
+    assert _rel(rigid._diagonal_of_row_sums(got),
+                rigid._hessian_diag_xyz_batched(coords, params)) <= 1e-5
 
 
 @pytest.mark.parametrize("pb", [8, 16, 64, 128])

@@ -91,6 +91,133 @@ def test_hessian_diagonal_matches_jax(kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6),
+                                       (np.float64, 1e-12)])
+def test_row_sums_plain_matches_the_plain_planes(kind, dtype, tol):
+    """The first pass of the fused prep: the nine diagonal superelements
+    ``H_ae[p, p]`` are the negated sums of the off-diagonal entries of
+    each row of the plain Hessian planes (the float64 sums of the
+    float32 entries within 1e-6 of max, float64 within 1e-12)."""
+    _, params = _params(kind)
+    coords = torch.from_numpy(_dense_coords(3, 30, seed=6).astype(dtype))
+    got = assembly_kernels.assembly_row_sums(coords, params)
+    assert got.shape == (3, 30, 9) and got.dtype == coords.dtype
+    planes = assembly.hessian_planes_plain(coords, params).double()
+    idx = torch.arange(30)
+    diag = planes[:, :, idx, idx]                       # (9, B, n)
+    off = planes.clone()
+    off[:, :, idx, idx] = 0.0
+    ref = -off.sum(dim=-1)
+    assert _rel(got, ref.permute(1, 2, 0)) <= tol
+    assert _rel(got, diag.permute(1, 2, 0)) <= tol
+    # the superelements are symmetric: H_ae[p, p] = H_ea[p, p]
+    sym = got.reshape(3, 30, 3, 3)
+    assert _rel(sym, sym.transpose(-1, -2)) <= tol
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_row_sum_diagonal_matches_jax(kind, with_masses):
+    """The ``a == e`` row sums are the JAX package's
+    ``_hessian_diag_xyz_batched``; with masses the prep folds the
+    weights ``1 / m`` into that diagonal before its scale, as the JAX
+    prep does (``springcraft_tpu/ops/rigid.py``
+    ``_regularize_equilibrated_direct``)."""
+    jparams, params = _params(kind)
+    n = 30
+    coords = _dense_coords(3, n, seed=9)
+    jdiag = jrigid._hessian_diag_xyz_batched(jnp.asarray(coords), jparams,
+                                             jnp.float32)
+    row_sums = assembly_kernels.assembly_row_sums(torch.from_numpy(coords),
+                                                  params)
+    diag = trigid._diagonal_of_row_sums(row_sums)
+    assert diag.shape == (3, 3 * n)
+    assert _rel(diag, jdiag) <= 1e-6
+    assert _rel(diag, trigid._hessian_diag_xyz_batched(
+        torch.from_numpy(coords), params)) <= 1e-6
+    masses = _masses(n) if with_masses else None
+    t = np.stack([np.asarray(jrigid.rigid_modes_anm(
+        jnp.asarray(c), masses=None if masses is None else
+        jnp.asarray(masses), layout="xyz")) for c in coords])
+    # the JAX prep's scale from its own diagonal
+    w = None if masses is None else np.tile(1.0 / np.sqrt(masses), 3)
+    jdiag_m = jdiag if w is None else jdiag * jnp.asarray(w * w)[None]
+    jsigma = jnp.mean(jdiag_m, axis=-1)
+    jscale = 1.0 / jnp.sqrt(jdiag_m + jsigma[:, None]
+                            * jnp.sum(jnp.asarray(t) ** 2, axis=-1))
+    jscale_h = jscale if w is None else jscale * jnp.asarray(w)[None]
+    scale, sigma, scale_h, _ = trigid._stitch_inputs_from_diag(
+        diag, torch.from_numpy(t),
+        None if masses is None else torch.from_numpy(masses))
+    assert _rel(sigma.reshape(-1), jsigma) <= 1e-6
+    assert _rel(scale, jscale) <= 1e-6
+    assert _rel(scale_h, jscale_h) <= 1e-6
+
+
+def test_row_sums_check_their_inputs():
+    coords = torch.zeros(2, 10, 3)
+    table = sct.table_pair_params(np.zeros((10, 10, 1)), None)
+    with pytest.raises(ValueError, match="analytic"):
+        assembly_kernels.assembly_row_sums(coords, table)
+    with pytest.raises(ValueError, match=r"\(B, n, 3\)"):
+        assembly_kernels.assembly_row_sums(coords[0],
+                                           sct.invariant_params(7.0))
+    with pytest.raises(ValueError, match="row_sums must be"):
+        assembly_kernels.assembly_stitch(
+            coords, sct.invariant_params(7.0), torch.ones(2, 30),
+            torch.zeros(2, 30, 6), 32, torch.zeros(2, 10, 3))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_assembly_stitch_plain_takes_the_row_sums(kind):
+    """Handed the row sums, the plain fused prep writes them as the
+    diagonal superelements and leaves every other element as it was."""
+    _, params = _params(kind)
+    n = 20
+    coords = torch.from_numpy(_dense_coords(2, n, seed=4))
+    rng = np.random.RandomState(1)
+    scale_h = torch.from_numpy(rng.rand(2, 3 * n).astype(np.float32) + 0.5)
+    ts = torch.from_numpy(rng.randn(2, 3 * n, 6).astype(np.float32))
+    plain = assembly_kernels.assembly_stitch_plain(coords, params, scale_h,
+                                                   ts, 64)
+    row_sums = assembly_kernels.assembly_row_sums(coords, params)
+    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 64,
+                                           row_sums)
+    assert _rel(got, plain) <= 1e-6
+    marked = row_sums + 1.0
+    moved = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 64,
+                                             marked)
+    rows = torch.arange(3 * n)
+    cols = (rows % n)[:, None] + n * torch.arange(3)[None, :]  # (3n, 3)
+    mask = torch.zeros(64, 64, dtype=torch.bool)
+    mask[rows[:, None], cols] = True
+    assert torch.equal(moved[:, ~mask], got[:, ~mask])
+    # each moved by s_r s_c, to the rounding of elements of its size
+    sr, sc = scale_h[:, rows, None], scale_h[:, cols]
+    step = (moved[:, mask] - got[:, mask]).reshape(2, 3 * n, 3)
+    assert float((step - sr * sc).abs().max()) \
+        <= 1e-6 * float(got[:, mask].abs().max())
+
+
+def test_store_pass_stages_the_largest_conformer():
+    """The store pass stages 24 n floats of column side and a band's row
+    side in one block's shared memory: at ``MAX_ATOMS_STITCH`` that fits
+    the 227 KB a block can opt in to."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(assembly_kernels.__file__).resolve().parent.parent
+            / "csrc" / "assembly_stitch.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    n = assembly_kernels.MAX_ATOMS_STITCH
+    smem = 4 * (24 * n + constant("kBandAtoms") * constant("kSide"))
+    assert 48 * 1024 < smem <= 232_448
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("with_masses", [False, True])
 def test_assembly_stitch_plain_matches_jax_kernel(kind, with_masses):
     """``_regularize_equilibrated_direct`` of both packages: the JAX one
@@ -133,10 +260,13 @@ def test_assembly_stitch_equals_planes_then_stitch(kind):
     rng = np.random.RandomState(0)
     scale_h = torch.from_numpy(rng.rand(2, 3 * n).astype(np.float32) + 0.5)
     ts = torch.from_numpy(rng.randn(2, 3 * n, 6).astype(np.float32))
-    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 64)
-    ref = assembly_kernels.regularize_stitch(
-        assembly_kernels.hessian_planes_ensemble(coords, params), scale_h,
-        ts, 64)
+    planes = assembly_kernels.hessian_planes_ensemble(coords, params)
+    idx = torch.arange(n)
+    # handed the planes' own diagonal superelements, bit for bit
+    row_sums = planes[:, :, idx, idx].permute(1, 2, 0).contiguous()
+    got = assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 64,
+                                           row_sums)
+    ref = assembly_kernels.regularize_stitch(planes, scale_h, ts, 64)
     assert torch.equal(got, ref)
 
 
@@ -145,17 +275,19 @@ def test_assembly_stitch_checks_its_inputs():
     coords = torch.zeros(2, n, 3)
     scale_h = torch.ones(2, 3 * n)
     ts = torch.zeros(2, 3 * n, 6)
+    rs = torch.zeros(2, n, 9)
     params = sct.invariant_params(7.0)
     with pytest.raises(ValueError, match="mp=16"):
-        assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 16)
+        assembly_kernels.assembly_stitch(coords, params, scale_h, ts, 16, rs)
     with pytest.raises(ValueError, match="scale_h must be"):
         assembly_kernels.assembly_stitch(coords, params, scale_h[:, :-1],
-                                         ts, 32)
+                                         ts, 32, rs)
     with pytest.raises(ValueError, match=r"\(B, n, 3\)"):
-        assembly_kernels.assembly_stitch(coords[0], params, scale_h, ts, 32)
+        assembly_kernels.assembly_stitch(coords[0], params, scale_h, ts, 32,
+                                         rs)
     table = sct.table_pair_params(np.zeros((n, n, 1)), None)
     with pytest.raises(ValueError, match="analytic"):
-        assembly_kernels.assembly_stitch(coords, table, scale_h, ts, 32)
+        assembly_kernels.assembly_stitch(coords, table, scale_h, ts, 32, rs)
     assert trigid.direct_prep_applies(params, n)
     assert not trigid.direct_prep_applies(table, n)
     assert not trigid.direct_prep_applies(

@@ -368,7 +368,8 @@ def test_wrappers_that_refuse_overlays(jax_ca):
     scale = torch.ones(2, 3 * N)
     with pytest.raises(ValueError, match="without patch overlays"):
         assembly_kernels.assembly_stitch(coords, params, scale,
-                                         bases * 1.0, 128)
+                                         bases * 1.0, 128,
+                                         torch.zeros(2, N, 9))
     assert not rigid.direct_prep_applies(params, N)
     assert rigid.direct_prep_applies(tff.strip_overlays(params), N)
     # the plain planes take the overlay through the dense pipeline

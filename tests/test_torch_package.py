@@ -87,6 +87,7 @@ def test_every_c_entry_point_has_a_wrapper():
                        "sc_kirchhoff", "sc_regularize_stitch",
                        "sc_panel_inverse", "sc_panel_inverse_full",
                        "sc_panel_cholesky", "sc_assembly_stitch",
+                       "sc_assembly_row_sums",
                        "sc_banded_bisect",
                        "sc_banded_eigvec", "sc_pair_csr_count",
                        "sc_pair_csr_fill", "sc_hessian_apply_pairs",

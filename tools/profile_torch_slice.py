@@ -8,8 +8,8 @@ Runs the headline configuration of ``chip_smoke.py`` (1024 conformers of
 2. the device time of each stage on one 128-conformer chunk (CUDA-event
    means), and of one panel-inverse launch, for the plane-trace path, for
    the path with the covariance and PRS, and for the GNM ensemble; the
-   stages of ``prep="direct"`` (the Hessian diagonal pass, the scale and
-   basis, the coordinates-to-factor-input kernel) beside the planes
+   stages of ``prep="direct"`` (K7's row-sum pass, the scale and basis,
+   K7's store pass) beside the planes
    path's; then the same chunk under the tabulated sdENM force field
    (the assembly kernels' table branch; ``--skip-tabulated`` leaves it
    out);
@@ -144,15 +144,16 @@ def stage_times(dev, params, reps, label=""):
             c, params, inverse="blocked", device="cuda"),
     })
     if rigid.direct_prep_applies(params, n):
-        diag = rigid._hessian_diag_xyz_batched(c, params)
+        row_sums = assembly_kernels.assembly_row_sums(c, params)
+        diag = rigid._diagonal_of_row_sums(row_sums)
         stages.update({
-            "D3a Hessian diagonal from coordinates (plain)":
-                lambda: rigid._hessian_diag_xyz_batched(c, params),
+            "D3a K7 row-sum pass (the Hessian diagonal)":
+                lambda: assembly_kernels.assembly_row_sums(c, params),
             "D3b stitch inputs from the diagonal":
                 lambda: rigid._stitch_inputs_from_diag(diag, bases, None),
-            "D3c K7 assembly_stitch":
+            "D3c K7 store pass":
                 lambda: assembly_kernels.assembly_stitch(c, params, scale_h,
-                                                         ts, mp),
+                                                         ts, mp, row_sums),
             "D whole chunk, prep=direct": lambda: run(c, params,
                                                       prep="direct"),
             "D whole chunk, prep=planes (again)": lambda: run(c, params),
