@@ -31,8 +31,10 @@ Phases:
    (its row-sum pass and store pass together) under the invariant field
    and hinsen and on a chunk of 299 atoms, the row-sum pass alone against
    its plain version; the Kirchhoff kernel on the chunk and on the single
-   structures (1776 atoms, eANM on 7cal) timed by replaying a CUDA graph,
-   beside its time per eager call; the pair-CSR build, whose rows and
+   structures (1776 atoms, eANM on 7cal) and the Hessian kernels K1 and K5
+   on the chunk, on the single structures and at n % 4 != 0 (a chunk of
+   299 atoms, one structure of 1777), timed by replaying a CUDA graph,
+   beside their time per eager call; the pair-CSR build, whose rows and
    slots must equal its plain version's, and K13 / K14 over its list,
    timed in turns with ``torch.sparse.mm``);
 4. the paths, each driven once from zero launch counts and required to
@@ -95,7 +97,7 @@ Phases:
      against the float64 engine with the same overlay; and on the
      matrix-free paths at n = 3,000 (invariant and sdENM) against float64
      dense assembly;
-   * the assembly kernels past 4,096 atoms: K1, K5 and K6 at n = 8,192
+   * the assembly kernels at large n: K1, K5 and K6 at n = 8,192
      against their plain versions (both families), and one
      ``hessian_xyz`` at n = 30,000 (32.4 GB) timed and held by ``H @ X``
      against K13 on the same coordinates;
@@ -261,7 +263,7 @@ PATH_KERNELS = {
     "anm_matfree_overlay": ("pair_csr", "hessian_apply_sparse"),
     "anm_matfree_overlay_tabulated": ("pair_csr", "hessian_apply_sparse"),
     "gnm_matfree_overlay_tabulated": ("pair_csr", "kirchhoff_apply_sparse"),
-    # single structures past 4,096 atoms
+    # single structures of 8,192 and 30,000 atoms
     "assembly_large": ("hessian_xyz", "kirchhoff", "hessian_planes"),
     # the blocked inverse at its largest leaf (block=128)
     "panel_functions_128": ("panel_inverse", "panel_inverse_full"),
@@ -311,8 +313,8 @@ N_MATFREE = 30_000
 N_MATFREE_DENSE = 10_000
 #: The float64 anchor: small enough for a dense float64 eigh.
 N_ANCHOR = 3_000
-#: One structure past the 4,096 atoms up to which the assembly kernels
-#: stage a whole conformer.
+#: One large structure for the assembly kernels (past the 4,096 atoms up
+#: to which they once staged a whole conformer in shared memory).
 N_LARGE = 8_192
 MATFREE_SEED = 4
 MATFREE_CUTOFF = 13.0
@@ -673,11 +675,13 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
             record(results, "hessian_planes",
                    lambda: assembly_kernels.hessian_planes_ensemble(c, p),
                    lambda: assembly.hessian_planes_plain(c, p),
-                   (nbytes(b, n, 9, p), 30 * b * n * n), label=label)
+                   (nbytes(b, n, 9, p), 30 * b * n * n), label=label,
+                   graph=True)
         record(results, "hessian_xyz",
                lambda: assembly_kernels.hessian_xyz_ensemble(c, p),
                lambda: assembly.hessian_xyz_plain(c, p),
-               (nbytes(b, n, 9, p), 30 * b * n * n), label=label)
+               (nbytes(b, n, 9, p), 30 * b * n * n), label=label,
+               graph=True)
         record(results, "kirchhoff",
                lambda: assembly_kernels.kirchhoff_ensemble(c, p),
                lambda: assembly.kirchhoff_plain(c, p),
@@ -802,7 +806,8 @@ def kernel_parity(coords, single, params):
         results, "hessian_planes",
         lambda: assembly_kernels.hessian_planes_ensemble(coords, params),
         lambda: assembly.hessian_planes_plain(coords, params),
-        (4 * (3 * batch * n + 9 * batch * n * n), 30 * batch * n * n))
+        (4 * (3 * batch * n + 9 * batch * n * n), 30 * batch * n * n),
+        graph=True)
 
     bases = rigid.rigid_modes_anm(coords)
     _, _, scale_h, ts = rigid.stitch_inputs(planes, bases)
@@ -853,7 +858,25 @@ def kernel_parity(coords, single, params):
         record(results, "hessian_xyz",
                lambda c=c: assembly_kernels.hessian_xyz_ensemble(c, params),
                lambda c=c: assembly.hessian_xyz_plain(c, params),
-               (4 * (3 * b * nc + 9 * b * nc * nc), 30 * b * nc * nc))
+               (4 * (3 * b * nc + 9 * b * nc * nc), 30 * b * nc * nc),
+               graph=True)
+    # n % 4 != 0: the Hessian kernels' rows start off 16-byte boundaries
+    # (a chunk of 299 atoms, one structure of 1777)
+    odd_chunk = coords[:, :n - 1].contiguous()
+    odd_single = torch.as_tensor(make_conformers(1, N_SINGLE + 1, SEED),
+                                 device="cuda")
+    for name, kernel, plain, shapes in (
+            ("hessian_planes", assembly_kernels.hessian_planes_ensemble,
+             assembly.hessian_planes_plain, (odd_chunk,)),
+            ("hessian_xyz", assembly_kernels.hessian_xyz_ensemble,
+             assembly.hessian_xyz_plain, (odd_chunk, odd_single))):
+        for c in shapes:
+            b, nc = c.shape[:2]
+            record(results, name, lambda c=c, kernel=kernel: kernel(c, params),
+                   lambda c=c, plain=plain: plain(c, params),
+                   (4 * (3 * b * nc + 9 * b * nc * nc), 30 * b * nc * nc),
+                   label=" n % 4 != 0", graph=True)
+    del odd_chunk, odd_single
     banded_parity(coords, single, params, results)
     return results
 
@@ -2446,9 +2469,10 @@ def matfree_overlay_paths(card):
 
 
 def large_assembly(results, card):
-    """The assembly kernels past 4,096 atoms (column atoms staged tile by
-    tile): K1, K5 and K6 on one structure of 8,192 atoms against their
-    plain versions under the invariant field and sdENM; then the path:
+    """The assembly kernels at large n (column atoms read from device
+    memory at any size): K1, K5 and K6 on one structure of 8,192 atoms
+    against their plain versions under the invariant field and sdENM;
+    then the path:
     the three wrappers at 8,192 atoms under both families and one
     ``hessian_xyz`` at n = 30,000 (a 32.4 GB Hessian), timed, and held
     without a plain Hessian by ``H @ X`` against K13 on the same

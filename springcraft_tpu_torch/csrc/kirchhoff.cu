@@ -40,11 +40,8 @@
 // kernels carry the row sum across a sequential column-tile grid
 // instead.
 //
-// The table branch's bin: a halving search over the edges (spring.cuh,
-// table_bin) is five dependent shared-memory reads a pair; here a
-// squared distance's cell (kCells cells up to the last edge) gives the
-// count of the edges of the cells below it, and a climb over the edges of
-// its own cell (about one) finishes it: the same bin, bit for bit.
+// The table branch's bin: spring.cuh's cell-indexed lookup (CellBins),
+// shared with hessian_planes.cu.
 
 #include <cuda_runtime.h>
 
@@ -55,69 +52,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Cells of the table branch's bin lookup.
-constexpr int kCells = 256;
-
-// Cell of a squared distance: floor(x * inv), at most kCells - 1; monotone
-// in x (0 for NaN).
-__device__ __forceinline__ int cell_of(float x, float inv) {
-  return min(__float2int_rz(__fmul_rn(x, inv)), kCells - 1);
-}
-
-// Distance bins by cells: lo[c] is the count of edges whose cell is below
-// c.  Every edge below a squared distance's cell lies below it (cells are
-// monotone), so the count of edges below it starts at lo[cell] and climbs
-// over the edges of its own cell, about one: the bin of
-// springcraft::table_bin, bit for bit, in two dependent shared-memory
-// reads instead of a halving search's five.
-struct CellBins {
-  const float* edges;
-  const int* lo;
-  float inv;
-  int n_edges;
-  int n_bins;
-
-  __device__ __forceinline__ int bin(float sq) const {
-    if (n_bins <= 1 || n_edges <= 0) return 0;
-    int b = lo[cell_of(sq, inv)];
-    while (b < n_edges && sq > edges[b]) ++b;
-    return min(b, n_bins - 1);
-  }
-};
-
-// Stage the edges and their cells in shared memory at `smem` (n_edges
-// floats, then kCells ints).  Every thread calls it; the caller sets the
-// barrier.
-__device__ __forceinline__ CellBins stage_bins(
-    float* smem, const float* __restrict__ edges_sq, int n_edges,
-    int n_bins) {
-  int* lo = reinterpret_cast<int*>(smem + n_edges);
-  for (int i = threadIdx.x; i < n_edges; i += blockDim.x)
-    smem[i] = edges_sq[i];
-  const float last = n_edges > 0 ? __ldg(edges_sq + n_edges - 1) : 0.0f;
-  const float inv =
-      last > 0.0f ? __fdiv_rn(static_cast<float>(kCells - 1), last) : 0.0f;
-  if (n_bins > 1 && n_edges > 0) {
-    const int top = 1 << (31 - __clz(n_edges));
-    for (int c = threadIdx.x; c < kCells; c += blockDim.x) {
-      // the count of edges whose cell is below c (cells ascend with them)
-      int k = 0;
-      for (int step = top; step > 0; step >>= 1)
-        if (k + step <= n_edges &&
-            cell_of(__ldg(edges_sq + k + step - 1), inv) < c)
-          k += step;
-      lo[c] = k;
-    }
-  }
-  return CellBins{smem, lo, inv, n_edges, n_bins};
-}
 
 // Spring constant of row atom p and column atom q (codes cp, cq): zero
 // unless p != q and, with a cutoff, sq <= cutoff_sq.
 template <bool kTable>
 __device__ __forceinline__ float pair_constant(
     int kind, float cutoff_sq, int has_cutoff,
-    const springcraft::PairTable& table, const CellBins& bins, int p,
+    const springcraft::PairTable& table,
+    const springcraft::CellBins& bins, int p,
     float px, float py, float pz, int cp, int q, float x, float y, float z,
     int cq) {
   const float sq = springcraft::squared_distance(
@@ -142,9 +84,10 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ edges_sq,
                      const int* __restrict__ atom_code) {
   extern __shared__ float s_bins[];
-  CellBins bins{};
+  springcraft::CellBins bins{};
   if constexpr (kTable) {
-    bins = stage_bins(s_bins, edges_sq, table.n_edges, table.n_bins);
+    bins = springcraft::stage_bins(s_bins, edges_sq, table.n_edges,
+                                   table.n_bins);
     __syncthreads();
   }
   const int b = blockIdx.y;
@@ -289,7 +232,7 @@ extern "C" int sc_kirchhoff(const float* coords, float* out, int batch, int n,
     const auto s = static_cast<cudaStream_t>(stream);
     if (table)
       return static_cast<int>(launch<true>(
-          vector, grid, n_edges * sizeof(float) + kCells * sizeof(int), s,
+          vector, grid, springcraft::cell_bins_bytes(n_edges), s,
           coords, out, n, lanes, kind, cutoff_sq, has_cutoff, t, edges_sq,
           atom_code));
     return static_cast<int>(launch<false>(vector, grid, 0, s, coords, out, n,

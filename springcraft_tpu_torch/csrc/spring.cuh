@@ -117,46 +117,6 @@ __device__ __forceinline__ float table_constant(const PairTable& t, int cp,
   return __ldg(table_entry(t, table_bin(t, sq), cp, cq, pos_p, pos_q));
 }
 
-// Spring constant of the pair of atoms p, q (array positions, codes cp, cq),
-// zero unless p != q and, with a cutoff, sq <= cutoff_sq: the table lookup
-// with kTable, else the analytic rule of `kind`.  The kernels are
-// instantiated once for each, so the analytic instance carries nothing of
-// the lookup.
-template <bool kTable>
-__device__ __forceinline__ float masked_pair_constant(int kind,
-                                                      const PairTable& t,
-                                                      int cp, int cq, int p,
-                                                      int q, float sq,
-                                                      float cutoff_sq,
-                                                      int has_cutoff) {
-  if constexpr (kTable) {
-    const bool valid = p != q && (!has_cutoff || sq <= cutoff_sq);
-    return valid ? table_constant(t, cp, cq, p, q, sq) : 0.0f;
-  } else {
-    return masked_spring_constant(kind, sq, p != q, cutoff_sq, has_cutoff);
-  }
-}
-
-// Column atoms the assembly kernels stage at a time: a whole conformer up to
-// kWholeConformer atoms (48 KB of coordinates), tiles of kColumnTile beyond.
-constexpr int kWholeConformer = 4096;
-constexpr int kColumnTile = 2048;
-
-__host__ __device__ inline int assembly_column_tile(int n) {
-  return n <= kWholeConformer ? n : kColumnTile;
-}
-
-// Shared-memory bytes of one staged column tile (structure of arrays) plus,
-// for the tabulated family, its per-atom codes and the edges.
-__host__ __device__ inline size_t assembly_smem_bytes(int tile, int kind,
-                                                      int n_edges) {
-  size_t bytes = 3 * static_cast<size_t>(tile) * sizeof(float);
-  if (kind == kTableCompact)
-    bytes += static_cast<size_t>(tile) * sizeof(int) +
-             static_cast<size_t>(n_edges) * sizeof(float);
-  return bytes;
-}
-
 // Stage the coordinates of atoms [j0, j0 + len) of one conformer `c` (n, 3)
 // as x[0:len], y[stride:stride + len], z[2 stride:2 stride + len] at `smem`.
 // Every thread of the block calls it; the caller sets the barrier.
@@ -171,41 +131,71 @@ __device__ __forceinline__ void stage_coordinates(float* smem,
   }
 }
 
-// The shared memory of an assembly kernel: a column tile's coordinates, then
-// (kTable) its atom codes and the bin edges.
-template <bool kTable>
-struct ColumnTile {
-  float* xyz;
-  int* code;
-  int stride;
+// The cell-indexed bin lookup of the assembly kernels (kirchhoff.cu,
+// hessian_planes.cu).  A halving search over the edges (table_bin) is five
+// dependent shared-memory reads a pair; here a squared distance's cell
+// (kCells cells up to the last edge) gives the count of the edges of the
+// cells below it, and a climb over the edges of its own cell (about one)
+// finishes it: the same bin, bit for bit.
+constexpr int kCells = 256;
 
-  // Lay the buffers out over `smem` and stage the edges (once per block).
-  __device__ __forceinline__ ColumnTile(float* smem, int tile,
-                                        const float* __restrict__ edges,
-                                        PairTable& t)
-      : xyz(smem), code(reinterpret_cast<int*>(smem + 3 * tile)),
-        stride(tile) {
-    if constexpr (kTable) {
-      float* s_edges = reinterpret_cast<float*>(code + tile);
-      for (int i = threadIdx.x; i < t.n_edges; i += blockDim.x)
-        s_edges[i] = edges[i];
-      t.edges_sq = s_edges;
-    }
-  }
+// Cell of a squared distance: floor(x * inv), at most kCells - 1; monotone
+// in x (0 for NaN).
+__device__ __forceinline__ int cell_of(float x, float inv) {
+  return min(__float2int_rz(__fmul_rn(x, inv)), kCells - 1);
+}
 
-  // Stage atoms [j0, j0 + len) between two barriers: the first lets every
-  // warp finish with the tile before, the second publishes this one.
-  __device__ __forceinline__ void load(const float* __restrict__ c,
-                                       const int* __restrict__ atom_code,
-                                       int j0, int len) {
-    __syncthreads();
-    stage_coordinates(xyz, c, j0, len, stride);
-    if constexpr (kTable)
-      for (int i = threadIdx.x; i < len; i += blockDim.x)
-        code[i] = atom_code[j0 + i];
-    __syncthreads();
+// Distance bins by cells: lo[c] is the count of edges whose cell is below
+// c.  Every edge below a squared distance's cell lies below it (cells are
+// monotone), so the count of edges below it starts at lo[cell] and climbs
+// over the edges of its own cell: the bin of table_bin, bit for bit, in two
+// dependent shared-memory reads instead of a halving search's five.
+struct CellBins {
+  const float* edges;
+  const int* lo;
+  float inv;
+  int n_edges;
+  int n_bins;
+
+  __device__ __forceinline__ int bin(float sq) const {
+    if (n_bins <= 1 || n_edges <= 0) return 0;
+    int b = lo[cell_of(sq, inv)];
+    while (b < n_edges && sq > edges[b]) ++b;
+    return min(b, n_bins - 1);
   }
 };
+
+// Shared-memory bytes of stage_bins.
+__host__ __device__ inline size_t cell_bins_bytes(int n_edges) {
+  return static_cast<size_t>(n_edges) * sizeof(float) + kCells * sizeof(int);
+}
+
+// Stage the edges and their cells in shared memory at `smem` (n_edges
+// floats, then kCells ints).  Every thread calls it; the caller sets the
+// barrier.
+__device__ __forceinline__ CellBins stage_bins(
+    float* smem, const float* __restrict__ edges_sq, int n_edges,
+    int n_bins) {
+  int* lo = reinterpret_cast<int*>(smem + n_edges);
+  for (int i = threadIdx.x; i < n_edges; i += blockDim.x)
+    smem[i] = edges_sq[i];
+  const float last = n_edges > 0 ? __ldg(edges_sq + n_edges - 1) : 0.0f;
+  const float inv =
+      last > 0.0f ? __fdiv_rn(static_cast<float>(kCells - 1), last) : 0.0f;
+  if (n_bins > 1 && n_edges > 0) {
+    const int top = 1 << (31 - __clz(n_edges));
+    for (int c = threadIdx.x; c < kCells; c += blockDim.x) {
+      // the count of edges whose cell is below c (cells ascend with them)
+      int k = 0;
+      for (int step = top; step > 0; step >>= 1)
+        if (k + step <= n_edges &&
+            cell_of(__ldg(edges_sq + k + step - 1), inv) < c)
+          k += step;
+      lo[c] = k;
+    }
+  }
+  return CellBins{smem, lo, inv, n_edges, n_bins};
+}
 
 // Opt a kernel in to more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>

@@ -63,9 +63,8 @@ __all__ = [
 ]
 
 #: Most atoms of an assembly kernel: its row and column indices and
-#: ``3 n`` are ints.  (Up to 4096 atoms the kernels stage a whole
-#: conformer in shared memory, beyond that tiles of 2048 column atoms:
-#: ``kWholeConformer``, ``kColumnTile`` in ``csrc/spring.cuh``.)
+#: ``3 n`` are ints.  (The kernels read column atoms straight from device
+#: memory, so a conformer of any size assembles.)
 _MAX_ATOMS = 2**29
 #: Largest conformer :func:`assembly_stitch` takes: its store pass
 #: stages the column side (coordinates, scale and basis, 96 n bytes) in

@@ -63,11 +63,53 @@ def _spd_panels(count, pb, seed):
     return (a * d[:, :, None] * d[:, None, :]).astype(np.float32)
 
 
+def _planes_of(h):
+    """K1's planes ``(9, B, n, n)`` as they are, K5's xyz-layout
+    Hessians ``(B, 3n, 3n)`` as the same planes."""
+    if h.ndim == 4:
+        return h
+    b, m, _ = h.shape
+    n = m // 3
+    return h.reshape(b, 3, n, 3, n).permute(1, 3, 0, 2, 4).reshape(
+        9, b, n, n)
+
+
+def _assert_hessian_parts(got, ref):
+    """K1 or K5 output `got` against the plain version's `ref`: the
+    off-diagonal entries (atoms p != q) bit for bit (the same
+    ``(g d_a) d_e``); each diagonal entry the negated float64 sum of its
+    row's off-diagonal entries in `got` itself, and the plain version's
+    diagonal, within 1e-6 of max|ref| (the row sums in another order).
+    One plane at a time: at n = 8,192 a plane is 268 MB."""
+    got, ref = _planes_of(got), _planes_of(ref)
+    n = ref.shape[-1]
+    off = ~torch.eye(n, dtype=torch.bool, device=ref.device)
+    tol = 1e-6 * float(ref.abs().max())
+    for g, r in zip(got, ref):
+        assert torch.equal(g[:, off], r[:, off])
+        diag = torch.diagonal(g, dim1=-2, dim2=-1).double()
+        row_sums = g.double().masked_fill_(~off, 0.0).sum(dim=-1)
+        assert float((diag + row_sums).abs().max()) <= tol
+        assert float((diag - torch.diagonal(r, dim1=-2, dim2=-1).double())
+                     .abs().max()) <= tol
+
+
+def _unaligned(coords):
+    """`coords` copied into storage that starts 4 bytes past a 16-byte
+    boundary: the assembly kernels then read it 4 bytes at a time."""
+    shifted = torch.empty(coords.numel() + 1, device=coords.device)[1:] \
+        .view_as(coords)
+    return shifted.copy_(coords)
+
+
 @pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
                                          ("hinsen", 7.0), ("hinsen", None),
                                          ("pfenm", 7.0)])
-@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5)])
+@pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (2, 298),
+                                 (2, 299)])
 def test_hessian_planes_kernel(cuda, kind, cutoff, b, n):
+    """n % 4 != 0: the planes' rows start 0-3 columns before a 16-byte
+    boundary, and at odd n and B the nine planes' boundaries differ."""
     params = getattr(sct, f"{kind}_params")(cutoff)
     coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
     before = assembly_kernels.hessian_planes_ensemble.launches
@@ -77,6 +119,9 @@ def test_hessian_planes_kernel(cuda, kind, cutoff, b, n):
     torch.cuda.synchronize()
     assert got.shape == (9, b, n, n) and got.device == coords.device
     assert _rel(got, ref) <= 1e-5
+    _assert_hessian_parts(got, ref)
+    _assert_hessian_parts(assembly_kernels.hessian_planes_ensemble(
+        _unaligned(coords), params), ref)
 
 
 def _assert_kirchhoff_parts(got, ref):
@@ -94,10 +139,13 @@ def _assert_kirchhoff_parts(got, ref):
 @pytest.mark.parametrize("kind,cutoff", [("invariant", 7.0),
                                          ("hinsen", None), ("pfenm", 7.0)])
 @pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776),
-                                 (2, 1777), (1, 8192)])
+                                 (2, 1777), (1, 8192), (2, 298), (2, 299)])
 def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
-    """n % 4 != 0 takes the Kirchhoff kernel's 4-byte stores; 1,776 and
-    8,192 are the single structures of its paths."""
+    """n % 4 != 0 takes the kernels' 4-byte stores of the columns before
+    a row's first 16-byte boundary and after its last group (and in the
+    xyz layout, where a row's three segments start on different
+    boundaries, 8- and 4-byte stores of the groups); 1,776 and 8,192 are
+    the single structures of their paths."""
     params = getattr(sct, f"{kind}_params")(cutoff)
     coords = torch.as_tensor(_coords(b, n, seed=n), device=cuda)
     for wrapper, plain in (
@@ -113,15 +161,18 @@ def test_kirchhoff_and_hessian_xyz_kernels(cuda, kind, cutoff, b, n):
         assert _rel(got, ref) <= 1e-5, wrapper.__name__
         if wrapper is assembly_kernels.kirchhoff_ensemble:
             _assert_kirchhoff_parts(got, ref)
+        else:
+            _assert_hessian_parts(got, ref)
         del got, ref
-    # coordinates that start 4 bytes past a 16-byte boundary: the kernel
-    # reads and writes them 4 bytes at a time
-    shifted = torch.empty(coords.numel() + 1, device=cuda)[1:].view_as(
-        coords)
-    shifted.copy_(coords)
+    # coordinates that start 4 bytes past a 16-byte boundary: the kernels
+    # read them 4 bytes at a time
+    shifted = _unaligned(coords)
     _assert_kirchhoff_parts(assembly_kernels.kirchhoff_ensemble(shifted,
                                                                 params),
                             assembly.kirchhoff_plain(coords, params))
+    _assert_hessian_parts(assembly_kernels.hessian_xyz_ensemble(shifted,
+                                                                params),
+                          assembly.hessian_xyz_plain(coords, params))
 
 
 def ordered_regularize_stitch(planes, scale_h, ts, mp):
@@ -1149,9 +1200,9 @@ def _table_params(maker, atoms):
 @pytest.mark.parametrize("b,n", [(3, 41), (2, 300), (1, 5), (1, 1776),
                                  (1, 3100), (2, 1777), (1, 8192)])
 def test_table_branch_of_the_assembly_kernels(cuda, maker, b, n):
-    """n = 3100 stages 49.7 KB (coordinates, codes, edges) in K1 and K5:
-    the opt-in past the default 48 KB of shared memory; n % 4 != 0 the
-    Kirchhoff kernel's 4-byte stores; 8,192 its largest path."""
+    """n = 3100 once staged 49.7 KB (coordinates, codes, edges) in K1 and
+    K5, past the default 48 KB of shared memory; n % 4 != 0 takes the
+    kernels' narrower stores; 8,192 is their largest path."""
     atoms = _ca_atoms(n, seed=n)
     params = _table_params(maker, atoms)
     rng = np.random.RandomState(n)
@@ -1172,6 +1223,8 @@ def test_table_branch_of_the_assembly_kernels(cuda, maker, b, n):
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.device == coords.device
         assert _rel(got, ref) <= 1e-5, wrapper.__name__
+        if wrapper is not assembly_kernels.kirchhoff_ensemble:
+            _assert_hessian_parts(got, ref)
         del got, ref
     # same table entries pair for pair: the off-diagonal Kirchhoff
     # entries are the table's own values, so they agree bit for bit
@@ -1587,7 +1640,8 @@ def test_matfree_table_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("maker", [None, "sd_enm"])
 def test_assembly_kernels_tile_past_4096_atoms(cuda, n, maker):
     """One structure on both sides of the size where the assembly kernels
-    stop staging a whole conformer and walk column tiles: K1, K5 and K6
+    once stopped staging a whole conformer and walked column tiles (they
+    now read column atoms from device memory at any size): K1, K5 and K6
     against their plain versions, both families."""
     if maker is None:
         params = sct.invariant_params(13.0)
@@ -1619,6 +1673,8 @@ def test_assembly_kernels_tile_past_4096_atoms(cuda, n, maker):
         if wrapper is assembly_kernels.kirchhoff_ensemble:
             off = ~torch.eye(n, dtype=torch.bool, device=cuda)
             assert torch.equal(got[0][off], ref[0][off])
+        else:
+            _assert_hessian_parts(got, ref)
         del got, ref
         torch.cuda.empty_cache()
 

@@ -1,9 +1,10 @@
 """
-Times of the assembly-fused prep K7 (``assembly_stitch``, with its row-sum
-pass) and its prep stage, the Kirchhoff kernel K4/K6
-(``kirchhoff_ensemble``) and the other users of the table lookup
-(K1, K5, the pair-CSR build) of one checkout, to compare two checkouts on
-one card.
+Times of the assembly kernels K1 and K5 (``hessian_planes_ensemble``,
+``hessian_xyz_ensemble``), the assembly-fused prep K7 (``assembly_stitch``,
+with its row-sum pass) and the two prep stages, the Kirchhoff kernel
+K4/K6 (``kirchhoff_ensemble``), the pair-CSR build (the table lookup's
+other user) and the headline trace path, of one checkout, to compare two
+checkouts on one card.
 
 On ``chip_smoke.py``'s inputs:
 
@@ -18,15 +19,21 @@ On ``chip_smoke.py``'s inputs:
 * K4/K6 at (128, 300) invariant and sdENM, at (1, 1776) invariant and
   eANM on 7cal's CA trace, and at 8,192 atoms invariant and sdENM; at
   (128, 299) and (1, 1777) invariant, where n % 4 != 0;
-* the table branch's other kernels: K1 on the sdENM chunk, K5 on 7cal
-  under eANM, the pair-CSR build under sdENM at 30,000 atoms;
-* a SHA-256 of each output, so that two checkouts' outputs can be
-  compared bit for bit across processes.
+* K1 and K5 at (128, 300), (128, 299), (1, 1777) and (1, 8192) under the
+  invariant field and sdENM, K5 also at (1, 1776) invariant, on 7cal
+  under eANM and on one structure of 30,000 atoms (a 32.4 GB Hessian),
+  each with its share of the byte bound (coordinates and tables read
+  once, the output written once) and two SHA-256s: of the output with
+  its diagonal superelements zeroed (the off-diagonal part, to compare
+  bit for bit across checkouts) and of those diagonal entries alone;
+* the pair-CSR build under sdENM at 30,000 atoms;
+* the headline trace path: ``ensemble_anm_fluctuations`` plane traces
+  over 1,024 conformers in chunks of 128, host clock, solves/s.
 
 Kernels are timed by replaying a CUDA graph of `--calls` calls
 `--replays` times (the host's enqueue time drops out), beside the
-CUDA-event time per eager call; the prep stages, K1, K5 and the pair-CSR
-build by CUDA events.
+CUDA-event time per eager call; the 30,000-atom K5, the prep stages and
+the pair-CSR build by CUDA events.
 
 The package is imported from `--root`, the helpers from this checkout's
 ``chip_smoke.py``; run the parent's ``git archive`` and this tree in turns
@@ -41,6 +48,7 @@ import hashlib
 import importlib.util
 import os
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 
@@ -55,6 +63,29 @@ def load_chip_smoke():
 
 def digest(t):
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def hessian_digests(h):
+    """``(off-diagonal, diagonal)``: SHA-256s (16 hex digits) of K1's
+    planes ``(9, B, n, n)`` or K5's Hessians ``(B, 3n, 3n)`` with the
+    entries of their diagonal superelements (atoms p == q) zeroed, and of
+    those entries alone, streamed over slices of 64 MB of rows (a
+    30,000-atom Hessian is 32.4 GB)."""
+    import torch
+
+    n = h.shape[-1] if h.ndim == 4 else h.shape[-1] // 3
+    rows = h.reshape(-1, h.shape[-1])
+    spread = torch.arange(1 if h.ndim == 4 else 3, device=h.device) * n
+    step = max(1, (64 << 20) // (4 * rows.shape[1]))
+    off, diag = hashlib.sha256(), hashlib.sha256()
+    for r0 in range(0, rows.shape[0], step):
+        part = rows[r0:r0 + step].clone()
+        cols = (torch.arange(r0, r0 + part.shape[0], device=h.device)
+                % n)[:, None] + spread
+        diag.update(part.gather(1, cols).cpu().numpy().tobytes())
+        part.scatter_(1, cols, 0.0)
+        off.update(part.cpu().numpy().tobytes())
+    return off.hexdigest()[:16], diag.hexdigest()[:16]
 
 
 def main():
@@ -174,12 +205,68 @@ def main():
         say(f"K4/K6 {label}: {ms:.4f} ms by graph replay ({eager:.4f} per "
             f"eager call), bound {bound:.4f} ms (bytes), {bound / ms:.1%} of "
             f"the bound; sha256 {digest(k4())}")
-    for label, fn, reps in (
-            ("K1 (128, 300) sdENM", lambda: assembly_kernels.
-             hessian_planes_ensemble(chunk, sd_enm), args.reps),
-            ("K5 (1, 1776) eANM on 7cal", lambda: assembly_kernels.
-             hessian_xyz_ensemble(cal, e_anm), args.reps)):
-        say(f"{label}: {cs.cuda_ms(fn, reps):.4f} ms; sha256 {digest(fn())}")
+    torch.cuda.empty_cache()
+
+    # K1 and K5 at every shape of their paths, both branches
+    def table_bytes(p, nc):
+        if p.kind != "table_compact":
+            return 0
+        return 4 * (p.n_bins * 1200 + len(p.edges_sq or ()) + nc)
+
+    c299 = chunk[:, :n - 1].contiguous()
+    sd_299 = sct.TabulatedForceField.sd_enm(
+        cs.make_ca_atoms(n - 1)).to_compact_params()
+    c1777 = torch.as_tensor(cs.make_conformers(1, cs.N_SINGLE + 1, cs.SEED),
+                            device="cuda")
+    sd_1777 = cs.sd_enm_compact(cs.N_SINGLE + 1)
+    sd_large = cs.sd_enm_compact(cs.N_LARGE)
+    hessians = [
+        ("(128, 300) invariant", chunk, params),
+        ("(128, 300) sdENM", chunk, sd_enm),
+        ("(128, 299) invariant", c299, params),
+        ("(128, 299) sdENM", c299, sd_299),
+        ("(1, 1777) invariant", c1777, params),
+        ("(1, 1777) sdENM", c1777, sd_1777),
+        ("(1, 8192) invariant", large, params),
+        ("(1, 8192) sdENM", large, sd_large)]
+    for name, wrapper, extra in (
+            ("K1", assembly_kernels.hessian_planes_ensemble, []),
+            ("K5", assembly_kernels.hessian_xyz_ensemble,
+             [("(1, 1776) invariant", single, params),
+              ("(1, 1776) eANM on 7cal", cal, e_anm)])):
+        for label, c, p in hessians[:2] + extra + hessians[2:]:
+            b, nc = c.shape[:2]
+
+            def fn(c=c, p=p, wrapper=wrapper):
+                return wrapper(c, p)
+
+            bound = bound_of(4 * (3 * b * nc + 9 * b * nc * nc)
+                             + table_bytes(p, nc))
+            ms, eager = timed(fn, 5 if nc > 4096 else args.reps)
+            off, diag = hessian_digests(fn())
+            torch.cuda.empty_cache()
+            say(f"{name} {label}: {ms:.4f} ms by graph replay ({eager:.4f} "
+                f"per eager call), bound {bound:.4f} ms (bytes), "
+                f"{bound / ms:.1%} of the bound; sha256 off-diagonal {off}, "
+                f"diagonal {diag}")
+    del single, cal, c299, c1777, large
+    torch.cuda.empty_cache()
+    n30 = cs.N_MATFREE
+    c30 = torch.as_tensor(cs.matfree_coord(n30)[None], device="cuda")
+    invariant30 = sct.invariant_params(cs.MATFREE_CUTOFF)
+
+    def k5_30():
+        return assembly_kernels.hessian_xyz_ensemble(c30, invariant30)
+
+    ms = cs.cuda_ms(lambda: k5_30() is None, 3)
+    bound = bound_of(4 * (3 * n30 + 9 * n30 * n30))
+    off, diag = hessian_digests(k5_30())
+    torch.cuda.empty_cache()
+    say(f"K5 (1, {n30}) invariant: {ms:.4f} ms by CUDA events (3 calls), "
+        f"bound {bound:.4f} ms (bytes), {bound / ms:.1%} of the bound; "
+        f"sha256 off-diagonal {off}, diagonal {diag}")
+    del c30
+
     sd30 = cs.sd_enm_compact(cs.N_MATFREE)
     c30, perm, csr = cs.sorted_layout(cs.matfree_coord(cs.N_MATFREE),
                                       float(sd30.cutoff_sq) ** 0.5)
@@ -190,6 +277,25 @@ def main():
 
     say(f"pair CSR (1, {cs.N_MATFREE}) sdENM: {cs.cuda_ms(build, 5):.4f} "
         f"ms; sha256 of the constants {digest(build().k)}")
+    del c30, csr, sorted30
+    torch.cuda.empty_cache()
+
+    # the headline trace path
+    conformers = cs.make_conformers(cs.N_CONFORMERS, cs.N_RES, cs.SEED)
+    rates = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sct.ensemble_anm_fluctuations(
+            conformers, params, inverse="blocked", with_covariance=False,
+            chunk=cs.CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        rates.append(cs.N_CONFORMERS / (time.perf_counter() - t0))
+        cs.check(all(bool(torch.isfinite(v).all()) for v in out.values()
+                     if torch.is_tensor(v)), "trace path: non-finite")
+    say(f"trace path ({cs.N_CONFORMERS} x N={cs.N_RES}, chunk {cs.CHUNK}), "
+        f"host clock: " + ", ".join(f"{r:.1f}" for r in rates[1:])
+        + f" solves/s (warm-up {rates[0]:.1f})")
 
 
 if __name__ == "__main__":
