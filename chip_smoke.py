@@ -15,8 +15,8 @@ Phases:
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors, at the shapes its paths give it, timed with CUDA events (the
    two banded kernels on the band of the first chunk's Hessians, the
-   bisection also on the single structure's band at 8 halvings and at
-   its path's 40, their slow plain versions timed over one call, and the
+   bisection also on the single structure's band at its path's 40
+   halvings, their slow plain versions timed over one call, and the
    bisection again at the paths' 40 halvings on the chunk's band, each
    bisection with its bound on the halvings this run's data needs and
    with every eigenvalue taking them all; the inverse iteration per call
@@ -27,7 +27,10 @@ Phases:
    20 calls (the host's enqueue time per call drops out) in turns with K9
    and ``torch.linalg.solve_triangular``, beside its time per eager call;
    the full-window panel inverse K9 at both sizes in turns with
-   ``torch.linalg.solve_triangular``; K2 also on the sdENM chunk; K7
+   ``torch.linalg.solve_triangular``; the panel Cholesky K8 at the same
+   four shapes, bit for bit its plain version (each output's SHA-256
+   printed), a non-SPD panel non-finite, by graph replay in turns with
+   K3 and ``torch.linalg.cholesky_ex``; K2 also on the sdENM chunk; K7
    (its row-sum pass and store pass together) under the invariant field
    and hinsen and on a chunk of 299 atoms, the row-sum pass alone against
    its plain version; the Kirchhoff kernel on the chunk and on the single
@@ -127,7 +130,18 @@ Phases:
      same matrix (1e-4 of max|lambda|, residuals, orthonormality) and,
      refined, to 1e-6 relative of the float64 matrix's; at 8,192 atoms
      the refined residuals to 1e-3; time per structure, first and second
-     call.
+     call;
+   * the reference-compatible model API on 7cal's CA trace, float64 on
+     the card (``model_api_paths``): ``ANM`` under eANM with residue
+     masses and ``GNM`` under the invariant field at 7 A, every
+     observable with its first and second call's time, the covariance's
+     Moore-Penrose identities on probe blocks, ``lowest_modes(10,
+     refine=True)`` (K3) and ``lowest_modes(10, matrix_free=True)``
+     (K13 / K14) from zero launch counts against the dense spectrum,
+     ``compute_hessian`` / ``compute_kirchhoff`` against the models'
+     matrices, and the golden files of ``tests/test_anm.py`` (eANM
+     against BioPhysConnectoR, bio3d's mass-weighted eigenvalues under
+     three force fields) at that file's tolerances.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -272,6 +286,11 @@ PATH_KERNELS = {
     "anm_7cal_modes": ("hessian_xyz", "panel_inverse"),
     "gnm_7cal_modes": ("kirchhoff", "panel_inverse"),
     "anm_modes_8192": ("hessian_xyz",),
+    # the model API: K3 through "invfactor", K13 / K14 over the pair CSR
+    "model_anm_modes": ("panel_inverse",),
+    "model_anm_modes_matfree": ("pair_csr", "hessian_apply_sparse"),
+    "model_gnm_modes": ("panel_inverse",),
+    "model_gnm_modes_matfree": ("pair_csr", "kirchhoff_apply_sparse"),
 }
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
@@ -285,7 +304,7 @@ TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "gnm_7cal_overlay", "gnm_spectral_7cal_overlay",
                "anm_matfree_overlay_tabulated",
                "gnm_matfree_overlay_tabulated", "anm_7cal_modes",
-               "gnm_7cal_modes")
+               "gnm_7cal_modes", "model_anm_modes_matfree")
 #: Paths that mix both branches (each family is launched once).
 MIXED_PATHS = ("assembly_large",)
 #: The float32 MSF of 7cal under eANM against the float64 engine, relative
@@ -359,12 +378,19 @@ MODE_BUFFER = 4
 #: Refined float64 eigenvalues against float64 ``eigh``, relative: the
 #: north-star rtol of BASELINE.md.
 REFINED_RTOL = 1e-6
+#: The model API's refined modes: residuals |H u - theta u| / theta within
+#: this many times eps_f32 max|lambda| / theta, the rounding floor of the
+#: float32 basis they are refined from (one Rayleigh-Ritz pass keeps it in
+#: the residual, first order, and takes it out of the eigenvalue, second
+#: order).
+REFINED_RESIDUAL_FLOORS = 10
 N_ITER_BISECT = 32
 #: Halvings at which K10 is held against its plain version on the single
-#: structure's band (1, 9, 5328): 8, all from the shared tree of its first
-#: 12; and the path's 40, the tree, nine rounds of three halvings, a
-#: partial round of one and the early stop.
-SINGLE_PARITY_HALVINGS = (8, 40)
+#: structure's band (1, 9, 5328): the path's 40, the shared tree of its
+#: first 12, nine rounds of three halvings, a partial round of one and the
+#: early stop.  (Until the model-API phase needed the room, also 8, all
+#: from the tree, a depth no path runs: 8.8 s of plain bisection.)
+SINGLE_PARITY_HALVINGS = (40,)
 #: Subspace iterations of the GNM mode shapes.  The benchmark has no GNM
 #: spectral setting, and the default 16 leaves the 20th Kirchhoff mode at
 #: N=300 with a residual of 1.9e-3 ||K|| even in float64 (its lowest
@@ -703,87 +729,122 @@ def table_parity(results, coords, sd_enm, ca_7cal, e_anm):
            label=" sdENM")
 
 
-def panel_inverse_parity(results, panels):
-    """K3 and K9 on the first leaf `panels` of a chunk's factor input
-    (``(128, pb, pb)``, the default leaf pb = 64 and then the largest,
-    128), and K3 on its first panel alone, the single-structure leaf.
-    Both kernels must equal the plain version bit for bit, and give a
-    non-finite output on a non-SPD panel.  At each shape K3 is timed by
-    graph replay (``graph_ms``, its record's ``ms``) in turns with K9 and
-    the library call (``torch.linalg.solve_triangular`` of the panels'
-    Cholesky factor, factor excluded): K3, K9, library, library, K9, K3;
-    its CUDA-event time per eager call is ``event_ms``.  K9's own record
-    keeps CUDA events in turns with the library call."""
+def panel_parity(results, kernels, plain, library_of, shapes, flops,
+                 eager=None):
+    """Panel kernels on each of `shapes` ``(batch, pb, pb)``.  `kernels`
+    maps a name to ``(fn(p), held)``: the first is the kernel recorded,
+    and each `held` one must give a non-finite output in a non-SPD panel
+    alone (on every batched shape) and equal `plain(p)` bit for bit (the
+    recorded output's SHA-256 printed).  At each shape the kernels and
+    the library call ``library_of(p)()`` are timed by graph replay
+    (``graph_ms``) in turns, first to last and back; the record's ``ms``
+    and ``library_ms`` are their means, ``event_ms`` the kernel's
+    CUDA-event time per eager call, ``plain_ms`` the plain version's.
+    `flops(batch, pb)` counts the operations of the bound; `eager` maps
+    more record keys to ``fn(p)`` timed per eager call."""
+    import hashlib
+
+    import torch
+
+    first = next(iter(kernels))
+    held = [name for name, (_, hold) in kernels.items() if hold]
+    for p in shapes:
+        batch, pb = p.shape[:2]
+        if batch > 1:
+            bad = p.clone()
+            bad[1, 5, 5] = -1.0
+            for name in held:
+                out = kernels[name][0](bad)
+                check(not bool(torch.isfinite(out[1]).all())
+                      and bool(torch.isfinite(out[0]).all()),
+                      f"{name} {tuple(bad.shape)} on a non-SPD panel: not "
+                      f"a non-finite output in that panel alone")
+            print(f"parity {', '.join(held)} {tuple(bad.shape)}: a non-SPD "
+                  f"panel gives a non-finite output", flush=True)
+            del bad, out
+        fns = {name: (lambda p=p, fn=fn: fn(p))
+               for name, (fn, _) in kernels.items()}
+        fns["library"] = library_of(p)
+        ref = plain(p)
+        plain_ms = cuda_ms(lambda p=p: plain(p))
+        got = fns[first]()
+        torch.cuda.synchronize()
+        check(all(torch.equal(fns[name](), ref) for name in held),
+              f"{' or '.join(held)} {tuple(p.shape)} differs from the plain "
+              f"version in some bit")
+        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        turns = {name: [] for name in fns}
+        for name in list(fns) + list(reversed(list(fns))):
+            turns[name].append(graph_ms(fns[name]))
+        rec = entry(got.shape, max_errors(got, ref)[0],
+                    sum(turns[first]) / 2, plain_ms,
+                    (4 * 2 * batch * pb * pb, flops(batch, pb)),
+                    sum(turns["library"]) / 2)
+        rec["event_ms"] = cuda_ms(fns[first])
+        for key, fn in (eager or {}).items():
+            rec[key] = cuda_ms(lambda p=p, fn=fn: fn(p))
+        rec["graph_turns"] = turns
+        rec["sha256"] = sha
+        results.setdefault(first, []).append(rec)
+        print(f"parity {first} {tuple(got.shape)}: {', '.join(held)} bit "
+              f"for bit, sha256 {sha[:16]}; kernel {rec['ms']:.4f} ms by "
+              f"graph replay ({rec['ms'] * 1e3 / pb:.3f} us a step; "
+              f"{rec['event_ms']:.4f} ms per eager call, CUDA events), plain "
+              f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}), library {rec['library_ms']:.4f} ms by "
+              f"graph replay"
+              + "".join(f", {key} {rec[key]:.4f} ms" for key in eager or {})
+              + "; in turns by graph replay: "
+              + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in times)
+                          for name, times in turns.items()), flush=True)
+        del got, ref
+
+
+def panel_kernels_parity(results, panels, largest):
+    """K3, K9 and K8 on the first leaf `panels` of a chunk's factor input
+    ``(128, 64, 64)`` and on its first panel (the single structure's
+    leaf), then on the largest leaf `largest` ``(128, 128, 128)`` and its
+    first panel (:func:`panel_parity`).  K3 is held with K9 and timed with
+    K9 and ``torch.linalg.solve_triangular`` of the panels' Cholesky
+    factor (factor excluded); K8 is timed with K3 and
+    ``torch.linalg.cholesky_ex`` (``torch.linalg.cholesky`` reads its
+    error code on the host and cannot be captured: its eager time is
+    ``cholesky_event_ms``).  K9's own record keeps CUDA events in turns
+    with the library call."""
     import torch
 
     from springcraft_tpu_torch.ops import spd_linalg
 
-    bad = panels.clone()
-    bad[1, 5, 5] = -1.0
-    for name, fn in (("panel_inverse", lambda p: spd_linalg.
-                      panel_inverse_batched(p, shrink_block=8)),
-                     ("panel_inverse_full", spd_linalg.panel_inverse_full)):
-        out = fn(bad)
-        check(not bool(torch.isfinite(out[1]).all())
-              and bool(torch.isfinite(out[0]).all()),
-              f"{name} {tuple(bad.shape)} on a non-SPD panel: not a "
-              f"non-finite output in that panel alone")
-    print(f"parity panel_inverse, panel_inverse_full {tuple(bad.shape)}: a "
-          f"non-SPD panel gives a non-finite output", flush=True)
-    del bad
+    def k3(p):
+        return spd_linalg.panel_inverse_batched(p, shrink_block=8)
 
-    def library_of(p):
+    def solve_triangular(p):
         factor = torch.linalg.cholesky(p)
         eye = torch.eye(p.shape[-1], device=p.device).expand_as(factor)
         return lambda: torch.linalg.solve_triangular(factor, eye,
                                                      upper=False)
 
-    for p in (panels, panels[:1].contiguous()):
+    shapes = (panels, panels[:1].contiguous(), largest,
+              largest[:1].contiguous())
+    panel_parity(results, {"panel_inverse": (k3, True),
+                           "panel_inverse_full": (
+                               spd_linalg.panel_inverse_full, True)},
+                 spd_linalg.panel_inverse_plain, solve_triangular, shapes,
+                 lambda batch, pb: batch * 2 * pb ** 3 / 3)
+    for p in (panels, largest):
         batch, pb = p.shape[:2]
-
-        def k3(p=p):
-            return spd_linalg.panel_inverse_batched(p, shrink_block=8)
-
-        def k9(p=p):
-            return spd_linalg.panel_inverse_full(p)
-
-        library = library_of(p)
-        plain = spd_linalg.panel_inverse_plain(p)
-        plain_ms = cuda_ms(lambda p=p: spd_linalg.panel_inverse_plain(p))
-        got, full = k3(), k9()
-        torch.cuda.synchronize()
-        check(torch.equal(got, plain) and torch.equal(full, plain),
-              f"panel_inverse or panel_inverse_full {tuple(p.shape)} "
-              f"differs from the plain version in some bit")
-        turns = {"panel_inverse": [], "panel_inverse_full": [],
-                 "library": []}
-        for name, fn in (("panel_inverse", k3), ("panel_inverse_full", k9),
-                         ("library", library), ("library", library),
-                         ("panel_inverse_full", k9), ("panel_inverse", k3)):
-            turns[name].append(graph_ms(fn))
-        rec = entry(got.shape, max_errors(got, plain)[0],
-                    sum(turns["panel_inverse"]) / 2, plain_ms,
-                    (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
-                    sum(turns["library"]) / 2)
-        rec["event_ms"] = cuda_ms(k3)
-        rec["graph_turns"] = turns
-        results.setdefault("panel_inverse", []).append(rec)
-        print(f"parity panel_inverse {tuple(got.shape)}: bit for bit, and "
-              f"panel_inverse_full; kernel {rec['ms']:.4f} ms by graph "
-              f"replay ({rec['event_ms']:.4f} ms per eager call, CUDA "
-              f"events), plain {plain_ms:.4f} ms, bound "
-              f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}), library "
-              f"{rec['library_ms']:.4f} ms; in turns by graph replay: "
-              + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in times)
-                          for name, times in turns.items()), flush=True)
-        del got, full, plain
-
-    batch, pb = panels.shape[:2]
-    record(results, "panel_inverse_full",
-           lambda: spd_linalg.panel_inverse_full(panels),
-           lambda: spd_linalg.panel_inverse_plain(panels),
-           (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
-           library_of(panels), turns=True)
+        record(results, "panel_inverse_full",
+               lambda p=p: spd_linalg.panel_inverse_full(p),
+               lambda p=p: spd_linalg.panel_inverse_plain(p),
+               (4 * 2 * batch * pb * pb, batch * 2 * pb ** 3 / 3),
+               solve_triangular(p), turns=True)
+    panel_parity(results, {"panel_cholesky": (spd_linalg.panel_cholesky,
+                                              True),
+                           "panel_inverse": (k3, False)},
+                 spd_linalg.panel_cholesky_plain,
+                 lambda p: lambda: torch.linalg.cholesky_ex(p), shapes,
+                 lambda batch, pb: batch * pb ** 3 / 3,
+                 eager={"cholesky_event_ms": torch.linalg.cholesky})
 
 
 def kernel_parity(coords, single, params):
@@ -832,16 +893,8 @@ def kernel_parity(coords, single, params):
     panels = reg[:, :spd_linalg.LEAF, :spd_linalg.LEAF].contiguous()
     largest = reg[:, :spd_linalg.MAX_LEAF, :spd_linalg.MAX_LEAF].contiguous()
     del reg
-    pb = spd_linalg.LEAF
-    panel_inverse_parity(results, panels)
-    panel_inverse_parity(results, largest)
-    del largest
-    record(results, "panel_cholesky",
-           lambda: spd_linalg.panel_cholesky(panels),
-           lambda: spd_linalg.panel_cholesky_plain(panels),
-           (4 * 2 * batch * pb * pb, batch * pb ** 3 / 3),
-           lambda: torch.linalg.cholesky(panels))
-    del panels
+    panel_kernels_parity(results, panels, largest)
+    del panels, largest
 
     # the GNM ensemble's chunk, then the single structure (by graph
     # replay: either call is shorter than its host's enqueue)
@@ -1803,6 +1856,208 @@ def mode_paths(ca_7cal, e_anm, card):
     return launches
 
 
+def _golden(name, skip_header=0):
+    """A golden file of the repository's tests (``tests/data``)."""
+    import numpy as np
+
+    return np.genfromtxt(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data", name),
+        delimiter=",", skip_header=skip_header)
+
+
+def _twice(label, fn, card):
+    """``fn()`` twice, each call to a synchronize by the host clock; prints
+    both times (the model caches its eigensystem and covariance, so a
+    second call of an observable reads them) and returns the first
+    output."""
+    import torch
+
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"model_api {label}: {times[0]:.1f} ms (first call), "
+          f"{times[1]:.1f} ms (second) on [{card}]", flush=True)
+    return out
+
+
+def _bio3d_field(sct, ca):
+    """bio3d's sdENM set-up for a multi-chain structure: the chain breaks
+    bonded (``tests/test_anm.py:76-95``)."""
+    import numpy as np
+
+    from springcraft_tpu_torch.structure import check_res_id_continuity
+
+    after = check_res_id_continuity(ca)
+    pairs = np.stack([after - 1, after], axis=1)
+    return sct.PatchedForceField(
+        sct.TabulatedForceField.sd_enm(ca), contact_pair_off=pairs,
+        contact_pair_on=pairs,
+        force_constants=np.full(len(pairs), 43.52 * 0.0083144621 * 300 * 10))
+
+
+def model_api_paths(ca, card):
+    """The reference-compatible model API on the card, float64, on 7cal's
+    CA trace (1776 residues): ``ANM`` under eANM with residue masses and
+    ``GNM`` under the invariant field at 7 A — every observable, each
+    call's first and second time, the Moore-Penrose identities of the
+    covariance on random probe blocks (``tests/test_anm.py:46-57``), the
+    MSF against the covariance, ``lowest_modes(10, refine=True)`` (K3
+    through the ``"invfactor"`` engine) against the dense eigenvalues at
+    REFINED_RTOL and ``lowest_modes(10, matrix_free=True)`` (K13 / K14
+    over the pair CSR) within MATFREE_RESIDUAL_TOL of them, the residuals
+    they return within REFINED_RESIDUAL_FLOORS of the float32 floor and
+    MATFREE_RESIDUAL_TOL, both from zero launch counts; ``compute_hessian`` and ``compute_kirchhoff`` against
+    the models' matrices; then the golden files the JAX tests read at
+    their tolerances (``tests/test_anm.py:73-122``): eANM's eigenvalues
+    and MSF against BioPhysConnectoR and bio3d's mass-weighted eigenvalues
+    under its three force fields.  Returns ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops.ffparams import pairwise_sq_distance
+
+    n = ca.array_length()
+    launches = {}
+    # the cutoff decision of the float32 solve's matrix: the card's float32
+    # squared distances are the host's bit for bit; a plain torch.sum over
+    # the components, in the card's own order, would decide some pairs of
+    # eANM's 13 A cutoff otherwise
+    c32 = torch.as_tensor(ca.coord, dtype=torch.float32)
+    host = pairwise_sq_distance(c32)[1]
+    disp, card_sq = pairwise_sq_distance(c32.cuda())
+    flips = int(((disp * disp).sum(dim=-1).cpu() <= 169.0)
+                .ne(host <= 169.0).sum()) // 2
+    print(f"model_api cutoff: float32 squared distances on the card equal "
+          f"the host's: {torch.equal(card_sq.cpu(), host)}; torch.sum over "
+          f"the components on the card decides {flips} pair(s) of the 13 A "
+          f"cutoff otherwise", flush=True)
+    check(torch.equal(card_sq.cpu(), host),
+          "model_api: float32 squared distances differ from the host's")
+    del c32, host, disp, card_sq
+    rng = np.random.RandomState(0)
+    probes = rng.randn(3 * n, 16)
+    force = rng.randn(n, 3)
+    ff = sct.TabulatedForceField.e_anm(ca)
+    models = (("ANM", sct.ANM(ca, ff, masses=True), 6, ff),
+              ("GNM", sct.GNM(ca, sct.InvariantForceField(7.0)), 1,
+               sct.InvariantForceField(7.0)))
+    for name, model, trivial, field in models:
+        dim = 3 * n if name == "ANM" else n
+        vals, vecs = _twice(f"{name}.eigen", model.eigen, card)
+        freq = _twice(f"{name}.frequencies", model.frequencies, card)
+        msf = _twice(f"{name}.mean_square_fluctuation",
+                     model.mean_square_fluctuation, card)
+        bfac = _twice(f"{name}.bfactor", model.bfactor, card)
+        dcc = _twice(f"{name}.dcc", model.dcc, card)
+        cov = _twice(f"{name}.covariance", lambda m=model: m.covariance,
+                     card)
+        outs = {"eigen values": (vals, (dim,)), "modes": (vecs, (dim, dim)),
+                "frequencies": (freq, (dim,)), "msf": (msf, (n,)),
+                "bfactor": (bfac, (n,)), "dcc": (dcc, (n, n)),
+                "covariance": (cov, (dim, dim))}
+        if name == "ANM":
+            prs, eff, sens = _twice(f"{name}.prs_effector_sensor",
+                                    model.prs_effector_sensor, card)
+            lr = _twice(f"{name}.linear_response",
+                        lambda m=model: m.linear_response(force), card)
+            mode = _twice(f"{name}.normal_mode",
+                          lambda m=model: m.normal_mode(6, 1.0, 8), card)
+            outs.update({"prs": (prs, (n, n)), "effector": (eff, (n,)),
+                         "sensor": (sens, (n,)), "linear_response":
+                         (lr, (n, 3)), "normal_mode": (mode, (8, n, 3))})
+        for key, (value, shape) in outs.items():
+            check(isinstance(value, np.ndarray) and value.shape == shape
+                  and bool(np.isfinite(value).all()),
+                  f"model_api {name} {key}: not a finite {shape} array")
+        matrix = model.hessian if name == "ANM" else model.kirchhoff
+        x = probes[:dim]
+        hx = matrix @ x
+        cx = cov @ x
+        check(np.allclose(matrix @ (cov @ hx), hx)
+              and np.allclose(cov @ (matrix @ cx), cx),
+              f"model_api {name}: covariance fails the Moore-Penrose "
+              f"identities on probe blocks")
+        traces = np.diagonal(cov).reshape(n, -1).sum(axis=1)
+        check(np.allclose(msf, traces), f"model_api {name}: MSF is not the "
+              f"covariance's traces")
+        if name == "ANM":
+            check(np.allclose(lr.reshape(-1), cov @ force.reshape(-1)),
+                  "model_api ANM: linear response is not C f")
+            unweighted, _ = sct.compute_hessian(ca.coord, field)
+            w = 1.0 / np.sqrt(np.repeat(model.masses, 3))
+            check(np.allclose(unweighted * w[:, None] * w[None, :], matrix,
+                              rtol=1e-12, atol=0),
+                  "model_api: compute_hessian is not the model's Hessian")
+        else:
+            kirchhoff, pairs = sct.compute_kirchhoff(ca.coord, field)
+            check(np.array_equal(kirchhoff, matrix)
+                  and len(pairs) == int((matrix < 0).sum()),
+                  "model_api: compute_kirchhoff is not the model's matrix")
+        del matrix, cov, vecs, dcc
+        wanted = vals[trivial:trivial + 10]
+        for path, kwargs in ((f"model_{name.lower()}_modes",
+                              {"refine": True}),
+                             (f"model_{name.lower()}_modes_matfree",
+                              {"matrix_free": True})):
+            def run(m=model, kwargs=kwargs):
+                return m.lowest_modes(10, **kwargs)
+
+            (low, _, res), seconds, launches[path] = drive(path, run)
+            again = timed(run)
+            rel = float(np.max(np.abs(low - wanted) / np.abs(wanted)))
+            if "refine" in kwargs:
+                tol = REFINED_RTOL
+                floor = (np.finfo(np.float32).eps * np.abs(vals).max()
+                         / np.abs(low))
+                worst = float(np.max(res / floor))
+                res_tol, unit = REFINED_RESIDUAL_FLOORS, " floors"
+            else:
+                tol = res_tol = MATFREE_RESIDUAL_TOL
+                worst, unit = float(np.max(res)), ""
+            print(f"{path}: {name}.lowest_modes(10, {kwargs}) eigenvalues "
+                  f"vs the dense float64 eigen max rel err {rel:.3e} (tol "
+                  f"{tol:g}), residuals max {float(np.max(res)):.3e}, "
+                  f"{worst:.3g}{unit} (tol {res_tol:g}{unit}); "
+                  f"{seconds * 1e3:.1f} ms (first call), {again * 1e3:.1f} "
+                  f"ms (second) on [{card}]", flush=True)
+            check(rel <= tol, f"{path}: eigenvalues {rel:.3e}")
+            check(worst <= res_tol, f"{path}: residual {worst:.3g}{unit}")
+
+    # golden files (tests/test_anm.py:73-122, their tolerances)
+    plain = sct.ANM(ca, ff)
+    vals = plain.eigen()[0]
+    ref = _golden("biophysconnector_anm_eanm_evals_7cal.csv.gz", 1)
+    check(np.allclose(vals[6:], ref[6:]),
+          "model_api: eANM eigenvalues vs BioPhysConnectoR")
+    fluc = plain.mean_square_fluctuation()
+    ref_fluc = _golden("biophysconnector_anm_eanm_bfacs_7cal.csv.gz", 1)
+    err = float(np.max(np.abs(fluc - ref_fluc) / np.abs(ref_fluc)))
+    print(f"model_api golden: eANM eigenvalues vs BioPhysConnectoR within "
+          f"np.allclose, max rel err "
+          f"{float(np.max(np.abs(vals[6:] - ref[6:]) / ref[6:])):.3e}; MSF "
+          f"max rel err {err:.3e}", flush=True)
+    check(np.allclose(fluc, ref_fluc), "model_api: eANM MSF vs "
+          "BioPhysConnectoR")
+    del plain
+    masses = _golden("bio3d_mass_7cal.csv.gz")
+    for ff_name, field in (("calpha", sct.HinsenForceField()),
+                           ("sdenm", _bio3d_field(sct, ca)),
+                           ("pfanm", sct.ParameterFreeForceField())):
+        vals = sct.ANM(ca, field, masses=masses).eigen()[0]
+        ref = _golden(f"bio3d_anm_{ff_name}_ff_evals_mw_7cal.csv.gz")
+        err = float(np.max(np.abs(vals[6:] - ref[6:])))
+        print(f"model_api golden: bio3d {ff_name} mass-weighted eigenvalues "
+              f"max abs err {err:.3e} (rtol 5e-3, atol 2e-3)", flush=True)
+        check(np.allclose(vals[6:], ref[6:], rtol=5e-3, atol=2e-3),
+              f"model_api: bio3d {ff_name} eigenvalues")
+    return launches
+
+
 def paths(conformers, single, params, card):
     """Drive every dense path of the analytic field once; returns
     ``{path: launches}``."""
@@ -2565,6 +2820,16 @@ def main():
     e_anm = sct.TabulatedForceField.e_anm(ca_7cal).to_compact_params()
     check(ca_7cal.array_length() == N_SINGLE, "7cal's CA count")
     chunk = torch.as_tensor(conformers[:CHUNK], device="cuda")
+    clock = time.perf_counter()
+
+    def phase(label):
+        """The host seconds since the last phase ended, for the run's time
+        budget."""
+        nonlocal clock
+        now = time.perf_counter()
+        print(f"phase {label}: {now - clock:.1f} s", flush=True)
+        clock = now
+
     parity = kernel_parity(chunk,
                            torch.as_tensor(single[None], device="cuda"),
                            params)
@@ -2572,18 +2837,24 @@ def main():
                  torch.as_tensor(ca_7cal.coord[None], device="cuda"), e_anm)
     del chunk
     matfree_parity(parity)
+    phase("kernel parity")
     launches = paths(conformers, single, params, card)
     launches.update(tabulated_paths(conformers, sd_enm, ca_7cal.coord, e_anm,
                                     card))
     launches.update(direct_paths(conformers, params, card))
     launches.update(panel_function_path(conformers, params))
+    phase("ensemble and single-structure paths")
     launches.update(mode_paths(ca_7cal.coord, e_anm, card))
+    phase("mode paths")
+    launches.update(model_api_paths(ca_7cal, card))
+    phase("model API")
     launches.update(overlay_paths(conformers, ca_7cal, e_anm, card))
     launches.update(matfree_paths(card))
     launches.update(matfree_paths(card, tabulated=True))
     matfree_anchor(parity)
     launches.update(matfree_overlay_paths(card))
     launches.update(large_assembly(parity, card))
+    phase("overlay, matrix-free and large paths")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

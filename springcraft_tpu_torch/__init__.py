@@ -33,6 +33,11 @@ factor's leaf kernel on CUDA) or LOBPCG (:func:`lowest_modes`), refined
 in float64 on the card (:func:`refine_modes_f64`,
 :func:`refine_modes_f64_gnm`).
 
+The reference-compatible model API — :class:`ANM`, :class:`GNM`,
+:func:`compute_hessian`, :func:`compute_kirchhoff` and the :mod:`nma`
+functions — computes in float64 on the device and returns NumPy arrays,
+as the JAX package's does.
+
 Entry points run on the current CUDA device unless the caller passes a
 tensor that lies elsewhere or ``device="cpu"``.
 
@@ -45,10 +50,12 @@ from .ops.ffparams import (FFParams, PatchOverlay, from_numpy_params,
                            hinsen_params, invariant_params, pfenm_params,
                            strip_overlays, table_compact_params,
                            table_pair_params, with_overlay)
-from .models.forcefield import (ForceField, HinsenForceField,
-                                InvariantForceField,
-                                ParameterFreeForceField, PatchedForceField,
-                                TabulatedForceField)
+from .models import (ANM, GNM, ForceField, HinsenForceField,
+                     InvariantForceField, ParameterFreeForceField,
+                     PatchedForceField, TabulatedForceField, bfactor,
+                     compute_hessian, compute_kirchhoff, dcc,
+                     effector_sensor, eigen, frequencies, linear_response,
+                     mean_square_fluctuation, nma, normal_mode, prs)
 from .structure import AtomArray, BadStructureError, load_structure
 from .ops.spd_linalg import (panel_cholesky_batched, panel_inverse_batched,
                              spd_inverse_blocked)
@@ -71,7 +78,28 @@ from .ops.modes import (lowest_modes, lowest_modes_anm,
                         refine_modes_f64_gnm)
 from .utils.config import resolve_device, synchronize
 
+# Make `import springcraft_tpu_torch.nma` resolve to the models.nma module
+# (the reference's flat module layout; the forcefield/anm/gnm/interaction
+# aliases are real modules).
+import sys as _sys
+
+_sys.modules[__name__ + ".nma"] = nma
+
 __all__ = [
+    "ANM",
+    "GNM",
+    "compute_kirchhoff",
+    "compute_hessian",
+    "eigen",
+    "frequencies",
+    "mean_square_fluctuation",
+    "bfactor",
+    "dcc",
+    "normal_mode",
+    "linear_response",
+    "prs",
+    "effector_sensor",
+    "nma",
     "FFParams",
     "PatchOverlay",
     "with_overlay",

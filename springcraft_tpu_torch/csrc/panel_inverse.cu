@@ -72,6 +72,8 @@
 
 #include <cuda_runtime.h>
 
+#include "vector_io.cuh"
+
 namespace {
 
 // The shrink kernel's layout: a row is kLanes consecutive lanes of one warp,
@@ -85,45 +87,6 @@ struct ShrinkLayout {
   static constexpr int kWarps = PB / kRows;
   static constexpr int kThreads = 32 * kWarps;
 };
-
-// n consecutive floats between registers and memory (global or shared),
-// as 16- or 8-byte accesses where n allows (the caller keeps alignment).
-template <int N>
-__device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + k);
-      v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + k);
-      v[k] = t.x, v[k + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = p[k];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 4)
-      *reinterpret_cast<float4*>(p + k) =
-          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 2)
-      *reinterpret_cast<float2*>(p + k) = make_float2(v[k], v[k + 1]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) p[k] = v[k];
-  }
-}
 
 // (1 - rs, rs^2) of the pivot x, rs = 1 / sqrt(x) by the IEEE square root
 // and reciprocal, as in the plain version and K9; a pivot that is not

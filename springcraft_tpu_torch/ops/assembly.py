@@ -33,7 +33,8 @@ import torch
 
 from .ffparams import (_bin_indices, _within_cutoff, force_constant_matrix,
                        force_constants, overlay_pair_delta,
-                       pairwise_sq_distance, rect_base_constants)
+                       pairwise_sq_distance, rect_base_constants,
+                       squared_norm)
 
 __all__ = [
     "kirchhoff_matrix",
@@ -197,7 +198,7 @@ def _row_force_constants(sq, params, row_start, block):
 def _row_geometry(coord, row_start, block):
     rows = coord[row_start:row_start + block]
     disp = rows[:, None, :] - coord[None, :, :]
-    return disp, (disp * disp).sum(dim=-1)
+    return disp, squared_norm(disp)
 
 
 def _row_diagonal_mask(row_start, block, n, device):

@@ -58,6 +58,7 @@ __all__ = [
     "effective_adjacency",
     "force_constants",
     "pairwise_sq_distance",
+    "squared_norm",
     "force_constant_matrix",
     "ANALYTIC_KINDS",
     "TABLE_KINDS",
@@ -603,14 +604,24 @@ def force_constants(params, sq):
                        torch.zeros_like(k))
 
 
+def squared_norm(disp):
+    """``(d_x d_x + d_y d_y) + d_z d_z`` of displacements ``(..., 3)``,
+    summed in this order on every device.  A reduction's order is the
+    device's choice (``torch.sum`` on CUDA may add ``d_x d_x + (d_y d_y
+    + d_z d_z)``), and one rounding decides a pair within an ulp of the
+    cutoff; this order is the assembly kernels' and the host's."""
+    return (disp[..., 0] * disp[..., 0] + disp[..., 1] * disp[..., 1]
+            + disp[..., 2] * disp[..., 2])
+
+
 def pairwise_sq_distance(coord):
     """Displacements ``coord[i] - coord[j]`` ``(..., n, n, 3)`` and
     squared distances ``(..., n, n)`` of all atom pairs of `coord`
     ``(..., n, 3)``, by the exact difference (not the ``|x|^2 - 2 x.y``
-    product), so that the cutoff decision matches a brute-force
-    reference bit for bit."""
+    product) summed by :func:`squared_norm`, so that the cutoff decision
+    matches a brute-force reference bit for bit on every device."""
     disp = coord[..., :, None, :] - coord[..., None, :, :]
-    return disp, (disp * disp).sum(dim=-1)
+    return disp, squared_norm(disp)
 
 
 def force_constant_matrix(sq_dist, params, dtype=None):

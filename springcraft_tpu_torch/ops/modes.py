@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from ..utils.config import as_tensor, check_elastic
 from . import assembly, pairs, rigid, spd_linalg
+from .ffparams import squared_norm
 
 __all__ = [
     "lowest_modes",
@@ -467,8 +468,7 @@ def refine_modes_f64(coord, params, eig_vectors, *, masses=None,
     method = _resolve_method(method, params)
     if method == "sparse":
         pi, pj, kvals = pairs.pair_list(coord, params)
-        disp = coord[pi] - coord[pj]
-        sq = (disp * disp).sum(dim=1)
+        sq = squared_norm(coord[pi] - coord[pj])
         g = kvals / torch.where(sq == 0, torch.ones_like(sq), sq)
 
         def apply(x):

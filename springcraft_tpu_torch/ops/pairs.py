@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..utils.config import as_tensor
-from .ffparams import _within_cutoff, pair_base_constants, strip_overlays
+from .ffparams import (_within_cutoff, pair_base_constants, squared_norm,
+                       strip_overlays)
 
 __all__ = [
     "neighbor_pairs",
@@ -105,8 +106,7 @@ def pair_list(coord, params, pairs=None, device=None):
         i, j = i[keep], j[keep]
     i = torch.as_tensor(i, device=coord.device)
     j = torch.as_tensor(j, device=coord.device)
-    disp = coord[i] - coord[j]
-    sq = (disp * disp).sum(dim=1)
+    sq = squared_norm(coord[i] - coord[j])
     return i, j, pair_force_constants(i, j, sq, params)
 
 

@@ -54,7 +54,8 @@ LEAF = 64
 #: and the largest panel the two panel-inverse kernels take: one block
 #: holds a panel's elimination state in registers.
 MAX_LEAF = 128
-#: Largest panel the Cholesky kernel takes (66 KB of shared memory).
+#: Largest panel the Cholesky kernel takes (16 warps, the state in
+#: registers).
 MAX_CHOLESKY_PANEL = 128
 
 
@@ -162,10 +163,13 @@ def panel_cholesky_plain(panels):
 def panel_cholesky(panels):
     """Lower Cholesky factors (strict upper exactly zero) of a batch of
     SPD panels ``(P, pb, pb)``, ``pb`` a multiple of 8 (at most
-    ``MAX_CHOLESKY_PANEL`` on CUDA).  A panel that is not SPD gives
-    non-finite output."""
+    ``MAX_CHOLESKY_PANEL`` on CUDA, where the panels must start on a
+    16-byte boundary: the kernel's vector loads).  A panel that is not
+    SPD gives non-finite output; the output equals the plain version's
+    bit for bit."""
     return _launch_panels(panel_cholesky, "sc_panel_cholesky",
-                          panel_cholesky_plain, panels, MAX_CHOLESKY_PANEL)
+                          panel_cholesky_plain, panels, MAX_CHOLESKY_PANEL,
+                          align=16)
 
 
 panel_inverse_batched.launches = 0

@@ -308,6 +308,18 @@ def test_pairwise_sq_distance_matches_jax():
     assert torch.equal(tsq, torch.from_numpy(np.asarray(sq)))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_squared_norm_sums_in_order(dtype):
+    """``(d_x d_x + d_y d_y) + d_z d_z`` bit for bit, the order that
+    decides a pair within an ulp of the cutoff the same way on every
+    device."""
+    disp = np.random.RandomState(3).randn(4096, 3).astype(dtype) * 10
+    ref = (disp[:, 0] * disp[:, 0] + disp[:, 1] * disp[:, 1]) \
+        + disp[:, 2] * disp[:, 2]
+    assert torch.equal(tff.squared_norm(torch.from_numpy(disp)),
+                       torch.from_numpy(ref))
+
+
 @pytest.mark.parametrize("family", SINGLE_FAMILIES)
 def test_force_constant_matrix_matches_jax(family):
     jparams, tparams = _single_params(family)

@@ -1867,3 +1867,182 @@ def test_lowest_modes_anm_on_cuda(cuda, engine):
     theta, refined, _ = sct.refine_modes_f64(coord, params, vecs)
     assert refined.dtype == torch.float64 and refined.device.type == "cuda"
     assert float(((theta[:10] - ref[6:16]).abs() / ref[6:16]).max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K8 redesigned (the state in registers, 16-byte accesses) and the
+# reference-compatible model API on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("count", [1, 5, 128])
+@pytest.mark.parametrize("pb", [8, 16, 64, 72, 128])
+def test_panel_cholesky_kernel_is_its_plain_version_bit_for_bit(cuda, pb,
+                                                                count):
+    """One warp a panel at pb 8, 8 rows a warp above; 1, 2 or 4 slots a
+    lane (pb 72: 4, the last lanes idle)."""
+    panels = torch.as_tensor(_spd_panels(count, pb, seed=pb + count),
+                             device=cuda)
+    before = spd_linalg.panel_cholesky.launches
+    got = spd_linalg.panel_cholesky(panels)
+    assert spd_linalg.panel_cholesky.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, spd_linalg.panel_cholesky_plain(panels))
+    upper = torch.triu(got, diagonal=1)
+    assert torch.equal(upper, torch.zeros_like(upper))
+
+
+@pytest.mark.parametrize("pb", [16, 64, 128])
+def test_panel_cholesky_kernel_on_offset_panels(cuda, pb):
+    """K8 moves the panel in 16-byte accesses: contiguous panels that
+    start one float past a 16-byte boundary are refused before any
+    launch; a view from a later panel of a batch is aligned and taken."""
+    panels = torch.as_tensor(_spd_panels(3, pb, seed=pb), device=cuda)
+    shifted = torch.empty(panels.numel() + 1, device=cuda)[1:].view(
+        panels.shape).copy_(panels)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    before = spd_linalg.panel_cholesky.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        spd_linalg.panel_cholesky(shifted)
+    assert spd_linalg.panel_cholesky.launches == before
+    later = panels[1:]
+    assert later.storage_offset() > 0
+    assert torch.equal(spd_linalg.panel_cholesky(later),
+                       spd_linalg.panel_cholesky_plain(later))
+
+
+def _model_ca(n=None):
+    import os
+
+    atoms = sct.load_structure(os.path.join(
+        os.path.dirname(os.path.realpath(__file__)), "data",
+        "1l2y.pdb" if n is None else "7cal.pdb"), model=1)
+    ca = atoms[(atoms.atom_name == "CA") & (atoms.element == "C")]
+    return ca if n is None else ca[:n]
+
+
+def _model_rel(got, ref):
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("model", ["ANM", "GNM"])
+def test_model_api_on_cuda_matches_the_cpu(cuda, model):
+    """The model API on the card in float64 against the same model on the
+    CPU (1l2y): eigenvalues within 1e-10 of max|lambda|, the
+    covariance-derived outputs within 1e-8 of max|x|, the interaction
+    matrices within 1e-12."""
+    ca = _model_ca()
+    n = ca.array_length()
+    if model == "ANM":
+        def make(device):
+            return sct.ANM(ca, sct.TabulatedForceField.e_anm(ca),
+                           masses=True, device=device)
+    else:
+        def make(device):
+            return sct.GNM(ca, sct.InvariantForceField(7.0), device=device)
+    card, host = make(cuda), make("cpu")
+    assert card._device.type == "cuda"
+    vals, ref = card.eigen()[0], host.eigen()[0]
+    assert np.abs(vals - ref).max() <= 1e-10 * np.abs(ref).max()
+    force = np.random.RandomState(0).randn(n, 3)
+    outputs = [lambda m: m.covariance, lambda m: m.mean_square_fluctuation(),
+               lambda m: m.bfactor(), lambda m: m.dcc(),
+               lambda m: m.dcc(mode_subset=np.arange(8, 20))]
+    if model == "ANM":
+        outputs += [lambda m: m.prs_effector_sensor()[0],
+                    lambda m: m.prs_effector_sensor()[1],
+                    lambda m: m.linear_response(force)]
+    for get in outputs:
+        got = get(card)
+        assert isinstance(got, np.ndarray)
+        assert _model_rel(got, get(host)) <= 1e-8
+    compute = sct.compute_hessian if model == "ANM" else \
+        sct.compute_kirchhoff
+    field = sct.InvariantForceField(7.0)
+    matrix, pairs = compute(ca.coord, field, device=cuda)
+    ref_matrix, ref_pairs = compute(ca.coord, field, device="cpu")
+    assert _model_rel(matrix, ref_matrix) <= 1e-12
+    np.testing.assert_array_equal(pairs, ref_pairs)
+
+
+def test_model_squared_distances_match_the_host(cuda):
+    """The float32 squared distances that decide the solve's cutoff are
+    the host's bit for bit on the card (7cal's CA trace)."""
+    from springcraft_tpu_torch.ops.ffparams import pairwise_sq_distance
+
+    c = torch.as_tensor(_model_ca(1776).coord, dtype=torch.float32)
+    assert torch.equal(pairwise_sq_distance(c.to(cuda))[1].cpu(),
+                       pairwise_sq_distance(c)[1])
+
+
+def flip_cutoff(ca):
+    """A cutoff that puts one pair of `ca` inside it by its float32
+    coordinates and outside it by its float64 ones: the float32 squared
+    distance of the first pair past 40 A^2 that float32 rounding
+    shortens."""
+    import math
+
+    from springcraft_tpu_torch.ops.ffparams import pairwise_sq_distance
+
+    c64 = torch.as_tensor(ca.coord, dtype=torch.float64)
+    s64 = pairwise_sq_distance(c64)[1]
+    s32 = pairwise_sq_distance(c64.float())[1]
+    i, j = torch.nonzero(torch.triu((s32.double() < s64) & (s64 > 40),
+                                    1))[0]
+    cutoff = math.sqrt(float(s32[i, j]))
+    flipped = (s64 <= cutoff ** 2) != (s32 <= np.float32(cutoff ** 2))
+    assert int(flipped.sum()) == 2
+    return cutoff
+
+
+@pytest.mark.parametrize("model, trivial", [("ANM", 6), ("GNM", 1)])
+def test_model_lowest_modes_solve_the_float64_pairs(cuda, model, trivial):
+    """On a cutoff that float32 coordinates put one pair of 1l2y inside
+    and float64 ones outside, ``lowest_modes(5, refine=True)`` on the
+    card meets the dense float64 eigenvalues to 1e-6."""
+    ca = _model_ca()
+    m = getattr(sct, model)(ca, sct.InvariantForceField(flip_cutoff(ca)),
+                            device=cuda)
+    dense = m.eigen()[0][trivial:trivial + 5]
+    vals, _, res = m.lowest_modes(5, refine=True)
+    assert np.abs(vals - dense).max() / np.abs(dense).max() <= 1e-6
+    assert res.max() <= 1e-4
+
+
+def test_model_api_launches_its_kernels(cuda):
+    """``ANM.lowest_modes`` reaches K3 (the ``"invfactor"`` engine) and,
+    matrix-free, the pair CSR and K13; ``ANM.linear_response(
+    matrix_free=True)`` K13; the GNM twins K3 and K14.  The refined
+    eigenvalues match the dense float64 spectrum to 1e-6."""
+    from springcraft_tpu_torch.ops import matfree as tmatfree
+
+    ca = _model_ca(120)
+    wrappers = sct.kernel_wrappers()
+    anm = sct.ANM(ca, sct.TabulatedForceField.e_anm(ca), masses=True,
+                  device=cuda)
+    gnm = sct.GNM(ca, sct.InvariantForceField(7.0), device=cuda)
+    force = np.random.RandomState(3).randn(120, 3)
+    for model, call, kernels in (
+            (anm, lambda: anm.lowest_modes(5, refine=True),
+             ("panel_inverse",)),
+            (anm, lambda: anm.lowest_modes(5, matrix_free=True,
+                                           refine=True),
+             ("pair_csr", "hessian_apply_sparse")),
+            (anm, lambda: anm.linear_response(force, matrix_free=True),
+             ("pair_csr", "hessian_apply_sparse")),
+            (gnm, lambda: gnm.lowest_modes(5, refine=True),
+             ("panel_inverse",)),
+            (gnm, lambda: gnm.lowest_modes(5, matrix_free=True,
+                                           refine=True),
+             ("pair_csr", "kirchhoff_apply_sparse"))):
+        before = {name: wrappers[name].launches for name in kernels}
+        out = call()
+        torch.cuda.synchronize()
+        for name in kernels:
+            assert wrappers[name].launches > before[name], name
+        if isinstance(out, tuple):
+            trivial = 6 if model is anm else 1
+            dense = model.eigen()[0][trivial:trivial + 5]
+            assert np.abs(out[0] - dense).max() / np.abs(dense).max() <= 1e-6
+        else:
+            assert _model_rel(out, anm.linear_response(force)) <= 1e-4
+    assert tmatfree.hessian_apply_sparse.launches > 0
