@@ -153,6 +153,7 @@ a traceback and a non-zero exit; without a CUDA device it stops before
 building anything.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -286,6 +287,18 @@ PATH_KERNELS = {
     "anm_7cal_modes": ("hessian_xyz", "panel_inverse"),
     "gnm_7cal_modes": ("kirchhoff", "panel_inverse"),
     "anm_modes_8192": ("hessian_xyz",),
+    # the second matrix-free slice at 30,000 atoms: the CG-based estimators
+    # (one CG call each, the pair CSR once), the model-API routes on 7cal
+    "anm_effector_sensor_sites": ("pair_csr", "hessian_apply_sparse"),
+    "anm_prs_diag_stochastic": ("pair_csr", "hessian_apply_sparse"),
+    "anm_effector_sensor_stochastic": ("pair_csr", "hessian_apply_sparse"),
+    "anm_msf_stochastic": ("pair_csr", "hessian_apply_sparse"),
+    "gnm_msf_stochastic": ("pair_csr", "kirchhoff_apply_sparse"),
+    "model_anm_profiles": ("pair_csr", "hessian_apply_sparse"),
+    "model_gnm_profiles": ("pair_csr", "kirchhoff_apply_sparse"),
+    # matrix-free-xl: 100,000-atom ANM modes, 1,000,000-atom GNM modes
+    "anm_matfree_xl": ("pair_csr", "hessian_apply_sparse"),
+    "gnm_matfree_xl": ("pair_csr", "kirchhoff_apply_sparse"),
     # the model API: K3 through "invfactor", K13 / K14 over the pair CSR
     "model_anm_modes": ("panel_inverse",),
     "model_anm_modes_matfree": ("pair_csr", "hessian_apply_sparse"),
@@ -304,7 +317,8 @@ TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "gnm_7cal_overlay", "gnm_spectral_7cal_overlay",
                "anm_matfree_overlay_tabulated",
                "gnm_matfree_overlay_tabulated", "anm_7cal_modes",
-               "gnm_7cal_modes", "model_anm_modes_matfree")
+               "gnm_7cal_modes", "model_anm_modes_matfree",
+               "model_anm_profiles")
 #: Paths that mix both branches (each family is launched once).
 MIXED_PATHS = ("assembly_large",)
 #: The float32 MSF of 7cal under eANM against the float64 engine, relative
@@ -361,6 +375,41 @@ CG_TRUE_RESIDUAL_TOL = 1e-3
 #: The anchor: eigenvalues relative to float64 eigvalsh, covariance columns
 #: within this of max|ref|.
 ANCHOR_RTOL = 1e-4
+#: The second half of the JAX package's matrix-free benchmark
+#: (bench.py:726-868) at N_MATFREE: 42 sites (126 CG columns), 48 probes,
+#: the stochastic prs_diag on seed 17, the profiles on 11, the MSF on 13;
+#: the MSF truth at 8 of the sites.  A stochastic estimate lies within
+#: STDERR_BOUND of its standard errors of the exact value it estimates, or
+#: on its exact rank-k floor (tests/test_matfree.py:1144-1145).
+PROFILE_SITES, PROFILE_PROBES = 42, 48
+PROFILE_SEEDS = {"prs_diag": 17, "profiles": 11, "msf": 13}
+STDERR_BOUND = 6
+#: The model-API routes on 7cal against the dense float64 model: the
+#: float32 CG stops at a relative residual of 1e-6, and its outputs are
+#: held as the card tests hold the CG rows (1e-3 of max|x|); a
+#: stochastic MSF within STDERR_BOUND standard errors plus this of max.
+MODEL_PROFILE_TOL = 1e-3
+#: matrix-free-xl (bench.py:871-925): one RandomState(7) draws the
+#: 100,000-atom ANM and then the 1,000,000-atom GNM at CA density,
+#: invariant 13 A; 10 (+4) ANM modes after 8 outer iterations, 6 (+4) GNM
+#: modes after 6, degree 96, tol 5e-4, retries=0 (the port's only value).
+XL_SEED = 7
+N_XL_ANM, N_XL_GNM = 100_000, 1_000_000
+XL_ANM_MODES, XL_ANM_WANTED, XL_ANM_OUTER = 14, 10, 8
+XL_GNM_MODES, XL_GNM_WANTED, XL_GNM_OUTER = 10, 6, 6
+XL_TOL = 5e-4
+#: The refined float64 residual |M v - theta v| / theta of each wanted xl
+#: mode may not exceed the larger of XL_RESIDUAL_GROWTH times the residual
+#: the float32 solve reported for it and REFINED_RESIDUAL_FLOORS float32
+#: rounding floors eps_f32 * lambda_max / theta (lambda_max the solver's
+#: Gershgorin bound), nor XL_RESIDUAL_CAP.  One float64 Rayleigh-Ritz pass
+#: over the float32 basis takes the rounding out of the eigenvalue but
+#: leaves the basis's own error in the residual, first order: at best the
+#: floor (as for the model API's refined modes), at worst the unconverged
+#: part the float32 solve reported; 2 allows for the mixing of buffer
+#: modes, and the cap for nothing else.
+XL_RESIDUAL_GROWTH = 2.0
+XL_RESIDUAL_CAP = 1e-2
 #: One H100 SXM (from NVIDIA's data sheet):
 #: HBM bytes/s, float32 FLOP/s outside the tensor cores; float64 FLOP/s
 #: outside the tensor cores from the same data sheet.
@@ -2113,10 +2162,9 @@ def sorted_layout(coord, cutoff):
     return torch.as_tensor(coord[perm], device=DEVICE), perm, csr
 
 
-def sparse_operators(c, pairs):
-    """The Hessian (xyz layout) and Kirchhoff matrix of the pair CSR
-    `pairs` as CSR tensors, for the library yardstick ``torch.sparse.mm``
-    (assembly excluded); also the pairs' rows and slots."""
+def sparse_hessian(c, pairs):
+    """The Hessian (xyz layout) of the pair CSR `pairs` as a CSR tensor,
+    for the library yardstick ``torch.sparse.mm`` (assembly excluded)."""
     import torch
 
     from springcraft_tpu_torch.ops import matfree
@@ -2125,23 +2173,34 @@ def sparse_operators(c, pairs):
     i, j, k = matfree._pair_rows(pairs), pairs.slots.long(), pairs.k
     d = c[i] - c[j]
     g = -k / (d * d).sum(dim=1)
+    ar = torch.arange(n, device=c.device)
     rows, cols, vals = [], [], []
     for a in range(3):
         for b in range(3):
             v = g * d[:, a] * d[:, b]
             diag = torch.zeros(n, device=c.device).index_add_(0, i, v)
-            rows += [a * n + i, a * n + torch.arange(n, device=c.device)]
-            cols += [b * n + j, b * n + torch.arange(n, device=c.device)]
+            rows += [a * n + i, a * n + ar]
+            cols += [b * n + j, b * n + ar]
             vals += [v, -diag]
-    hessian = torch.sparse_coo_tensor(
+    return torch.sparse_coo_tensor(
         torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
         (3 * n, 3 * n)).coalesce().to_sparse_csr()
+
+
+def sparse_kirchhoff(c, pairs):
+    """The Kirchhoff matrix of `pairs` as a CSR tensor (as
+    :func:`sparse_hessian`)."""
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree
+
+    n = c.shape[0]
+    i, j, k = matfree._pair_rows(pairs), pairs.slots.long(), pairs.k
     deg = torch.zeros(n, device=c.device).index_add_(0, i, k)
     ar = torch.arange(n, device=c.device)
-    kirchhoff = torch.sparse_coo_tensor(
+    return torch.sparse_coo_tensor(
         torch.stack([torch.cat([i, ar]), torch.cat([j, ar])]),
         torch.cat([-k, deg]), (n, n)).coalesce().to_sparse_csr()
-    return hessian, kirchhoff, (i, j)
 
 
 def sd_enm_compact(n, chains=3, seed=0):
@@ -2186,12 +2245,9 @@ def sparse_parity(results, params, label):
     built list against their plain versions over the same list and
     against the tile walk's, X of the mode paths' 48 columns, timed in
     turns with ``torch.sparse.mm`` of the CSR Hessian / Kirchhoff matrix
-    (assembly and build excluded).  The bounds count this run's pairs:
-    the build reads the layout and writes 8 bytes a pair and tests every
-    visited pair (9 flops); the applies read X, the list and the
-    coordinates and write Y once, about 12 k + 30 flops a pair for the
-    Hessian (rank-one form and the diagonal block), 2 k + 2 for
-    Kirchhoff."""
+    (assembly and build excluded; :func:`gather_parity`).  The build's
+    bound counts this run's pairs: it reads the layout, writes 8 bytes a
+    pair and tests every visited pair (9 flops)."""
     import numpy as np
     import torch
 
@@ -2223,7 +2279,8 @@ def sparse_parity(results, params, label):
                    / plain.k.abs().clamp(min=1e-30)).max())
     check(k_rel <= KERNELS["pair_csr"][2],
           f"pair_csr{label}: constants {k_rel:.3e} off the plain version")
-    hessian, kirchhoff, (i, j) = sparse_operators(c, pairs)
+    hessian, kirchhoff = sparse_hessian(c, pairs), sparse_kirchhoff(c, pairs)
+    i, j = matfree._pair_rows(pairs), pairs.slots.long()
     count = int(pairs.slots.numel())
     tiles = int(csr.cols.numel())
     visited = tiles * 256 ** 2
@@ -2252,36 +2309,61 @@ def sparse_parity(results, params, label):
           f"({rec['bound_by']}), library none", flush=True)
     results.setdefault("pair_csr", []).append(rec)
 
+    walks = {"hessian_apply_sparse": matfree.hessian_apply_sparse_plain,
+             "kirchhoff_apply_sparse": matfree.kirchhoff_apply_sparse_plain}
+    gather_parity(results, c, pairs, {"hessian_apply_sparse": (x3, hessian),
+                                      "kirchhoff_apply_sparse":
+                                      (x1, kirchhoff)}, label,
+                  lambda name, x: walks[name](c, x, sorted_params, csr, 256))
+
+
+def gather_parity(results, c, pairs, applies, label, walk=None):
+    """K13 and K14 (the names in `applies`, each with its X and its CSR
+    matrix for ``torch.sparse.mm``) over `pairs` on `c`: against their
+    plain versions over the same list, ``torch.sparse.mm`` and, given
+    `walk` (``walk(name, x)``), the tile walk's plain version; timed in
+    turns with ``torch.sparse.mm``.  The bounds count this run's pairs:
+    the applies read X, the list and the coordinates and write Y once,
+    about 12 k + 30 flops a pair for the Hessian (rank-one form and the
+    diagonal block), 2 k + 2 for Kirchhoff."""
+    import torch
+
+    from springcraft_tpu_torch.ops import matfree
+
+    n, count = c.shape[0], int(pairs.slots.numel())
     list_bytes = 8 * count + 4 * (n + 1)
-    for name, x, walk_plain, pair_plain, library, work in (
-            ("hessian_apply_sparse", x3, matfree.hessian_apply_sparse_plain,
-             matfree.hessian_apply_pair_csr_plain, hessian,
-             (list_bytes + 4 * 3 * n + 2 * 4 * 3 * n * k,
-              count * (12 * k + 30))),
-            ("kirchhoff_apply_sparse", x1,
-             matfree.kirchhoff_apply_sparse_plain,
-             matfree.kirchhoff_apply_pair_csr_plain, kirchhoff,
-             (list_bytes + 2 * 4 * n * k, count * (2 * k + 2)))):
+    plains = {"hessian_apply_sparse": matfree.hessian_apply_pair_csr_plain,
+              "kirchhoff_apply_sparse":
+              matfree.kirchhoff_apply_pair_csr_plain}
+    for name, (x, library) in applies.items():
+        k = x.shape[1]
+        work = ((list_bytes + 4 * 3 * n + 2 * 4 * 3 * n * k,
+                 count * (12 * k + 30)) if name == "hessian_apply_sparse"
+                else (list_bytes + 2 * 4 * n * k, count * (2 * k + 2)))
         wrapper = getattr(matfree, name)
 
         def kernel(wrapper=wrapper, x=x):
             return matfree._apply_pairs(wrapper, c, x, pairs)
 
         got = kernel()
-        for what, ref in (("the tile walk's plain version",
-                           walk_plain(c, x, sorted_params, csr, 256)),
-                          ("torch.sparse.mm", torch.sparse.mm(library, x))):
-            _, rel = max_errors(got, ref)
+        refs = [("torch.sparse.mm", lambda x=x, library=library:
+                 torch.sparse.mm(library, x))]
+        if walk is not None:
+            refs.insert(0, ("the tile walk's plain version",
+                            lambda x=x, name=name: walk(name, x)))
+        for what, ref_fn in refs:
+            _, rel = max_errors(got, ref_fn())
             print(f"{name}{label} against {what}: max rel err {rel:.3e} "
                   f"(tol 1e-5)", flush=True)
             check(rel <= 1e-5, f"{name}{label}: {rel:.3e} off {what}")
         check(torch.equal(got, kernel()), f"{name}{label}: two applies "
               f"differ")
-        del got, ref
+        del got
         record(results, name, kernel,
-               lambda x=x, plain=pair_plain: plain(c, x, pairs), work,
+               lambda x=x, plain=plains[name]: plain(c, x, pairs), work,
                lambda x=x, library=library: torch.sparse.mm(library, x),
-               plain_reps=3, label=label, turns=True)
+               plain_reps=3 if walk is not None else 1, label=label,
+               turns=True)
 
 
 def dense_parity(results, params, label):
@@ -2797,6 +2879,410 @@ def large_assembly(results, card):
     return {"assembly_large": launches}
 
 
+def _z_scores(label, est, sem, truth, floor=None):
+    """Max |est - truth| / sem over the entries where the estimate is off
+    its exact rank-k floor (`floor`: the estimator's clamp, where the
+    truth may lie up to a standard error above the estimate); fails above
+    STDERR_BOUND.  Returns the max."""
+    import torch
+
+    dev = (est - truth).abs()
+    z = dev / sem.clamp(min=1e-300)
+    if floor is not None:
+        z = torch.where(est <= floor * (1 + 1e-12), torch.zeros_like(z), z)
+    worst = float(z.max())
+    check(worst <= STDERR_BOUND, f"{label}: an estimate lies {worst:.2f} "
+          f"standard errors from its exact value (bound {STDERR_BOUND})")
+    return worst
+
+
+def _spearman(x, y):
+    import numpy as np
+
+    rx = np.argsort(np.argsort(x)).astype(np.float64)
+    ry = np.argsort(np.argsort(y)).astype(np.float64)
+    rx -= rx.mean()
+    ry -= ry.mean()
+    return float((rx @ ry) / np.sqrt((rx @ rx) * (ry @ ry)))
+
+
+def matfree_profile_paths(card):
+    """The second matrix-free slice at N_MATFREE atoms (seed 4, invariant
+    13 A), the second half of the JAX package's matrix-free benchmark
+    (``bench.py:726-868``): 14 modes, then the exact effector/sensor
+    values at 42 sites (126 CG columns, their float64 true residual), the
+    mode-sum and stochastic ``prs_diag`` against the exact ``P_ss`` of the
+    site columns, the full-atom mode-sum profiles, the stochastic profiles
+    (48 probes, 14 exact control-variate columns: 110 CG columns) against
+    the CG expectations at the sites, the stochastic MSF against the
+    ``dcc_rows_matfree`` truth at 8 sites; the GNM stochastic MSF against
+    ``dcc_rows_matfree_gnm``; then the model-API routes on 7cal against
+    the dense float64 model.  Returns ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+
+    n = N_MATFREE
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    coord = matfree_coord(n)
+    c64 = torch.as_tensor(coord, dtype=torch.float64, device=DEVICE)
+    launches = {}
+    t0 = time.perf_counter()
+    vals, vecs, res = sct.lowest_modes_matfree(
+        coord, params, MATFREE_MODES, degree=96, n_outer=10, tol=MATFREE_TOL)
+    modes = (vals, vecs)
+    torch.cuda.synchronize()
+    worst = float(res[:MATFREE_WANTED].max())
+    print(f"matfree_profiles: {MATFREE_MODES} modes of n={n}, residuals of "
+          f"the {MATFREE_WANTED} wanted <= {worst:.3e}, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    sites = np.linspace(0, n - 1, PROFILE_SITES).astype(np.int64)
+    site_t = torch.as_tensor(sites, device=DEVICE)
+    prs_diag = sct.prs_diag_from_modes(vals, vecs, layout="xyz")
+    nm1 = n - 1
+
+    path = "anm_effector_sensor_sites"
+    (eff, sens, it, res, self_p), seconds, launches[path] = drive(
+        path, lambda: sct.effector_sensor_matfree(
+            coord, params, sites, prs_diag=prs_diag, return_diag=True))
+    rhs = torch.zeros((3 * n, 3 * len(sites)), device=DEVICE)
+    for a in range(3):
+        rhs[a * n + site_t, 3 * torch.arange(len(sites), device=DEVICE)
+            + a] = 1.0
+    x, _, _ = sct.covariance_solve_matfree(coord, params, rhs)
+    true = true_residual(c64, params, x, rhs)
+    p_ss = (x.double().reshape(3, n, len(sites), 3) ** 2).sum(dim=(0, 3))[
+        site_t, torch.arange(len(sites), device=DEVICE)]
+    print(f"{path}: n={n}, {len(sites)} sites ({3 * len(sites)} CG "
+          f"columns): {seconds:.3f} s, {it} CG iterations, reported "
+          f"residuals <= {float(res.max()):.3e}, float64 true residuals "
+          f"<= {float(true.max()):.3e} (tol {CG_TRUE_RESIDUAL_TOL:g}) on "
+          f"[{card}]", flush=True)
+    check(float(true.max()) <= CG_TRUE_RESIDUAL_TOL,
+          f"{path}: float64 true residual {float(true.max()):.3e}")
+    check(max_errors(p_ss, self_p)[1] <= 1e-6,
+          f"{path}: P_ss differs from its CG columns'")
+    del x, rhs
+    modesum_dev = float(((prs_diag[site_t] - self_p).abs() / self_p).max())
+    check(bool((prs_diag[site_t] <= self_p * (1 + MODEL_PROFILE_TOL)).all()),
+          f"{path}: the rank-{MATFREE_MODES} prs_diag exceeds the exact "
+          f"P_ss (it is a lower bound)")
+
+    path = "anm_prs_diag_stochastic"
+    (pd_st, pd_sem, pd_it, pd_res), seconds, launches[path] = drive(
+        path, lambda: sct.prs_diag_stochastic(
+            coord, params, modes, probes=PROFILE_PROBES,
+            seed=PROFILE_SEEDS["prs_diag"]))
+    pd_dev = float(((pd_st[site_t] - self_p).abs() / self_p).max())
+    floor = sct.prs_diag_from_modes(vals, vecs)[site_t]
+    pd_z = _z_scores(path, pd_st[site_t], pd_sem[site_t], self_p, floor)
+    print(f"{path}: {PROFILE_PROBES} probes, {seconds:.3f} s, {pd_it} CG "
+          f"iterations, residuals <= {float(pd_res.max()):.3e}; against "
+          f"the exact P_ss at the {len(sites)} sites: max rel deviation "
+          f"{pd_dev:.3f} (the rank-{MATFREE_MODES} mode-sum's "
+          f"{modesum_dev:.3f}), max |dev|/stderr {pd_z:.2f} (bound "
+          f"{STDERR_BOUND})", flush=True)
+
+    t0 = time.perf_counter()
+    eff_full, sens_full = sct.effector_sensor_from_modes(
+        vals[:MATFREE_WANTED], vecs[:MATFREE_WANTED], layout="xyz")
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(eff_full).all() and torch.isfinite(
+        sens_full).all()), "effector_sensor_from_modes: non-finite")
+    eff_np, sens_np = eff.cpu().numpy(), sens.cpu().numpy()
+    print(f"effector_sensor_from_modes: n={n}, k={MATFREE_WANTED}: "
+          f"{full_ms:.1f} ms; against the exact CG values at the sites: "
+          f"effector Spearman "
+          f"{_spearman(eff_full[site_t].cpu().numpy(), eff_np):.3f}, "
+          f"sensor Spearman "
+          f"{_spearman(sens_full[site_t].cpu().numpy(), sens_np):.3f}",
+          flush=True)
+
+    path = "anm_effector_sensor_stochastic"
+    (eff_st, sens_st, eff_sem, sens_sem, st_it, st_res), seconds, \
+        launches[path] = drive(path, lambda: sct.effector_sensor_stochastic(
+            coord, params, prs_diag, probes=PROFILE_PROBES,
+            seed=PROFILE_SEEDS["profiles"], modes=modes))
+    check(st_res.shape == (2 * PROFILE_PROBES + MATFREE_MODES,),
+          f"{path}: {tuple(st_res.shape)} CG columns")
+    # the exact expectations from the CG values: the routes subtract other
+    # self terms and normalizers (bench.py:805-820)
+    pd_s = prs_diag[site_t]
+    eff_expect = (eff * nm1 * self_p + self_p - pd_s) / (nm1 * pd_s)
+    sens_expect = sens + (self_p / pd_s - 1.0) / nm1
+    eff_z = _z_scores(path + " effector", eff_st[site_t], eff_sem[site_t],
+                      eff_expect)
+    sens_z = _z_scores(path + " sensor", sens_st[site_t], sens_sem[site_t],
+                       sens_expect)
+    ranks = [_spearman(got[site_t].cpu().numpy(), want.cpu().numpy())
+             for got, want in ((eff_st, eff_expect), (sens_st, sens_expect))]
+    print(f"{path}: {PROFILE_PROBES} probes, rank-{MATFREE_MODES} control "
+          f"variate, {st_res.numel()} CG columns: {seconds:.3f} s, {st_it} "
+          f"iterations, residuals <= {float(st_res.max()):.3e}; against the "
+          f"CG expectations at the sites: effector Spearman {ranks[0]:.3f} "
+          f"(max |dev|/stderr {eff_z:.2f}), sensor Spearman {ranks[1]:.3f} "
+          f"(max |dev|/stderr {sens_z:.2f}; bound {STDERR_BOUND})",
+          flush=True)
+
+    msf_sites = sites[::5][:8]
+    msf_t = torch.as_tensor(msf_sites, device=DEVICE)
+    gnm_modes = sct.lowest_modes_matfree_gnm(
+        coord, params, GNM_MATFREE_MODES, degree=96, n_outer=10,
+        tol=GNM_MATFREE_TOL)[:2]
+    for family, est, rows_fn, fam_modes in (
+            ("anm", sct.msf_stochastic, sct.dcc_rows_matfree, modes),
+            ("gnm", sct.msf_stochastic_gnm, sct.dcc_rows_matfree_gnm,
+             gnm_modes)):
+        path = f"{family}_msf_stochastic"
+        t0 = time.perf_counter()
+        rows, _, dcc_res = rows_fn(coord, params, msf_sites, norm=False)
+        truth = rows.double()[torch.arange(len(msf_sites), device=DEVICE),
+                              msf_t]
+        truth_s = time.perf_counter() - t0
+        (msf, sem, ms_it, ms_res), seconds, launches[path] = drive(
+            path, lambda est=est, fam_modes=fam_modes: est(
+                coord, params, fam_modes, probes=PROFILE_PROBES,
+                seed=PROFILE_SEEDS["msf"]))
+        v64, u64 = fam_modes[0].double(), fam_modes[1].double()
+        msf_k = ((u64.reshape(len(v64), -1, n) ** 2).sum(dim=1)
+                 / v64[:, None]).sum(dim=0)[msf_t]
+        ms_z = _z_scores(path, msf[msf_t], sem[msf_t], truth, msf_k)
+        print(f"{path}: {PROFILE_PROBES} probes, rank-{len(v64)} deflation: "
+              f"{seconds:.3f} s, {ms_it} CG iterations, residuals <= "
+              f"{float(ms_res.max()):.3e}; against the exact covariance "
+              f"traces at 8 sites ({truth_s:.3f} s, CG residuals <= "
+              f"{float(dcc_res.max()):.3e}): mode-sum max rel deviation "
+              f"{float(((msf_k - truth).abs() / truth).max()):.3f}, "
+              f"stochastic "
+              f"{float(((msf[msf_t] - truth).abs() / truth).max()):.4f} "
+              f"(max |dev|/stderr {ms_z:.2f}; bound {STDERR_BOUND}) on "
+              f"[{card}]", flush=True)
+    launches.update(model_profile_paths(load_7cal_ca(), card))
+    return launches
+
+
+def model_profile_paths(ca, card):
+    """The model-API routes of the second matrix-free slice on 7cal
+    (``ANM`` eANM with residue masses, ``GNM`` invariant 7 A): the
+    stochastic MSF and B-factors with ``modes=10`` against the dense
+    float64 MSF, the DCC rows (``norm=False`` against the dense DCC; the
+    in-place stochastic normalizer), and the three
+    ``prs_effector_sensor(matrix_free=True)`` routes (``sites=`` with
+    ``norm=False`` against the dense profiles).  Returns ``{path:
+    launches}``."""
+    import numpy as np
+
+    import springcraft_tpu_torch as sct
+
+    sites = [0, 500, 1000, 1775]
+    launches = {}
+    for name, model in (
+            ("anm", sct.ANM(ca, sct.TabulatedForceField.e_anm(ca),
+                            masses=True)),
+            ("gnm", sct.GNM(ca, sct.InvariantForceField(7.0)))):
+        dense_msf = model.mean_square_fluctuation()
+        dense_dcc = model.dcc(norm=False)[sites]
+        path = f"model_{name}_profiles"
+
+        def run(m=model):
+            out = {"msf": m.mean_square_fluctuation(
+                       matrix_free=True, modes=10, probes=PROFILE_PROBES),
+                   "bfactor": m.bfactor(matrix_free=True, modes=10,
+                                        probes=PROFILE_PROBES),
+                   "dcc": m.dcc(matrix_free=True, sites=sites, modes=10,
+                                probes=PROFILE_PROBES),
+                   "dcc_raw": m.dcc(matrix_free=True, sites=sites,
+                                    norm=False)}
+            if name == "anm":
+                out["prs_sites"] = m.prs_effector_sensor(
+                    matrix_free=True, sites=sites, norm=False)
+                out["prs_sites_norm"] = m.prs_effector_sensor(
+                    matrix_free=True, sites=sites, modes=10)
+                out["prs_modes"] = m.prs_effector_sensor(
+                    matrix_free=True, modes=10)
+                out["prs_probes"] = m.prs_effector_sensor(
+                    matrix_free=True, probes=PROFILE_PROBES, modes=10)
+            return out
+
+        out, seconds, launches[path] = drive(path, run)
+        for key, value in out.items():
+            arrays = [v for v in (value if isinstance(value, tuple)
+                                  else (value,)) if v is not None]
+            check(all(isinstance(v, np.ndarray) and np.isfinite(v).all()
+                      for v in arrays), f"{path} {key}: not finite NumPy")
+        msf, sem = out["msf"]
+        scale = np.abs(dense_msf).max()
+        msf_z = float(np.max(np.maximum(
+            np.abs(msf - dense_msf) - MODEL_PROFILE_TOL * scale, 0.0)
+            / np.maximum(sem, 1e-300)))
+        check(msf_z <= STDERR_BOUND, f"{path}: stochastic MSF {msf_z:.2f} "
+              f"standard errors off the dense MSF")
+        check(np.allclose(out["bfactor"][0], 8 * np.pi ** 2 / 3 * msf),
+              f"{path}: B-factors are not the MSF's")
+        dcc_err = _model_rel(out["dcc_raw"], dense_dcc)
+        check(dcc_err <= MODEL_PROFILE_TOL, f"{path}: DCC rows {dcc_err:.3e}")
+        line = (f"{path}: {type(model).__name__} on 7cal, first call "
+                f"{seconds:.3f} s on [{card}]; stochastic MSF (modes=10, "
+                f"{PROFILE_PROBES} probes) max rel err "
+                f"{float(np.max(np.abs(msf - dense_msf) / dense_msf)):.3e}, "
+                f"max |dev|/stderr beyond {MODEL_PROFILE_TOL:g} of max "
+                f"{msf_z:.2f}; DCC rows (norm=False) {dcc_err:.3e}")
+        if name == "anm":
+            _, eff, sens = model.prs_effector_sensor(norm=False)
+            errs = [_model_rel(out["prs_sites"][1], eff[sites]),
+                    _model_rel(out["prs_sites"][2], sens[sites])]
+            check(max(errs) <= MODEL_PROFILE_TOL,
+                  f"{path}: site profiles {max(errs):.3e}")
+            line += (f"; site profiles (norm=False) {max(errs):.3e} (tol "
+                     f"{MODEL_PROFILE_TOL:g} each)")
+        print(line, flush=True)
+    return launches
+
+
+def _model_rel(got, ref):
+    import numpy as np
+
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+@contextlib.contextmanager
+def stage_clock(module, names, seconds, captured):
+    """Wrap the functions `names` of `module` for the block: each call
+    adds its wall seconds, to a device synchronize, to ``seconds[name]``
+    and leaves ``(args, result)`` in ``captured[name]``."""
+    import torch
+
+    originals = {name: getattr(module, name) for name in names}
+
+    def clocked(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            captured[name] = (args, out)
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, clocked(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def matfree_xl_paths(results, card):
+    """matrix-free-xl (``bench.py:871-925``): one RandomState(XL_SEED)
+    draws 100,000 atoms at CA density for the ANM and then 1,000,000 for
+    the GNM (invariant 13 A); ``lowest_modes_matfree[_gnm]`` from zero
+    launch counts with the set-up's stages clocked (Morton sort, tile
+    lists, tile CSR, the Gershgorin bound off the pair CSR; the pair-CSR
+    build timed again alone), then ``refine_modes_f64[_gnm]`` (its cKDTree
+    pair search clocked) and the refined residuals held to the XL
+    thresholds; K13 at 100,000 atoms and K14 at 1,000,000 against their
+    plain versions and ``torch.sparse.mm`` on the solver's own pair CSR.
+    Prints each stage's seconds and the peak device memory.  Returns
+    ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import matfree
+    from springcraft_tpu_torch.ops import modes as modes_ops
+    from springcraft_tpu_torch.ops import pairs as pairs_ops
+
+    rng = np.random.RandomState(XL_SEED)
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    eps32 = float(np.finfo(np.float32).eps)
+    launches = {}
+    for family, n, k, wanted, n_outer in (
+            ("anm", N_XL_ANM, XL_ANM_MODES, XL_ANM_WANTED, XL_ANM_OUTER),
+            ("gnm", N_XL_GNM, XL_GNM_MODES, XL_GNM_WANTED, XL_GNM_OUTER)):
+        torch.cuda.empty_cache()
+        anm = family == "anm"
+        spread = (n / (300 / 34.0 ** 3)) ** (1 / 3)
+        t0 = time.perf_counter()
+        coord = (rng.rand(n, 3) * spread).astype(np.float32)
+        stages = {"draw": time.perf_counter() - t0}
+        captured = {}
+        solver = (sct.lowest_modes_matfree if anm
+                  else sct.lowest_modes_matfree_gnm)
+        path = f"{family}_matfree_xl"
+        with stage_clock(matfree, ("spatial_sort_permutation",
+                                   "tile_neighbor_lists", "tile_csr",
+                                   "_pair_degree_bound"), stages, captured):
+            (vals, vecs, res), stages["solve"], launches[path] = drive(
+                path, lambda solver=solver, coord=coord, k=k,
+                n_outer=n_outer: solver(coord, params, k, degree=96,
+                                        n_outer=n_outer, tol=XL_TOL,
+                                        retries=0))
+        solve_peak = torch.cuda.max_memory_allocated() / 2**30
+        (coord_s, params_s, pairs, _, _), lam_max = \
+            captured["_pair_degree_bound"]
+        csr = captured["tile_csr"][1]
+        stages["pair_csr"] = cuda_ms(
+            lambda: matfree.pair_csr(coord_s, params_s, csr, 256), 3) / 1e3
+        check(bool(torch.isfinite(vals).all() and torch.isfinite(vecs).all()),
+              f"{path}: non-finite modes")
+        torch.cuda.reset_peak_memory_stats()
+        with stage_clock(pairs_ops, ("neighbor_pairs",), stages, captured):
+            t0 = time.perf_counter()
+            ref_vals, _, ref_res = (
+                modes_ops.refine_modes_f64(coord, params, vecs, layout="xyz")
+                if anm else modes_ops.refine_modes_f64_gnm(coord, params,
+                                                           vecs))
+            torch.cuda.synchronize()
+            stages["refine"] = time.perf_counter() - t0
+        refine_peak = torch.cuda.max_memory_allocated() / 2**30
+        raw = vals[:wanted].double()
+        rtol = float(((raw - ref_vals[:wanted]).abs()
+                      / ref_vals[:wanted]).max())
+        floors = eps32 * float(lam_max) / ref_vals[:wanted]
+        limit = torch.clamp(torch.maximum(
+            XL_RESIDUAL_GROWTH * res[:wanted].double(),
+            REFINED_RESIDUAL_FLOORS * floors), max=XL_RESIDUAL_CAP)
+        worst = float((ref_res[:wanted] / limit).max())
+        count = int(pairs.slots.numel())
+        print(f"{path}: n={n} ({(3 if anm else 1) * n} dimensions), "
+              f"{wanted}(+{k - wanted}) modes, degree 96, {n_outer} outer "
+              f"iterations, tol {XL_TOL:g}: float32 residuals of the wanted "
+              f"<= {float(res[:wanted].max()):.3e} (all {k}: "
+              f"{float(res.max()):.3e}); refined float64 residuals "
+              f"{[f'{r:.3e}' for r in ref_res[:wanted].tolist()]}, at most "
+              f"{worst:.3f} of their limits (the larger of "
+              f"{XL_RESIDUAL_GROWTH:g} x the float32 residual and "
+              f"{REFINED_RESIDUAL_FLOORS} floors eps_f32 * "
+              f"{float(lam_max):.4g} / theta, at most {XL_RESIDUAL_CAP:g}); "
+              f"raw-vs-refined "
+              f"eigenvalue rtol {rtol:.3e}; refined eigenvalues "
+              f"{[f'{v:.6g}' for v in ref_vals[:wanted].tolist()]}; "
+              f"{count} ordered pairs ({8 * count / 1e6:.1f} MB); seconds: "
+              + ", ".join(f"{key} {value:.3f}" for key, value in
+                          stages.items())
+              + f"; peak device memory {solve_peak:.2f} GiB (solve), "
+              f"{refine_peak:.2f} GiB (refinement) on [{card}]", flush=True)
+        check(worst <= 1.0, f"{path}: a refined residual exceeds its limit "
+              f"({worst:.3f} of it)")
+        del vecs, csr
+        torch.cuda.empty_cache()
+        gen = torch.Generator(DEVICE).manual_seed(XL_SEED)
+        name = "hessian_apply_sparse" if anm else "kirchhoff_apply_sparse"
+        x = torch.randn((3 if anm else 1) * n, MATFREE_BLOCK, device=DEVICE,
+                        generator=gen)
+        library = (sparse_hessian if anm else sparse_kirchhoff)(coord_s,
+                                                               pairs)
+        gather_parity(results, coord_s, pairs, {name: (x, library)},
+                      f" xl n={n}")
+        del x, library, pairs, coord_s, params_s
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2855,6 +3341,10 @@ def main():
     launches.update(matfree_overlay_paths(card))
     launches.update(large_assembly(parity, card))
     phase("overlay, matrix-free and large paths")
+    launches.update(matfree_profile_paths(card))
+    phase("matfree_profile_paths")
+    launches.update(matfree_xl_paths(parity, card))
+    phase("matfree_xl_paths")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

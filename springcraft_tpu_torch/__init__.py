@@ -26,7 +26,12 @@ kernels): the lowest modes by Chebyshev-filtered subspace iteration
 preconditioned CG (:func:`covariance_solve_matfree`,
 :func:`covariance_solve_matfree_gnm`, :func:`linear_response_matfree`,
 :func:`prs_rows_matfree`, :func:`dcc_rows_matfree`,
-:func:`dcc_rows_matfree_gnm`); and for one structure's lowest modes
+:func:`dcc_rows_matfree_gnm`), with the effector/sensor profiles and the
+stochastic all-mode estimators around them (:func:`msf_stochastic`,
+:func:`msf_stochastic_gnm`, :func:`prs_diag_stochastic`,
+:func:`effector_sensor_stochastic`, :func:`effector_sensor_matfree`,
+:func:`prs_diag_from_modes`, :func:`effector_sensor_from_modes`); and
+for one structure's lowest modes
 without a full eigendecomposition, shift-invert subspace iteration
 (:func:`lowest_modes_anm`, :func:`lowest_modes_shift_invert`, the inverse
 factor's leaf kernel on CUDA) or LOBPCG (:func:`lowest_modes`), refined
@@ -70,9 +75,13 @@ from .parallel.pipeline import (anm_fluctuations, anm_observables,
                                 gnm_observables, gnm_spectral)
 from .ops.matfree import (covariance_solve_matfree,
                           covariance_solve_matfree_gnm, dcc_rows_matfree,
-                          dcc_rows_matfree_gnm, estimate_lambda_max,
+                          dcc_rows_matfree_gnm, effector_sensor_from_modes,
+                          effector_sensor_matfree,
+                          effector_sensor_stochastic, estimate_lambda_max,
                           linear_response_matfree, lowest_modes_matfree,
-                          lowest_modes_matfree_gnm, prs_rows_matfree)
+                          lowest_modes_matfree_gnm, msf_stochastic,
+                          msf_stochastic_gnm, prs_diag_from_modes,
+                          prs_diag_stochastic, prs_rows_matfree)
 from .ops.modes import (lowest_modes, lowest_modes_anm,
                         lowest_modes_shift_invert, refine_modes_f64,
                         refine_modes_f64_gnm)
@@ -145,6 +154,13 @@ __all__ = [
     "prs_rows_matfree",
     "dcc_rows_matfree",
     "dcc_rows_matfree_gnm",
+    "prs_diag_from_modes",
+    "effector_sensor_from_modes",
+    "effector_sensor_matfree",
+    "prs_diag_stochastic",
+    "msf_stochastic",
+    "msf_stochastic_gnm",
+    "effector_sensor_stochastic",
     "lowest_modes",
     "lowest_modes_anm",
     "lowest_modes_shift_invert",

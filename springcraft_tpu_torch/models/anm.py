@@ -15,9 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.nma_core import bfactor_from_msf
 from ..utils.config import as_tensor, check_use_pallas
 from . import nma
-from .base import ElasticNetworkModel, _numpy, not_ported
+from .base import ElasticNetworkModel, _numpy
 from .interaction import _hessian
 from .nma import K_B
 
@@ -107,9 +108,17 @@ class ANM(ElasticNetworkModel):
         """MSF per node; equals the superelement traces of the covariance
         when all non-trivial modes are included.
 
-        ``matrix_free=True`` is the JAX package's stochastic all-mode
-        estimator (``ops.matfree.msf_stochastic``), not ported yet: it
-        raises ``NotImplementedError`` once its arguments pass.
+        ``matrix_free=True`` estimates the *all-mode* MSF over all atoms
+        without the covariance (``ops.matfree.msf_stochastic``; K13 on
+        the card): deflated Hutchinson probes through one batched CG
+        solve, unbiased at every atom, with ``modes`` (``k`` for
+        ``lowest_modes(k, matrix_free=True)``, or a ``(values,
+        vectors)`` pair) as the deflation subspace and exact rank-k
+        floor.  Returns ``(msf, stderr)``; `mode_subset` is not
+        supported there; extra `options` (``tol``, ``max_iter``,
+        ``seed``, ...) pass through.  Mode vectors default to the
+        model's atom-interleaved layout; pass ``layout="xyz"`` for
+        ops-level ``lowest_modes_matfree`` output.
         """
         if not matrix_free:
             self._dense_path_rejects(
@@ -117,17 +126,23 @@ class ANM(ElasticNetworkModel):
                 probes=probes)
             return nma.mean_square_fluctuation(self, mode_subset, tem,
                                                tem_factors)
-        return self._stochastic_msf("msf_stochastic", mode_subset, modes)
+        return self._stochastic_msf(
+            "msf_stochastic", mode_subset, tem, tem_factors, modes,
+            probes, options, atom_layout=True)
 
     def bfactor(self, mode_subset=None, tem=None, tem_factors=K_B,
                 matrix_free=False, **options):
-        """Isotropic B-factors from the MSF (``matrix_free=True``: the
-        stochastic MSF, not ported yet)."""
+        """Isotropic B-factors from the MSF.
+
+        ``matrix_free=True`` scales the stochastic all-mode MSF estimate
+        (see :meth:`mean_square_fluctuation`); returns ``(bfactor,
+        stderr)``."""
         if not matrix_free:
             self._dense_path_rejects("bfactor", options)
             return nma.bfactor(self, mode_subset, tem, tem_factors)
-        return self.mean_square_fluctuation(
+        msf, stderr = self.mean_square_fluctuation(
             mode_subset, tem, tem_factors, matrix_free=True, **options)
+        return bfactor_from_msf(msf), bfactor_from_msf(stderr)
 
     def dcc(self, mode_subset=None, norm=True, tem=None, tem_factors=K_B,
             matrix_free=False, sites=None, msf=None, modes=None,
@@ -139,9 +154,11 @@ class ANM(ElasticNetworkModel):
         (``ops.matfree.dcc_rows_matfree``; K13 on the card) — for
         systems whose covariance exceeds device memory.  With
         ``norm=True`` the normalization diagonal (the all-mode MSF)
-        comes from `msf`.  Returns the ``(len(sites), n)`` row block;
-        extra `options` (``tol``, ``max_iter``, ...) pass through to the
-        CG solver.
+        comes from `msf` or, with `msf` omitted, is estimated in place
+        from ``modes=<k | (values, vectors)>`` (optionally
+        ``probes=<p>``, default 64) by the stochastic MSF.  Returns the
+        ``(len(sites), n)`` row block; extra `options` (``tol``,
+        ``max_iter``, ...) pass through to the CG solver.
         """
         if not matrix_free:
             self._dense_path_rejects("dcc", options, sites=sites,
@@ -151,7 +168,7 @@ class ANM(ElasticNetworkModel):
         return self._matfree_dcc(
             mode_subset, norm, tem, tem_factors, sites, msf, modes,
             probes, options, rows_op_name="dcc_rows_matfree",
-            msf_op_name="msf_stochastic")
+            msf_op_name="msf_stochastic", atom_layout=True)
 
     def prs_effector_sensor(self, norm=True, matrix_free=False,
                             sites=None, prs_diag=None, modes=None,
@@ -160,12 +177,34 @@ class ANM(ElasticNetworkModel):
         Perturbation-response-scanning matrix plus the derived effector
         (row-average) and sensor (column-average) profiles.
 
-        ``matrix_free=True`` takes the JAX package's three routes —
-        ``sites=`` (``ops.matfree.effector_sensor_matfree``), ``modes=``
-        (``effector_sensor_from_modes``) and ``probes=``
-        (``effector_sensor_stochastic``) — none of which the port has
-        yet: each raises ``NotImplementedError`` once its arguments
-        pass.
+        ``matrix_free=True`` avoids the dense covariance three ways (K13
+        on the card):
+
+        * ``sites=<atom indices>``: *exact* profile values at selected
+          sites (``ops.matfree.effector_sensor_matfree``, three CG
+          columns per site in one batched solve).  With ``norm=True`` the
+          ``(n,)`` folded-PRS diagonal comes from `prs_diag` or, with it
+          omitted, from ``modes=<k | (values, vectors)>`` by the rank-k
+          mode sum (``ops.matfree.prs_diag_from_modes``, a truncated
+          lower bound).
+        * ``modes=k`` or ``modes=(values, vectors)``: profiles over
+          **all** atoms by the O(n k^2) mode-sum contraction
+          (``ops.matfree.effector_sensor_from_modes``), the exact
+          profiles of the rank-k covariance; an integer solves the k
+          lowest modes first (:meth:`lowest_modes(matrix_free=True)
+          <lowest_modes>`, extra `options` pass through).
+        * ``probes=p``: unbiased **all-mode** profiles over **all** atoms
+          by Hutchinson estimation (``ops.matfree.
+          effector_sensor_stochastic``, ``2 p`` Rademacher columns in one
+          batched CG); with ``modes=`` the rank-k part is an exact
+          control variate.  With `prs_diag` omitted the normalizer is
+          estimated in place from `modes` by
+          ``ops.matfree.prs_diag_stochastic`` (one more batched CG on the
+          probe seed + 1).
+
+        In every matrix-free mode the ``(n, n)`` PRS matrix is never
+        formed and ``None`` stands in its place: ``(None, effector,
+        sensor)``.
         """
         if not matrix_free:
             self._dense_path_rejects(
@@ -174,6 +213,8 @@ class ANM(ElasticNetworkModel):
             prs_mat = nma.prs(self, norm)
             eff, sens = nma.effector_sensor(prs_mat, device=self._device)
             return prs_mat, eff, sens
+
+        from ..ops import matfree
 
         if sites is not None and probes is not None:
             raise ValueError(
@@ -191,26 +232,95 @@ class ANM(ElasticNetworkModel):
                 "atoms): the full (n, n) PRS matrix requires the "
                 "dense covariance")
         if probes is not None:
-            self._require_force_field_matrix(
-                "prs_effector_sensor(matrix_free=True)")
-            not_ported("effector_sensor_stochastic")
+            return None, *self._stochastic_profiles(
+                norm, prs_diag, modes, probes, options)
         if sites is None:
             if prs_diag is not None:
+                # the mode sum computes its own rank-k diagonal: a
+                # normalizer passed here would be silently ignored
                 raise ValueError(
                     "prs_effector_sensor(matrix_free=True, modes=...): "
                     "prs_diag= applies to the sites=/probes= paths; "
                     "the mode-sum computes its own rank-k "
                     "normalization diagonal")
-            not_ported("effector_sensor_from_modes")
+            layout = options.pop("layout", None)
+            if isinstance(modes, (int, np.integer)) \
+                    and not isinstance(modes, bool):
+                if layout not in (None, "atom"):
+                    raise ValueError(
+                        "layout= applies to explicit modes=(values, "
+                        "vectors); modes=<k> solves lowest_modes, "
+                        "which returns atom-interleaved vectors")
+            # no CG follows on this path: every remaining option belongs
+            # to lowest_modes
+            vals, vecs = self._resolve_deflation_modes(
+                modes, options, atom_layout=False, forward_all=True)
+            eff, sens = matfree.effector_sensor_from_modes(
+                vals, vecs, norm=norm, layout=layout or "atom",
+                device=self._device)
+            return None, _numpy(eff), _numpy(sens)
         self._require_force_field_matrix(
             "prs_effector_sensor(matrix_free=True)")
-        if modes is not None and not (norm and prs_diag is None):
-            raise ValueError(
-                "prs_effector_sensor(matrix_free=True, sites=...): "
-                "modes= serves only to build the prs_diag "
-                "normalizer (norm=True with prs_diag omitted); "
-                "here it would be silently ignored")
-        not_ported("effector_sensor_matfree")
+        if modes is not None:
+            if not (norm and prs_diag is None):
+                raise ValueError(
+                    "prs_effector_sensor(matrix_free=True, sites=...): "
+                    "modes= serves only to build the prs_diag "
+                    "normalizer (norm=True with prs_diag omitted); "
+                    "here it would be silently ignored")
+            vals, vecs = self._resolve_deflation_modes(modes, options,
+                                                       atom_layout=True)
+            prs_diag = matfree.prs_diag_from_modes(
+                vals, vecs, layout=options.pop("layout", "atom"),
+                device=self._device)
+        tol = options.setdefault("tol", 1e-6)
+        eff, sens, n_it, res = matfree.effector_sensor_matfree(
+            self._coord, self._params(), sites, prs_diag=prs_diag,
+            norm=norm, masses=self._masses, device=self._device, **options)
+        eff, sens = self._check_converged(
+            "matrix-free effector/sensor", torch.stack((eff, sens)), n_it,
+            res, tol)
+        return None, eff, sens
+
+    def _stochastic_profiles(self, norm, prs_diag, modes, probes, options):
+        """The ``probes=`` route of :meth:`prs_effector_sensor`: the
+        stochastic effector and sensor profiles as NumPy arrays, the
+        normalizer estimated in place when `prs_diag` is None."""
+        from ..ops import matfree
+
+        self._require_force_field_matrix(
+            "prs_effector_sensor(matrix_free=True)")
+        params = self._params()
+        modes = self._resolve_deflation_modes(modes, options,
+                                              atom_layout=True)
+        tol = options.setdefault("tol", 1e-6)
+        seed = options.pop("seed", 0)
+        if prs_diag is None:
+            # the unbiased stochastic P_ii, deflated on the same modes;
+            # its own probe seed keeps its noise uncorrelated with the
+            # profile probes
+            if modes is None:
+                raise ValueError(
+                    "prs_effector_sensor(matrix_free=True, "
+                    "probes=...) without prs_diag= needs modes=<k "
+                    "| (values, vectors)> to estimate the "
+                    "folded-PRS diagonal in place "
+                    "(prs_diag_stochastic) — or pass prs_diag= "
+                    "directly")
+            prs_diag, _, n_it, res = matfree.prs_diag_stochastic(
+                self._coord, params, modes, probes=probes,
+                masses=self._masses, seed=seed + 1, device=self._device,
+                **options)
+            self._check_converged("stochastic prs_diag normalizer",
+                                  prs_diag, n_it, res, tol)
+        eff, sens, _, _, n_it, res = matfree.effector_sensor_stochastic(
+            self._coord, params, prs_diag, probes=probes, norm=norm,
+            masses=self._masses, modes=modes, seed=seed,
+            device=self._device, **options)
+        eff, sens = self._check_converged(
+            "stochastic effector/sensor", torch.stack((eff, sens)), n_it,
+            res, tol)
+        return eff, sens
 
     def lowest_modes(self, k, matrix_free=False, refine=False,
                      **options):

@@ -24,17 +24,6 @@ from ..utils.config import as_tensor, resolve_device
 
 __all__ = ["ElasticNetworkModel"]
 
-#: Where the matrix-free operations that the port still lacks stand.
-_MISSING_MATFREE = "ROADMAP.md queue 1 item 3"
-
-
-def not_ported(op):
-    """Raise for a matrix-free operation of ``springcraft_tpu.ops.matfree``
-    that the port does not have yet."""
-    raise NotImplementedError(
-        f"ops.matfree.{op} is not ported to springcraft_tpu_torch yet "
-        f"({_MISSING_MATFREE}); use the dense path (matrix_free=False)")
-
 
 def _numpy(t):
     """A tensor as a writable NumPy array of its own."""
@@ -222,15 +211,75 @@ class ElasticNetworkModel:
                 "connectivity")
         return out
 
+    def _resolve_deflation_modes(self, modes, options, atom_layout,
+                                 forward_all=False):
+        """Resolve a ``modes=`` deflation-subspace argument of the
+        stochastic matrix-free surfaces: an integer ``k`` runs
+        :meth:`lowest_modes(k, matrix_free=True) <lowest_modes>` (solver
+        options forwarded: only ``tile`` / ``use_pallas`` unless
+        `forward_all`, the rest belong to the CG that follows) and guards
+        the returned mode residuals against ``mode_residual_tol`` (popped
+        from `options`, default 1e-2): a spuriously small unconverged
+        eigenvalue would bias the rank-k control variate while the CG
+        residual guard still passes.  Defaults the op-level ``layout`` to
+        ``"atom"`` when `atom_layout` (what :meth:`lowest_modes` /
+        :meth:`eigen` return; GNM vectors carry no component layout).
+        Returns the ``(values, vectors)`` pair (or ``None`` untouched)."""
+        mode_rtol = options.pop("mode_residual_tol", None)
+        if isinstance(modes, bool):
+            # bool is an int subclass: modes=True would silently run
+            # lowest_modes(1), a likely typo for a matrix_free flag
+            raise TypeError(
+                "modes must be an integer mode count or a (values, "
+                f"vectors) pair, got {modes!r} — did you mean "
+                "matrix_free=True?")
+        if mode_rtol is not None and not isinstance(modes,
+                                                    (int, np.integer)):
+            # the tolerance guards the internal lowest_modes solve, which
+            # only runs for modes=<k>
+            raise ValueError(
+                "mode_residual_tol applies only to modes=<k> (it guards "
+                "the internal lowest_modes solve); pre-converged "
+                "modes=(values, vectors) carry their own residuals")
+        if mode_rtol is None:
+            mode_rtol = 1e-2
+        if isinstance(modes, (int, np.integer)):
+            fwd = (dict(options) if forward_all else
+                   {k: v for k, v in options.items()
+                    if k in ("tile", "use_pallas")})
+            vals, vecs, res = self.lowest_modes(int(modes),
+                                                matrix_free=True, **fwd)
+            max_res = float(np.max(res)) if res.size else 0.0
+            if not np.isfinite(max_res) or max_res > mode_rtol:
+                raise ValueError(
+                    f"deflation modes did not converge: max relative "
+                    f"eigenpair residual {max_res:.2e} (tol "
+                    f"{mode_rtol:.0e}) from lowest_modes(matrix_free="
+                    f"True) — raise the solver budget (e.g. degree/"
+                    f"n_iter), pass pre-converged modes=(values, "
+                    f"vectors), or loosen mode_residual_tol")
+            modes = (vals, vecs)
+            if atom_layout:
+                # lowest_modes returns atom-interleaved vectors
+                options["layout"] = "atom"
+        elif modes is not None and atom_layout:
+            # the model's default: atom-interleaved (what lowest_modes /
+            # eigen return); pass layout="xyz" for ops-level
+            # lowest_modes_matfree output
+            options.setdefault("layout", "atom")
+        return modes
+
     def _matfree_dcc(self, mode_subset, norm, tem, tem_factors, sites,
                      msf, modes, probes, options, *, rows_op_name,
-                     msf_op_name):
+                     msf_op_name, atom_layout):
         """Shared matrix-free DCC implementation for ANM/GNM
         (``dcc(matrix_free=True)``): all-mode DCC rows for `sites` by
         deflated CG (``ops.matfree.dcc_rows_matfree[_gnm]``).  With
-        ``norm=True`` the normalizer comes from `msf`; estimating it in
-        place from ``modes=`` needs the stochastic MSF, which the port
-        does not have yet."""
+        ``norm=True`` and `msf` omitted, ``modes=<k | (values, vectors)>``
+        (optionally ``probes=``) estimates the normalizer in place by the
+        stochastic all-mode MSF, one more batched CG solve; its per-atom
+        standard error ``sem`` enters row ``ij`` as a relative error of
+        about ``(sem_i / msf_i + sem_j / msf_j) / 2``."""
         from ..ops import matfree
 
         if sites is None:
@@ -247,11 +296,19 @@ class ElasticNetworkModel:
                 raise ValueError(
                     "dcc(matrix_free=True, norm=True) needs the "
                     "all-mode MSF normalizer: pass msf=<(n,) values> "
-                    "(e.g. the mode-sum MSF of lowest_modes), or "
-                    "modes=<k | (values, vectors)> (optionally "
+                    "(e.g. mean_square_fluctuation(matrix_free=True)), "
+                    "or modes=<k | (values, vectors)> (optionally "
                     "probes=<p>) to estimate it in place via the "
                     "stochastic MSF")
-            not_ported(msf_op_name)
+            # the copy keeps the estimator's own keys (layout, seed) out
+            # of the row solve below; CG options (tol, max_iter) are
+            # shared
+            est_options = dict(options)
+            options.pop("layout", None)
+            options.pop("seed", None)
+            msf, _ = self._stochastic_msf(msf_op_name, None, None,
+                                          tem_factors, modes, probes,
+                                          est_options, atom_layout)
         elif modes is not None or probes is not None:
             raise ValueError(
                 "dcc(matrix_free=True): modes=/probes= serve only to "
@@ -267,11 +324,17 @@ class ElasticNetworkModel:
             rows = rows * tem * tem_factors
         return rows
 
-    def _stochastic_msf(self, op_name, mode_subset, modes):
-        """``mean_square_fluctuation(matrix_free=True)``: the deflated
-        Hutchinson estimator (``ops.matfree.msf_stochastic[_gnm]``),
-        which the port does not have yet; the arguments are checked as
-        the JAX package checks them first."""
+    def _stochastic_msf(self, op_name, mode_subset, tem, tem_factors,
+                        modes, probes, options, atom_layout):
+        """Shared matrix-free MSF implementation for ANM/GNM
+        (``mean_square_fluctuation(matrix_free=True)``): resolve the
+        deflation modes, run the deflated Hutchinson estimator
+        (``ops.matfree.msf_stochastic[_gnm]``), guard convergence and
+        apply the reference temperature scaling.  Returns ``(msf,
+        stderr)`` as NumPy arrays.  `atom_layout` as in
+        :meth:`_resolve_deflation_modes`."""
+        from ..ops import matfree, nma_core
+
         if mode_subset is not None:
             raise ValueError(
                 "mean_square_fluctuation(matrix_free=True) is an "
@@ -284,4 +347,12 @@ class ElasticNetworkModel:
                 "matrix_free=True) first)")
         self._require_force_field_matrix(
             "mean_square_fluctuation(matrix_free=True)")
-        not_ported(op_name)
+        modes = self._resolve_deflation_modes(modes, options, atom_layout)
+        probes = 64 if probes is None else probes
+        tol = options.setdefault("tol", 1e-6)
+        msf, stderr, n_it, res = getattr(matfree, op_name)(
+            self._coord, self._params(), modes, probes=probes,
+            masses=self._masses, device=self._device, **options)
+        msf = self._check_converged("stochastic MSF", msf, n_it, res, tol)
+        scale = nma_core.temperature_scaling(tem, tem_factors)
+        return msf * scale, _numpy(stderr) * scale

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.nma_core import bfactor_from_msf
 from ..utils.config import as_tensor, check_use_pallas
 from . import nma
 from .base import ElasticNetworkModel, _numpy
@@ -70,9 +71,14 @@ class GNM(ElasticNetworkModel):
         """MSF per node; equals the covariance diagonal when all
         non-trivial modes are included.
 
-        ``matrix_free=True`` is the JAX package's stochastic all-mode
-        estimator (``ops.matfree.msf_stochastic_gnm``), not ported yet:
-        it raises ``NotImplementedError`` once its arguments pass.
+        ``matrix_free=True`` estimates the *all-mode* MSF over all atoms
+        without the covariance (``ops.matfree.msf_stochastic_gnm``; K14
+        on the card): deflated Hutchinson probes through one batched CG
+        solve, unbiased at every atom, with ``modes`` (``k`` or a
+        ``(values, vectors)`` pair) as the deflation subspace and exact
+        rank-k floor.  Returns ``(msf, stderr)``; `mode_subset` is not
+        supported there.  Extra `options` (``tol``, ``max_iter``,
+        ``precond``, ...) pass through to the solver.
         """
         if not matrix_free:
             self._dense_path_rejects(
@@ -80,17 +86,23 @@ class GNM(ElasticNetworkModel):
                 probes=probes)
             return nma.mean_square_fluctuation(self, mode_subset, tem,
                                                tem_factors)
-        return self._stochastic_msf("msf_stochastic_gnm", mode_subset, modes)
+        return self._stochastic_msf(
+            "msf_stochastic_gnm", mode_subset, tem, tem_factors, modes,
+            probes, options, atom_layout=False)
 
     def bfactor(self, mode_subset=None, tem=None, tem_factors=K_B,
                 matrix_free=False, **options):
-        """Isotropic B-factors from the MSF (``matrix_free=True``: the
-        stochastic MSF, not ported yet)."""
+        """Isotropic B-factors from the MSF.
+
+        ``matrix_free=True`` scales the stochastic all-mode MSF estimate
+        (see :meth:`mean_square_fluctuation`); returns ``(bfactor,
+        stderr)``."""
         if not matrix_free:
             self._dense_path_rejects("bfactor", options)
             return nma.bfactor(self, mode_subset, tem, tem_factors)
-        return self.mean_square_fluctuation(
+        msf, stderr = self.mean_square_fluctuation(
             mode_subset, tem, tem_factors, matrix_free=True, **options)
+        return bfactor_from_msf(msf), bfactor_from_msf(stderr)
 
     def dcc(self, mode_subset=None, norm=True, tem=None, tem_factors=K_B,
             matrix_free=False, sites=None, msf=None, modes=None,
@@ -101,8 +113,11 @@ class GNM(ElasticNetworkModel):
         `sites` by deflated CG on the implicit Kirchhoff operator
         (``ops.matfree.dcc_rows_matfree_gnm``; K14 on the card) — for
         systems whose covariance exceeds device memory.  ``norm=True``
-        takes the all-mode GNM MSF from `msf`.  Extra `options` (``tol``,
-        ``max_iter``, ...) pass through to the solver.
+        takes the all-mode GNM MSF from `msf` or, with `msf` omitted,
+        estimates it in place from ``modes=<k | (values, vectors)>``
+        (optionally ``probes=<p>``, default 64) by the stochastic MSF.
+        Extra `options` (``tol``, ``max_iter``, ``precond``, ...) pass
+        through to the solver.
         """
         if not matrix_free:
             self._dense_path_rejects("dcc", options, sites=sites,
@@ -112,7 +127,7 @@ class GNM(ElasticNetworkModel):
         return self._matfree_dcc(
             mode_subset, norm, tem, tem_factors, sites, msf, modes,
             probes, options, rows_op_name="dcc_rows_matfree_gnm",
-            msf_op_name="msf_stochastic_gnm")
+            msf_op_name="msf_stochastic_gnm", atom_layout=False)
 
     def lowest_modes(self, k, matrix_free=False, refine=False,
                      **options):

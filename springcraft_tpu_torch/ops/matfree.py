@@ -56,6 +56,13 @@ plane layout ``(3n, k)`` of the JAX package.
   :func:`covariance_solve_matfree`, :func:`covariance_solve_matfree_gnm`,
   :func:`linear_response_matfree`, :func:`prs_rows_matfree`,
   :func:`dcc_rows_matfree`, :func:`dcc_rows_matfree_gnm`.
+* Effector/sensor profiles and the stochastic estimators, float64 on
+  the coordinates' device around one batched CG each:
+  :func:`prs_diag_from_modes`, :func:`effector_sensor_from_modes`
+  (rank-k mode sums, no CG), :func:`effector_sensor_matfree` (exact at
+  sites), :func:`prs_diag_stochastic`, :func:`msf_stochastic`,
+  :func:`msf_stochastic_gnm`, :func:`effector_sensor_stochastic`
+  (Rademacher probes drawn as the JAX package draws them).
 
 Routing (the JAX package's ``use_pallas = backend == "tpu"``, read as
 CUDA): float32 coordinates on CUDA take the kernels — the pair CSR once
@@ -64,7 +71,10 @@ cutoff (``sparse`` default), the dense-grid K12 otherwise — and keep the
 TPU's oversampling default ``max(k, 8, 48 - k)``; every other dtype or
 device runs the plain versions (the tile walk on the block-sparse
 route).  GNM without ``sparse`` stays on the plain :func:`kirchhoff_apply`,
-as in JAX.
+as in JAX.  On the kernel route with the pair CSR the solvers read the
+Gershgorin bound, the block-Jacobi diagonal and the degree off it
+(float64 sums over the list, in its sorted order); elsewhere they take
+the O(n^2) row-block passes, as the JAX package does.
 
 In Morton order (the block-sparse solvers) the per-atom codes of a
 tabulated family and the overlay masks are permuted with the atoms,
@@ -74,8 +84,7 @@ ids that also mask self-pairs and padding.
 The solvers take the JAX package's ``use_pallas=`` (``False`` refused on
 CUDA), ``matvec_precision="highest"`` and ``checkpoint=None`` /
 ``retries=0``.  Not ported: the elastic loop behind ``checkpoint=`` /
-``retries=``, the stochastic estimators and effector/sensor routes
-(ROADMAP.md).
+``retries=`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -128,6 +137,13 @@ __all__ = [
     "dcc_rows_matfree",
     "dcc_rows_matfree_gnm",
     "matfree_mode_residuals",
+    "prs_diag_from_modes",
+    "effector_sensor_from_modes",
+    "effector_sensor_matfree",
+    "prs_diag_stochastic",
+    "msf_stochastic",
+    "msf_stochastic_gnm",
+    "effector_sensor_stochastic",
 ]
 
 
@@ -734,6 +750,86 @@ def kirchhoff_apply_pair_csr_plain(coord, x, pairs):
 
 
 # ---------------------------------------------------------------------------
+# Degree passes over the pair CSR (the kernel route's set-up)
+# ---------------------------------------------------------------------------
+#
+# What :func:`hessian_degree_bound`, :func:`hessian_diag_blocks` and
+# :func:`kirchhoff_degree` compute by O(n^2) row blocks, read off the pair
+# CSR that the kernel route builds anyway: in its Morton order, `params`
+# permuted with the atoms and `pos` the original positions (the bonded
+# test of the overlays' ``table_compact`` lookup).  Sums in float64,
+# rounded once to the dtype of `coord`; the overlays add their delta.
+
+def _row_sums(rows, values, n):
+    """Float64 sums of `values` ``(P, ...)`` by row ``rows`` ``(P,)``."""
+    return torch.zeros((n,) + values.shape[1:], dtype=torch.float64,
+                       device=values.device).index_add_(0, rows,
+                                                        values.double())
+
+
+def _overlay_delta64(coord, params, pos):
+    """``(ii, jj, delta, disp, safe_sq)`` of the overlays in float64, or
+    None without overlay pairs."""
+    if not params.overlays:
+        return None
+    ii, jj, delta, disp, safe_sq = overlay_pair_delta(coord, params, pos=pos)
+    if not ii.numel():
+        return None
+    return ii, jj, delta.double(), disp.double(), safe_sq.double()
+
+
+def _pair_degree(coord, params, pairs, pos):
+    """The Kirchhoff degree ``sum_j k_ij`` ``(n,)`` from `pairs`."""
+    deg = _row_sums(_pair_rows(pairs), pairs.k, coord.shape[0])
+    over = _overlay_delta64(coord, params, pos)
+    if over is not None:
+        ii, jj, delta = over[:3]
+        deg.index_add_(0, ii, delta).index_add_(0, jj, delta)
+    return deg.to(coord.dtype)
+
+
+def _pair_degree_bound(coord, params, pairs, masses, pos):
+    """:func:`hessian_degree_bound` from `pairs`: ``max_i w_i (sum_j k_ij
+    w_j + w_i sum_j k_ij)``, plus the overlays' ``max_i w_i (sum_j
+    |delta_ij| w_j + w_i sum_j |delta_ij|)``; a 0-d tensor."""
+    n = coord.shape[0]
+    w = (torch.ones(n, dtype=torch.float64, device=coord.device)
+         if masses is None else 1.0 / torch.sqrt(masses.double()))
+    rows, cols = _pair_rows(pairs), pairs.slots.long()
+    k = pairs.k.double()
+    bound = (w * (_row_sums(rows, k * w[cols], n)
+                  + w * _row_sums(rows, k, n))).max()
+    over = _overlay_delta64(coord, params, pos)
+    if over is not None:
+        ii, jj, delta = over[:3]
+        ad = delta.abs()
+        wsum = torch.zeros_like(w).index_add_(0, ii, ad * w[jj]) \
+            .index_add_(0, jj, ad * w[ii])
+        rsum = torch.zeros_like(w).index_add_(0, ii, ad) \
+            .index_add_(0, jj, ad)
+        bound = bound + (w * (wsum + w * rsum)).max()
+    return bound.to(coord.dtype)
+
+
+def _pair_diag_blocks(coord, params, pairs, pos):
+    """:func:`hessian_diag_blocks` from `pairs`: ``(n, 3, 3)``, ``sum_j
+    k_ij / d^2 d d^T`` with ``d = r_i - r_j`` in float64."""
+    rows, cols = _pair_rows(pairs), pairs.slots.long()
+    c = coord.double()
+    d = c[rows] - c[cols]
+    g = pairs.k.double() / _safe(_squared_distance(d))
+    blocks = _row_sums(rows, g[:, None, None] * d[:, :, None]
+                       * d[:, None, :], coord.shape[0])
+    over = _overlay_delta64(coord, params, pos)
+    if over is not None:
+        ii, jj, delta, disp, safe_sq = over
+        dd = (delta / safe_sq)[:, None, None] * disp[:, :, None] \
+            * disp[:, None, :]
+        blocks.index_add_(0, ii, dd).index_add_(0, jj, dd)
+    return blocks.to(coord.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers (the pair CSR, K12, K13, K14)
 # ---------------------------------------------------------------------------
 
@@ -1129,14 +1225,25 @@ def _chebfsi(matvec, t, m, lam_max, *, k, oversample, degree, n_outer,
     return theta[:k], x[:, :k].T, res
 
 
+class _Setup(typing.NamedTuple):
+    """The block-sparse solvers' set-up (:func:`_sparse_setup`)."""
+
+    coord: torch.Tensor
+    params: FFParams
+    masses: torch.Tensor | None
+    csr: TileCSR
+    perm: np.ndarray
+    pairs: PairCSR | None
+
+
 def _sparse_setup(coord, params, masses, tile, kernel):
     """Set-up shared by the block-sparse solvers: Morton sort, tile
     neighbour lists and their CSR (host), permuted masses, the
     parameters with their per-atom codes and overlay masks in the sorted
     order (a new record with device tensors of its own) and, on the
-    `kernel` route, the pair CSR of the base family.  Returns ``(sorted
-    coord, permuted params, permuted masses, csr, perm, pairs)``
-    (``pairs`` None off the kernel route)."""
+    `kernel` route, the pair CSR of the base family.  Returns a
+    :class:`_Setup` ``(sorted coord, permuted params, permuted masses,
+    csr, perm, pairs)`` (``pairs`` None off the kernel route)."""
     host = coord.detach().cpu().double().numpy()
     params._check_atoms(host.shape[0])
     perm = spatial_sort_permutation(host)
@@ -1152,7 +1259,28 @@ def _sparse_setup(coord, params, masses, tile, kernel):
     if params.kind == "table_compact" or params.overlays:
         params = params.permuted(perm)
     pairs = pair_csr(coord_s, params, csr, tile) if kernel else None
-    return coord_s, params, masses, csr, perm, pairs
+    return _Setup(coord_s, params, masses, csr, perm, pairs)
+
+
+def _solver_setup(coord, params, masses, *, kernel, sparse, matvec, tile):
+    """:func:`_sparse_setup` on the block-sparse route (`sparse` without a
+    `matvec`), else None."""
+    if sparse and matvec is None:
+        return _sparse_setup(coord, params, masses, tile, kernel)
+    return None
+
+
+def _degree_bound(coord, params, masses, setup, block, lambda_max):
+    """The filter's upper edge: `lambda_max` if given, else the
+    Gershgorin bound, read off the pair CSR where `setup` has one (the
+    kernel route), else by the O(n^2) pass over the original order."""
+    if lambda_max is not None:
+        return lambda_max
+    if setup is not None and setup.pairs is not None:
+        return _pair_degree_bound(setup.coord, setup.params, setup.pairs,
+                                  setup.masses, setup.csr.ids)
+    return hessian_degree_bound(coord, params, masses=masses, block=block,
+                                dtype=coord.dtype)
 
 
 def _route(coord, params, matvec, sparse, tile):
@@ -1259,22 +1387,16 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     q = _oversample(oversample, k, kernel, matvec)
     if masses is not None:
         masses = as_tensor(masses, dtype, coord.device)
-    # guaranteed upper bound (the filter needs b >= lambda_max), on the
-    # original ordering
-    lam_max = (hessian_degree_bound(coord, params, masses=masses,
-                                    block=block, dtype=dtype)
-               if lambda_max is None else lambda_max)
-    perm = None
-    if matvec is not None:
-        base = matvec
-    else:
-        csr = pairs = None
-        if sparse:
-            coord, params, masses, csr, perm, pairs = _sparse_setup(
-                coord, params, masses, tile, kernel)
-        base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
-                                 csr=csr, pairs=pairs, tile=tile,
-                                 block=block)
+    setup = _solver_setup(coord, params, masses, kernel=kernel,
+                          sparse=sparse, matvec=matvec, tile=tile)
+    # guaranteed upper bound (the filter needs b >= lambda_max)
+    lam_max = _degree_bound(coord, params, masses, setup, block, lambda_max)
+    perm = csr = pairs = None
+    if setup is not None:
+        coord, params, masses, csr, perm, pairs = setup
+    base = matvec if matvec is not None else _hessian_operator(
+        coord, params, kernel=kernel, sparse=sparse, csr=csr, pairs=pairs,
+        tile=tile, block=block)
     w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
     t = rigid.rigid_modes_anm(coord, masses=masses)
     vals, vecs, res = _chebfsi(
@@ -1313,21 +1435,16 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     q = _oversample(oversample, k, kernel, matvec)
     if masses is not None:
         masses = as_tensor(masses, dtype, coord.device)
+    setup = _solver_setup(coord, params, masses, kernel=kernel,
+                          sparse=sparse, matvec=matvec, tile=tile)
     # the block-row Gershgorin bound coincides for the Kirchhoff matrix
-    lam_max = (hessian_degree_bound(coord, params, masses=masses,
-                                    block=block, dtype=dtype)
-               if lambda_max is None else lambda_max)
-    perm = None
-    if matvec is not None:
-        base = matvec
-    else:
-        csr = pairs = None
-        if sparse:
-            coord, params, masses, csr, perm, pairs = _sparse_setup(
-                coord, params, masses, tile, kernel)
-        base = _kirchhoff_operator(coord, params, kernel=kernel,
-                                   sparse=sparse, csr=csr, pairs=pairs,
-                                   tile=tile, block=block)
+    lam_max = _degree_bound(coord, params, masses, setup, block, lambda_max)
+    perm = csr = pairs = None
+    if setup is not None:
+        coord, params, masses, csr, perm, pairs = setup
+    base = matvec if matvec is not None else _kirchhoff_operator(
+        coord, params, kernel=kernel, sparse=sparse, csr=csr, pairs=pairs,
+        tile=tile, block=block)
     w = None if masses is None else 1.0 / torch.sqrt(masses)
     t = rigid.null_mode_gnm(n, masses=masses, dtype=dtype,
                             device=coord.device)
@@ -1440,32 +1557,37 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None, tol=1e-6,
     rhs, squeeze = _columns(rhs, 3 * n, coord, "rhs")
     if masses is not None:
         masses = as_tensor(masses, dtype, coord.device)
+    setup = _solver_setup(coord, params, masses, kernel=kernel,
+                          sparse=sparse, matvec=matvec, tile=tile)
 
-    # block-Jacobi preconditioner from the original ordering
-    diag_blocks = hessian_diag_blocks(coord, params, block=block,
-                                      dtype=dtype)
-    if masses is not None:
-        diag_blocks = diag_blocks * (1.0 / masses)[:, None, None]
+    # block-Jacobi preconditioner: off the pair CSR in its sorted order
+    # on the kernel route, else by the O(n^2) pass over the original one
+    if setup is not None and setup.pairs is not None:
+        diag_blocks = _pair_diag_blocks(setup.coord, setup.params,
+                                        setup.pairs, setup.csr.ids)
+        m = setup.masses
+    else:
+        diag_blocks = hessian_diag_blocks(coord, params, block=block,
+                                          dtype=dtype)
+        m = masses
+    if m is not None:
+        diag_blocks = diag_blocks * (1.0 / m)[:, None, None]
     # regularized 3x3 inverses (isolated atoms would be singular)
     trace = diag_blocks.diagonal(dim1=1, dim2=2).sum(dim=-1)
     reg = 1e-6 * torch.clamp(trace, min=1e-30)[:, None, None] \
         * torch.eye(3, dtype=dtype, device=coord.device)
     inv_blocks = torch.linalg.inv(diag_blocks + reg)
 
-    perm = None
-    if matvec is not None:
-        base = matvec
-    else:
-        csr = pairs = None
-        if sparse:
-            coord, params, masses, csr, perm, pairs = _sparse_setup(
-                coord, params, masses, tile, kernel)
-            perm_t = torch.as_tensor(perm, device=coord.device)
+    perm = csr = pairs = None
+    if setup is not None:
+        coord, params, masses, csr, perm, pairs = setup
+        perm_t = torch.as_tensor(perm, device=coord.device)
+        if pairs is None:
             inv_blocks = inv_blocks[perm_t]
-            rhs = rhs[torch.cat([a * n + perm_t for a in range(3)])]
-        base = _hessian_operator(coord, params, kernel=kernel, sparse=sparse,
-                                 csr=csr, pairs=pairs, tile=tile,
-                                 block=block)
+        rhs = rhs[torch.cat([a * n + perm_t for a in range(3)])]
+    base = matvec if matvec is not None else _hessian_operator(
+        coord, params, kernel=kernel, sparse=sparse, csr=csr, pairs=pairs,
+        tile=tile, block=block)
     w3 = None if masses is None else (1.0 / torch.sqrt(masses)).repeat(3)
     t = rigid.rigid_modes_anm(coord, masses=masses)
     x, n_it, res = _deflated_pcg(_mass_weighted(base, w3), t, inv_blocks,
@@ -1485,8 +1607,9 @@ def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
     ``pinv(K) @ rhs`` for the GNM Kirchhoff matrix without materializing
     it — the GNM twin of :func:`covariance_solve_matfree` (constant-mode
     deflation, degree Jacobi preconditioner, per-column CG step sizes).
-    `rhs` is ``(n, k)`` or ``(n,)``; ``precond=False`` skips the O(n^2)
-    degree pass; `use_pallas` as in :func:`lowest_modes_matfree`.
+    `rhs` is ``(n, k)`` or ``(n,)``; ``precond=False`` skips the degree
+    pass (O(n^2) off the kernel route, read off the pair CSR on it);
+    `use_pallas` as in :func:`lowest_modes_matfree`.
     Returns ``(x, n_iter, residuals)``.
     """
     _check_params(params)
@@ -1497,22 +1620,31 @@ def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
     rhs, squeeze = _columns(rhs, n, coord, "rhs")
     if masses is not None:
         masses = as_tensor(masses, dtype, coord.device)
+    setup = _solver_setup(coord, params, masses, kernel=kernel,
+                          sparse=sparse, matvec=None, tile=tile)
+    on_pairs = setup is not None and setup.pairs is not None
 
     if precond:
-        deg = kirchhoff_degree(coord, params, block=block, dtype=dtype)
-        if masses is not None:
-            deg = deg * (1.0 / masses)
+        # the degree off the pair CSR in its sorted order on the kernel
+        # route, else by the O(n^2) pass over the original one
+        if on_pairs:
+            deg, m = _pair_degree(setup.coord, setup.params, setup.pairs,
+                                  setup.csr.ids), setup.masses
+        else:
+            deg, m = kirchhoff_degree(coord, params, block=block,
+                                      dtype=dtype), masses
+        if m is not None:
+            deg = deg * (1.0 / m)
         inv_diag = 1.0 / torch.clamp(deg, min=1e-30)
     else:
         inv_diag = torch.ones(n, dtype=dtype, device=coord.device)
 
-    perm = None
-    csr = pairs = None
-    if sparse:
-        coord, params, masses, csr, perm, pairs = _sparse_setup(
-            coord, params, masses, tile, kernel)
+    perm = csr = pairs = None
+    if setup is not None:
+        coord, params, masses, csr, perm, pairs = setup
         perm_t = torch.as_tensor(perm, device=coord.device)
-        inv_diag = inv_diag[perm_t]
+        if not on_pairs:
+            inv_diag = inv_diag[perm_t]
         rhs = rhs[perm_t]
     base = _kirchhoff_operator(coord, params, kernel=kernel, sparse=sparse,
                                csr=csr, pairs=pairs, tile=tile, block=block)
@@ -1567,12 +1699,16 @@ def _check_sites(sites, n):
 
 def _site_columns(coord, params, sites, masses, dtype, options):
     """The three covariance columns ``pinv(H) @ e_(site, a)`` per site,
-    site-major, as ``(3, n, n_sites, 3)`` ``[b, j, s, a]``."""
+    site-major, as ``(3, n, n_sites, 3)`` ``[b, j, s, a]``; the one-hot
+    right-hand sides are set on the device in one ``index_put_``."""
     n = coord.shape[0]
-    rhs = np.zeros((3 * n, 3 * len(sites)), dtype=np.float64)
-    for s, site in enumerate(sites):
-        for a in range(3):
-            rhs[a * n + site, 3 * s + a] = 1.0
+    site_t = torch.as_tensor(sites, device=coord.device)
+    axis = torch.arange(3, device=coord.device)
+    rhs = torch.zeros((3 * n, 3 * len(sites)), dtype=torch.float64,
+                      device=coord.device)
+    rhs.index_put_(((axis[None, :] * n + site_t[:, None]).reshape(-1),
+                    torch.arange(3 * len(sites), device=coord.device)),
+                   torch.ones((), dtype=torch.float64, device=coord.device))
     x, n_it, res = covariance_solve_matfree(
         coord, params, rhs, masses=masses, dtype=dtype, **options)
     return x.reshape(3, n, len(sites), 3), n_it, res
@@ -1660,3 +1796,458 @@ def dcc_rows_matfree_gnm(coord, params, sites, *, norm=True, msf=None,
     if norm:
         rows = _normalize_rows(rows, sites, msf)
     return rows, n_it, res
+
+
+# ---------------------------------------------------------------------------
+# Effector/sensor profiles and the stochastic estimators
+# ---------------------------------------------------------------------------
+#
+# Counterparts of the JAX package's estimators, whose float64 algebra runs
+# in host NumPy: here it runs in float64 on the coordinates' device and the
+# results stay there.  Only the CG runs in the working dtype.  The
+# Rademacher probes are drawn as the JAX package draws them, from
+# ``np.random.RandomState(seed)``, so that a seed gives the same probe
+# matrix in both packages.
+
+def _rademacher(seed, shape, device):
+    """``(rows, cols)`` of +-1 in float64 on `device`, the JAX package's
+    draw: ``RandomState(seed).randint(0, 2, size=shape) * 2 - 1``."""
+    z = np.random.RandomState(seed).randint(0, 2, size=shape)
+    return torch.as_tensor(z.astype(np.float64) * 2.0 - 1.0, device=device)
+
+
+def _mode_planes(vectors, n, layout):
+    """Modes in rows ``(k, 3n)`` as planes ``(k, 3, n)`` of the xyz
+    components."""
+    k = vectors.shape[0]
+    if layout == "xyz":
+        return vectors.reshape(k, 3, n)
+    if layout == "atom":
+        return vectors.reshape(k, n, 3).transpose(1, 2)
+    raise ValueError(f"Unknown layout '{layout}'")
+
+
+def _mode_tensors(eig_values, eig_vectors, device):
+    """Modes as float64 tensors: a tensor keeps its device, anything else
+    goes to `device` (by default the current CUDA device)."""
+    vecs = as_tensor(eig_vectors, torch.float64, device)
+    return as_tensor(eig_values, torch.float64, vecs.device), vecs
+
+
+def _rank_k_planes(modes, n, layout, device):
+    """Non-trivial mode set ``(values, vectors)`` -> float64 ``(vals,
+    planes (k, 3, n), v_xyz (k, 3n))`` in xyz plane layout, on
+    `device`."""
+    vals, vecs = _mode_tensors(modes[0], modes[1], device)
+    planes = _mode_planes(vecs, n, layout)
+    return vals, planes, planes.reshape(-1, 3 * n)
+
+
+def _deflated(x, z, vals, v_xyz):
+    """The CG solution `x` in float64 less the exact rank-k response
+    ``C_k z``: ``C_rest z``."""
+    return x.double() - v_xyz.T @ ((v_xyz @ z) / vals[:, None])
+
+
+def _mean_and_sem(samples):
+    """Mean over the last axis and its standard error (sample std with
+    ``ddof=1`` over sqrt(count))."""
+    m = samples.shape[-1]
+    return samples.mean(dim=-1), \
+        samples.std(dim=-1, correction=1) / np.sqrt(m)
+
+
+def prs_diag_from_modes(eig_values, eig_vectors, *, layout="xyz",
+                        device=None):
+    """
+    The folded-PRS diagonal ``P_ii = ||C_ii||_F^2`` (squared Frobenius
+    norm of each atom's diagonal 3x3 covariance block) from a truncated
+    mode set — the normalizer of the reference's row-normalized PRS
+    matrix (``nma.py:520-523``), the mode-sum converging as
+    ``1/lambda^2``.
+
+    ``eig_vectors``: ``(k, 3n)`` modes in rows (a tensor keeps its
+    device, anything else goes to `device`); returns ``(n,)`` float64.
+    """
+    vals, vecs = _mode_tensors(eig_values, eig_vectors, device)
+    planes = _mode_planes(vecs, vecs.shape[1] // 3, layout)
+    # C_ii[a, b] = sum_k v[k, a, i] v[k, b, i] / lambda_k
+    blocks = torch.einsum("kai,kbi->abi", planes / vals[:, None, None],
+                          planes)
+    return (blocks ** 2).sum(dim=(0, 1))
+
+
+def effector_sensor_from_modes(eig_values, eig_vectors, *, norm=True,
+                               layout="xyz", device=None):
+    """
+    Effector and sensor profiles over **all** atoms from a truncated
+    mode set — O(n k^2) flops, no covariance matrix and no CG sweep:
+    the exact profiles of the rank-k covariance ``sum_k v_k v_k^T /
+    lambda_k`` (the standard mode-truncated PRS; with the complete
+    non-trivial set equal to the dense path).  Writing the
+    1/sqrt(lambda)-scaled modes as planes ``R_a (k, n)``, the folded PRS
+    is ``P_ij = sum_kl S_kl(i) S_kl(j)``, ``S_kl(i) = sum_a R_a[k, i]
+    R_a[l, i]``, and every profile is a quadratic form in the k x k
+    mode-overlap space (``springcraft_tpu.ops.matfree``).  Under
+    truncation the sensor especially is a low-mode-subspace quantity:
+    :func:`effector_sensor_stochastic` gives unbiased all-mode
+    profiles, :func:`effector_sensor_matfree` exact ones at sites.
+
+    Parameters
+    ----------
+    eig_values, eig_vectors : shapes ``(k,)`` / ``(k, 3n)``
+        Non-trivial modes in rows (a tensor keeps its device, anything
+        else goes to `device`).
+    norm : bool
+        Row-normalize by the diagonal before averaging (``nma.py:520-523``).
+    layout : {"xyz", "atom"}
+        Eigenvector component layout.
+
+    Returns
+    -------
+    effector, sensor : Tensor, shape=(n,), float64
+    """
+    vals, vecs = _mode_tensors(eig_values, eig_vectors, device)
+    if vals.ndim != 1 or vecs.ndim != 2 or vecs.shape[0] != vals.shape[0]:
+        raise ValueError(
+            f"expected (k,) values and (k, 3n) modes in rows, got "
+            f"{tuple(vals.shape)} and {tuple(vecs.shape)}")
+    n = vecs.shape[1] // 3
+    planes = _mode_planes(vecs, n, layout)
+    r = planes / torch.sqrt(vals)[:, None, None]            # (k, 3, n)
+
+    # diagonal P_ii = ||C_ii||_F^2 from the 3x3 blocks (O(n k))
+    blocks = torch.einsum("kai,kbi->abi", planes / vals[:, None, None],
+                          planes)
+    diag = (blocks ** 2).sum(dim=(0, 1))
+
+    t = torch.einsum("kai,lai->kl", r, r)
+    rowsum = torch.einsum("kl,kai,lai->i", t, r, r)
+    if norm:
+        u = torch.einsum("kai,i,lai->kl", r, 1.0 / diag, r)
+        wcolsum = torch.einsum("kl,kai,lai->i", u, r, r)
+        effector = (rowsum - diag) / ((n - 1) * diag)
+        # P_ii / P_ii == 1 is the excluded diagonal term
+        sensor = (wcolsum - 1.0) / (n - 1)
+    else:
+        # the folded PRS is symmetric: raw column means == row means
+        effector = (rowsum - diag) / (n - 1)
+        sensor = effector.clone()
+    return effector, sensor
+
+
+def effector_sensor_matfree(coord, params, sites, *, prs_diag=None,
+                            norm=True, masses=None, dtype=torch.float32,
+                            return_diag=False, device=None, **options):
+    """
+    Effector and sensor profile values at selected sites without the
+    covariance matrix — the large-scale route to the reference's
+    ``effector_sensor`` (``nma.py:527-569``).  Three covariance columns
+    per site by the deflated CG (:func:`covariance_solve_matfree`, one
+    batched call); by symmetry a site's columns give its PRS row
+    (effector numerators) and column (sensor numerators).  With
+    ``norm=True`` the sensor average needs ``P_ii`` for every atom:
+    pass `prs_diag` ``(n,)`` (e.g. :func:`prs_diag_from_modes`).
+
+    Returns
+    -------
+    effector, sensor : Tensor, shape=(len(sites),), float64
+        ``mean_{j != i} P_ij / P_ii`` at each site ``i``, and
+        ``mean_{i != j} P_ij / P_ii`` at each site ``j``.
+    n_iter : int
+    residuals : Tensor, shape=(3 * len(sites),)
+    self_diag : Tensor, shape=(len(sites),)
+        Only with ``return_diag=True``: the exact all-mode ``P_ss``.
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    sites = _check_sites(sites, n)
+    if norm and prs_diag is None:
+        raise ValueError(
+            "effector_sensor_matfree(norm=True) needs prs_diag=<(n,) "
+            "folded-PRS diagonal>: the sensor column average divides "
+            "each perturbing row i by its self-response P_ii, which "
+            "the site columns alone cannot produce — compute it from "
+            "a truncated mode set via prs_diag_from_modes")
+    if norm:
+        prs_diag = as_tensor(prs_diag, torch.float64, coord.device)
+        if prs_diag.shape != (n,):
+            raise ValueError(f"prs_diag has shape {tuple(prs_diag.shape)}, "
+                             f"expected ({n},)")
+    n_sites = len(sites)
+    cols, n_it, res = _site_columns(coord, params, sites, masses, dtype,
+                                    options)
+    p_col = (cols.double() ** 2).sum(dim=(0, 3))    # (n, s): P[i, site]
+    site_t = torch.as_tensor(sites, device=coord.device)
+    each = torch.arange(n_sites, device=coord.device)
+    self_p = p_col[site_t, each]                    # P_ss
+    col_sums = p_col.sum(dim=0) - self_p            # sum_{i != s}
+    if norm:
+        effector = col_sums / ((n - 1) * self_p)
+        weighted = p_col / prs_diag[:, None]
+        sensor = (weighted.sum(dim=0) - weighted[site_t, each]) / (n - 1)
+    else:
+        effector = col_sums / (n - 1)
+        sensor = effector.clone()
+    if return_diag:
+        return effector, sensor, n_it, res, self_p
+    return effector, sensor, n_it, res
+
+
+def prs_diag_stochastic(coord, params, modes, *, probes=64, seed=0,
+                        layout="xyz", masses=None, dtype=torch.float32,
+                        device=None, **options):
+    """
+    Unbiased **all-mode** folded-PRS diagonal ``P_ii = ||C_ii||_F^2``
+    over all atoms: Rademacher probes ``z`` of the deflated covariance
+    ``C_rest = C - C_k`` through one batched deflated-CG solve (``E[z_ib
+    (C_rest z)_ia] = (C_rest)_ii[a, b]``), split into two independent
+    halves A/B for the product estimator ``<C_k,ii + B_A, C_k,ii +
+    B_B>_F`` (no squared-noise bias), clamped from below by the exact
+    rank-k value (both blocks PSD).
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+    params : FFParams
+    modes : (eig_values, eig_vectors)
+        Non-trivial modes in rows, ``(k,)`` / ``(k, 3n)``.
+    probes : int
+        Rademacher probe columns (at least 4).
+    seed : int
+        ``np.random.RandomState`` seed of the probes (the JAX package's
+        draw).
+    layout : {"xyz", "atom"}
+    options
+        Forwarded to :func:`covariance_solve_matfree`.
+
+    Returns
+    -------
+    diag, stderr : Tensor, shape=(n,), float64
+        The estimate, clamped from below by the rank-k mode-sum, and its
+        first-order propagated standard error.
+    n_iter : int
+    residuals : Tensor, shape=(probes,)
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    if probes < 4:
+        raise ValueError("probes must be >= 4 (two independent "
+                         "halves, each with a sample variance)")
+    vals, planes, v_xyz = _rank_k_planes(modes, n, layout, coord.device)
+    # exact rank-k diagonal blocks
+    blk_k = torch.einsum("kai,kbi->iab", planes / vals[:, None, None],
+                         planes)                                # (n, 3, 3)
+    z = _rademacher(seed, (3 * n, probes), coord.device)
+    x, n_it, res = covariance_solve_matfree(
+        coord, params, z, masses=masses, dtype=dtype, **options)
+    xp = _deflated(x, z, vals, v_xyz).reshape(3, n, probes)
+    zp = z.reshape(3, n, probes)
+
+    h = probes // 2
+    halves, variances = [], []
+    for sl in (slice(0, h), slice(h, probes)):
+        t = torch.einsum("bip,aip->iabp", zp[:, :, sl], xp[:, :, sl])
+        t = 0.5 * (t + t.transpose(1, 2))
+        m = sl.stop - sl.start
+        halves.append(blk_k + t.mean(dim=-1))
+        variances.append(t.var(dim=-1, correction=1) / m)   # (n, 3, 3)
+    m_a, m_b = halves
+    raw = (m_a * m_b).sum(dim=(1, 2))
+    # first-order stderr of <M_A, M_B> around M = (M_A + M_B) / 2
+    m_mid = 0.5 * (m_a + m_b)
+    var = (m_mid ** 2 * (variances[0] + variances[1])).sum(dim=(1, 2))
+    stderr = torch.sqrt(torch.clamp(var, min=0.0))
+    floor = (blk_k ** 2).sum(dim=(1, 2))
+    return torch.maximum(raw, floor), stderr, n_it, res
+
+
+def msf_stochastic(coord, params, modes, *, probes=64, seed=0,
+                   layout="xyz", masses=None, dtype=torch.float32,
+                   device=None, **options):
+    """
+    Unbiased **all-mode** mean-square fluctuation over all atoms without
+    the covariance: deflated Hutchinson estimation of ``tr C_ii``.
+    Rademacher probes ``z`` of ``C_rest = C - C_k`` through one batched
+    deflated-CG solve (``E[z_r (C_rest z)_r] = (C_rest)_rr``), the three
+    components folded per atom, the exact rank-k mode-sum added back and
+    the residual clamped at zero (the diagonal of a PSD matrix).
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+    params : FFParams
+    modes : (eig_values, eig_vectors)
+        Non-trivial modes in rows, ``(k,)`` / ``(k, 3n)``: the deflation
+        subspace (``lowest_modes_matfree`` output).
+    probes, seed, layout, options
+        As :func:`prs_diag_stochastic` (at least 2 probes).
+
+    Returns
+    -------
+    msf, stderr : Tensor, shape=(n,), float64
+    n_iter : int
+    residuals : Tensor, shape=(probes,)
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    if probes < 2:
+        raise ValueError("probes must be >= 2 (stderr needs a sample "
+                         "variance)")
+    vals, planes, v_xyz = _rank_k_planes(modes, n, layout, coord.device)
+    msf_k = torch.einsum("kai,kai->i", planes / vals[:, None, None], planes)
+    z = _rademacher(seed, (3 * n, probes), coord.device)
+    x, n_it, res = covariance_solve_matfree(
+        coord, params, z, masses=masses, dtype=dtype, **options)
+    x = _deflated(x, z, vals, v_xyz)
+    # fold the three components per atom, per probe
+    samples = (z.reshape(3, n, probes) * x.reshape(3, n, probes)).sum(0)
+    rest, stderr = _mean_and_sem(samples)
+    return msf_k + torch.clamp(rest, min=0.0), stderr, int(n_it), res
+
+
+def msf_stochastic_gnm(coord, params, modes, *, probes=64, seed=0,
+                       masses=None, dtype=torch.float32, device=None,
+                       **options):
+    """GNM counterpart of :func:`msf_stochastic`: unbiased all-mode
+    ``diag(pinv(K))`` by deflated Hutchinson probes through
+    :func:`covariance_solve_matfree_gnm`.  Same contract; mode vectors
+    are ``(k, n)``."""
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    if probes < 2:
+        raise ValueError("probes must be >= 2 (stderr needs a sample "
+                         "variance)")
+    vals, vecs = _mode_tensors(modes[0], modes[1], coord.device)
+    msf_k = torch.einsum("ki,ki->i", vecs / vals[:, None], vecs)
+    z = _rademacher(seed, (n, probes), coord.device)
+    x, n_it, res = covariance_solve_matfree_gnm(
+        coord, params, z, masses=masses, dtype=dtype, **options)
+    rest, stderr = _mean_and_sem(z * _deflated(x, z, vals, vecs))
+    return msf_k + torch.clamp(rest, min=0.0), stderr, int(n_it), res
+
+
+def effector_sensor_stochastic(coord, params, prs_diag, *, probes=64,
+                               norm=True, masses=None, seed=0,
+                               modes=None, layout="xyz",
+                               dtype=torch.float32, device=None, **options):
+    """
+    **All-mode** effector/sensor profiles over **all** atoms without the
+    covariance: Hutchinson estimation of the two profile numerators,
+    ``fold diag(C^2)`` (effector) and ``fold diag(C W C)`` with ``W =
+    diag(repeat(1 / P_ii, 3))`` (sensor), from ONE batched deflated-CG
+    solve over ``2 * probes`` Rademacher columns (``probes`` with
+    ``norm=False``), ``~sqrt(2 / probes)`` relative standard error.
+
+    With `modes` the rank-k part is an exact control variate: ``C_k
+    C_rest = 0`` makes ``diag(C^2) = diag(C_k^2) + diag(C_rest^2)`` and
+    only the residual second moment is sampled; the sensor's ``W`` breaks
+    that orthogonality, so with `norm` the ``k`` columns ``W v_k`` join
+    the same solve and close its cross term ``2 diag(C_k W C_rest)``
+    exactly (``2 * probes + k`` columns).
+
+    Parameters
+    ----------
+    coord : Tensor or ndarray, shape=(n, 3)
+    params : FFParams
+    prs_diag : shape=(n,)
+        The folded-PRS diagonal ``P_ii`` (the excluded self term and,
+        with `norm`, the row normalizer), e.g.
+        :func:`prs_diag_from_modes` or :func:`prs_diag_stochastic`.
+    probes : int
+        Rademacher probes per profile (at least 2).
+    norm : bool
+        Reference-standard row normalization ``P_ij / P_ii``.
+    seed : int
+        ``np.random.RandomState`` seed of the probes.
+    modes : (eig_values, eig_vectors), optional
+        Non-trivial modes for the exact rank-k control variate.
+    layout : {"xyz", "atom"}
+        `modes` eigenvector component layout.
+    options
+        Forwarded to :func:`covariance_solve_matfree`.
+
+    Returns
+    -------
+    effector, sensor : Tensor, shape=(n,), float64
+    effector_stderr, sensor_stderr : Tensor, shape=(n,), float64
+    n_iter : int
+    residuals : Tensor, shape=(2 * probes [+ k],) or (probes,)
+    """
+    coord = _coord(coord, dtype, device)
+    n = coord.shape[0]
+    if prs_diag is None:
+        raise ValueError(
+            "effector_sensor_stochastic needs prs_diag=<(n,) "
+            "folded-PRS diagonal>: the excluded self term P_ii "
+            "cannot be estimated from probe solves — compute it from "
+            "a truncated mode set via prs_diag_from_modes")
+    prs_diag = as_tensor(prs_diag, torch.float64, coord.device)
+    if prs_diag.shape != (n,):
+        raise ValueError(
+            f"prs_diag has shape {tuple(prs_diag.shape)}, expected ({n},)")
+    if probes < 2:
+        raise ValueError("probes must be >= 2 (stderr needs a sample "
+                         "variance)")
+    if modes is not None:
+        vals_k, planes_k, v_xyz = _rank_k_planes(modes, n, layout,
+                                                 coord.device)
+    n_cols = 2 * probes if norm else probes
+    # with deflation and norm, k extra columns W v_k in the same solve
+    # make the sensor's C_k W C_rest cross diagonal exact
+    n_extra = v_xyz.shape[0] if (modes is not None and norm) else 0
+    z = _rademacher(seed, (3 * n, n_cols + n_extra), coord.device)
+    if norm:
+        # sensor probes scaled by W^(1/2) (component (a, i) at row a n + i)
+        w_half = (1.0 / torch.sqrt(prs_diag)).repeat(3)
+        z[:, probes:n_cols] *= w_half[:, None]
+    if n_extra:
+        w_full = (1.0 / prs_diag).repeat(3)
+        z[:, n_cols:] = w_full[:, None] * v_xyz.T
+
+    x, n_it, res = covariance_solve_matfree(
+        coord, params, z, masses=masses, dtype=dtype, **options)
+    x = x.double()
+
+    if modes is not None:
+        # the exact rank-k response per probe removed
+        v = _deflated(x[:, :n_cols], z[:, :n_cols], vals_k, v_xyz)\
+            .reshape(3, n, n_cols)
+        # exact fold diag(C_k^2) per atom
+        e_k2 = torch.einsum("kai,kai,k->i", planes_k, planes_k,
+                            1.0 / vals_k ** 2)
+        # effector: C_k C_rest == 0, only the residual second moment
+        e_mean, e_sem = _mean_and_sem((v[:, :, :probes] ** 2).sum(dim=0))
+        e_num = e_k2 + e_mean
+        if norm:
+            # exact fold diag(C_k W C_k): S = L^-1 (V W V^T) L^-1
+            s_mat = (v_xyz * w_full[None, :]) @ v_xyz.T \
+                / torch.outer(vals_k, vals_k)
+            s_k2 = (v_xyz * (s_mat @ v_xyz)).sum(dim=0)
+            # 2 diag(C_k W C_rest)_r = 2 sum_k (v_k,r / lambda_k)
+            # (C_rest W v_k)_r, from the extra columns
+            y_rest = _deflated(x[:, n_cols:], z[:, n_cols:], vals_k, v_xyz)
+            s_cross = 2.0 * ((v_xyz.T / vals_k[None, :]) * y_rest).sum(dim=1)
+            s_mean, s_sem = _mean_and_sem(
+                (v[:, :, probes:] ** 2).sum(dim=0))
+            s_num = (s_k2 + s_cross).reshape(3, n).sum(dim=0) + s_mean
+    else:
+        # per-probe per-atom samples: fold the three components
+        samples = (x.reshape(3, n, n_cols) ** 2).sum(dim=0)   # (n, cols)
+        e_num, e_sem = _mean_and_sem(samples[:, :probes])     # row sums
+        if norm:
+            s_num, s_sem = _mean_and_sem(samples[:, probes:])  # sum w P_ij
+
+    if norm:
+        effector = (e_num - prs_diag) / ((n - 1) * prs_diag)
+        sensor = (s_num - 1.0) / (n - 1)
+        effector_stderr = e_sem / ((n - 1) * prs_diag)
+        sensor_stderr = s_sem / (n - 1)
+    else:
+        # the raw folded PRS is symmetric: both profiles are the
+        # diagonal-excluded row means
+        effector = (e_num - prs_diag) / (n - 1)
+        sensor = effector.clone()
+        effector_stderr = e_sem / (n - 1)
+        sensor_stderr = effector_stderr.clone()
+    return (effector, sensor, effector_stderr, sensor_stderr, n_it, res)

@@ -7,10 +7,9 @@ without a cutoff, masses of the wrong length, zero masses,
 ``masses=True`` without residue names, a mode subset with trivial modes,
 ``lowest_modes`` after an assigned matrix), ``lowest_modes`` on a
 cutoff that float32 coordinates would decide otherwise than float64
-ones, the matrix-free methods whose
-operations the port does not have yet (``NotImplementedError`` naming
-``ROADMAP.md`` queue 1 item 3), the dense paths' refusal of matrix-free
-arguments, and ``use_pallas=``.
+ones, the matrix-free methods that raised until the second matrix-free
+slice (each now against the JAX model), the dense paths' refusal of
+matrix-free arguments, and ``use_pallas=``.
 """
 
 import importlib
@@ -185,25 +184,67 @@ def test_anm_duals_and_eigen_cache(anm):
         anm.covariance = np.zeros((5, 5))
 
 
-#: Matrix-free calls whose operation the port does not have yet.
+def _low(model, trivial):
+    """The model's four lowest non-trivial modes of its dense
+    eigensystem, the deflation subspace of the calls below."""
+    vals, vecs = model.eigen()
+    return vals[trivial:trivial + 4], vecs[trivial:trivial + 4]
+
+
+#: The matrix-free calls that raised ``NotImplementedError`` until the
+#: port had the second matrix-free slice (ROADMAP.md queue 1 item 3);
+#: ``f64`` is the package's float64 dtype.
 NOT_PORTED = {
-    "anm_msf": lambda a, g: a.mean_square_fluctuation(matrix_free=True,
-                                                      modes=4),
-    "anm_bfactor": lambda a, g: a.bfactor(matrix_free=True, modes=4),
-    "anm_dcc_in_place_msf": lambda a, g: a.dcc(matrix_free=True,
-                                               sites=[0, 1], modes=4),
-    "anm_prs_sites": lambda a, g: a.prs_effector_sensor(matrix_free=True,
-                                                        sites=[0, 1]),
-    "anm_prs_modes": lambda a, g: a.prs_effector_sensor(matrix_free=True,
-                                                        modes=4),
-    "anm_prs_probes": lambda a, g: a.prs_effector_sensor(matrix_free=True,
-                                                         probes=8, modes=4),
-    "gnm_msf": lambda a, g: g.mean_square_fluctuation(matrix_free=True,
-                                                      modes=4),
-    "gnm_bfactor": lambda a, g: g.bfactor(matrix_free=True, modes=4),
-    "gnm_dcc_in_place_msf": lambda a, g: g.dcc(matrix_free=True,
-                                               sites=[0, 1], modes=4),
+    "anm_msf": lambda a, g, f64: a.mean_square_fluctuation(
+        matrix_free=True, modes=_low(a, 6), dtype=f64, tol=1e-10),
+    "anm_bfactor": lambda a, g, f64: a.bfactor(
+        matrix_free=True, modes=_low(a, 6), dtype=f64, tol=1e-10),
+    "anm_dcc_in_place_msf": lambda a, g, f64: a.dcc(
+        matrix_free=True, sites=[0, 1], modes=_low(a, 6), dtype=f64,
+        tol=1e-10),
+    "anm_prs_sites": lambda a, g, f64: a.prs_effector_sensor(
+        matrix_free=True, sites=[0, 1], modes=_low(a, 6), dtype=f64,
+        tol=1e-10),
+    "anm_prs_modes": lambda a, g, f64: a.prs_effector_sensor(
+        matrix_free=True, modes=4, dtype=f64, block=32),
+    "anm_prs_probes": lambda a, g, f64: a.prs_effector_sensor(
+        matrix_free=True, probes=8, modes=_low(a, 6), dtype=f64,
+        tol=1e-10),
+    "gnm_msf": lambda a, g, f64: g.mean_square_fluctuation(
+        matrix_free=True, modes=_low(g, 1), dtype=f64, tol=1e-10),
+    "gnm_bfactor": lambda a, g, f64: g.bfactor(
+        matrix_free=True, modes=_low(g, 1), dtype=f64, tol=1e-10),
+    "gnm_dcc_in_place_msf": lambda a, g, f64: g.dcc(
+        matrix_free=True, sites=[0, 1], modes=_low(g, 1), dtype=f64,
+        tol=1e-10),
 }
+
+
+@pytest.mark.parametrize("name", list(NOT_PORTED))
+def test_matrix_free_operations_not_ported_raise(anm, gnm, name):
+    """These calls raised ``NotImplementedError`` before the port had
+    their operations; each now runs on the CPU and gives the JAX model's
+    answer (NumPy out, within 1e-8 of max), the in-place normalizers
+    included."""
+    import jax.numpy as jnp
+
+    from springcraft_tpu.structure import load_structure
+
+    atoms = load_structure(os.path.join(DATA, "1l2y.pdb"), model=1)
+    jca = atoms[(atoms.atom_name == "CA") & (atoms.element == "C")]
+    got = NOT_PORTED[name](anm, gnm, torch.float64)
+    ref = NOT_PORTED[name](sc.ANM(jca, sc.InvariantForceField(13.0)),
+                           sc.GNM(jca, sc.InvariantForceField(7.0)),
+                           jnp.float64)
+    if name.startswith("anm_prs"):
+        assert got[0] is None and ref[0] is None
+        got, ref = got[1:], ref[1:]
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert isinstance(g, np.ndarray) and g.shape == np.shape(r)
+        assert np.abs(g - r).max() <= 1e-8 * np.abs(r).max()
 
 
 @pytest.mark.parametrize("model, trivial", [("ANM", 6), ("GNM", 1)])
@@ -220,12 +261,6 @@ def test_lowest_modes_solve_the_float64_pairs(ca, model, trivial):
     vals, _, res = m.lowest_modes(5, refine=True)
     assert np.abs(vals - dense).max() / np.abs(dense).max() <= 1e-6
     assert res.max() <= 1e-4
-
-
-@pytest.mark.parametrize("name", list(NOT_PORTED))
-def test_matrix_free_operations_not_ported_raise(anm, gnm, name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        NOT_PORTED[name](anm, gnm)
 
 
 #: Calls that fail on their arguments first, as in the JAX package.

@@ -2046,3 +2046,135 @@ def test_model_api_launches_its_kernels(cuda):
         else:
             assert _model_rel(out, anm.linear_response(force)) <= 1e-4
     assert tmatfree.hessian_apply_sparse.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# The second matrix-free slice: the estimators and the degree passes over
+# the pair CSR on the kernel route
+# ---------------------------------------------------------------------------
+
+def _blob_modes(coord, k, gnm=False):
+    """The `k` lowest non-trivial float64 modes of `coord` under the
+    invariant field (13 A) from a dense ``eigh`` on the CPU, xyz layout."""
+    c = torch.as_tensor(coord, dtype=torch.float64)
+    params = sct.invariant_params(13.0)
+    if gnm:
+        vals, vecs = torch.linalg.eigh(assembly.kirchhoff_matrix(c, params))
+        return vals[1:1 + k].numpy(), vecs[:, 1:1 + k].T.numpy().copy()
+    vals, vecs = torch.linalg.eigh(assembly.hessian_matrix(c, params,
+                                                           layout="xyz"))
+    return vals[6:6 + k].numpy(), vecs[:, 6:6 + k].T.numpy().copy()
+
+
+#: estimator -> (its arguments after (coord, params) from (modes, GNM
+#: modes, prs_diag), its keywords, its float outputs); "_deflated" adds
+#: the modes as the control variate
+ESTIMATORS = {
+    "effector_sensor_matfree": (lambda md, gm, pd: ([0, 250, 599],),
+                                lambda md, gm, pd: dict(prs_diag=pd), 2),
+    "prs_diag_stochastic": (lambda md, gm, pd: (md,), None, 2),
+    "msf_stochastic": (lambda md, gm, pd: (md,), None, 2),
+    "msf_stochastic_gnm": (lambda md, gm, pd: (gm,), None, 2),
+    "effector_sensor_stochastic": (lambda md, gm, pd: (pd,), None, 4),
+    "effector_sensor_stochastic_deflated": (
+        lambda md, gm, pd: (pd,), lambda md, gm, pd: dict(modes=md), 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ESTIMATORS))
+def test_matfree_estimators_on_cuda_match_the_cpu(cuda, name):
+    """Each CG-based estimator on the kernel route (float32 on the card:
+    the pair CSR once, then K13 or K14) against the port's own float64
+    answer on the CPU at the same seed: 1e-3 of max|x| (float32 CG to a
+    relative residual of 1e-6), as the CG rows of
+    ``test_matfree_paths_on_cuda``."""
+    coord = _protein_blob(600, seed=11)
+    modes = _blob_modes(coord, 6)
+    prs_diag = matfree.prs_diag_from_modes(*modes, device="cpu").numpy()
+    make_args, make_kwargs, n_out = ESTIMATORS[name]
+    inputs = (modes, _blob_modes(coord, 6, gnm=True), prs_diag)
+    args = make_args(*inputs)
+    kwargs = ({} if make_kwargs is None else make_kwargs(*inputs))
+    fn = getattr(matfree, name.replace("_deflated", ""))
+    if name != "effector_sensor_matfree":
+        kwargs.update(probes=16, seed=7)
+    params = sct.invariant_params(13.0)
+    wrappers = sct.kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = fn(coord, params, *args, **kwargs)
+    torch.cuda.synchronize()
+    gather = ("kirchhoff_apply_sparse" if name.endswith("_gnm")
+              else "hessian_apply_sparse")
+    _check_launches(wrappers, before, {"pair_csr", gather})
+    assert wrappers["pair_csr"].launches == before["pair_csr"] + 1
+    ref = fn(coord.astype(np.float64), params, *args, dtype=torch.float64,
+             device="cpu", **kwargs)
+    for i in range(n_out):
+        assert got[i].device.type == "cuda"
+        assert got[i].dtype == torch.float64
+        assert _rel(got[i].cpu(), ref[i]) <= 1e-3, i
+
+
+def test_kernel_route_reads_the_degrees_off_the_pair_csr(cuda, monkeypatch):
+    """On the kernel route no solver enters the O(n^2) row-block pass: the
+    Gershgorin bound, the block-Jacobi diagonal and the degree come off
+    the pair CSR (with masses and with an overlay); the dense-grid route
+    (``sparse=False``) still takes the row blocks."""
+    atoms = _ca_atoms(600, seed=11)
+    coord = atoms.coord
+    params = sct.invariant_params(13.0)
+    patched = params.replace(overlays=sct.PatchedForceField(
+        sct.InvariantForceField(1.0), **_patch(coord, 13.0)
+    ).to_params(natoms=600).overlays)
+    masses = np.linspace(0.8, 2.5, 600).astype(np.float32)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the O(n^2) row-block pass ran")
+
+    monkeypatch.setattr(matfree, "_row_blocks", refuse)
+    rhs = np.random.RandomState(2).randn(3 * 600, 3).astype(np.float32)
+    for p in (params, patched):
+        for m in (None, masses):
+            outputs = (
+                sct.lowest_modes_matfree(coord, p, 4, masses=m, degree=48,
+                                         n_outer=4)[:2]
+                + sct.lowest_modes_matfree_gnm(coord, p, 4, masses=m,
+                                               degree=48, n_outer=4)[:2]
+                + sct.covariance_solve_matfree(coord, p, rhs, masses=m)[:1]
+                + sct.covariance_solve_matfree_gnm(coord, p, rhs[:600],
+                                                   masses=m)[:1])
+            assert all(bool(torch.isfinite(x).all()) for x in outputs)
+    with pytest.raises(AssertionError, match="row-block pass ran"):
+        sct.covariance_solve_matfree(coord, params, rhs, sparse=False)
+
+
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("family", ["invariant", "sd_enm", "patched"])
+def test_pair_csr_degree_passes_on_cuda(cuda, family, masses):
+    """The degree passes off the kernel's pair CSR (float64 sums, rounded
+    once) against the O(n^2) plain passes in float32 on the card, back in
+    atom order: 1e-6 of max; the overlay's delta added after the CSR
+    sums."""
+    n = 600
+    atoms = _ca_atoms(n, seed=11)
+    params = (_table_params("sd_enm", atoms) if family == "sd_enm"
+              else sct.invariant_params(13.0))
+    if family == "patched":
+        params = params.replace(overlays=sct.PatchedForceField(
+            sct.InvariantForceField(1.0), **_patch(atoms.coord, 13.0)
+        ).to_params(natoms=n).overlays)
+    c = torch.as_tensor(atoms.coord, device=cuda)
+    m = (torch.linspace(0.8, 2.5, n, device=cuda) if masses else None)
+    setup = matfree._sparse_setup(c, params, m, 256, True)
+    inv = torch.as_tensor(np.argsort(setup.perm), device=cuda)
+    args = (setup.coord, setup.params, setup.pairs)
+    got = matfree._pair_degree_bound(*args, setup.masses, setup.csr.ids)
+    ref = matfree.hessian_degree_bound(c, params, masses=m)
+    assert got.dtype == torch.float32
+    assert abs(float(got) - float(ref)) <= 1e-6 * float(ref)
+    if masses:
+        return
+    got = matfree._pair_diag_blocks(*args, setup.csr.ids)[inv]
+    assert _rel(got, matfree.hessian_diag_blocks(c, params)) <= 1e-6
+    got = matfree._pair_degree(*args, setup.csr.ids)[inv]
+    assert _rel(got, matfree.kirchhoff_degree(c, params)) <= 1e-6

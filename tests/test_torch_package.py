@@ -66,7 +66,11 @@ def test_entry_points_are_exported():
                  "estimate_lambda_max", "covariance_solve_matfree",
                  "covariance_solve_matfree_gnm", "linear_response_matfree",
                  "prs_rows_matfree", "dcc_rows_matfree",
-                 "dcc_rows_matfree_gnm", "kernel_wrappers",
+                 "dcc_rows_matfree_gnm", "prs_diag_from_modes",
+                 "effector_sensor_from_modes", "effector_sensor_matfree",
+                 "prs_diag_stochastic", "msf_stochastic",
+                 "msf_stochastic_gnm", "effector_sensor_stochastic",
+                 "kernel_wrappers",
                  "TabulatedForceField", "InvariantForceField",
                  "HinsenForceField", "ParameterFreeForceField",
                  "PatchedForceField", "PatchOverlay", "with_overlay",
@@ -85,6 +89,23 @@ def test_entry_points_are_exported():
             (matfree, ("overlay_apply_hessian", "overlay_apply_kirchhoff"))):
         for name in names:
             assert name in module.__all__ and callable(getattr(module, name))
+    # the JAX package's ops-level names (springcraft_tpu/ops/__init__.py)
+    from springcraft_tpu_torch import ops
+
+    for name in ("effector_sensor_from_modes", "effector_sensor_matfree",
+                 "effector_sensor_stochastic", "msf_stochastic",
+                 "msf_stochastic_gnm", "prs_diag_from_modes",
+                 "prs_diag_stochastic", "kirchhoff_degree",
+                 "hessian_matrix", "pinvh", "refine_modes_f64",
+                 "eigh_banded", "null_mode_gnm", "FFParams"):
+        assert name in ops.__all__ and getattr(ops, name) is not None
+    for name in ("prs_diag_from_modes", "effector_sensor_from_modes",
+                 "effector_sensor_matfree", "prs_diag_stochastic",
+                 "msf_stochastic", "msf_stochastic_gnm",
+                 "effector_sensor_stochastic"):
+        assert name in matfree.__all__
+        assert getattr(sct, name) is getattr(ops, name) \
+            is getattr(matfree, name)
 
 
 def test_every_c_entry_point_has_a_wrapper():

@@ -9,9 +9,11 @@ invariant 13 A field and sdENM, each once to warm up and once under
 (the union of kernel intervals over the wall), and the kernels that take
 the most device time, grouped by name, with their launches and their
 share of all kernel time.  Then times the set-up stages of one solver call (host clock
-to a synchronize): the Gershgorin bound and the block-Jacobi diagonal
-(plain O(n^2) row-blocked passes on the original order), the host Morton
-sort and tile lists, the pair-CSR build.  GPU only; traces go to ``build/profile/``.
+to a synchronize): the Gershgorin bound and the block-Jacobi diagonal by
+the plain O(n^2) row-blocked passes on the original order (the route off
+the kernels), the host Morton sort and tile lists, the pair-CSR build,
+and the same bound and diagonal off the pair CSR (what the solvers run
+on the kernel route).  GPU only; traces go to ``build/profile/``.
 
 Usage:  python3 tools/profile_matfree.py [--top 8]
 """
@@ -113,8 +115,15 @@ def setup_stages(params):
     setup = timed("_sparse_setup without the build (host sort, tile lists)",
                   lambda: matfree._sparse_setup(coord, params, None, 256,
                                                 False))
-    timed("pair_csr build",
-          lambda: matfree.pair_csr(setup[0], setup[1], setup[3], 256))
+    pairs = timed("pair_csr build",
+                  lambda: matfree.pair_csr(setup.coord, setup.params,
+                                           setup.csr, 256))
+    # what the solvers run on the kernel route instead of the O(n^2) passes
+    args = (setup.coord, setup.params, pairs)
+    timed("Gershgorin bound off the pair CSR",
+          lambda: matfree._pair_degree_bound(*args, None, setup.csr.ids))
+    timed("diagonal blocks off the pair CSR",
+          lambda: matfree._pair_diag_blocks(*args, setup.csr.ids))
     print("  set-up stages, ms (host clock to a synchronize): "
           + "; ".join(f"{k} {v:.1f}" for k, v in host.items()), flush=True)
 
