@@ -141,7 +141,20 @@ Phases:
      ``compute_hessian`` / ``compute_kirchhoff`` against the models'
      matrices, and the golden files of ``tests/test_anm.py`` (eANM
      against BioPhysConnectoR, bio3d's mass-weighted eigenvalues under
-     three force fields) at that file's tolerances.
+     three force fields) at that file's tolerances;
+   * the mega-assembly north star (``bench.py::bench_mega_tpu``) after
+     the matrix-free phases: 10,000 CA atoms under sdENM as the JAX
+     benchmark draws them, the 30,000-dimensional float32 Hessian through
+     ``pallas_kernels.hessian_pallas`` (K5, also held against its plain
+     version there), 20 (+4) modes by ``lowest_modes_anm`` (``"chol"``)
+     with ``mode_residuals`` and ``refine_modes_f64``, each stage timed
+     on its first and second call beside the 10 s clause (printed, not
+     asserted); the raw residuals, the mode-sum MSF and 64-row DCC block
+     against the refined modes, and at 1,000 atoms the refined
+     eigenvalues against float64 ``eigvalsh``; then the all-mode MSF at
+     20,736 dimensions (``pinv_diagonal``, K5 at (1, 6912) held too)
+     against the committed float64 golden
+     ``tests/data/golden_mega_msf_20736.npz``.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -166,6 +179,10 @@ CHUNK = 128
 N_SINGLE = 1776
 CUTOFF = 13.0
 SEED = 3
+#: CA atoms per cubic angstrom: 300 residues in a 34 A cube, the density
+#: of the headline conformers; the larger random structures are drawn at
+#: it (``bench.py:131``, in the same float64 expression).
+CA_DENSITY = 300 / 34.0 ** 3
 TIMING_REPS = 20
 #: Replays of a CUDA graph of TIMING_REPS calls (``graph_ms``).
 GRAPH_REPLAYS = 10
@@ -304,6 +321,9 @@ PATH_KERNELS = {
     "model_anm_modes_matfree": ("pair_csr", "hessian_apply_sparse"),
     "model_gnm_modes": ("panel_inverse",),
     "model_gnm_modes_matfree": ("pair_csr", "kirchhoff_apply_sparse"),
+    # the mega-assembly north star through pallas_kernels.hessian_pallas
+    "mega_north_star": ("hessian_xyz",),
+    "mega_allmode_msf": ("hessian_xyz",),
 }
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
@@ -318,7 +338,7 @@ TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "anm_matfree_overlay_tabulated",
                "gnm_matfree_overlay_tabulated", "anm_7cal_modes",
                "gnm_7cal_modes", "model_anm_modes_matfree",
-               "model_anm_profiles")
+               "model_anm_profiles", "mega_north_star", "mega_allmode_msf")
 #: Paths that mix both branches (each family is launched once).
 MIXED_PATHS = ("assembly_large",)
 #: The float32 MSF of 7cal under eANM against the float64 engine, relative
@@ -410,6 +430,28 @@ XL_TOL = 5e-4
 #: modes, and the cap for nothing else.
 XL_RESIDUAL_GROWTH = 2.0
 XL_RESIDUAL_CAP = 1e-2
+#: The mega-assembly north star (``bench.py::bench_mega_tpu``,
+#: BASELINE.json config 5): ``make_ca_atoms(10_000, seed=2)`` under
+#: sdENM, a 30,000-dimensional float32 Hessian, N_MODES (+MODE_BUFFER)
+#: lowest modes, their float64 refinement; the proof on
+#: ``make_ca_atoms(1000, seed=3)`` against float64 ``eigvalsh``; the
+#: all-mode MSF at 20,736 dimensions against the committed float64 golden.
+N_MEGA, MEGA_SEED = 10_000, 2
+N_PROOF, PROOF_SEED = 1000, 3
+#: The north star's time clause over build, modes (with their residuals)
+#: and refinement, s, second call (printed as ok / over, not asserted).
+MEGA_CLAUSE_S = 10.0
+#: Mode-sum MSF (relative RMSE) and the first MEGA_DCC_SITES rows of the
+#: DCC (max abs) of the raw float32 modes against the refined ones
+#: (``bench.py:523-565``), and the all-mode MSF against the golden
+#: (relative RMSE).
+MEGA_MSF_TOL = 1e-3
+MEGA_DCC_TOL = 1e-2
+MEGA_DCC_SITES = 64
+MEGA_ALLMODE_TOL = 1e-3
+#: ``pinv_diagonal``'s identity columns per solve (``bench.py:640``).
+MEGA_BLOCK = 1296
+GOLDEN_MSF = os.path.join("tests", "data", "golden_mega_msf_20736.npz")
 #: One H100 SXM (from NVIDIA's data sheet):
 #: HBM bytes/s, float32 FLOP/s outside the tensor cores; float64 FLOP/s
 #: outside the tensor cores from the same data sheet.
@@ -502,7 +544,7 @@ def make_ca_atoms(n, seed=0, chains=1, coord=None):
 
     rng = np.random.RandomState(seed)
     atoms = AtomArray(n)
-    atoms.coord = (rng.rand(n, 3) * 34.0 * (n / 300) ** (1 / 3)).astype(
+    atoms.coord = (rng.rand(n, 3) * (n / CA_DENSITY) ** (1 / 3)).astype(
         np.float32)
     if coord is not None:
         atoms.coord = coord
@@ -1274,11 +1316,16 @@ def compare(label, out, ref, tols):
                       for key, err in errs.items()), flush=True)
 
 
+def rel_rmse(got, ref):
+    """``sqrt(mean((got - ref)^2) / mean(ref^2))``, as the JAX package's
+    benchmark scores an MSF profile."""
+    return float((((got - ref) ** 2).mean() / (ref ** 2).mean()).sqrt())
+
+
 def msf_rel_rmse(label, msf32, msf64):
     """The repository's float32 regression line: relative RMSE of the
     float32 MSF against the float64 one, failing above MSF_RMSE_TOL."""
-    x, ref = msf32.double(), msf64.double()
-    rmse = float(((x - ref) ** 2).mean().sqrt() / (ref ** 2).mean().sqrt())
+    rmse = rel_rmse(msf32.double(), msf64.double())
     print(f"{label}: float32 MSF vs float64 engine: rel RMSE {rmse:.2e} "
           f"(tol {MSF_RMSE_TOL:g})", flush=True)
     check(rmse <= MSF_RMSE_TOL, f"{label}: MSF rel RMSE {rmse:.3e}")
@@ -2143,8 +2190,7 @@ def matfree_coord(n, seed=MATFREE_SEED):
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    spread = (n / (300 / 34.0 ** 3)) ** (1 / 3)
-    return (rng.rand(n, 3) * spread).astype(np.float32)
+    return (rng.rand(n, 3) * (n / CA_DENSITY) ** (1 / 3)).astype(np.float32)
 
 
 def sorted_layout(coord, cutoff):
@@ -2207,9 +2253,7 @@ def sd_enm_compact(n, chains=3, seed=0):
     """sdENM for `n` atoms as compact parameters: the 26-bin type tables
     and edges of the force field, residue types drawn as
     :func:`make_ca_atoms` draws them, `chains` equal runs of the array as
-    chains (array neighbours bonded within a chain).  Built from the
-    tables, not from a structure: the force-field object would hold an
-    ``(n, n, 26)`` table."""
+    chains (array neighbours bonded within a chain)."""
     import numpy as np
 
     import springcraft_tpu_torch as sct
@@ -3205,7 +3249,7 @@ def matfree_xl_paths(results, card):
             ("gnm", N_XL_GNM, XL_GNM_MODES, XL_GNM_WANTED, XL_GNM_OUTER)):
         torch.cuda.empty_cache()
         anm = family == "anm"
-        spread = (n / (300 / 34.0 ** 3)) ** (1 / 3)
+        spread = (n / CA_DENSITY) ** (1 / 3)
         t0 = time.perf_counter()
         coord = (rng.rand(n, 3) * spread).astype(np.float32)
         stages = {"draw": time.perf_counter() - t0}
@@ -3283,6 +3327,215 @@ def matfree_xl_paths(results, card):
     return launches
 
 
+def power_norm(h, steps=30):
+    """A lower bound of ``||h||_2`` for a symmetric PSD `h`: the Rayleigh
+    quotient after `steps` power iterations from a seeded start."""
+    import torch
+
+    x = torch.randn(h.shape[0], 1, device=h.device, dtype=h.dtype,
+                    generator=torch.Generator(h.device).manual_seed(1))
+    for _ in range(steps):
+        x = h @ x
+        x = x / torch.linalg.vector_norm(x)
+    return float((x.T @ (h @ x)).squeeze())
+
+
+def mode_observables(vals, vecs, n):
+    """Mode-sum MSF ``(n,)`` and the DCC rows of the first MEGA_DCC_SITES
+    atoms over all atoms, float64, from N_MODES modes in xyz layout
+    (``bench.py:525-535``)."""
+    import torch
+
+    vals = vals[:N_MODES].double()
+    planes = vecs[:N_MODES].double().reshape(N_MODES, 3, n)
+    weighted = planes / vals[:, None, None]
+    msf = torch.einsum("kai,kai->i", weighted, planes)
+    rows = torch.einsum("kai,kaj->ij", weighted[:, :, :MEGA_DCC_SITES],
+                        planes)
+    return msf, rows / torch.sqrt(msf[:MEGA_DCC_SITES, None]
+                                  * msf[None, :])
+
+
+def mega_north_star(results, card):
+    """The north star (``bench.py::bench_mega_tpu``) on the card: K5 at
+    (1, N_MEGA) sdENM against its plain version; then from zero launch
+    counts the 30,000-dimensional float32 Hessian built through
+    ``pallas_kernels.hessian_pallas``, ``lowest_modes_anm`` (N_MODES +
+    MODE_BUFFER modes, ``engine="auto"``: ``"chol"`` past 8,192
+    dimensions) with ``mode_residuals``, and ``refine_modes_f64`` on the
+    card (its host pair search and its float64 applies clocked apart),
+    each stage timed by :class:`Timer` to a synchronize on its first and
+    second call; the raw residuals, the mode-sum MSF and DCC block of the
+    raw modes against the refined ones; the proof at N_PROOF atoms
+    against float64 ``eigvalsh``.  Returns ``{path: launches}``."""
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import assembly, pallas_kernels, rigid
+    from springcraft_tpu_torch.ops import modes as modes_ops
+    from springcraft_tpu_torch.ops import pairs as pairs_ops
+    from springcraft_tpu_torch.utils import Timer, synchronize
+
+    torch.cuda.empty_cache()
+    atoms = make_ca_atoms(N_MEGA, seed=MEGA_SEED)
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    coord = torch.as_tensor(atoms.coord, device=DEVICE)
+    n, k = N_MEGA, N_MODES + MODE_BUFFER
+    record(results, "hessian_xyz",
+           lambda: pallas_kernels.hessian_pallas(coord, params)[None],
+           lambda: assembly.hessian_xyz_plain(coord[None], params),
+           (4 * (3 * n + 9 * n * n), 30 * n * n), reps=5, plain_reps=2,
+           label=" sdENM, the north star's input")
+    torch.cuda.empty_cache()
+
+    timer, stages = Timer(), {}
+
+    def run(call):
+        clocks = stages.setdefault(call, {})
+        with timer(f"build {call}"):
+            h = synchronize(pallas_kernels.hessian_pallas(coord, params))
+        with stage_clock(rigid, ("_regularize_equilibrated",
+                                 "_cholesky_factor"), clocks, {}), \
+                stage_clock(modes_ops, ("_shift_invert_iterate",), clocks,
+                            {}), timer(f"modes {call}"):
+            vals, vecs = synchronize(modes_ops.lowest_modes_anm(h, coord, k))
+        with timer(f"residuals {call}"):
+            res = synchronize(modes_ops.mode_residuals(h, vals, vecs))
+        with stage_clock(pairs_ops, ("neighbor_pairs", "hessian_apply_pairs"),
+                         clocks, {}), timer(f"refine {call}"):
+            refined = synchronize(modes_ops.refine_modes_f64(
+                coord, params, vecs, layout="xyz"))
+        return h, vals, vecs, res, refined
+
+    torch.cuda.reset_peak_memory_stats()
+    path = "mega_north_star"
+    (h, vals, vecs, res, (theta, ref_vecs, ref_res)), _, launches = drive(
+        path, lambda: run("first"))
+    del h, vecs, ref_vecs
+    torch.cuda.empty_cache()
+    h, vals, vecs, res, (theta, ref_vecs, ref_res) = run("second")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    norm = power_norm(h)
+    abs_res = (res[:N_MODES].double() * vals[:N_MODES].double().abs()
+               / norm)
+    worst = float(abs_res.max())
+    del h
+    torch.cuda.empty_cache()
+    raw_vs_ref = float(((vals[:N_MODES].double() - theta[:N_MODES]).abs()
+                        / theta[:N_MODES]).max())
+    msf32, dcc32 = mode_observables(vals, vecs, n)
+    msf64, dcc64 = mode_observables(theta, ref_vecs, n)
+    msf_err = rel_rmse(msf32, msf64)
+    dcc_err = float((dcc32 - dcc64).abs().max())
+    del vecs, ref_vecs, dcc32, dcc64
+    torch.cuda.empty_cache()
+    seconds = timer.totals
+    clause = ("build", "modes", "residuals", "refine")
+    total = {call: sum(seconds[f"{stage} {call}"] for stage in clause)
+             for call in ("first", "second")}
+    inner = {"_regularize_equilibrated": "regularization",
+             "_cholesky_factor": "Cholesky",
+             "_shift_invert_iterate": "sweeps and Rayleigh-Ritz",
+             "neighbor_pairs": "pair search (host)",
+             "hessian_apply_pairs": "float64 applies"}
+    print(f"{path}: n={n} ({3 * n} dimensions) sdENM float32, {N_MODES}"
+          f"(+{MODE_BUFFER}) modes; seconds, first / second call: "
+          + ", ".join(f"{stage} {seconds[stage + ' first']:.3f} / "
+                      f"{seconds[stage + ' second']:.3f}" for stage in clause)
+          + "; inside them: "
+          + ", ".join(f"{label} {stages['first'][name]:.3f} / "
+                      f"{stages['second'][name]:.3f}"
+                      for name, label in inner.items())
+          + f"; total {total['first']:.3f} / {total['second']:.3f} s "
+          f"(< {MEGA_CLAUSE_S:g} s clause: "
+          f"{'ok' if total['second'] < MEGA_CLAUSE_S else 'over'}); raw "
+          f"residuals |H u - lambda u| / lambda max "
+          f"{float(res[:N_MODES].max()):.3e}, / ||H||_2 (>= {norm:.6g}) max "
+          f"{worst:.3e} (tol {RESIDUAL_TOL:g}); refined float64 residuals "
+          f"max {float(ref_res[:N_MODES].max()):.3e}; raw-vs-refined "
+          f"eigenvalue rtol {raw_vs_ref:.3e}; mode-sum MSF rel RMSE "
+          f"{msf_err:.3e} (tol {MEGA_MSF_TOL:g}), DCC {MEGA_DCC_SITES}-row "
+          f"block max abs err {dcc_err:.3e} (tol {MEGA_DCC_TOL:g}); peak "
+          f"device memory {peak:.2f} GiB on [{card}]", flush=True)
+    check(bool(torch.isfinite(vals).all() and torch.isfinite(theta).all()),
+          f"{path}: non-finite modes")
+    check(worst <= RESIDUAL_TOL, f"{path}: raw residual {worst:.3e}")
+    check(msf_err <= MEGA_MSF_TOL, f"{path}: MSF rel RMSE {msf_err:.3e}")
+    check(dcc_err <= MEGA_DCC_TOL, f"{path}: DCC error {dcc_err:.3e}")
+
+    proof = make_ca_atoms(N_PROOF, seed=PROOF_SEED)
+    params_p = sct.TabulatedForceField.sd_enm(proof).to_compact_params()
+    coord_p = torch.as_tensor(proof.coord, device=DEVICE)
+    with timer("proof"):
+        h_p = pallas_kernels.hessian_pallas(coord_p, params_p)
+        raw_p, vecs_p = modes_ops.lowest_modes_anm(h_p, coord_p, k)
+        theta_p = modes_ops.refine_modes_f64(coord_p, params_p, vecs_p,
+                                             layout="xyz", block=512)[0]
+        truth = synchronize(torch.linalg.eigvalsh(assembly.hessian_matrix(
+            coord_p.double(), params_p, layout="xyz"))[6:6 + N_MODES])
+    raw_rtol = float(((raw_p[:N_MODES].double() - truth).abs()
+                      / truth).max())
+    ref_rtol = float(((theta_p[:N_MODES] - truth).abs() / truth).max())
+    print(f"{path} proof: n={N_PROOF} sdENM, float64 eigvalsh on the card: "
+          f"raw float32 eigenvalue rtol {raw_rtol:.3e}, refined "
+          f"{ref_rtol:.3e} (tol {REFINED_RTOL:g}); {timer.totals['proof']:.3f}"
+          f" s with the float64 assembly and eigvalsh", flush=True)
+    check(ref_rtol <= REFINED_RTOL,
+          f"{path}: refined eigenvalues {ref_rtol:.3e} off float64")
+    del h_p, vecs_p
+    torch.cuda.empty_cache()
+    return {path: launches}
+
+
+def mega_allmode_msf(results, card):
+    """The all-mode MSF at 20,736 dimensions (``bench.py:601-653``): the
+    golden's structure (``make_ca_atoms(6912, seed=5)``, sdENM); K5 at
+    (1, 6912) against its plain version; then from zero launch counts
+    the float32 Hessian through ``pallas_kernels.hessian_pallas`` and
+    ``rigid.pinv_diagonal(block_size=MEGA_BLOCK, donate=True)``, the
+    three xyz blocks summed and held against the committed float64
+    golden.  Returns ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import assembly, pallas_kernels, rigid
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), GOLDEN_MSF))
+    n = int(golden["n_res"])
+    atoms = make_ca_atoms(n, seed=int(golden["seed"]))
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    coord = torch.as_tensor(atoms.coord, device=DEVICE)
+    torch.cuda.empty_cache()
+    record(results, "hessian_xyz",
+           lambda: pallas_kernels.hessian_pallas(coord, params)[None],
+           lambda: assembly.hessian_xyz_plain(coord[None], params),
+           (4 * (3 * n + 9 * n * n), 30 * n * n), reps=5, plain_reps=2,
+           label=" sdENM, the golden's input")
+    torch.cuda.empty_cache()
+
+    def run():
+        h = pallas_kernels.hessian_pallas(coord, params)
+        t = rigid.rigid_modes_anm(coord, layout="xyz")
+        return rigid.pinv_diagonal(h, t, block_size=MEGA_BLOCK, donate=True)
+
+    path = "mega_allmode_msf"
+    diag, seconds, launches = drive(path, run)
+    msf = diag.double().reshape(3, n).sum(dim=0)
+    truth = torch.as_tensor(golden["msf"], device=DEVICE)
+    err = rel_rmse(msf, truth)
+    print(f"{path}: n={n} ({3 * n} dimensions) sdENM float32, "
+          f"pinv_diagonal(block_size={MEGA_BLOCK}) {seconds:.3f} s with the "
+          f"build (first call); all-mode MSF vs the float64 golden rel RMSE "
+          f"{err:.3e} (tol {MEGA_ALLMODE_TOL:g}) on [{card}]", flush=True)
+    check(bool(torch.isfinite(msf).all()), f"{path}: non-finite MSF")
+    check(err <= MEGA_ALLMODE_TOL, f"{path}: MSF rel RMSE {err:.3e}")
+    del diag
+    torch.cuda.empty_cache()
+    return {path: launches}
+
+
 def main():
     import torch
 
@@ -3345,6 +3598,10 @@ def main():
     phase("matfree_profile_paths")
     launches.update(matfree_xl_paths(parity, card))
     phase("matfree_xl_paths")
+    launches.update(mega_north_star(parity, card))
+    phase("mega_north_star")
+    launches.update(mega_allmode_msf(parity, card))
+    phase("mega_allmode_msf")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

@@ -50,7 +50,10 @@ Importing the package turns TF32 off for float32 matrix products (see
 :mod:`.utils.config`).
 """
 
+__version__ = "0.1.0"
+
 from .utils import config  # noqa: F401  (pins float32 precision)
+from . import ops, parallel, structure, utils
 from .ops.ffparams import (FFParams, PatchOverlay, from_numpy_params,
                            hinsen_params, invariant_params, pfenm_params,
                            strip_overlays, table_compact_params,
@@ -85,7 +88,8 @@ from .ops.matfree import (covariance_solve_matfree,
 from .ops.modes import (lowest_modes, lowest_modes_anm,
                         lowest_modes_shift_invert, refine_modes_f64,
                         refine_modes_f64_gnm)
-from .utils.config import resolve_device, synchronize
+from .utils.config import resolve_device
+from .utils.profiling import synchronize
 
 # Make `import springcraft_tpu_torch.nma` resolve to the models.nma module
 # (the reference's flat module layout; the forcefield/anm/gnm/interaction
@@ -95,6 +99,7 @@ import sys as _sys
 _sys.modules[__name__ + ".nma"] = nma
 
 __all__ = [
+    "__version__",
     "ANM",
     "GNM",
     "compute_kirchhoff",
@@ -109,6 +114,10 @@ __all__ = [
     "prs",
     "effector_sensor",
     "nma",
+    "ops",
+    "parallel",
+    "structure",
+    "utils",
     "FFParams",
     "PatchOverlay",
     "with_overlay",

@@ -393,7 +393,10 @@ class TabulatedForceField(ForceField):
             [same_chain_next & adjacent_res, [False]]
         )
 
-        self._interaction_matrix = self._build_interaction_matrix()
+        # the (n, n, bins) table is built on first use: the compact
+        # parameters (to_compact_params) need only the per-atom metadata,
+        # and at 10,000 atoms the table alone is 20.8 GB
+        self._interaction_matrix = None
 
     def _build_interaction_matrix(self):
         t = self._type_idx
@@ -415,14 +418,14 @@ class TabulatedForceField(ForceField):
 
     def force_constant(self, atom_i, atom_j, sq_distance):
         if self._edges is None or len(self._edges) == 1:
-            return self._interaction_matrix[atom_i, atom_j, 0]
+            return self.interaction_matrix[atom_i, atom_j, 0]
         bin_indices = np.searchsorted(self._edges**2, sq_distance)
         if (bin_indices >= len(self._edges)).any():
             raise ValueError(
                 "Atom interactions above cutoff distance are not "
                 "allowed in TabulatedForceField"
             )
-        return self._interaction_matrix[atom_i, atom_j, bin_indices]
+        return self.interaction_matrix[atom_i, atom_j, bin_indices]
 
     @property
     def cutoff_distance(self):
@@ -436,10 +439,12 @@ class TabulatedForceField(ForceField):
     def interaction_matrix(self):
         """The live position-specific table; mutations affect the force
         field (same contract as the reference attribute)."""
+        if self._interaction_matrix is None:
+            self._interaction_matrix = self._build_interaction_matrix()
         return self._interaction_matrix
 
     def to_params(self, natoms=None):
-        return ffparams.table_pair_params(self._interaction_matrix,
+        return ffparams.table_pair_params(self.interaction_matrix,
                                           self._edges)
 
     def to_compact_params(self):

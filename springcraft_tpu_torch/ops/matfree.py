@@ -112,6 +112,9 @@ __all__ = [
     "hessian_apply_dense",
     "hessian_apply_sparse",
     "kirchhoff_apply_sparse",
+    "hessian_apply_pallas",
+    "hessian_apply_pallas_sparse",
+    "kirchhoff_apply_pallas_sparse",
     "hessian_apply_sparse_plain",
     "kirchhoff_apply_sparse_plain",
     "hessian_apply_dense_plain",
@@ -1098,6 +1101,27 @@ for _wrapper in (pair_csr, hessian_apply_sparse, hessian_apply_dense,
     _wrapper.launches = 0
 for _wrapper in (pair_csr, hessian_apply_dense):
     _wrapper.table_launches = 0
+
+# The JAX package's names of the three operators (``matfree.py:451, 882,
+# 1022``), with its signatures less ``interpret=``.
+hessian_apply_pallas = hessian_apply_dense
+kirchhoff_apply_pallas_sparse = kirchhoff_apply_sparse
+
+
+def hessian_apply_pallas_sparse(coord, x, params, nbr, counts,
+                                orig_ids=None, tile=256, *,
+                                dtype=torch.float32, device=None,
+                                precision="highest"):
+    """:func:`hessian_apply_sparse` under the JAX package's name.  Its
+    `precision` chose the TPU's float32 products (``"highest"``) or one
+    bfloat16 pass (``"default"``, which it measured unusable for modes);
+    the port's gather computes in float32 and takes only
+    ``"highest"``."""
+    if precision != "highest":
+        raise ValueError(f"precision={precision!r}: the port's K13 computes "
+                         f"in float32 and takes only 'highest'")
+    return hessian_apply_sparse(coord, x, params, nbr, counts, orig_ids,
+                                tile, dtype=dtype, device=device)
 
 
 def _hessian_operator(coord, params, *, kernel, sparse, csr, pairs, tile,

@@ -21,6 +21,13 @@ Counterpart of ``springcraft_tpu/ops/spectrum.py:182-1501``:
    perturbative polish rounds and a windowed Rayleigh-Ritz), assembled in
    :func:`eigh_banded`; :func:`eigvalsh_banded` stops after step 2.
 
+The JAX package's other public names are here too:
+:func:`banded_eigenvalues_pallas` (step 2 through the kernel wrapper
+alone), :func:`eigh_banded_staged` (one matrix, the same solve) and the
+legacy rank-2 path :func:`tridiagonalize`, :func:`tridiagonal_eigenvalues`
+and :func:`eigvalsh_sturm` (``spectrum.py:70-180``), plain torch, as the
+JAX package has no kernel there.
+
 Everything is batched natively over a leading dimension.  The kernels
 take float32 band matrices of bandwidth at most 8 (the JAX package's
 rule for its Pallas kernels, ``spectrum.py:1333, 1467``): such inputs go
@@ -40,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.config import check_use_pallas
 
 __all__ = [
     "MAX_KERNEL_BANDWIDTH",
@@ -58,6 +66,11 @@ __all__ = [
     "banded_eigenvectors",
     "eigvalsh_banded",
     "eigh_banded",
+    "banded_eigenvalues_pallas",
+    "eigh_banded_staged",
+    "tridiagonalize",
+    "tridiagonal_eigenvalues",
+    "eigvalsh_sturm",
 ]
 
 #: Widest band the kernels take (their window is a template of w = b + 1).
@@ -861,3 +874,109 @@ def eigh_banded(matrix, bandwidth=8, n_iter=40, n_solves=2,
         vecs, vals = _window_refine(a, u, vals, max(32, window))
     vecs = _mt(vecs)
     return (vals[0], vecs[0]) if squeeze else (vals, vecs)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's other public names
+# ---------------------------------------------------------------------------
+
+
+def banded_eigenvalues_pallas(diags, n_iter=40):
+    """All eigenvalues (ascending) of band matrices given as diagonals
+    ``(w, n)`` or ``(B, w, n)``, always through the bisection wrapper
+    :func:`banded_bisect`: K10 on CUDA (float32, bandwidth at most 8, or
+    it raises), its plain version on the CPU (``spectrum.py:1242``).  The
+    TPU plans ``interpret=``, ``vmem_budget=`` and ``unroll=`` are not
+    carried over."""
+    squeeze = diags.ndim == 2
+    d = diags[None] if squeeze else diags
+    out = banded_bisect(*bisect_inputs(d), n_iter)
+    return out[0] if squeeze else out
+
+
+def eigh_banded_staged(matrix, bandwidth=8, n_iter=40, use_pallas=None,
+                       n_solves=2, shift_chunk=256, window=8):
+    """:func:`eigh_banded` of one ``(n, n)`` matrix
+    (``spectrum.py:1556``).  The JAX package splits the solve into four
+    device programs for its TPU compiler; eager torch runs the same
+    stages in one call.  `use_pallas` as the entry points read it
+    (``False`` asks for the plain versions, for the CPU).  Returns
+    ``(eig_values, modes in rows)``."""
+    if matrix.ndim != 2:
+        raise ValueError("eigh_banded_staged takes a single (n, n) "
+                         "matrix; use eigh_banded for batches")
+    check_use_pallas(use_pallas, matrix.device)
+    return eigh_banded(matrix, bandwidth=bandwidth, n_iter=n_iter,
+                       n_solves=n_solves, shift_chunk=shift_chunk,
+                       window=window)
+
+
+def tridiagonalize(matrix):
+    """Householder reduction of a symmetric ``(n, n)`` matrix to
+    tridiagonal form by ``n - 2`` rank-2 updates (``spectrum.py:70-108``,
+    the same reflector signs).  Returns ``(diag (n,), offdiag (n - 1,))``."""
+    a = matrix
+    n = a.shape[-1]
+    idx = torch.arange(n, device=a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    for k in range(n - 2):
+        x = torch.where(idx > k, a[:, k], zero)
+        norm_x = torch.sqrt(torch.sum(x * x))
+        head = x[k + 1]
+        alpha = -torch.sign(torch.where(head == 0, 1.0, head)) * norm_x
+        v = torch.where(idx == k + 1, x - alpha, x)
+        v_norm = torch.sqrt(torch.sum(v * v))
+        # skip the update where the column is already reduced
+        safe = v_norm > _TINY
+        v = torch.where(safe, v / torch.where(safe, v_norm, 1.0), zero)
+        u = a @ v
+        gamma = v @ u
+        a = (a - 2.0 * torch.outer(v, u) - 2.0 * torch.outer(u, v)
+             + 4.0 * gamma * torch.outer(v, v))
+    return torch.diagonal(a), torch.diagonal(a, offset=1)
+
+
+def _sturm_counts(diag, offdiag, shifts):
+    """Eigenvalues of the tridiagonal matrix below each shift, by the
+    LDL^t recurrence, for a vector of shifts (``spectrum.py:111-135``)."""
+    e2 = torch.cat([torch.zeros(1, dtype=diag.dtype, device=diag.device),
+                    offdiag * offdiag])
+    tiny = torch.tensor(_TINY, dtype=diag.dtype, device=diag.device)
+    q = diag[0] - shifts
+    count = (q < 0).to(torch.int32)
+    for i in range(1, diag.shape[0]):
+        q_safe = torch.where(q.abs() < tiny, torch.where(q < 0, -tiny, tiny),
+                             q)
+        q = (diag[i] - shifts) - e2[i] / q_safe
+        count += q < 0
+    return count
+
+
+def tridiagonal_eigenvalues(diag, offdiag, n_iter=45):
+    """All eigenvalues (ascending) of a symmetric tridiagonal matrix by
+    `n_iter` halvings of its Gershgorin interval for every eigenvalue at
+    once (``spectrum.py:138-165``)."""
+    n = diag.shape[0]
+    zero = torch.zeros(1, dtype=diag.dtype, device=diag.device)
+    e_pad = torch.cat([zero, offdiag.abs(), zero])
+    radius = e_pad[:-1] + e_pad[1:]
+    lo = torch.min(diag - radius).expand(n)
+    hi = torch.max(diag + radius).expand(n)
+    targets = torch.arange(n, dtype=torch.int32, device=diag.device)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        # count <= j: eigenvalue j lies at or above mid
+        go_up = _sturm_counts(diag, offdiag, mid) <= targets
+        lo = torch.where(go_up, mid, lo)
+        hi = torch.where(go_up, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def eigvalsh_sturm(matrix, n_iter=45):
+    """Eigenvalues (ascending) of a symmetric ``(n, n)`` or ``(B, n, n)``
+    matrix by :func:`tridiagonalize` and :func:`tridiagonal_eigenvalues`,
+    without eigenvectors (``spectrum.py:168-179``)."""
+    if matrix.ndim == 2:
+        return tridiagonal_eigenvalues(*tridiagonalize(matrix),
+                                       n_iter=n_iter)
+    return torch.stack([eigvalsh_sturm(m, n_iter=n_iter) for m in matrix])

@@ -26,9 +26,12 @@ import torch
 __all__ = [
     "resolve_device",
     "as_tensor",
-    "synchronize",
     "check_use_pallas",
     "check_elastic",
+    "enable_x64",
+    "x64_enabled",
+    "resolve_backend",
+    "default_dtype",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,15 +68,6 @@ def as_tensor(x, dtype, device=None):
                            device=resolve_device(device))
 
 
-def synchronize(device=None):
-    """Wait for all work queued on the current CUDA device, or on
-    `device` (a no-op for a CPU device)."""
-    if device is None:
-        torch.cuda.synchronize()
-    elif torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def check_use_pallas(use_pallas, device):
     """The JAX package's ``use_pallas=`` switch, read on `device`.
 
@@ -95,9 +89,43 @@ def check_use_pallas(use_pallas, device):
 def check_elastic(checkpoint=None, retries=0):
     """``checkpoint=`` / ``retries=`` of the JAX package's long solvers:
     the port has no elastic loop yet (``utils/elastic.py``, ROADMAP.md
-    queue 1 item 5), so only ``None`` and ``0`` are taken."""
+    queue 1 item 2), so only ``None`` and ``0`` are taken."""
     if checkpoint is not None or retries != 0:
         raise NotImplementedError(
             "checkpoint= and retries= need the elastic loop of "
-            "utils/elastic.py, not ported yet (ROADMAP.md queue 1 item 5); "
+            "utils/elastic.py, not ported yet (ROADMAP.md queue 1 item 2); "
             "pass checkpoint=None, retries=0")
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's precision switches, with their torch meaning
+# ---------------------------------------------------------------------------
+#
+# JAX computes in float32 unless its x64 mode is on; torch has float64 on
+# every device and no such mode.  What the switch still decides in torch is
+# the default floating dtype of tensors made without one.
+
+
+def enable_x64(enabled=True):
+    """Make float64 (or, with ``enabled=False``, float32) torch's default
+    floating dtype (``torch.set_default_dtype``).  Float64 tensors run on
+    every device either way."""
+    torch.set_default_dtype(torch.float64 if enabled else torch.float32)
+
+
+def x64_enabled():
+    """Whether torch's default floating dtype is float64."""
+    return torch.get_default_dtype() == torch.float64
+
+
+def default_dtype():
+    """float64 when :func:`x64_enabled`, else float32 (numpy dtypes)."""
+    return np.float64 if x64_enabled() else np.float32
+
+
+def resolve_backend(dtype):
+    """``"torch"`` for every `dtype` numpy knows: unlike JAX without x64
+    mode, torch computes float64 itself, so nothing falls back to
+    numpy."""
+    np.dtype(dtype)
+    return "torch"

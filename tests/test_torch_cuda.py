@@ -2178,3 +2178,131 @@ def test_pair_csr_degree_passes_on_cuda(cuda, family, masses):
     assert _rel(got, matfree.hessian_diag_blocks(c, params)) <= 1e-6
     got = matfree._pair_degree(*args, setup.csr.ids)[inv]
     assert _rel(got, matfree.kirchhoff_degree(c, params)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The JAX kernel modules' public names and the mega-assembly north star
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its ``make_ca_atoms`` draws the JAX
+    benchmark's structures bit for bit (tests/test_torch_mega.py)."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_under_test", os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _sd_enm_system(n, seed, device):
+    atoms = _chip_smoke().make_ca_atoms(n, seed=seed)
+    params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    return torch.as_tensor(atoms.coord, device=device), params
+
+
+def test_kernel_names_launch_their_wrappers(cuda):
+    """Each JAX kernel-module name launches its kernel on CUDA tensors and
+    matches the wrapper's plain version."""
+    from springcraft_tpu_torch.ops import pallas_kernels
+
+    coord, params = _sd_enm_system(3000, 2, cuda)
+    wrappers = sct.kernel_wrappers()
+    before = {name: w.launches for name, w in wrappers.items()}
+    h = pallas_kernels.hessian_pallas(coord, params)
+    _assert_hessian_parts(h[None], assembly.hessian_xyz_plain(coord[None],
+                                                              params))
+    k = pallas_kernels.kirchhoff_pallas(coord, params)
+    _assert_kirchhoff_parts(k[None], assembly.kirchhoff_plain(coord[None],
+                                                              params))
+    small, small_params = _sd_enm_system(300, 3, cuda)
+    coords = torch.stack([small, small + 0.1]).contiguous()
+    planes = pallas_kernels.hessian_pallas_ensemble(coords, small_params,
+                                                    raw_planes=True)
+    _assert_hessian_parts(torch.stack(planes),
+                          assembly.hessian_planes_plain(coords, small_params))
+    _assert_kirchhoff_parts(
+        pallas_kernels.kirchhoff_pallas_ensemble(coords, small_params),
+        assembly.kirchhoff_plain(coords, small_params))
+    x = torch.randn(3 * 3000, 8, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    assert _rel(matfree.hessian_apply_pallas(coord, x, params),
+                matfree.hessian_apply_dense_plain(coord, x, params)) <= 1e-5
+    perm = matfree.spatial_sort_permutation(coord.cpu().numpy())
+    sorted_coord = coord[torch.as_tensor(perm, device=cuda)]
+    nbr, counts = matfree.tile_neighbor_lists(sorted_coord.cpu().numpy(),
+                                              float(np.sqrt(params.cutoff_sq)),
+                                              256)
+    ids = perm.astype(np.int32)
+    got = matfree.hessian_apply_pallas_sparse(sorted_coord, x, params, nbr,
+                                              counts, orig_ids=ids)
+    csr = matfree.tile_csr(nbr, counts, ids, 3000, 256, cuda)
+    assert _rel(got, matfree.hessian_apply_sparse_plain(
+        sorted_coord, x, params, csr, 256)) <= 1e-5
+    got = matfree.kirchhoff_apply_pallas_sparse(sorted_coord, x[:3000],
+                                                params, nbr, counts,
+                                                orig_ids=ids)
+    assert _rel(got, matfree.kirchhoff_apply_sparse_plain(
+        sorted_coord, x[:3000], params, csr, 256)) <= 1e-5
+    diags = spectrum.band_reduce(h[:900, :900].contiguous()[None], 8)
+    feed, lo, hi = spectrum.bisect_inputs(diags)
+    assert _rel(spectrum.banded_eigenvalues_pallas(diags),
+                spectrum.banded_bisect_plain(feed, lo, hi, 40)) <= 1e-5
+    torch.cuda.synchronize()
+    launched = {name: w.launches - before[name]
+                for name, w in wrappers.items()}
+    for name in ("hessian_xyz", "kirchhoff", "hessian_planes",
+                 "hessian_apply_dense", "pair_csr", "hessian_apply_sparse",
+                 "kirchhoff_apply_sparse", "banded_bisect"):
+        assert launched[name] > 0, name
+
+
+def test_north_star_chain_on_cuda(cuda):
+    """The north star's chain at 3,000 sdENM atoms: K5 through
+    ``hessian_pallas``, 20 (+4) modes by ``lowest_modes_anm`` (``"chol"``
+    past 8,192 dimensions), their residuals, the float64 refinement on the
+    card, against float64 ``eigvalsh`` of the plain float64 Hessian."""
+    from springcraft_tpu_torch.ops import modes, pallas_kernels
+
+    coord, params = _sd_enm_system(3000, 2, cuda)
+    h = pallas_kernels.hessian_pallas(coord, params)
+    vals, vecs = modes.lowest_modes_anm(h, coord, 24)
+    res = modes.mode_residuals(h, vals, vecs)
+    theta, refined, refined_res = modes.refine_modes_f64(coord, params, vecs,
+                                                         layout="xyz")
+    truth = torch.linalg.eigvalsh(assembly.hessian_matrix(
+        coord.double(), params, layout="xyz"))
+    norm = float(truth[-1])
+    assert float((res[:20].double() * vals[:20].double()).max()) \
+        <= 5e-4 * norm
+    assert float((vals[:20].double() - truth[6:26]).abs().max()) \
+        <= 1e-4 * norm
+    assert refined.dtype == torch.float64 and refined.device.type == "cuda"
+    assert float(((theta[:20] - truth[6:26]).abs() / truth[6:26]).max()) \
+        <= 1e-6
+    assert bool(torch.isfinite(refined_res).all())
+
+
+def test_pinv_diagonal_matches_the_golden_on_cuda(cuda):
+    """The all-mode MSF at 20,736 dimensions (float32, K5 through
+    ``hessian_pallas``, ``pinv_diagonal(block_size=1296)``) against the
+    committed float64 golden, relative RMSE 1e-3."""
+    import os
+
+    from springcraft_tpu_torch.ops import pallas_kernels
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "data", "golden_mega_msf_20736.npz"))
+    n = int(golden["n_res"])
+    coord, params = _sd_enm_system(n, int(golden["seed"]), cuda)
+    h = pallas_kernels.hessian_pallas(coord, params)
+    diag = rigid.pinv_diagonal(h, rigid.rigid_modes_anm(coord, layout="xyz"),
+                               block_size=1296, donate=True)
+    del h
+    msf = diag.double().reshape(3, n).sum(dim=0).cpu().numpy()
+    truth = np.asarray(golden["msf"])
+    err = np.sqrt(np.mean((msf - truth) ** 2) / np.mean(truth ** 2))
+    assert err <= 1e-3

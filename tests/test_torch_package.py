@@ -47,7 +47,10 @@ def test_import_leaves_jax_out():
                  "springcraft_tpu_torch.gnm, "
                  "springcraft_tpu_torch.interaction, "
                  "springcraft_tpu_torch.forcefield, "
-                 "springcraft_tpu_torch.parallel.pipeline; "
+                 "springcraft_tpu_torch.parallel.pipeline, "
+                 "springcraft_tpu_torch.ops.pallas_kernels, "
+                 "springcraft_tpu_torch.ops.pallas_linalg, "
+                 "springcraft_tpu_torch.utils.profiling; "
                  "bad = sorted(m for m in sys.modules if m == 'jax' or "
                  "m.startswith(('jax.', 'springcraft_tpu.'))"
                  " or m == 'springcraft_tpu'); print(bad)"], cwd=ROOT)
