@@ -154,7 +154,24 @@ Phases:
      eigenvalues against float64 ``eigvalsh``; then the all-mode MSF at
      20,736 dimensions (``pinv_diagonal``, K5 at (1, 6912) held too)
      against the committed float64 golden
-     ``tests/data/golden_mega_msf_20736.npz``.
+     ``tests/data/golden_mega_msf_20736.npz``;
+   * the large-structure path after the xl phase
+     (``large_structure_paths``): the 100,000 xl ANM atoms rounded to 3
+     decimals as a CA trace of four chains of 25,000 residues (one chain
+     "AA"), written as gzipped mmCIF and as BinaryCIF (the PDB encoder's
+     codecs, this script's writers) and read back by ``load_structure``
+     and ``load_ensemble`` to the written annotations and coordinates;
+     from the BinaryCIF coordinates the xl ANM (K13) and GNM (K14) solves
+     from zero launch counts: twice uninterrupted (bit for bit),
+     checkpointed, interrupted after outer iteration 3 and resumed from
+     the snapshot, retried through one injected device failure (ANM),
+     each equal to the uninterrupted solve; ``save_results`` /
+     ``load_results``; the staged shift-invert on 7cal's eANM Hessian
+     interrupted and resumed; ``save_model`` / ``load_model`` of 7cal's
+     GNM and chain A's eANM ANM, observables bit for bit, rebuilding
+     refused without a force field; a normal-mode trajectory through
+     ``write_pdb`` and ``load_ensemble``; the write, read, solve and
+     snapshot seconds and bytes.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -324,6 +341,13 @@ PATH_KERNELS = {
     # the mega-assembly north star through pallas_kernels.hessian_pallas
     "mega_north_star": ("hessian_xyz",),
     "mega_allmode_msf": ("hessian_xyz",),
+    # the large structure read from BinaryCIF: the xl solves plain, again,
+    # checkpointed, interrupted, resumed and retried
+    **{f"anm_large_{run}": ("pair_csr", "hessian_apply_sparse")
+       for run in ("plain", "repeat", "checkpointed", "interrupted",
+                   "resumed", "retried")},
+    **{f"gnm_large_{run}": ("pair_csr", "kirchhoff_apply_sparse")
+       for run in ("plain", "repeat", "interrupted", "resumed")},
 }
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
@@ -412,7 +436,8 @@ MODEL_PROFILE_TOL = 1e-3
 #: matrix-free-xl (bench.py:871-925): one RandomState(7) draws the
 #: 100,000-atom ANM and then the 1,000,000-atom GNM at CA density,
 #: invariant 13 A; 10 (+4) ANM modes after 8 outer iterations, 6 (+4) GNM
-#: modes after 6, degree 96, tol 5e-4, retries=0 (the port's only value).
+#: modes after 6, degree 96, tol 5e-4, retries=0 (the JAX bench's
+#: retries=1 guards its remote TPU; large_structure_paths retries).
 XL_SEED = 7
 N_XL_ANM, N_XL_GNM = 100_000, 1_000_000
 XL_ANM_MODES, XL_ANM_WANTED, XL_ANM_OUTER = 14, 10, 8
@@ -3327,6 +3352,586 @@ def matfree_xl_paths(results, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The large-structure path: BinaryCIF / mmCIF files -> structure ->
+# checkpointed, resumed matrix-free modes -> results on disk
+# ---------------------------------------------------------------------------
+
+#: BinaryCIF ByteArray type codes (BinaryCIF 0.3).
+_BCIF_TYPES = {"i1": 1, "i2": 2, "i4": 3, "u1": 4, "u2": 5, "u4": 6,
+               "f4": 32, "f8": 33}
+#: The mmCIF ``atom_site`` columns the writers emit, in order.
+CIF_COLUMNS = ("group_PDB", "id", "type_symbol", "label_atom_id",
+               "label_alt_id", "label_comp_id", "label_asym_id",
+               "label_seq_id", "Cartn_x", "Cartn_y", "Cartn_z", "occupancy",
+               "B_iso_or_equiv", "auth_seq_id", "auth_asym_id",
+               "pdbx_PDB_model_num")
+#: Chains of the large structure: four of equal length, one with a
+#: two-character ID (PDB's chain column holds one).
+LARGE_CHAINS = ("A", "B", "C", "AA")
+#: Outer iteration after which the checkpointed solves are interrupted.
+INTERRUPT_AFTER = 3
+
+
+def large_structure(n, seed=XL_SEED, chains=LARGE_CHAINS):
+    """The matrix-free-xl ANM atoms (``matfree_coord(n, seed)``: the first
+    draw of ``matfree_xl_paths``), rounded to 3 decimals, as a CA trace of
+    ``len(chains)`` equal chains numbered from 1 (residue IDs past 9,999
+    at 100,000 atoms), residue types cycling through AA20.  Returns
+    ``(atoms, drawn float32 coordinates, written float64 coordinates)``."""
+    import numpy as np
+
+    from springcraft_tpu_torch.structure import AtomArray
+
+    drawn = matfree_coord(n, seed)
+    written = np.round(drawn.astype(np.float64), 3)
+    per_chain = n // len(chains)
+    atoms = AtomArray(n)
+    atoms.coord = written
+    atoms.chain_id = np.repeat(np.array(chains), per_chain)
+    atoms.res_id = np.tile(np.arange(1, per_chain + 1), len(chains))
+    atoms.res_name = np.array(AA20)[np.arange(n) % len(AA20)]
+    atoms.atom_name = np.full(n, "CA")
+    atoms.element = np.full(n, "C")
+    return atoms, drawn, written
+
+
+def write_mmcif(path, atoms, coord_models=None):
+    """`atoms` as an mmCIF ``atom_site`` loop (gzipped for a ``.gz``
+    path), one model per entry of `coord_models` ``(m, n, 3)``
+    (``atoms.coord`` alone by default); coordinates to 3 decimals."""
+    import gzip
+
+    import numpy as np
+
+    models = (np.asarray(atoms.coord)[None] if coord_models is None
+              else np.asarray(coord_models))
+    n = atoms.array_length()
+    rows = list(zip(*(np.asarray(getattr(atoms, name)).tolist() for name in (
+        "element", "atom_name", "res_name", "chain_id", "res_id"))))
+    lines = ["data_LARGE", "#", "loop_"]
+    lines += [f"_atom_site.{name}" for name in CIF_COLUMNS]
+    for m, coord in enumerate(models, start=1):
+        for i, ((element, name, res, chain, seq), (x, y, z)) in enumerate(
+                zip(rows, coord.tolist())):
+            lines.append(
+                f"ATOM {(m - 1) * n + i + 1} {element} {name} . {res} "
+                f"{chain} {seq} {x:.3f} {y:.3f} {z:.3f} 1.00 0.00 {seq} "
+                f"{chain} {m}")
+    text = "\n".join(lines + ["#", ""])
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wt") as fh:
+        fh.write(text)
+
+
+def _bcif_byte_array(values, dtype):
+    import numpy as np
+
+    data = np.asarray(values).astype(np.dtype(dtype).newbyteorder("<"))
+    return data.tobytes(), {"kind": "ByteArray", "type": _BCIF_TYPES[dtype]}
+
+
+def _bcif_fixed_point(values, factor=1000):
+    import numpy as np
+
+    ints = np.round(np.asarray(values, np.float64) * factor).astype(np.int64)
+    return ints, {"kind": "FixedPoint", "factor": factor, "srcType": 33}
+
+
+def _bcif_delta(values):
+    import numpy as np
+
+    values = np.asarray(values, np.int64)
+    diffs = np.diff(values, prepend=values[:1])
+    return diffs, {"kind": "Delta", "origin": int(values[0]), "srcType": 3}
+
+
+def _bcif_run_length(values):
+    import numpy as np
+
+    values = np.asarray(values, np.int64)
+    starts = np.flatnonzero(np.r_[True, values[1:] != values[:-1]])
+    counts = np.diff(np.r_[starts, len(values)])
+    pairs = np.stack([values[starts], counts], axis=1).reshape(-1)
+    return pairs, {"kind": "RunLength", "srcType": 3,
+                   "srcSize": len(values)}
+
+
+def _bcif_integer_packing(values, byte_count):
+    """Signed upper-limit packing: a value past the limit becomes runs of
+    the limit and a remainder (the inverse of ``bcif``'s decoder)."""
+    import numpy as np
+
+    values = np.asarray(values, np.int64)
+    upper = (1 << (8 * byte_count - 1)) - 1
+    lower = -(1 << (8 * byte_count - 1))
+    limit = np.where(values >= 0, upper, lower)
+    runs = values // limit
+    rest = values - runs * limit
+    packed = np.repeat(limit, runs + 1)
+    packed[np.cumsum(runs + 1) - 1] = rest
+    return packed, {"kind": "IntegerPacking", "byteCount": byte_count,
+                    "isUnsigned": False, "srcSize": len(values)}
+
+
+def _bcif_column(name, data, encodings, mask=None):
+    column = {"name": name, "data": {"data": data, "encoding": encodings},
+              "mask": None}
+    if mask is not None:
+        mdata, menc = _bcif_byte_array(mask, "u1")
+        column["mask"] = {"data": mdata, "encoding": [menc]}
+    return column
+
+
+def _bcif_integers(name, values, byte_count=1):
+    """An integer column as the PDB's encoder writes ``atom_site``'s:
+    Delta, RunLength, IntegerPacking, ByteArray."""
+    diffs, delta = _bcif_delta(values)
+    pairs, run_length = _bcif_run_length(diffs)
+    packed, packing = _bcif_integer_packing(pairs, byte_count)
+    data, byte_array = _bcif_byte_array(packed, f"i{byte_count}")
+    return _bcif_column(name, data, [delta, run_length, packing,
+                                     byte_array])
+
+
+def _bcif_strings(name, values, mask=None):
+    """A string column: StringArray over the distinct strings, indices as
+    RunLength + ByteArray."""
+    import numpy as np
+
+    values = np.asarray(values).astype(str)
+    unique, index = np.unique(values, return_inverse=True)
+    offsets = np.r_[0, np.cumsum([len(s) for s in unique])]
+    pairs, run_length = _bcif_run_length(index)
+    idx_data, idx_enc = _bcif_byte_array(pairs, "i4")
+    off_data, off_enc = _bcif_byte_array(offsets, "i4")
+    return _bcif_column(name, idx_data, [{
+        "kind": "StringArray", "dataEncoding": [run_length, idx_enc],
+        "stringData": "".join(unique), "offsetEncoding": [off_enc],
+        "offsets": off_data}], mask)
+
+
+def _bcif_coords(name, values):
+    """A coordinate column: FixedPoint (1/1000 A), ByteArray int32."""
+    ints, fixed = _bcif_fixed_point(values)
+    data, byte_array = _bcif_byte_array(ints, "i4")
+    return _bcif_column(name, data, [fixed, byte_array])
+
+
+def write_bcif(path, atoms, coord_models=None):
+    """`atoms` as a BinaryCIF file (gzipped for a ``.gz`` path) with the
+    columns of :func:`write_mmcif`, encoded as the PDB's BinaryCIF encoder
+    encodes ``atom_site``: FixedPoint coordinates, Delta / RunLength /
+    IntegerPacking integers, StringArray strings, a mask of ``.`` on the
+    alternate locations; MessagePack through the port's ``bcif._pack``."""
+    import gzip
+
+    import numpy as np
+
+    from springcraft_tpu_torch.structure.bcif import _pack
+
+    models = (np.asarray(atoms.coord)[None] if coord_models is None
+              else np.asarray(coord_models))
+    m, n = models.shape[:2]
+
+    def tile(annotation):
+        return np.tile(np.asarray(annotation), m)
+
+    coord = models.reshape(-1, 3)
+    columns = [
+        _bcif_strings("group_PDB", np.full(m * n, "ATOM")),
+        _bcif_integers("id", np.arange(1, m * n + 1)),
+        _bcif_strings("type_symbol", tile(atoms.element)),
+        _bcif_strings("label_atom_id", tile(atoms.atom_name)),
+        _bcif_strings("label_alt_id", np.full(m * n, ""),
+                      mask=np.ones(m * n, np.uint8)),
+        _bcif_strings("label_comp_id", tile(atoms.res_name)),
+        _bcif_strings("label_asym_id", tile(atoms.chain_id)),
+        _bcif_integers("label_seq_id", tile(atoms.res_id)),
+        *(_bcif_coords(f"Cartn_{axis}", coord[:, a])
+          for a, axis in enumerate("xyz")),
+        _bcif_coords("occupancy", np.ones(m * n)),
+        _bcif_coords("B_iso_or_equiv", np.zeros(m * n)),
+        _bcif_integers("auth_seq_id", tile(atoms.res_id)),
+        _bcif_strings("auth_asym_id", tile(atoms.chain_id)),
+        _bcif_integers("pdbx_PDB_model_num",
+                       np.repeat(np.arange(1, m + 1), n)),
+    ]
+    doc = _pack({"version": "0.3.0", "encoder": "chip_smoke.py",
+                 "dataBlocks": [{"header": "LARGE", "categories": [{
+                     "name": "_atom_site", "rowCount": m * n,
+                     "columns": columns}]}]})
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wb") as fh:
+        fh.write(doc)
+
+
+class Interrupted(Exception):
+    """The non-device exception that interrupts a checkpointed solve."""
+
+
+def _device_failure():
+    """A transient device failure as torch raises it (``AcceleratorError``
+    where torch has it, else the ``RuntimeError`` of older versions)."""
+    import torch
+
+    return getattr(torch, "AcceleratorError", RuntimeError)(
+        "CUDA error: unspecified launch failure (injected by chip_smoke.py)")
+
+
+@contextlib.contextmanager
+def injected(module, name, fail_at=None, exc=None):
+    """Wrap ``module.name`` for the block: count its calls in the yielded
+    ``[count]`` and raise `exc` instead of call number `fail_at`."""
+    original = getattr(module, name)
+    calls = [0]
+
+    def call(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == fail_at:
+            raise exc
+        return original(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def _spread(out, ref):
+    """Max |a - b| of each tensor of `out` against `ref`."""
+    return [float((a.double() - b.double()).abs().max())
+            for a, b in zip(out, ref)]
+
+
+def _large_files(atoms, drawn, written, tmp, card):
+    """Write the large structure as gzipped mmCIF and as BinaryCIF, read
+    both back with ``load_structure`` and the BinaryCIF with
+    ``load_ensemble``; returns the BinaryCIF's coordinates."""
+    import numpy as np
+
+    from springcraft_tpu_torch.structure import (load_ensemble,
+                                                 load_structure, write_pdb)
+
+    n = atoms.array_length()
+    spacing = float(np.spacing(np.float32(np.abs(written).max())))
+    read, notes = {}, []
+    for fmt, name, writer in (("mmCIF", "large.cif.gz", write_mmcif),
+                              ("BinaryCIF", "large.bcif", write_bcif)):
+        path = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        writer(path, atoms)
+        t1 = time.perf_counter()
+        got = load_structure(path)
+        t2 = time.perf_counter()
+        check(got.array_length() == n, f"{fmt}: {got.array_length()} atoms")
+        for annotation in ("chain_id", "res_id", "res_name", "atom_name",
+                           "element"):
+            check(np.array_equal(getattr(got, annotation),
+                                 getattr(atoms, annotation)),
+                  f"{fmt}: {annotation} differs from what was written")
+        check(not got.hetero.any(), f"{fmt}: hetero atoms")
+        check(got.coord.dtype == np.float32, f"{fmt}: coordinate dtype")
+        written_err = float(np.abs(got.coord - written).max())
+        drawn_err = float(np.abs(got.coord - drawn).max())
+        check(written_err <= spacing / 2,
+              f"{fmt}: {written_err:.3e} A from the written coordinates")
+        check(drawn_err <= 5e-4 + spacing,
+              f"{fmt}: {drawn_err:.3e} A from the drawn coordinates")
+        read[fmt] = got.coord
+        notes.append(f"{fmt} {os.path.getsize(path) / 1e6:.2f} MB, write "
+                     f"{t1 - t0:.3f} s, read {t2 - t1:.3f} s, "
+                     f"{drawn_err:.3e} A from the drawn coordinates")
+    t0 = time.perf_counter()
+    first, models = load_ensemble(os.path.join(tmp, "large.bcif"))
+    ensemble_s = time.perf_counter() - t0
+    check(models.shape == (1, n, 3)
+          and np.array_equal(models[0], read["BinaryCIF"])
+          and np.array_equal(first.chain_id, atoms.chain_id),
+          "load_ensemble of the BinaryCIF")
+    apart = float(np.abs(read["mmCIF"] - read["BinaryCIF"]).max())
+    check(apart <= spacing, f"mmCIF and BinaryCIF {apart:.3e} A apart")
+    try:
+        write_pdb(os.path.join(tmp, "large.pdb"), atoms)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise RuntimeError("chip_smoke: check failed: write_pdb wrote "
+                           f"{n} atoms")
+    print(f"large_structure files: n={n}, chains {'/'.join(LARGE_CHAINS)}, "
+          f"residue IDs 1-{int(atoms.res_id.max())}: " + "; ".join(notes)
+          + f"; load_ensemble (BinaryCIF) {ensemble_s:.3f} s; the two "
+          f"formats {apart:.3e} A apart (one float32 spacing "
+          f"{spacing:.3e}); write_pdb refused: {refusal} [{card}]",
+          flush=True)
+    return read["BinaryCIF"]
+
+
+def _large_solves(coord, tmp, card):
+    """The xl ANM and GNM solves on the large structure's coordinates
+    (the GNM without `tol`, so that it runs past the interruption: its
+    6 outer iterations are few enough, and its residuals are held to
+    XL_TOL as the ANM's), (a) two uninterrupted calls, then with
+    ``checkpoint=`` uninterrupted (ANM), (b) interrupted after outer iteration INTERRUPT_AFTER by a
+    non-device exception and resumed, (c) ``retries=1`` through one
+    injected device failure (ANM); (b) and (c) held to (a) bit for bit, or
+    within (a)'s own spread if (a) has one.  Returns ``({path:
+    launches}, the resumed ANM modes)``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.ops import matfree
+
+    params = sct.invariant_params(MATFREE_CUTOFF)
+    snapshot = os.path.join(tmp, "modes.npz")
+    launches, kept = {}, None
+    for family, solver, k, n_outer, tol in (
+            ("anm", sct.lowest_modes_matfree, XL_ANM_MODES, XL_ANM_OUTER,
+             XL_TOL),
+            ("gnm", sct.lowest_modes_matfree_gnm, XL_GNM_MODES,
+             XL_GNM_OUTER, None)):
+        torch.cuda.empty_cache()
+        runs = {"plain": {}, "repeat": {}}
+        if family == "anm":
+            runs["checkpointed"] = {"checkpoint": snapshot}
+        runs["interrupted"] = {"checkpoint": snapshot}
+        runs["resumed"] = {"checkpoint": snapshot}
+        if family == "anm":
+            runs["retried"] = {"retries": 1}
+        out, seconds, steps, notes = {}, {}, {}, []
+        for run, options in runs.items():
+            fail_at, exc = {
+                "interrupted": (INTERRUPT_AFTER + 1, Interrupted()),
+                "retried": (2, _device_failure())}.get(run, (None, None))
+            path = f"{family}_large_{run}"
+
+            def call(options=options):
+                try:
+                    return solver(coord, params, k, degree=96,
+                                  n_outer=n_outer, tol=tol, **options)
+                except Interrupted:
+                    return None
+
+            with injected(matfree, "_chebfsi_outer", fail_at, exc) as calls:
+                out[run], seconds[run], launches[path] = drive(path, call)
+            steps[run] = calls[0]
+            if run == "interrupted":
+                check(out[run] is None and os.path.exists(snapshot),
+                      f"{path}: no snapshot after the interruption")
+                with np.load(snapshot) as data:
+                    at = int(data["__iteration__"])
+                    held = {key: (str(data[key].dtype), data[key].shape)
+                            for key in data.files}
+                check(at == INTERRUPT_AFTER, f"{path}: snapshot at {at}")
+                notes.append(f"snapshot at outer iteration {at}: "
+                             f"{os.path.getsize(snapshot)} bytes {held}")
+            elif run != "plain":
+                check(not os.path.exists(snapshot),
+                      f"{path}: snapshot left behind")
+        plain = out["plain"]
+        spread = _spread(out["repeat"], plain)
+        for run in runs:
+            if run in ("plain", "interrupted"):
+                continue
+            apart = _spread(out[run], plain)
+            check(all(d <= s for d, s in zip(apart, spread)),
+                  f"{family}_large_{run}: {apart} from the plain call "
+                  f"(spread of two plain calls {spread})")
+        check(steps["plain"] > INTERRUPT_AFTER,
+              f"{family}: converged in {steps['plain']} outer iterations, "
+              f"before the interruption")
+        check(steps["resumed"] == steps["plain"] - INTERRUPT_AFTER,
+              f"{family}_large_resumed ran {steps['resumed']} steps")
+        if family == "anm":
+            check(steps["retried"] == steps["plain"] + 1,
+                  f"anm_large_retried ran {steps['retried']} steps")
+        check(bool(torch.isfinite(plain[0]).all()
+                   and torch.isfinite(plain[1]).all()),
+              f"{family}: non-finite modes")
+        # both families held to the xl tolerance, the GNM too although it
+        # runs without `tol` (its iterations fixed): equal but wrong modes
+        # on every run would pass the comparisons above
+        check(float(plain[2].max()) < XL_TOL,
+              f"{family}_large: residual {float(plain[2].max()):.3e} "
+              f"(tol {XL_TOL:g})")
+        x_bytes = 4 * (3 if family == "anm" else 1) * coord.shape[0] * (
+            k + max(k, 8, 48 - k))
+        print(f"{family}_large: n={coord.shape[0]}, {k} modes, degree 96, "
+              f"up to {n_outer} outer iterations, tol {tol}: "
+              f"{steps['plain']} outer iterations, residuals <= "
+              f"{float(plain[2].max()):.3e} (tol {XL_TOL:g}); two plain "
+              f"calls "
+              + ("bit for bit equal" if not any(spread)
+                 else f"apart by {spread} (values, vectors, residuals)")
+              + "; seconds " + ", ".join(f"{run} {s:.3f}" for run, s in
+                                         seconds.items())
+              + f"; resumed ran {steps['resumed']} steps"
+              + (f", retried {steps['retried']} (one retry)"
+                 if family == "anm" else "")
+              + f"; the carried block x {x_bytes / 1e6:.1f} MB; "
+              + "; ".join(notes) + f" [{card}]", flush=True)
+        if family == "anm":
+            kept = out["resumed"]
+        del out, plain
+    return launches, kept
+
+
+def _large_results_and_shift_invert(modes, ca_7cal, e_anm, tmp, card):
+    """``save_results`` / ``load_results`` of `modes` bit for bit; the
+    staged shift-invert of 7cal's float64 eANM Hessian interrupted after
+    step INTERRUPT_AFTER and resumed, against ``engine="chol"``."""
+    import numpy as np
+    import torch
+
+    from springcraft_tpu_torch import io as sio
+    from springcraft_tpu_torch.ops import assembly, rigid
+    from springcraft_tpu_torch.ops import modes as modes_ops
+
+    path = os.path.join(tmp, "modes_results.npz")
+    names = ("values", "vectors", "residuals")
+    t0 = time.perf_counter()
+    sio.save_results(path, dict(zip(names, modes)))
+    back = sio.load_results(path)
+    results_s = time.perf_counter() - t0
+    check(sorted(back) == sorted(names)
+          and all(np.array_equal(back[name], t.cpu().numpy())
+                  for name, t in zip(names, modes)),
+          "load_results differs from what save_results was given")
+    results_mb = os.path.getsize(path) / 1e6
+
+    c64 = torch.as_tensor(ca_7cal.coord, dtype=torch.float64, device="cuda")
+    h = assembly.hessian_matrix(c64, e_anm, layout="xyz")
+    t = rigid.rigid_modes_anm(c64)
+    k = N_MODES + MODE_BUFFER
+    snapshot = os.path.join(tmp, "shift_invert.npz")
+    t0 = time.perf_counter()
+    plain = modes_ops.lowest_modes_shift_invert(h, t, k=k, engine="chol")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    with injected(modes_ops, "_shift_invert_step", INTERRUPT_AFTER + 1,
+                  Interrupted()):
+        try:
+            modes_ops.lowest_modes_shift_invert_staged(h, t, k=k,
+                                                       checkpoint=snapshot)
+        except Interrupted:
+            pass
+    check(os.path.exists(snapshot), "shift-invert: no snapshot")
+    snapshot_bytes = os.path.getsize(snapshot)
+    t0 = time.perf_counter()
+    with injected(modes_ops, "_shift_invert_step") as calls:
+        got = modes_ops.lowest_modes_shift_invert_staged(h, t, k=k,
+                                                         checkpoint=snapshot)
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    check(calls[0] == 24 - INTERRUPT_AFTER,
+          f"shift-invert resumed ran {calls[0]} steps")
+    check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+          "shift-invert: the resumed staged solve differs from chol")
+    check(not os.path.exists(snapshot), "shift-invert: snapshot left")
+    print(f"large_structure results: save_results + load_results of the "
+          f"resumed ANM modes {results_s:.3f} s ({results_mb:.1f} MB), bit "
+          f"for bit; staged shift-invert on 7cal's float64 eANM Hessian "
+          f"({h.shape[0]} dims, {k} modes, 24 steps): interrupted after step "
+          f"{INTERRUPT_AFTER} (snapshot {snapshot_bytes} bytes), resumed "
+          f"{calls[0]} steps in {resumed_s:.3f} s (chol engine "
+          f"{plain_s:.3f} s), bit for bit equal [{card}]", flush=True)
+
+
+def _large_models(ca_7cal, tmp, card):
+    """``save_model`` / ``load_model`` on the card: 7cal's GNM (invariant
+    7 A) and its chain A's eANM ANM with masses, covariance computed,
+    observables of the restored models bit for bit; the refusal without a
+    force field; a normal-mode trajectory of 7cal's eANM ANM through
+    ``write_pdb`` and ``load_ensemble``."""
+    import numpy as np
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch import io as sio
+    from springcraft_tpu_torch.structure import load_ensemble, write_pdb
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    notes = []
+    chain_a = ca_7cal[ca_7cal.chain_id == "A"]
+    for label, model, observables in (
+            ("GNM 7cal invariant 7 A",
+             sct.GNM(ca_7cal, sct.InvariantForceField(7.0)),
+             ("mean_square_fluctuation", "dcc")),
+            ("ANM 7cal chain A eANM, masses",
+             sct.ANM(chain_a, sct.TabulatedForceField.e_anm(chain_a),
+                     masses=True),
+             ("mean_square_fluctuation", "dcc", "prs_effector_sensor"))):
+        _ = model.covariance  # computed before the save
+        path = os.path.join(tmp, "model.npz")
+        t0 = time.perf_counter()
+        sio.save_model(path, model)
+        restored = sio.load_model(path)
+        seconds = time.perf_counter() - t0
+        check(restored._covariance.device.type == "cuda",
+              f"{label}: restored off the card")
+        for name in observables:
+            check(same(getattr(restored, name)(), getattr(model, name)()),
+                  f"{label}: restored {name} differs")
+        try:
+            restored.lowest_modes(4, matrix_free=True)
+        except RuntimeError as exc:
+            check("force_field=" in str(exc), f"{label}: {exc}")
+        else:
+            raise RuntimeError(f"chip_smoke: check failed: {label} "
+                               f"restored without a force field rebuilt")
+        notes.append(f"{label}: {os.path.getsize(path) / 1e6:.1f} MB, save "
+                     f"+ load {seconds:.3f} s, {', '.join(observables)} bit "
+                     f"for bit, rebuilding refused")
+
+    anm = sct.ANM(ca_7cal, sct.TabulatedForceField.e_anm(ca_7cal),
+                  masses=True)
+    traj = ca_7cal.coord[None] + anm.normal_mode(6, amplitude=2.0, frames=8)
+    path = os.path.join(tmp, "mode.pdb")
+    t0 = time.perf_counter()
+    write_pdb(path, ca_7cal, coord_models=traj)
+    first, models = load_ensemble(path)
+    seconds = time.perf_counter() - t0
+    spacing = float(np.spacing(np.float32(np.abs(traj).max())))
+    err = float(np.abs(models - traj).max())
+    check(models.shape == traj.shape, f"trajectory {models.shape}")
+    check(err <= 5e-4 + spacing, f"trajectory {err:.3e} A off")
+    check(all(np.array_equal(getattr(first, a), getattr(ca_7cal, a))
+              for a in ("chain_id", "res_id", "res_name", "atom_name")),
+          "trajectory annotations")
+    print("large_structure models: " + "; ".join(notes)
+          + f"; normal-mode trajectory of 7cal's eANM ANM ({traj.shape[0]} "
+          f"models) through write_pdb and load_ensemble {seconds:.3f} s, "
+          f"{err:.3e} A off [{card}]", flush=True)
+
+
+def large_structure_paths(ca_7cal, e_anm, card):
+    """The large-structure path: N_XL_ANM atoms (the xl ANM draw, four
+    chains of 25,000 residues, one chain "AA") written as gzipped mmCIF and
+    BinaryCIF and read back; from the BinaryCIF coordinates the xl ANM and
+    GNM solves, uninterrupted, checkpointed, interrupted and resumed,
+    retried; ``save_results`` of the resumed modes; the staged
+    shift-invert interrupted and resumed; model files and a PDB
+    trajectory.  Files live in a temporary directory under ``build/``.
+    Returns ``{path: launches}``."""
+    import tempfile
+
+    atoms, drawn, written = large_structure(N_XL_ANM)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "large_structure")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as tmp:
+        coord = _large_files(atoms, drawn, written, tmp, card)
+        launches, modes = _large_solves(coord, tmp, card)
+        _large_results_and_shift_invert(modes, ca_7cal, e_anm, tmp, card)
+        _large_models(ca_7cal, tmp, card)
+    return launches
+
+
 def power_norm(h, steps=30):
     """A lower bound of ``||h||_2`` for a symmetric PSD `h`: the Rayleigh
     quotient after `steps` power iterations from a seeded start."""
@@ -3598,6 +4203,8 @@ def main():
     phase("matfree_profile_paths")
     launches.update(matfree_xl_paths(parity, card))
     phase("matfree_xl_paths")
+    launches.update(large_structure_paths(ca_7cal, e_anm, card))
+    phase("large_structure_paths")
     launches.update(mega_north_star(parity, card))
     phase("mega_north_star")
     launches.update(mega_allmode_msf(parity, card))

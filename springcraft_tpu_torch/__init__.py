@@ -43,6 +43,12 @@ The reference-compatible model API — :class:`ANM`, :class:`GNM`,
 functions — computes in float64 on the device and returns NumPy arrays,
 as the JAX package's does.
 
+Host layer: structures from PDB, mmCIF and BinaryCIF files
+(:func:`load_structure`, :mod:`.structure`), models and results saved and
+restored (:mod:`.io`), and the elastic loop that lets the long solvers
+snapshot, retry and resume (:mod:`.utils.elastic`; ``checkpoint=``,
+``retries=``).
+
 Entry points run on the current CUDA device unless the caller passes a
 tensor that lies elsewhere or ``device="cpu"``.
 
@@ -53,7 +59,7 @@ Importing the package turns TF32 off for float32 matrix products (see
 __version__ = "0.1.0"
 
 from .utils import config  # noqa: F401  (pins float32 precision)
-from . import ops, parallel, structure, utils
+from . import io, ops, parallel, structure, utils
 from .ops.ffparams import (FFParams, PatchOverlay, from_numpy_params,
                            hinsen_params, invariant_params, pfenm_params,
                            strip_overlays, table_compact_params,
@@ -114,6 +120,7 @@ __all__ = [
     "prs",
     "effector_sensor",
     "nma",
+    "io",
     "ops",
     "parallel",
     "structure",

@@ -82,9 +82,11 @@ while the bonded test of the table lookup goes by original atom id, the
 ids that also mask self-pairs and padding.
 
 The solvers take the JAX package's ``use_pallas=`` (``False`` refused on
-CUDA), ``matvec_precision="highest"`` and ``checkpoint=None`` /
-``retries=0``.  Not ported: the elastic loop behind ``checkpoint=`` /
-``retries=`` (ROADMAP.md).
+CUDA), ``matvec_precision="highest"`` and ``checkpoint=`` / ``retries=``:
+the Chebyshev solvers run their outer loop through
+:func:`..utils.elastic.resumable_loop` (with `checkpoint`, a snapshot of
+the loop carry after every outer iteration; with `retries`, a retry of an
+iteration that met a device failure).
 """
 
 from __future__ import annotations
@@ -97,8 +99,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..utils.config import (as_tensor, check_elastic, check_use_pallas,
-                            resolve_device)
+from ..utils import elastic
+from ..utils.config import as_tensor, check_use_pallas, resolve_device
 from . import rigid
 from .assembly_kernels import _table_args
 from .ffparams import (KERNEL_KINDS, FFParams, overlay_pair_delta,
@@ -1235,18 +1237,36 @@ def _chebfsi_outer(matvec, t, x, a, b, *, degree, k):
 
 
 def _chebfsi(matvec, t, m, lam_max, *, k, oversample, degree, n_outer,
-             seed, tol=None):
+             seed, tol=None, checkpoint=None, retries=0):
     if n_outer < 1:
         raise ValueError(f"n_outer must be >= 1, got {n_outer}")
     b = float(lam_max)
-    x = _chebfsi_init(t, m, p=k + oversample, seed=seed)
-    a = b / 10.0
-    for _ in range(n_outer):
-        x, a, theta, res = _chebfsi_outer(matvec, t, x, a, b,
+    p = k + oversample
+
+    # Each outer iteration is a step of utils.elastic.resumable_loop, the
+    # snapshot and retry boundary (with neither `checkpoint` nor
+    # `retries`, a plain loop).  The snapshot holds the loop carry as the
+    # loop carries it (x, theta, res tensors of t's dtype, a a Python
+    # float), so a resumed solve repeats the uninterrupted one bit for
+    # bit; it assumes the same (coord, params, k, seed, ...) call, since
+    # the operator is rebuilt, not saved.
+    def step(_, st):
+        x = elastic._restore(st["x"], (m, p), t.dtype, t.device)
+        x, a, theta, res = _chebfsi_outer(matvec, t, x, float(st["a"]), b,
                                           degree=degree, k=k)
-        if tol is not None and float(res.max()) < tol:
-            break
-    return theta[:k], x[:, :k].T, res
+        return {"x": x, "a": a, "theta": theta, "res": res}
+
+    def stop(st):
+        return tol is not None and float(st["res"].max()) < tol
+
+    state = {"x": _chebfsi_init(t, m, p=p, seed=seed), "a": b / 10.0,
+             "theta": torch.zeros(k, dtype=t.dtype, device=t.device),
+             "res": torch.full((k,), float("inf"), dtype=t.dtype,
+                               device=t.device)}
+    state, _ = elastic.resumable_loop(step, state, n_outer,
+                                      checkpoint=checkpoint, stop=stop,
+                                      retries=retries, probe=t.device)
+    return state["theta"][:k], state["x"][:, :k].T, state["res"]
 
 
 class _Setup(typing.NamedTuple):
@@ -1388,9 +1408,18 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
         versions on the CPU; ``False`` raises on CUDA.
     matvec_precision : {"highest"}
         Full float32 products, the only setting (as in the JAX package).
-    checkpoint, retries
-        ``None`` and ``0`` only: the elastic loop is not ported yet
-        (:func:`..utils.config.check_elastic`).
+    checkpoint : str or utils.elastic.LoopCheckpoint, optional
+        Snapshot the outer loop's carry to this ``.npz`` after every outer
+        iteration and resume from it when it exists: a call interrupted
+        at outer iteration j and made again (in this process or a new
+        one) restarts at j and returns what the uninterrupted call would,
+        bit for bit.  The snapshot is removed when the call returns.  A
+        snapshot whose block has another shape or dtype, or whose
+        iteration is not below `n_outer`, is another call's: ValueError.
+    retries : int
+        Retries of an outer iteration that raised a device failure
+        (:func:`..utils.elastic.retry_on_failure`: 5 s wait, then a probe
+        of the coordinates' device).
 
     Returns
     -------
@@ -1403,7 +1432,6 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     if matvec_precision != "highest":
         raise ValueError(f"matvec_precision must be 'highest' (full "
                          f"float32 products), got {matvec_precision!r}")
-    check_elastic(checkpoint, retries)
     coord = _coord(coord, dtype, device)
     check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
@@ -1425,7 +1453,8 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     t = rigid.rigid_modes_anm(coord, masses=masses)
     vals, vecs, res = _chebfsi(
         _mass_weighted(base, w3), t, 3 * n, lam_max, k=k, oversample=q,
-        degree=degree, n_outer=n_outer, seed=seed, tol=tol)
+        degree=degree, n_outer=n_outer, seed=seed, tol=tol,
+        checkpoint=checkpoint, retries=retries)
     if perm is not None:
         # back to the original atom order: sorted slot i is atom perm[i]
         inv = np.argsort(perm)
@@ -1451,7 +1480,6 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     in :func:`lowest_modes_matfree`.
     """
     _check_params(params)
-    check_elastic(checkpoint, retries)
     coord = _coord(coord, dtype, device)
     check_use_pallas(use_pallas, coord.device)
     n = coord.shape[0]
@@ -1474,7 +1502,8 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
                             device=coord.device)
     vals, vecs, res = _chebfsi(
         _mass_weighted(base, w), t, n, lam_max, k=k, oversample=q,
-        degree=degree, n_outer=n_outer, seed=seed, tol=tol)
+        degree=degree, n_outer=n_outer, seed=seed, tol=tol,
+        checkpoint=checkpoint, retries=retries)
     if perm is not None:
         vecs = vecs[:, torch.as_tensor(np.argsort(perm), device=vecs.device)]
     return vals, vecs, res

@@ -15,10 +15,10 @@ Counterpart of ``springcraft_tpu/ops/modes.py``:
   that every iteration's solve is two products; ``"auto"`` takes
   ``"invfactor"`` for float32 on CUDA up to ``m = 8192`` (the JAX
   package's rule on the TPU, read as CUDA) and ``"chol"`` otherwise;
-  ``"staged"`` is the Cholesky engine under another name
-  (:func:`lowest_modes_shift_invert_staged`): the JAX package splits it
-  into three device programs for a remote TPU, which PyTorch's eager
-  execution does not need;
+  ``"staged"`` (:func:`lowest_modes_shift_invert_staged`) is the
+  Cholesky engine in three stages — the factor, one step an iteration,
+  the Rayleigh-Ritz finish — under :mod:`..utils.elastic`, so that a
+  long solve can be snapshotted, retried and resumed;
 * :func:`shift_invert_from_chol` — the iteration on a factor in hand;
 * :func:`modes_from_covariance` — subspace iteration on a covariance in
   hand;
@@ -40,7 +40,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import as_tensor, check_elastic
+from ..utils import elastic
+from ..utils.config import as_tensor
 from . import assembly, pairs, rigid, spd_linalg
 from .ffparams import squared_norm
 
@@ -199,19 +200,46 @@ def lowest_modes(matrix, k, null_basis=None, n_iter=200, seed=0):
 # Shift-invert subspace iteration
 # ---------------------------------------------------------------------------
 
-def _shift_invert_iterate(matrix, inv_apply, t, *, k, n_iter, oversample,
-                          seed):
-    """Deflated subspace iteration through `inv_apply`, then
-    Rayleigh-Ritz on `matrix`."""
-    m = matrix.shape[0]
-    p = k + (max(k, 8) if oversample is None else oversample)
-    deflate = _project_out_of(t)
-    x, _ = torch.linalg.qr(deflate(_start_block(m, p, seed, matrix)))
-    for _ in range(n_iter):
-        x, _ = torch.linalg.qr(deflate(inv_apply(x)))
+def _shift_invert_start(matrix, t, p, seed):
+    """The orthonormal, deflated start block ``(m, p)``."""
+    x = _start_block(matrix.shape[0], p, seed, matrix)
+    return torch.linalg.qr(_project_out_of(t)(x))[0]
+
+
+def _shift_invert_finish(matrix, x, k):
+    """Rayleigh-Ritz of the block `x` on `matrix`: ``(values (k,),
+    vectors (k, m))``."""
     s = x.T @ (matrix @ x)
     vals, w = torch.linalg.eigh((s + s.T) / 2)
     return vals[:k], (x @ w[:, :k]).T
+
+
+def _shift_invert_step(inv_apply, t, x):
+    """One step: ``qr(deflate(inv_apply(x)))``'s orthonormal factor."""
+    return torch.linalg.qr(_project_out_of(t)(inv_apply(x)))[0]
+
+
+def _shift_invert_iterate(matrix, inv_apply, t, *, k, n_iter, oversample,
+                          seed, checkpoint=None, retries=0, wait=5.0):
+    """Deflated subspace iteration through `inv_apply`, one
+    :func:`~..utils.elastic.resumable_loop` step an iteration (a snapshot
+    to `checkpoint` after each, `retries` device failures retried), then
+    Rayleigh-Ritz on `matrix` under
+    :func:`~..utils.elastic.retry_on_failure`."""
+    m = matrix.shape[0]
+    p = k + (max(k, 8) if oversample is None else oversample)
+    retry = dict(retries=retries, wait=wait, probe=matrix.device)
+
+    def step(_, state):
+        x = elastic._restore(state["x"], (m, p), matrix.dtype,
+                             matrix.device)
+        return {"x": _shift_invert_step(inv_apply, t, x)}
+
+    state, _ = elastic.resumable_loop(
+        step, {"x": _shift_invert_start(matrix, t, p, seed)}, n_iter,
+        checkpoint=checkpoint, **retry)
+    return elastic.retry_on_failure(_shift_invert_finish, matrix,
+                                    state["x"], k, **retry)
 
 
 def _resolve_engine(engine, matrix):
@@ -273,33 +301,58 @@ def lowest_modes_shift_invert(matrix, t, *, k, n_iter=24, oversample=None,
                                  oversample=oversample, seed=seed)
 
 
+def _chol_inverse(chol, scale):
+    """``x -> S (S A S)^-1 S x`` through the equilibrated Cholesky factor
+    ``chol`` of ``S A S``, ``S = diag(scale)``."""
+    def inv_apply(x):
+        return scale[:, None] * torch.cholesky_solve(scale[:, None] * x,
+                                                     chol)
+
+    return inv_apply
+
+
 def shift_invert_from_chol(matrix, chol, scale, t, *, k, n_iter=24,
                            oversample=None, seed=0):
     """Shift-invert subspace iteration on an existing equilibrated
     Cholesky factor `chol` of ``S (H + sigma T T^t) S`` with ``S =
     diag(scale)``, so that one factor serves the covariance and the
     modes."""
-    def inv_apply(x):
-        return scale[:, None] * torch.cholesky_solve(scale[:, None] * x,
-                                                     chol)
-
-    return _shift_invert_iterate(matrix, inv_apply, t.to(matrix.dtype), k=k,
-                                 n_iter=n_iter, oversample=oversample,
-                                 seed=seed)
+    return _shift_invert_iterate(matrix, _chol_inverse(chol, scale),
+                                 t.to(matrix.dtype), k=k, n_iter=n_iter,
+                                 oversample=oversample, seed=seed)
 
 
 def lowest_modes_shift_invert_staged(matrix, t, *, k, n_iter=24,
                                      oversample=None, seed=0,
-                                     checkpoint=None, retries=0, wait=5.0):
-    """:func:`lowest_modes_shift_invert` with ``engine="chol"``.  The JAX
-    package runs it as three small device programs under a resumable
-    host loop; here it is the same eager solve, and `checkpoint` /
-    `retries` take only ``None`` and ``0`` (the elastic loop is not
-    ported; `wait` is then unused)."""
-    check_elastic(checkpoint, retries)
-    return lowest_modes_shift_invert(matrix, t, k=k, n_iter=n_iter,
-                                     oversample=oversample, seed=seed,
-                                     engine="chol")
+                                     checkpoint=None, retries=2, wait=5.0):
+    """
+    :func:`lowest_modes_shift_invert` with ``engine="chol"``, in the JAX
+    package's three stages, each a recovery point of
+    :mod:`..utils.elastic`: the regularized factor under
+    :func:`~..utils.elastic.retry_on_failure`, one
+    :func:`~..utils.elastic.resumable_loop` step an iteration (solve,
+    deflate, QR), the Rayleigh-Ritz finish under ``retry_on_failure``.
+
+    ``checkpoint=path`` snapshots the subspace after every iteration, so
+    a process killed mid-solve resumes where it stopped (the same
+    contract as :func:`..ops.matfree.lowest_modes_matfree`); `retries`
+    device failures are retried per stage and per step, after `wait`
+    seconds and a probe of the matrix's device.  The iteration is the
+    ``"chol"`` engine's, start block included, so the result equals
+    ``lowest_modes_shift_invert(engine="chol")`` bit for bit.
+    """
+    t = t.to(matrix.dtype)
+
+    def factor():
+        reg, scale, _ = rigid._regularize_equilibrated(matrix, t)
+        return rigid._cholesky_factor(reg), scale
+
+    chol, scale = elastic.retry_on_failure(factor, retries=retries,
+                                           wait=wait, probe=matrix.device)
+    return _shift_invert_iterate(matrix, _chol_inverse(chol, scale), t, k=k,
+                                 n_iter=n_iter, oversample=oversample,
+                                 seed=seed, checkpoint=checkpoint,
+                                 retries=retries, wait=wait)
 
 
 def modes_from_covariance(cov, matrix, t, *, k, n_iter=16, oversample=None,

@@ -1,5 +1,6 @@
 """Host-side structure layer of the port (numpy only): the ``AtomArray``
-container, the PDB text reader, residue masses and the cell list."""
+container, the PDB, mmCIF and BinaryCIF readers, the PDB writer, residue
+masses and the cell list."""
 
 from . import info
 from .atoms import (AtomArray, BadStructureError, array, as_atom_array,
@@ -7,8 +8,11 @@ from .atoms import (AtomArray, BadStructureError, array, as_atom_array,
                     displacement, distance, filter_amino_acids,
                     get_chain_count, index_displacement,
                     is_atom_array_like)
+from .bcif import load_structure_bcif, read_bcif_as_cif
 from .celllist import CellList
-from .pdb import PDBFile, get_structure, load_ensemble, load_structure
+from .cif import CIFFile, load_structure_cif
+from .pdb import (PDBFile, get_structure, load_ensemble, load_structure,
+                  write_pdb)
 
 __all__ = [
     "AtomArray",
@@ -26,8 +30,13 @@ __all__ = [
     "concatenate",
     "CellList",
     "PDBFile",
+    "CIFFile",
     "get_structure",
     "load_structure",
+    "load_structure_cif",
+    "load_structure_bcif",
+    "read_bcif_as_cif",
     "load_ensemble",
+    "write_pdb",
     "info",
 ]

@@ -4,10 +4,12 @@ PDB file reader producing :class:`AtomArray` objects.
 The reference obtains structures through ``biotite.structure.io.pdb``
 (``PDBFile.read`` + ``get_structure(pdb_file, model=1)``, see reference
 ``tests/test_anm.py:14-18``).  This module provides the same entry points,
-backed by a pure-Python column parser.  This is the port's own copy of
-``springcraft_tpu/structure/pdb.py`` (importing that package would
-import ``jax``); its optional C++ coordinate parser and the mmCIF and
-BinaryCIF readers and the PDB writer are not ported (ROADMAP.md).
+backed by a pure-Python column parser; ``.cif``, ``.mmcif`` and ``.bcif``
+files (optionally gzipped) go to :mod:`.cif` and :mod:`.bcif`.  This is
+the port's own copy of ``springcraft_tpu/structure/pdb.py`` (importing
+that package would import ``jax``), without its optional C++ coordinate
+parser.  Its :func:`write_pdb` refuses what PDB's fixed columns cannot
+hold, where the JAX package's widens or cuts a field without a word.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 
 from .atoms import AtomArray
 
-__all__ = ["PDBFile", "get_structure", "load_structure", "load_ensemble"]
+__all__ = ["PDBFile", "get_structure", "load_structure",
+           "load_ensemble", "write_pdb"]
 
 
 class PDBFile:
@@ -172,20 +175,18 @@ def _parse_coords(lines):
     return coord
 
 
-_CIF_SUFFIXES = (".cif", ".cif.gz", ".mmcif", ".bcif", ".bcif.gz")
-
-
-def _refuse_cif(path):
-    if str(path).endswith(_CIF_SUFFIXES):
-        raise NotImplementedError(
-            f"{path}: the mmCIF and BinaryCIF readers are not ported "
-            f"(ROADMAP.md); the port reads PDB text")
-
-
 def load_structure(path, model=None):
-    """Read a PDB file (optionally gzipped) and return its
+    """Read a structure file (PDB or mmCIF by extension) and return its
     :class:`AtomArray`."""
-    _refuse_cif(path)
+    name = str(path)
+    if name.endswith((".bcif", ".bcif.gz")):
+        from .bcif import load_structure_bcif
+
+        return load_structure_bcif(path, model=model)
+    if name.endswith((".cif", ".cif.gz", ".mmcif")):
+        from .cif import load_structure_cif
+
+        return load_structure_cif(path, model=model)
     return get_structure(PDBFile.read(path), model=model)
 
 
@@ -202,7 +203,30 @@ def load_ensemble(path):
         Coordinates of every model — ready for the batched ensemble
         pipelines (``parallel.ensemble_anm``).
     """
-    _refuse_cif(path)
+    name = str(path)
+    if name.endswith((".cif", ".cif.gz", ".mmcif", ".bcif", ".bcif.gz")):
+        from .cif import CIFFile, get_structure_cif
+
+        if name.endswith((".bcif", ".bcif.gz")):
+            from .bcif import read_bcif_as_cif
+
+            cif = read_bcif_as_cif(path)
+        else:
+            cif = CIFFile.read(path)
+        n_models = cif.get_model_count()
+        first = get_structure_cif(cif, model=1)
+        coords = np.empty((n_models, first.array_length(), 3),
+                          dtype=np.float32)
+        coords[0] = first.coord
+        for m in range(2, n_models + 1):
+            model = get_structure_cif(cif, model=m)
+            if model.array_length() != first.array_length():
+                raise ValueError(
+                    f"Model {m} has {model.array_length()} atoms, "
+                    f"expected {first.array_length()}"
+                )
+            coords[m - 1] = model.coord
+        return first, coords
 
     # Single pass over the file: split atom lines at MODEL boundaries,
     # then parse annotations once and coordinates per model (an
@@ -242,3 +266,90 @@ def load_ensemble(path):
             )
         coords[m] = _parse_coords(lines)
     return first, coords
+
+
+def _check_pdb_columns(atoms):
+    """Raise ``ValueError`` for annotations that PDB's fixed columns
+    cannot hold: written anyway, they widen a field (and shift every
+    later column of the line) or lose characters."""
+    n = atoms.array_length()
+    if n > 99_999:
+        raise ValueError(f"{n} atoms: the PDB serial column holds at most "
+                         f"99,999; write mmCIF or BinaryCIF instead")
+    res_id = np.asarray(atoms.res_id, dtype=np.int64)
+    if n and (res_id.min() < -999 or res_id.max() > 9999):
+        raise ValueError(
+            f"residue IDs {int(res_id.min())}..{int(res_id.max())}: the "
+            f"PDB residue column holds -999..9999")
+    widths = (("chain_id", 1, "chain IDs"), ("atom_name", 4, "atom names"),
+              ("res_name", 3, "residue names"))
+    for annotation, width, what in widths:
+        values = np.asarray(getattr(atoms, annotation)).astype(str)
+        longest = int(np.char.str_len(values).max()) if n else 0
+        if longest > width:
+            raise ValueError(
+                f"{what} of {longest} characters: the PDB column holds "
+                f"{width}")
+
+
+def write_pdb(path, atoms, coord_models=None):
+    """
+    Write an :class:`AtomArray` as a PDB file.
+
+    Parameters
+    ----------
+    path : str
+    atoms : AtomArray
+        Template providing the annotations.
+    coord_models : ndarray, shape=(m, n, 3), optional
+        Per-model coordinates (e.g. a normal-mode trajectory from
+        ``ANM.normal_mode`` added to the input structure).  If omitted,
+        ``atoms.coord`` is written as a single model.
+
+    Raises
+    ------
+    ValueError
+        For coordinates outside [-999.999, 9999.999], more than 99,999
+        atoms, residue IDs outside -999..9999, chain IDs longer than one
+        character, atom names longer than four or residue names longer
+        than three: PDB's fixed
+        columns cannot hold them (mmCIF can).  Inside those limits the
+        file is byte for byte the JAX package's.
+    """
+    if coord_models is None:
+        coord_models = np.asarray(atoms.coord)[None]
+    coord_models = np.asarray(coord_models)
+    if (np.abs(coord_models) >= 10000).any() or (
+        coord_models <= -1000
+    ).any():
+        raise ValueError(
+            "Coordinates exceed the PDB fixed-column range "
+            "[-999.999, 9999.999]"
+        )
+    _check_pdb_columns(atoms)
+    multi = coord_models.shape[0] > 1
+
+    with open(path, "w") as f:
+        for m, coords in enumerate(coord_models, start=1):
+            if multi:
+                f.write(f"MODEL     {m:4d}\n")
+            for i in range(atoms.array_length()):
+                name = atoms.atom_name[i]
+                # PDB name column convention: 1-char-element names start
+                # in column 14
+                name_field = f" {name:<3s}" if len(name) < 4 else name
+                is_het = "hetero" in atoms._annot and bool(atoms.hetero[i])
+                record = "HETATM" if is_het else "ATOM  "
+                f.write(
+                    f"{record}{i + 1:5d} {name_field:<4s}"
+                    f"{atoms.res_name[i]:>4s} "
+                    f"{atoms.chain_id[i] or 'A'}"
+                    f"{int(atoms.res_id[i]):4d}    "
+                    f"{coords[i, 0]:8.3f}{coords[i, 1]:8.3f}"
+                    f"{coords[i, 2]:8.3f}"
+                    f"{1.00:6.2f}{0.00:6.2f}          "
+                    f"{atoms.element[i]:>2s}\n"
+                )
+            if multi:
+                f.write("ENDMDL\n")
+        f.write("END\n")

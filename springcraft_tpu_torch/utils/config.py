@@ -27,7 +27,6 @@ __all__ = [
     "resolve_device",
     "as_tensor",
     "check_use_pallas",
-    "check_elastic",
     "enable_x64",
     "x64_enabled",
     "resolve_backend",
@@ -84,17 +83,6 @@ def check_use_pallas(use_pallas, device):
             "use_pallas=False asks for the plain PyTorch versions, which "
             "are for the CPU; on CUDA the port runs its kernels (pass "
             "use_pallas='auto', or device='cpu' for the plain versions)")
-
-
-def check_elastic(checkpoint=None, retries=0):
-    """``checkpoint=`` / ``retries=`` of the JAX package's long solvers:
-    the port has no elastic loop yet (``utils/elastic.py``, ROADMAP.md
-    queue 1 item 2), so only ``None`` and ``0`` are taken."""
-    if checkpoint is not None or retries != 0:
-        raise NotImplementedError(
-            "checkpoint= and retries= need the elastic loop of "
-            "utils/elastic.py, not ported yet (ROADMAP.md queue 1 item 2); "
-            "pass checkpoint=None, retries=0")
 
 
 # ---------------------------------------------------------------------------

@@ -2306,3 +2306,106 @@ def test_pinv_diagonal_matches_the_golden_on_cuda(cuda):
     truth = np.asarray(golden["msf"])
     err = np.sqrt(np.mean((msf - truth) ** 2) / np.mean(truth ** 2))
     assert err <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The elastic loop and the model files on the card
+# ---------------------------------------------------------------------------
+
+class _Interrupted(Exception):
+    """A non-device exception that ends a solve."""
+
+
+@pytest.mark.parametrize("gnm", [False, True], ids=["anm", "gnm"])
+def test_checkpointed_solve_resumes_bit_for_bit_on_cuda(cuda, tmp_path,
+                                                        gnm):
+    """3,000 atoms on the kernel route (pair CSR, K13 / K14): a solve
+    interrupted after outer iteration 2 resumes from its snapshot and
+    returns the uninterrupted modes bit for bit, the snapshot holding the
+    block x as float32 and the cutoff a as a Python float."""
+    from springcraft_tpu_torch.utils import elastic
+
+    coord = _chip_smoke().matfree_coord(3000)
+    params = sct.invariant_params(13.0)
+    solver = sct.lowest_modes_matfree_gnm if gnm else sct.lowest_modes_matfree
+    options = dict(degree=48, n_outer=5)
+    wrappers = sct.kernel_wrappers()
+    name = "kirchhoff_apply_sparse" if gnm else "hessian_apply_sparse"
+    before = wrappers[name].launches
+    plain = solver(coord, params, 8, **options)
+    assert wrappers[name].launches > before
+    path = str(tmp_path / "modes.npz")
+    original, calls = matfree._chebfsi_outer, []
+
+    def outer(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 3:
+            raise _Interrupted
+        return original(*args, **kwargs)
+
+    matfree._chebfsi_outer = outer
+    try:
+        with pytest.raises(_Interrupted):
+            solver(coord, params, 8, checkpoint=path, **options)
+    finally:
+        matfree._chebfsi_outer = original
+    iteration, state = elastic.LoopCheckpoint(path).load()
+    assert iteration == 2
+    assert state["x"].dtype == np.float32
+    assert state["x"].shape == ((1 if gnm else 3) * 3000, 48)
+    assert state["a"].dtype == np.float64
+    got = solver(coord, params, 8, checkpoint=path, **options)
+    for a, b in zip(got, plain):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert not (tmp_path / "modes.npz").exists()
+
+
+def test_loop_checkpoint_of_cuda_tensors(cuda, tmp_path):
+    from springcraft_tpu_torch.utils import elastic
+
+    x = torch.randn(300, 48, device=cuda)
+    state = {"x": x, "a": 0.25, "theta": torch.arange(4.0, device=cuda)}
+    ckpt = elastic.LoopCheckpoint(tmp_path / "s.npz")
+    ckpt.save(7, state)
+    iteration, loaded = ckpt.load()
+    assert iteration == 7
+    assert np.array_equal(loaded["x"], x.cpu().numpy())
+    assert float(loaded["a"]) == 0.25
+    assert np.array_equal(loaded["theta"], [0.0, 1.0, 2.0, 3.0])
+
+
+def test_probe_device_on_cuda(cuda):
+    from springcraft_tpu_torch.utils import elastic
+
+    elastic.probe_device(timeout=60.0)
+    elastic.probe_device(timeout=60.0, device=cuda)
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("CUDA error: injected transient failure")
+        return torch.ones(3, device=cuda).sum()
+
+    assert float(elastic.retry_on_failure(flaky, retries=1, wait=0.0)) == 3.0
+    assert len(calls) == 2
+
+
+def test_model_file_round_trip_on_cuda(cuda, tmp_path):
+    """``save_model`` fetches the card's float64 matrices, ``load_model``
+    puts them back on the card; the restored GNM's observables are the
+    saved model's bit for bit, and it refuses to rebuild without a force
+    field."""
+    from springcraft_tpu_torch import io as sio
+
+    ca = _chip_smoke().make_ca_atoms(300, seed=3)
+    gnm = sct.GNM(ca, sct.InvariantForceField(7.0))
+    _ = gnm.covariance
+    sio.save_model(tmp_path / "gnm.npz", gnm)
+    restored = sio.load_model(tmp_path / "gnm.npz")
+    assert restored._covariance.device.type == "cuda"
+    assert np.array_equal(restored.mean_square_fluctuation(),
+                          gnm.mean_square_fluctuation())
+    assert np.array_equal(restored.dcc(), gnm.dcc())
+    with pytest.raises(RuntimeError, match="force_field="):
+        restored.lowest_modes(4, matrix_free=True)

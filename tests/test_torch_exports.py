@@ -4,11 +4,13 @@ defines ``__all__`` has a port module of the same dotted name
 (``springcraft_tpu_torch...``) that exports each of those names, except
 the ones listed in ``NOT_PORTED`` with the reason.  An entry of the list
 must still be missing from the port, so the list shrinks as the port
-grows.
+grows.  The host modules ported from that list keep the JAX
+signatures.
 """
 
 import importlib
 import importlib.util
+import inspect
 import os
 import re
 
@@ -18,7 +20,6 @@ pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_LATER_HOST = "host module still to port (ROADMAP.md queue 1 item 2)"
 _LATER_DEVICES = "multi-device module still to port (ROADMAP.md queue 1 " \
     "item 4)"
 _SHARDED = ("sharded_ensemble_anm", "sharded_ensemble_gnm",
@@ -62,19 +63,6 @@ NOT_PORTED = {
         "the native C++ cell list; the port's numpy structure/celllist.py "
         "gives the same adjacency",
     # still to come
-    "springcraft_tpu.io": _LATER_HOST,
-    "springcraft_tpu.structure.cif": _LATER_HOST,
-    "springcraft_tpu.structure.bcif": _LATER_HOST,
-    "springcraft_tpu.structure.CIFFile": _LATER_HOST,
-    "springcraft_tpu.structure.load_structure_cif": _LATER_HOST,
-    "springcraft_tpu.structure.load_structure_bcif": _LATER_HOST,
-    "springcraft_tpu.structure.read_bcif_as_cif": _LATER_HOST,
-    "springcraft_tpu.structure.write_pdb": _LATER_HOST,
-    "springcraft_tpu.structure.pdb.write_pdb": _LATER_HOST,
-    "springcraft_tpu.utils.elastic": _LATER_HOST,
-    "springcraft_tpu.utils.LoopCheckpoint": _LATER_HOST,
-    "springcraft_tpu.utils.resumable_loop": _LATER_HOST,
-    "springcraft_tpu.utils.retry_on_failure": _LATER_HOST,
     "springcraft_tpu.parallel.mesh": _LATER_DEVICES,
     "springcraft_tpu.parallel.sharded": _LATER_DEVICES,
     "springcraft_tpu.parallel.blocked": _LATER_DEVICES,
@@ -83,6 +71,27 @@ NOT_PORTED = {
     **{f"springcraft_tpu.parallel.{name}": _LATER_DEVICES
        for name in _SHARDED + _BLOCKED},
 }
+
+
+#: Names that stood on ``NOT_PORTED`` as host modules still to port and
+#: are ported now (the mmCIF and BinaryCIF readers, the PDB writer, the
+#: model and result files, the elastic loop): each keeps the JAX
+#: signature, plus ``device=`` where it puts tensors on a device.
+PORTED_HOST = (
+    "springcraft_tpu.io",
+    "springcraft_tpu.structure.cif",
+    "springcraft_tpu.structure.bcif",
+    "springcraft_tpu.structure.CIFFile",
+    "springcraft_tpu.structure.load_structure_cif",
+    "springcraft_tpu.structure.load_structure_bcif",
+    "springcraft_tpu.structure.read_bcif_as_cif",
+    "springcraft_tpu.structure.write_pdb",
+    "springcraft_tpu.structure.pdb.write_pdb",
+    "springcraft_tpu.utils.elastic",
+    "springcraft_tpu.utils.LoopCheckpoint",
+    "springcraft_tpu.utils.resumable_loop",
+    "springcraft_tpu.utils.retry_on_failure",
+)
 
 
 def _jax_modules():
@@ -161,3 +170,41 @@ def test_not_ported_entry_names_a_missing_jax_name(qualified):
         assert hasattr(importlib.import_module(module), name), qualified
     assert _port_lacks(qualified), \
         f"{qualified} is ported now: take it off NOT_PORTED"
+
+
+def _signatures(obj):
+    """``{name: [(parameter, default, kind), ...]}`` of a callable, and of
+    a class's public methods, without ``device``."""
+    found = {}
+    members = [("", obj)]
+    if inspect.isclass(obj):
+        members += [(f".{name}", member) for name, member in
+                    inspect.getmembers(obj, callable)
+                    if not name.startswith("_")]
+    for name, member in members:
+        try:
+            params = inspect.signature(member).parameters.values()
+        except (TypeError, ValueError):  # a builtin without a signature
+            continue
+        found[name] = [(p.name, p.default, p.kind) for p in params
+                       if p.name != "device"]
+    return found
+
+
+@pytest.mark.parametrize("qualified", PORTED_HOST)
+def test_ported_host_name_keeps_the_jax_signature(qualified):
+    """Each host name (or each public name of a host module) takes the
+    JAX parameters in the JAX order with the JAX defaults, methods of its
+    classes too; the port adds only ``device=``."""
+    if _is_module(qualified):
+        jax_module = importlib.import_module(qualified)
+        port = importlib.import_module(_port_name(qualified))
+        names = jax_module.__all__
+    else:
+        module, _, name = qualified.rpartition(".")
+        jax_module = importlib.import_module(module)
+        port = importlib.import_module(_port_name(module))
+        names = [name]
+    for name in names:
+        assert _signatures(getattr(port, name)) == \
+            _signatures(getattr(jax_module, name)), f"{qualified}.{name}"

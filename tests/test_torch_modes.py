@@ -1,8 +1,8 @@
 """
 PyTorch port, ``ops/modes.py``: the reflected LOBPCG, shift-invert
 subspace iteration (engines ``"chol"`` and ``"invfactor"``, and
-``"staged"`` as a name over the first), the iteration on a factor in
-hand, the residuals, the float64 refinement of ANM and GNM modes (pair
+``"staged"``, the first in three stages under the elastic loop), the
+iteration on a factor in hand, the residuals, the float64 refinement of ANM and GNM modes (pair
 list and streamed row panels) and ``lowest_modes_anm``, each held
 against the JAX package on the same numpy inputs (x64 on; its Pallas
 kernels in interpret mode); the slice as a whole on a 7cal fragment
@@ -171,7 +171,7 @@ def test_invfactor_engine_in_float32_matches_jax(fragment):
     assert _projector_distance(ref[1], got[1]) <= 1e-3
 
 
-def test_engine_auto_and_the_staged_options(fragment):
+def test_engine_auto_and_the_staged_options(fragment, tmp_path):
     *_, h, t = fragment
     H, T = _t(h), _t(t)
     assert modes._resolve_engine("auto", H) == "chol"
@@ -185,10 +185,12 @@ def test_engine_auto_and_the_staged_options(fragment):
                                         checkpoint=None)
     with pytest.raises(ValueError, match="engine"):
         modes.lowest_modes_shift_invert(H, T, k=4, engine="eigh")
-    for options in ({"checkpoint": "state.npz"}, {"retries": 2}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            modes.lowest_modes_shift_invert(H, T, k=4, engine="staged",
-                                            **options)
+    path = tmp_path / "state.npz"
+    for options in ({"checkpoint": str(path)}, {"retries": 2}):
+        got = modes.lowest_modes_shift_invert(H, T, k=4, engine="staged",
+                                              **options)
+        assert torch.equal(got[0], chol[0]) and torch.equal(got[1], chol[1])
+        assert not path.exists()  # removed once the solve returns
     got = modes.lowest_modes_shift_invert(H, T, k=4, engine="staged",
                                           checkpoint=None, retries=0,
                                           wait=1.0)
@@ -460,17 +462,21 @@ def test_matrix_free_solvers_take_the_jax_keywords(use_pallas):
     assert rows.shape == (2, 30)
 
 
-def test_matrix_free_solvers_refuse_what_is_not_ported():
+def test_matrix_free_solvers_refuse_what_is_not_ported(tmp_path):
     coord = _coords(1, n=30)[0]
     params = sct.invariant_params(7.0)
     with pytest.raises(ValueError, match="matvec_precision"):
         sct.lowest_modes_matfree(coord, params, 3, device="cpu",
                                  matvec_precision="high")
+    # checkpoint= and retries= run the elastic loop: the plain result
+    path = tmp_path / "modes.npz"
     for fn in (sct.lowest_modes_matfree, sct.lowest_modes_matfree_gnm):
-        for options in ({"checkpoint": "modes.npz"}, {"retries": 2}):
-            with pytest.raises(NotImplementedError,
-                               match="queue 1 item 2"):
-                fn(coord, params, 3, device="cpu", **options)
+        plain = fn(coord, params, 3, n_outer=3, device="cpu")
+        for options in ({"checkpoint": str(path)}, {"retries": 2}):
+            got = fn(coord, params, 3, n_outer=3, device="cpu", **options)
+            for a, b in zip(got, plain):
+                assert torch.equal(a, b)
+            assert not path.exists()
     assert "use_pallas" in matfree.covariance_solve_matfree.__code__.\
         co_varnames
 

@@ -50,7 +50,11 @@ def test_import_leaves_jax_out():
                  "springcraft_tpu_torch.parallel.pipeline, "
                  "springcraft_tpu_torch.ops.pallas_kernels, "
                  "springcraft_tpu_torch.ops.pallas_linalg, "
-                 "springcraft_tpu_torch.utils.profiling; "
+                 "springcraft_tpu_torch.utils.profiling, "
+                 "springcraft_tpu_torch.io, "
+                 "springcraft_tpu_torch.structure.cif, "
+                 "springcraft_tpu_torch.structure.bcif, "
+                 "springcraft_tpu_torch.utils.elastic; "
                  "bad = sorted(m for m in sys.modules if m == 'jax' or "
                  "m.startswith(('jax.', 'springcraft_tpu.'))"
                  " or m == 'springcraft_tpu'); print(bad)"], cwd=ROOT)

@@ -145,11 +145,36 @@ def test_structure_reader_matches_jax(jax_ca, torch_ca):
 
 
 @pytest.mark.parametrize("name", ["x.cif", "x.cif.gz", "x.bcif"])
-def test_structure_reader_refuses_cif(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sct.load_structure(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdb.load_ensemble(name)
+def test_structure_reader_reads_cif(tmp_path, torch_ca, name):
+    """1l2y's CA trace written as mmCIF / BinaryCIF (``chip_smoke.py``'s
+    writers) reads back through ``load_structure`` and ``load_ensemble``
+    as the JAX package reads it, with the written annotations."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_under_test", os.path.join(
+            os.path.dirname(DATA), os.pardir, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    path = str(tmp_path / name)
+    writer = (chip_smoke.write_bcif if name.endswith(".bcif")
+              else chip_smoke.write_mmcif)
+    writer(path, torch_ca)
+    got, ref = sct.load_structure(path), jload(path)
+    assert got.array_length() == ref.array_length() == 40
+    assert np.array_equal(got.coord, ref.coord)
+    assert np.allclose(got.coord, torch_ca.coord, atol=1e-3)
+    for annotation in ("chain_id", "res_id", "res_name", "atom_name",
+                       "element", "hetero"):
+        assert np.array_equal(getattr(got, annotation),
+                              getattr(ref, annotation)), annotation
+        assert np.array_equal(getattr(got, annotation),
+                              getattr(torch_ca, annotation)), annotation
+    (atoms, models), (_, ref_models) = (tpdb.load_ensemble(path),
+                                        load_ensemble(path))
+    assert models.shape == (1, 40, 3)
+    assert np.array_equal(models, ref_models)
+    assert np.array_equal(models[0], got.coord)
 
 
 @pytest.mark.parametrize("maker", MAKERS + ("no_cutoff",))
