@@ -184,6 +184,7 @@ building anything.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -349,6 +350,32 @@ PATH_KERNELS = {
     **{f"gnm_large_{run}": ("pair_csr", "kirchhoff_apply_sparse")
        for run in ("plain", "repeat", "interrupted", "resumed")},
 }
+#: The multi-device phase (``multi_device_paths``) runs each path on two
+#: meshes: every card (one on a one-card machine) and four entries over
+#: cuda:0 with the row axis 2.  Its paths' kernels: the headline under
+#: sharding (K1-K3), the all-mode MSF by the blocked Cholesky (plain
+#: torch, as the JAX package is plain XLA there), the Chebyshev solve
+#: over K12 row ranges, and the dryrun's 14 blocks
+#: (``__graft_entry__.py:95-288``).
+MESHES = ("cards", "cuda0x4")
+DRYRUN_KERNELS = {
+    "1": ("hessian_xyz",), "2": ("hessian_xyz",), "2b": ("hessian_xyz",),
+    "3": (), "4": (), "5": ("hessian_apply_dense",),
+    "6": ("hessian_apply_dense",), "6b": ("hessian_apply_dense",),
+    "6c": ("hessian_apply_dense",),
+    "7": ("hessian_xyz", "banded_bisect", "banded_eigvec"),
+    "8": ("hessian_planes", "regularize_stitch", "panel_inverse"),
+    "8b": ("hessian_planes", "regularize_stitch", "panel_inverse"),
+    "8c": ("hessian_xyz",), "9": ()}
+PATH_KERNELS.update({
+    f"{path}@{mesh}": kernels for mesh in MESHES
+    for path, kernels in (
+        ("sharded_headline", ("hessian_planes", "regularize_stitch",
+                              "panel_inverse")),
+        ("sharded_allmode_msf", ()),
+        ("sharded_matfree_modes", ("hessian_apply_dense",)),
+        *((f"dryrun_{block}", kernels)
+          for block, kernels in DRYRUN_KERNELS.items()))})
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
                  "hessian_apply_dense", "pair_csr")
@@ -362,7 +389,8 @@ TABLE_PATHS = ("anm_tabulated_traces", "anm_tabulated_covariance",
                "anm_matfree_overlay_tabulated",
                "gnm_matfree_overlay_tabulated", "anm_7cal_modes",
                "gnm_7cal_modes", "model_anm_modes_matfree",
-               "model_anm_profiles", "mega_north_star", "mega_allmode_msf")
+               "model_anm_profiles", "mega_north_star", "mega_allmode_msf",
+               *(f"dryrun_8c@{mesh}" for mesh in MESHES))
 #: Paths that mix both branches (each family is launched once).
 MIXED_PATHS = ("assembly_large",)
 #: The float32 MSF of 7cal under eANM against the float64 engine, relative
@@ -477,6 +505,18 @@ MEGA_ALLMODE_TOL = 1e-3
 #: ``pinv_diagonal``'s identity columns per solve (``bench.py:640``).
 MEGA_BLOCK = 1296
 GOLDEN_MSF = os.path.join("tests", "data", "golden_mega_msf_20736.npz")
+#: The blocked Cholesky's panel at 20,736 dimensions: the JAX default 1024
+#: does not divide it, 768 does (27 panels).
+SHARDED_BLOCK = 768
+#: The sharded all-mode MSF against ``pinv_diagonal``'s on the same input
+#: (relative RMSE), the sharded headline against the unsharded call
+#: (max|x - ref| / max|ref|; bit for bit expected: each shard runs the
+#: unsharded call's chunks).
+SHARDED_ALLMODE_TOL = 1e-4
+SHARDED_HEADLINE_TOL = 1e-6
+#: K12 over the row range of the second of four row shards at n = 10,000:
+#: a start that is no multiple of the kernel's 32-row blocks.
+K12_ROW_RANGE = (2500, 2500)
 #: One H100 SXM (from NVIDIA's data sheet):
 #: HBM bytes/s, float32 FLOP/s outside the tensor cores; float64 FLOP/s
 #: outside the tensor cores from the same data sheet.
@@ -2461,6 +2501,32 @@ def dense_parity(results, params, label):
            (nbytes, pairs * (12 * k + 30)),
            lambda: torch.matmul(dense, xd), reps=5, plain_reps=3,
            label=label + f" ({pairs} ordered pairs pass)")
+    if params.has_cutoff:
+        return
+    # a row shard of the sharded operator: the same rows of the full call
+    # bit for bit; the full call's SHA-256 (its inputs are seeded, so
+    # runs of two trees compare)
+    full = matfree.hessian_apply_dense(cd, xd, params)
+    start, rows = K12_ROW_RANGE
+    part = matfree._launch_dense(cd, xd, params, 256, start, rows)
+    same = bool(torch.equal(part, full.reshape(3, nd, k)[
+        :, start:start + rows].reshape(3 * rows, k)))
+    print(f"K12 full call{label} SHA-256 "
+          f"{hashlib.sha256(full.cpu().numpy().tobytes()).hexdigest()}; "
+          f"rows [{start}, {start + rows}) bit for bit the full call's: "
+          f"{same}", flush=True)
+    check(same, "K12 row range differs from the full call's rows")
+    dense_rows = dense.reshape(3, nd, 3 * nd)[:, start:start + rows]\
+        .reshape(3 * rows, 3 * nd)
+    del full, dense
+    record(results, "hessian_apply_dense",
+           lambda: matfree._launch_dense(cd, xd, params, 256, start, rows),
+           lambda: matfree.hessian_apply_dense_plain(
+               cd, xd, params, row_start=start, n_rows=rows),
+           (4 * (3 * nd + 3 * nd * k + 3 * rows * k),
+            rows * (nd - 1) * (12 * k + 30)),
+           lambda: torch.matmul(dense_rows, xd), reps=5, plain_reps=3,
+           label=label + f" rows [{start}, {start + rows})")
 
 
 def matfree_parity(results):
@@ -4099,7 +4165,7 @@ def mega_allmode_msf(results, card):
     the float32 Hessian through ``pallas_kernels.hessian_pallas`` and
     ``rigid.pinv_diagonal(block_size=MEGA_BLOCK, donate=True)``, the
     three xyz blocks summed and held against the committed float64
-    golden.  Returns ``{path: launches}``."""
+    golden.  Returns ``({path: launches}, the all-mode MSF)``."""
     import numpy as np
     import torch
 
@@ -4138,7 +4204,323 @@ def mega_allmode_msf(results, card):
     check(err <= MEGA_ALLMODE_TOL, f"{path}: MSF rel RMSE {err:.3e}")
     del diag
     torch.cuda.empty_cache()
-    return {path: launches}
+    return {path: launches}, msf
+
+
+def dryrun_problem(n_atoms, n_batch, seed=0):
+    """``__graft_entry__._example_problem``: one structure of `n_atoms`
+    in a 12 A box and `n_batch` conformers 0.05 A around it, float32."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = rng.rand(n_atoms, 3).astype(np.float32) * 12.0
+    batch = base[None] + 0.05 * rng.randn(n_batch, n_atoms, 3).astype(
+        np.float32)
+    return base, batch
+
+
+def dryrun_blocks(devices):
+    """The port counterparts of the 14 asserted blocks of
+    ``__graft_entry__.dryrun_multichip`` (``__graft_entry__.py:95-288``:
+    1-9, 2b, 6b, 6c, 8b, 8c) on a mesh over `devices`, at its shapes: the
+    row axis 2 where the mesh size is even (else 1), 16 atoms a row index,
+    2 conformers a device, the invariant field at 8 A, float32.  Returns
+    ``[(block, run), ...]`` in its order; each ``run()`` makes the block's
+    call and its checks (shapes, finite values, the engine cross-checks
+    at 1e-3) and returns the outputs.  The tabulated cross-check (8c) holds
+    the kernels' float32 call against the float64 ``cho_solve`` engine
+    over the plain assembly: on CUDA the port runs no plain float32
+    assembly to hold them against, as the JAX package holds Pallas
+    against XLA."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch import parallel
+    from springcraft_tpu_torch.ops import matfree, modes
+    from springcraft_tpu_torch.structure import AtomArray
+
+    n_devices = len(devices)
+    row_axis = 2 if n_devices % 2 == 0 else 1
+    mesh = parallel.make_mesh(n_devices, row_axis=row_axis, devices=devices)
+    n_atoms, n_batch = 16 * row_axis, 2 * n_devices
+    coord, batch = dryrun_problem(n_atoms, n_batch)
+    coord_t = torch.as_tensor(coord, device=mesh.flat[0])
+    params = sct.invariant_params(8.0)
+    f32 = torch.float32
+    state = {}
+
+    def finite(label, *values):
+        check(all(bool(torch.isfinite(torch.as_tensor(v)).all())
+                  for v in values), f"dryrun {label}: non-finite output")
+
+    def shape(label, value, want):
+        check(tuple(value.shape) == want, f"dryrun {label}: shape "
+              f"{tuple(value.shape)}, expected {want}")
+
+    def within(label, got, ref):
+        got, ref = got.double(), ref.double()
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        check(rel < 1e-3, f"dryrun {label}: {rel:.3e} of max apart")
+        return rel
+
+    def ensemble():
+        out = parallel.sharded_ensemble_anm(batch, params, mesh, dtype=f32)
+        shape("1", out["msf"], (n_batch, n_atoms))
+        return out
+
+    def mean_msf():
+        mean = parallel.ensemble_mean_msf(batch, params, mesh, kind="anm")
+        shape("2", mean, (n_atoms,))
+        return mean
+
+    def fluctuations():
+        state["fluct"] = parallel.sharded_ensemble_anm_fluctuations(
+            batch, params, mesh, dtype=f32)
+        shape("2b", state["fluct"]["msf"], (n_batch, n_atoms))
+        return state["fluct"]
+
+    def pipeline():
+        mega = parallel.sharded_anm_pipeline(coord, params, mesh, dtype=f32)
+        shape("3", mega["msf"], (n_atoms,))
+        finite("3", mega["eig_values"])
+        return mega
+
+    def all_mode_msf():
+        out = parallel.sharded_all_mode_msf(coord, params, mesh, block=16,
+                                            dtype=f32)
+        shape("4", out["msf"], (n_atoms,))
+        finite("4", out["msf"])
+        return out
+
+    def modes_matfree():
+        vals, vecs, res = parallel.sharded_lowest_modes_matfree(
+            coord, params, mesh, 3, degree=24, n_outer=6, block=8,
+            dtype=f32)
+        shape("5", vals, (3,))
+        shape("5", vecs, (3, 3 * n_atoms))
+        finite("5", res)
+        state["modes"] = (vals, vecs)
+        return vals, vecs, res
+
+    def linear_response():
+        state["matvec"] = functools.partial(
+            parallel.sharded_hessian_apply, coord_t, params=params,
+            mesh=mesh, block=8, dtype=f32)
+        rhs = np.zeros((3 * n_atoms, 2), dtype=np.float32)
+        rhs[0, 0] = 1.0
+        rhs[3, 1] = -1.0
+        x, n_it, cg_res = matfree.covariance_solve_matfree(
+            coord_t, params, rhs, tol=1e-4, max_iter=200,
+            matvec=state["matvec"], dtype=f32)
+        finite("6", x)
+        shape("6", cg_res, (2,))
+        return x, n_it, cg_res
+
+    def msf_stochastic():
+        out = matfree.msf_stochastic(
+            coord_t, params, state["modes"], probes=4, seed=0, tol=1e-4,
+            max_iter=200, matvec=state["matvec"], dtype=f32)
+        shape("6b", out[0], (n_atoms,))
+        finite("6b", out[0], out[1])
+        return out
+
+    def effector_sensor():
+        prs_diag = matfree.prs_diag_from_modes(*state["modes"],
+                                               layout="xyz")
+        out = matfree.effector_sensor_stochastic(
+            coord_t, params, prs_diag, probes=4, seed=1,
+            modes=state["modes"], tol=1e-4, max_iter=200,
+            matvec=state["matvec"], dtype=f32)
+        for value in out[:2]:
+            shape("6c", value, (n_atoms,))
+        finite("6c", *out[:4])
+        return out
+
+    def banded():
+        out = parallel.sharded_ensemble_anm_banded(batch, params, mesh,
+                                                   dtype=f32, bandwidth=4)
+        shape("7", out["msf"], (n_batch, n_atoms))
+        finite("7", out["eig_values"])
+        return out
+
+    def blocked_engine():
+        out = parallel.sharded_ensemble_anm_fluctuations(
+            batch, params, mesh, dtype=f32, inverse="blocked")
+        shape("8", out["msf"], (n_batch, n_atoms))
+        within("8", out["msf"], state["fluct"]["msf"])
+        return out
+
+    def headline_engine():
+        out = parallel.sharded_ensemble_anm_fluctuations(
+            batch, params, mesh, dtype=f32, inverse="blocked",
+            use_pallas=True, with_covariance=False)
+        shape("8b", out["msf"], (n_batch, n_atoms))
+        within("8b", out["msf"], state["fluct"]["msf"])
+        return out
+
+    def tabulated():
+        rng = np.random.RandomState(5)
+        atoms = AtomArray(n_atoms)
+        atoms.coord = coord
+        atoms.atom_name = np.full(n_atoms, "CA")
+        atoms.element = np.full(n_atoms, "C")
+        atoms.chain_id = np.full(n_atoms, "A")
+        atoms.res_id = np.arange(1, n_atoms + 1)
+        atoms.res_name = np.array(AA20)[rng.randint(0, 20, n_atoms)]
+        sd_params = sct.TabulatedForceField.sd_enm(atoms) \
+            .to_compact_params()
+        ref = parallel.sharded_ensemble_anm_fluctuations(
+            batch, sd_params, mesh, dtype=torch.float64)
+        out = parallel.sharded_ensemble_anm_fluctuations(
+            batch, sd_params, mesh, dtype=f32, use_pallas=True)
+        shape("8c", out["msf"], (n_batch, n_atoms))
+        within("8c", out["msf"], ref["msf"])
+        return out
+
+    def refinement():
+        vals, _, res = modes.refine_modes_f64(coord_t, params,
+                                              state["modes"][1],
+                                              layout="xyz")
+        shape("9", vals, (3,))
+        finite("9", vals)
+        check(float(res.max()) < 1e-2,
+              f"dryrun 9: refined residual {float(res.max()):.3e}")
+        return vals, res
+
+    return [("1", ensemble), ("2", mean_msf), ("2b", fluctuations),
+            ("3", pipeline), ("4", all_mode_msf), ("5", modes_matfree),
+            ("6", linear_response), ("6b", msf_stochastic),
+            ("6c", effector_sensor), ("7", banded), ("8", blocked_engine),
+            ("8b", headline_engine), ("8c", tabulated), ("9", refinement)]
+
+
+def multi_device_paths(allmode_msf, card):
+    """The multi-device layer (``parallel/{mesh,sharded,blocked}.py``) on
+    two meshes, every card and four entries over cuda:0 (row axis 2), each
+    path from zero launch counts: the headline under sharding against the
+    unsharded call (rates beside each other); the all-mode MSF at 20,736
+    dimensions by the blocked Cholesky (panels of SHARDED_BLOCK) against
+    the golden and `allmode_msf`, ``pinv_diagonal``'s; the Chebyshev solve
+    over K12 row ranges at K12's 10,000-atom ``pfenm`` shape against the
+    single-device dense-grid solve (the same explicit oversampling) and
+    through its float64 residuals; the dryrun's 14 blocks.  Returns
+    ``{path: launches}``."""
+    import numpy as np
+    import torch
+
+    import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch import parallel
+    from springcraft_tpu_torch.ops import matfree
+
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"cards": parallel.make_mesh(),
+              "cuda0x4": parallel.make_mesh(4, row_axis=2,
+                                            devices=[cuda0] * 4)}
+    launches = {}
+    params = sct.invariant_params(CUTOFF)
+    conformers = make_conformers(N_CONFORMERS, N_RES, SEED)
+    headline = dict(inverse="blocked", use_pallas=True,
+                    with_covariance=False, chunk=CHUNK)
+    plain = sct.ensemble_anm_fluctuations(conformers, params, **headline)
+    plain_rates = [len(conformers) / timed(
+        lambda: sct.ensemble_anm_fluctuations(conformers, params,
+                                              **headline))
+        for _ in range(2)]
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), GOLDEN_MSF))
+    n_all = int(golden["n_res"])
+    atoms = make_ca_atoms(n_all, seed=int(golden["seed"]))
+    sd_params = sct.TabulatedForceField.sd_enm(atoms).to_compact_params()
+    truth = torch.as_tensor(golden["msf"], device=cuda0)
+    nd, k = N_MATFREE_DENSE, MATFREE_MODES
+    coord_d = matfree_coord(nd)
+    cd64 = torch.as_tensor(coord_d, dtype=torch.float64, device=cuda0)
+    pfenm = sct.pfenm_params(None)
+    modes_options = dict(degree=96, n_outer=10, tol=MATFREE_TOL,
+                         oversample=max(k, 8, 48 - k))
+    ref_modes = sct.lowest_modes_matfree(coord_d, pfenm, k, sparse=False,
+                                         **modes_options)
+    for name, mesh in meshes.items():
+        at = f"@{name}"
+        print(f"mesh {name}: {mesh.shape} over "
+              f"{[str(dev) for dev in mesh.flat]}", flush=True)
+
+        def sharded_headline():
+            return parallel.sharded_ensemble_anm_fluctuations(
+                conformers, params, mesh, **headline)
+
+        path = "sharded_headline" + at
+        out, seconds, launches[path] = drive(path, sharded_headline)
+        check_outputs(path, out, {key: tuple(value.shape)
+                                  for key, value in plain.items()})
+        errs = {key: max_errors(out[key], plain[key])[1] for key in plain}
+        same = all(torch.equal(out[key], plain[key]) for key in plain)
+        rates = [len(conformers) / s for s in
+                 [seconds] + [timed(sharded_headline) for _ in range(2)]]
+        print(f"{path}: {N_CONFORMERS} x N={N_RES} in chunks of {CHUNK} "
+              f"over {mesh.size} shards: "
+              + ", ".join(f"{r:.1f}" for r in rates)
+              + " solves/s (first run counted), unsharded "
+              + ", ".join(f"{r:.1f}" for r in plain_rates)
+              + f"; against the unsharded call max rel err "
+              f"{max(errs.values()):.3e} (tol {SHARDED_HEADLINE_TOL:g}), "
+              f"bit for bit: {same} on [{card}]", flush=True)
+        check(max(errs.values()) <= SHARDED_HEADLINE_TOL,
+              f"{path}: {errs} against the unsharded call")
+        del out
+
+        path = "sharded_allmode_msf" + at
+        torch.cuda.empty_cache()
+        out, seconds, launches[path] = drive(
+            path, lambda: parallel.sharded_all_mode_msf(
+                atoms.coord, sd_params, mesh, block=SHARDED_BLOCK))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        msf = out["msf"].double()
+        err, err_pinv = rel_rmse(msf, truth), rel_rmse(msf, allmode_msf)
+        print(f"{path}: n={n_all} ({3 * n_all} dimensions) sdENM float32, "
+              f"blocked Cholesky in {3 * n_all // SHARDED_BLOCK} panels of "
+              f"{SHARDED_BLOCK}: {seconds:.3f} s, peak device memory "
+              f"{peak:.2f} GiB; rel RMSE {err:.3e} of the float64 golden "
+              f"(tol {MEGA_ALLMODE_TOL:g}), {err_pinv:.3e} of "
+              f"pinv_diagonal's (tol {SHARDED_ALLMODE_TOL:g}) on [{card}]",
+              flush=True)
+        check(bool(torch.isfinite(msf).all()), f"{path}: non-finite MSF")
+        check(err <= MEGA_ALLMODE_TOL, f"{path}: rel RMSE {err:.3e}")
+        check(err_pinv <= SHARDED_ALLMODE_TOL,
+              f"{path}: {err_pinv:.3e} of pinv_diagonal's")
+        del out
+        torch.cuda.empty_cache()
+
+        path = "sharded_matfree_modes" + at
+        (vals, vecs, res), seconds, launches[path] = drive(
+            path, lambda: parallel.sharded_lowest_modes_matfree(
+                coord_d, pfenm, mesh, k, **modes_options))
+        same = bool(torch.equal(vals, ref_modes[0])
+                    and torch.equal(vecs, ref_modes[1]))
+        rel = float(((vals.double() - ref_modes[0].double()).abs()
+                     / ref_modes[0].double().abs()).max())
+        print(f"{path}: pfenm, n={nd}, {k} modes, oversample "
+              f"{modes_options['oversample']}, {seconds:.3f} s; eigenvalues "
+              f"against the single-device dense-grid solve: max rel "
+              f"{rel:.3e} (tol {ANCHOR_RTOL:g}; bit for bit expected), "
+              f"modes bit for bit: {same} on [{card}]",
+              flush=True)
+        check(rel <= ANCHOR_RTOL, f"{path}: eigenvalues {rel:.3e} off")
+        mode_checks(path, vals, vecs, res,
+                    lambda u: matfree.hessian_apply(cd64, u, pfenm,
+                                                    dtype=torch.float64),
+                    MATFREE_WANTED, MATFREE_TOL)
+
+        times = []
+        for block, run in dryrun_blocks(list(mesh.flat)):
+            path = f"dryrun_{block}" + at
+            _, seconds, launches[path] = drive(path, run)
+            times.append(f"{block} {seconds:.3f}")
+        print(f"dryrun blocks{at} (s): {', '.join(times)}", flush=True)
+    return launches
 
 
 def main():
@@ -4207,8 +4589,11 @@ def main():
     phase("large_structure_paths")
     launches.update(mega_north_star(parity, card))
     phase("mega_north_star")
-    launches.update(mega_allmode_msf(parity, card))
+    found, allmode_msf = mega_allmode_msf(parity, card)
+    launches.update(found)
     phase("mega_allmode_msf")
+    launches.update(multi_device_paths(allmode_msf, card))
+    phase("multi_device_paths")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

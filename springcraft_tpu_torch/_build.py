@@ -87,10 +87,10 @@ _SIGNATURES = {
     "sc_hessian_apply_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # row_ptr, slots, k, x, out, n, k columns, stream
     "sc_kirchhoff_apply_pairs": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # coords, x, out, n, k, kind, cutoff_sq, has_cutoff, tables, edges_sq,
-    # atom_code, n_bins, n_edges, stream
-    "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P,
-                               _I, _I, _P),
+    # coords, x, out, n, k, row_start, n_rows, kind, cutoff_sq, has_cutoff,
+    # tables, edges_sq, atom_code, n_bins, n_edges, stream
+    "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P,
+                               _P, _I, _I, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

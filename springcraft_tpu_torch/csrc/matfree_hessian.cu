@@ -50,7 +50,13 @@
 //   the unbiased forms gave back most of the gain.  The 4 blocks of a cluster
 //   (grid.z) take alternate column tiles of the same rows and sum their
 //   partials through distributed shared memory in a fixed order; y_i -= D_i x_i
-//   last, each output written once, no atomics on Y.
+//   last, each output written once, no atomics on Y.  A launch may cover a
+//   row range [row_start, row_start + n_rows) against every column atom (the
+//   row shard of a mesh, parallel/sharded.py): the grid covers the range and
+//   Y holds its rows only.  Each row's sums run in the same order wherever
+//   the range starts (a pair no row of the lane's warp meets is skipped, one
+//   only another row meets adds exact zeros), so a range's rows are bit for
+//   bit those of the full call.
 //
 // Numerics: the pair values (d, |d|^2, k, g) follow the plain versions'
 // roundings (spring.cuh); the sums run pair by pair in float32, in another
@@ -315,16 +321,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Rows [32 x, 32 x + 32) and columns [c0, c0 + kc) of Y, c0 = blockIdx.y
-// width; the cluster's blocks (grid.z) take alternate column tiles and sum
-// their partials through distributed shared memory.  `vec`: X and k allow
+// Rows [row_start + 32 x, row_start + 32 x + 32) of Y, clipped to
+// row_end, and its columns [c0, c0 + kc), c0 = blockIdx.y width; the
+// cluster's blocks (grid.z) take alternate column tiles and sum their
+// partials through distributed shared memory.  Y holds the rows [row_start,
+// row_end) of each plane (plane stride (row_end - row_start) k); column
+// atoms, X and the diagonal's x_i stay global.  `vec`: X and k allow
 // 16-byte copies.  MB: blocks per SM the registers are capped for.
 template <bool kTable, int RI, int LC, int RC, int MB>
 __global__ void __launch_bounds__(kThreads, MB)
     hessian_apply_dense_kernel(const float* __restrict__ coords,
                                const float* __restrict__ x,
                                float* __restrict__ out, int n, int k,
-                               int width, int vec, int kind, float cutoff_sq,
+                               int row_start, int row_end, int width,
+                               int vec, int kind, float cutoff_sq,
                                int has_cutoff, springcraft::PairTable table,
                                const float* __restrict__ edges_sq,
                                const int* __restrict__ atom_code) {
@@ -339,9 +349,10 @@ __global__ void __launch_bounds__(kThreads, MB)
   const int rank = static_cast<int>(cluster.block_rank());
   constexpr int splits = kCluster;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = row_start + blockIdx.x * kRows;
   const int c0 = blockIdx.y * width, kc = min(width, k - c0);
   const size_t plane = static_cast<size_t>(n) * k;
+  const size_t out_plane = static_cast<size_t>(row_end - row_start) * k;
   const int n_tiles = (n + kTile - 1) / kTile;
 
   if constexpr (kTable) {
@@ -355,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, MB)
   // The pair pass: lane = row, warp w takes the tile's atoms q = w, w + 4,
   // ..., and sums the lane's share of D_i.
   const int gi = row0 + lane;
-  const bool row_ok = gi < n;
+  const bool row_ok = gi < row_end;
   springcraft::WalkRow row{0.0f, 0.0f, 0.0f, n, 0};
   if (row_ok)
     row = springcraft::WalkRow{coords[3 * gi], coords[3 * gi + 1],
@@ -564,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, MB)
     const int rem = u - a * kRows * S::kWidth;
     const int rr = rem / S::kWidth, c = rem - rr * S::kWidth;
     const int i = row0 + rr;
-    if (i >= n || c >= kc) continue;
+    if (i >= row_end || c >= kc) continue;
     float sum = 0.0f;
     for (int r = 0; r < splits; ++r) {
       const float* yp = cluster.map_shared_rank(ypart, r);
@@ -576,7 +587,7 @@ __global__ void __launch_bounds__(kThreads, MB)
     const float e0 = dsum[entry(a, 0) * kRows + rr];
     const float e1 = dsum[entry(a, 1) * kRows + rr];
     const float e2 = dsum[entry(a, 2) * kRows + rr];
-    out[a * plane + static_cast<size_t>(i) * k + c0 + c] =
+    out[a * out_plane + static_cast<size_t>(i - row_start) * k + c0 + c] =
         sum - (e0 * xi[0] + e1 * xi[plane] + e2 * xi[2 * plane]);
   }
   cluster.sync();  // no block leaves while the others read its memory
@@ -584,8 +595,9 @@ __global__ void __launch_bounds__(kThreads, MB)
 
 template <bool kTable, int RI, int LC, int RC, int MB>
 cudaError_t launch(dim3 grid, cudaStream_t stream, const float* coords,
-                   const float* x, float* out, int n, int k, int width,
-                   int vec, int kind, float cutoff_sq, int has_cutoff,
+                   const float* x, float* out, int n, int k, int row_start,
+                   int row_end, int width, int vec, int kind,
+                   float cutoff_sq, int has_cutoff,
                    springcraft::PairTable table, const float* edges_sq,
                    const int* atom_code) {
   const auto kernel = hessian_apply_dense_kernel<kTable, RI, LC, RC, MB>;
@@ -604,14 +616,14 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const float* coords,
   config.stream = stream;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, kernel, coords, x, out, n, k, width, vec,
-                            kind, cutoff_sq, has_cutoff, table, edges_sq,
-                            atom_code);
+  return cudaLaunchKernelEx(&config, kernel, coords, x, out, n, k, row_start,
+                            row_end, width, vec, kind, cutoff_sq, has_cutoff,
+                            table, edges_sq, atom_code);
 }
 
 using Launch = cudaError_t (*)(dim3, cudaStream_t, const float*,
                                const float*, float*, int, int, int, int, int,
-                               float, int, springcraft::PairTable,
+                               int, int, float, int, springcraft::PairTable,
                                const float*, const int*);
 // by [kTable][width <= 16, 32, 48, 64]
 constexpr Launch kLaunch[2][4] = {
@@ -641,17 +653,23 @@ extern "C" int sc_hessian_apply_pairs(const float* coords, const int* row_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tables (n_bins, 3, 20, 20), edges_sq (n_edges <= kMaxEdges) and atom_code
-// (n) are read only for kind == table_compact and may be null otherwise.
+// Rows [row_start, row_start + n_rows) of Y = H X: out is (3, n_rows, k)
+// (the full range: (3n, k)), X (3n, k) and the coordinates (n, 3) are
+// whole.  tables (n_bins, 3, 20, 20), edges_sq (n_edges <= kMaxEdges) and
+// atom_code (n) are read only for kind == table_compact and may be null
+// otherwise.
 extern "C" int sc_hessian_apply_dense(const float* coords, const float* x,
-                                      float* out, int n, int k, int kind,
+                                      float* out, int n, int k, int row_start,
+                                      int n_rows, int kind,
                                       float cutoff_sq, int has_cutoff,
                                       const float* tables,
                                       const float* edges_sq,
                                       const int* atom_code, int n_bins,
                                       int n_edges, void* stream) {
-  if (n_edges > springcraft::kMaxEdges) return cudaErrorInvalidValue;
-  if (n > 0 && k > 0) {
+  if (n_edges > springcraft::kMaxEdges || row_start < 0 || n_rows < 0 ||
+      row_start > n - n_rows)
+    return cudaErrorInvalidValue;
+  if (n_rows > 0 && k > 0) {
     // the widest column chunks of at most 64 (a multiple of 4 where k is)
     const int chunks = (k + dense::kMaxCols - 1) / dense::kMaxCols;
     int width = (k + chunks - 1) / chunks;
@@ -659,14 +677,15 @@ extern "C" int sc_hessian_apply_dense(const float* coords, const float* x,
     if (vec4) width = (width + 3) / 4 * 4;
     const int vec =
         vec4 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0 ? 1 : 0;
-    const dim3 grid((n + dense::kRows - 1) / dense::kRows, chunks,
+    const dim3 grid((n_rows + dense::kRows - 1) / dense::kRows, chunks,
                     dense::kCluster);
     const int shape = width <= 16 ? 0 : width <= 32 ? 1 : width <= 48 ? 2 : 3;
     const springcraft::PairTable table{tables, nullptr, n_bins, n_edges};
     const cudaError_t err = dense::kLaunch[kind == springcraft::kTableCompact]
                                           [shape](
-        grid, static_cast<cudaStream_t>(stream), coords, x, out, n, k, width,
-        vec, kind, cutoff_sq, has_cutoff, table, edges_sq, atom_code);
+        grid, static_cast<cudaStream_t>(stream), coords, x, out, n, k,
+        row_start, row_start + n_rows, width, vec, kind, cutoff_sq, has_cutoff,
+        table, edges_sq, atom_code);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

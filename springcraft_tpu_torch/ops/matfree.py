@@ -221,22 +221,33 @@ def _columns(x, rows, like, name="x"):
     return x, squeeze
 
 
-def _row_blocks(coord, params, block):
+def _padded_rows(n, block, start, stop):
+    """Rows to pad an ``(n, ...)`` array to: the columns' multiple of
+    `block`, or past it the whole blocks of rows from `start` to
+    `stop`."""
+    return max(_round_up(n, block), start + _round_up(stop - start, block))
+
+
+def _row_blocks(coord, params, block, start=0, stop=None):
     """Blocked row passes over all atom pairs of the base family (no
     overlays): yields ``(r0, d, sq, kmat)`` per block of `block` rows
-    (``d`` ``(block, n_pad, 3)``, the masked constants ``kmat`` ``(block,
-    n_pad)``), rows and columns padded to a multiple of `block`.
-    O(block * n) live memory."""
+    from `start` up to `stop` (default: all rows; ``d`` ``(block, n_pad,
+    3)``, the masked constants ``kmat`` ``(block, n_pad)``), rows and
+    columns padded to a multiple of `block`; a last block past `stop`
+    holds the rows after it (or padding).  O(block * n) live memory."""
     params = strip_overlays(params)
     n = coord.shape[0]
     params._check_atoms(n)
+    stop = n if stop is None else stop
     n_pad = _round_up(n, block)
-    coord_p = F.pad(coord, (0, 0, 0, n_pad - n))
-    cols = torch.arange(n_pad, device=coord.device)
-    for r0 in range(0, n_pad, block):
-        d = coord_p[r0:r0 + block, None, :] - coord_p[None, :, :]
+    coord_p = F.pad(coord, (0, 0, 0, _padded_rows(n, block, start, stop)
+                            - n))
+    ids = torch.arange(coord_p.shape[0], device=coord.device)
+    cols = ids[:n_pad]
+    for r0 in range(start, stop, block):
+        d = coord_p[r0:r0 + block, None, :] - coord_p[None, :n_pad, :]
         sq = _squared_distance(d)
-        yield r0, d, sq, _rect_constants(sq, cols[r0:r0 + block], cols, n,
+        yield r0, d, sq, _rect_constants(sq, ids[r0:r0 + block], cols, n,
                                          params)
 
 
@@ -277,11 +288,21 @@ def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
                           dtype=dtype) \
             + overlay_apply_hessian(coord, x, params, dtype=dtype)
         return y[:, 0] if squeeze else y
-    k = x.shape[1]
+    y = _hessian_apply_rows(coord, x, params, block, 0, n)
+    y = y.reshape(3 * n, x.shape[1])
+    return y[:, 0] if squeeze else y
+
+
+def _hessian_apply_rows(coord, x, params, block, start, stop):
+    """Rows ``start`` ... ``stop - 1`` of each plane of the base family's
+    ``H @ x`` (`x` ``(3n, k)``), ``(3, stop - start, k)``: the row-blocked
+    passes of :func:`hessian_apply` over those rows only."""
+    n, k = coord.shape[0], x.shape[1]
     n_pad = _round_up(n, block)
-    x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
+    x_p = F.pad(x.reshape(3, n, k),
+                (0, 0, 0, _padded_rows(n, block, start, stop) - n))
     out = []
-    for r0, d, sq, kmat in _row_blocks(coord, params, block):
+    for r0, d, sq, kmat in _row_blocks(coord, params, block, start, stop):
         g = -kmat / _safe(sq)
         xr = x_p[:, r0:r0 + block]
         y = []
@@ -289,12 +310,11 @@ def hessian_apply(coord, x, params, *, block=512, dtype=torch.float32,
             acc = torch.zeros_like(xr[0])
             for b in range(3):
                 plane = g * d[..., a] * d[..., b]
-                acc = acc + plane @ x_p[b]
+                acc = acc + plane @ x_p[b, :n_pad]
                 acc = acc - plane.sum(dim=1)[:, None] * xr[b]
             y.append(acc)
         out.append(torch.stack(y))
-    y = torch.cat(out, dim=1)[:, :n].reshape(3 * n, k)
-    return y[:, 0] if squeeze else y
+    return torch.cat(out, dim=1)[:, :stop - start]
 
 
 def kirchhoff_apply(coord, x, params, *, block=512, dtype=torch.float32,
@@ -591,8 +611,9 @@ def _dense_csr(n, tile, device):
 # Plain versions of the kernels: the tile walk, row tile by row tile
 # ---------------------------------------------------------------------------
 
-def _tile_pairs(coord, csr, tile, params):
-    """Per row tile: ``(rows, slots, d, sq, valid, kmat)`` over the
+def _tile_pairs(coord, csr, tile, params, tiles=None):
+    """Per row tile (of `tiles`, default all): ``(rows, slots, d, sq,
+    valid, kmat)`` over the
     gathered slots ``slots`` ``(C,)`` of its neighbour tiles (``d``
     ``(tile, C, 3)``, ``valid`` the kernels' test by original id, cutoff
     and padding, ``kmat`` the base family's constants masked by it), on
@@ -607,7 +628,7 @@ def _tile_pairs(coord, csr, tile, params):
     ids = F.pad(csr.ids, (0, n_pad - n), value=n)
     offs = torch.arange(tile, device=coord.device)
     ptr = csr.row_ptr.tolist()
-    for t in range(n_pad // tile):
+    for t in range(n_pad // tile) if tiles is None else tiles:
         rows = slice(t * tile, (t + 1) * tile)
         slots = (csr.cols[ptr[t]:ptr[t + 1]].long()[:, None] * tile
                  + offs).reshape(-1)
@@ -628,30 +649,65 @@ def hessian_apply_sparse_plain(coord, x, params, csr, tile):
     its neighbour tiles contracted with X, the row sums applied last.
     The base family of `params` (a tabulated one in the order of
     `coord`); overlays are the caller's correction."""
+    return _sparse_plain_rows(coord, x, params, csr, tile, 0, coord.shape[0])
+
+
+def _sparse_plain_rows(coord, x, params, csr, tile, row_start, n_rows):
+    """Rows ``row_start`` ... ``row_start + n_rows - 1`` of each plane of
+    :func:`hessian_apply_sparse_plain`, ``(3 n_rows, k)``: the row tiles
+    that meet them."""
     n = coord.shape[0]
     k = x.shape[-1]
     n_pad = _round_up(n, tile)
     x_p = F.pad(x.reshape(3, n, k), (0, 0, 0, n_pad - n))
-    out = torch.empty_like(x_p)
-    for rows, slots, d, sq, _, kmat in _tile_pairs(coord, csr, tile,
-                                                   params):
+    t0 = row_start // tile
+    t1 = _round_up(row_start + n_rows, tile) // tile
+    base = t0 * tile
+    out = x_p.new_empty((3, (t1 - t0) * tile, k))
+    for rows, slots, d, sq, _, kmat in _tile_pairs(coord, csr, tile, params,
+                                                   range(t0, t1)):
         g = -kmat / _safe(sq)
         xc = x_p[:, slots]
+        local = slice(rows.start - base, rows.stop - base)
         for a in range(3):
             planes = [g * d[..., a] * d[..., b] for b in range(3)]
             acc = sum(planes[b] @ xc[b] for b in range(3))
             for b in range(3):
                 acc = acc - planes[b].sum(dim=1)[:, None] * x_p[b, rows]
-            out[a, rows] = acc
-    return out[:, :n].reshape(3 * n, k)
+            out[a, local] = acc
+    lo = row_start - base
+    return out[:, lo:lo + n_rows].reshape(3 * n_rows, k)
 
 
-def hessian_apply_dense_plain(coord, x, params, tile=256):
+def _row_range(n, row_start, n_rows):
+    """`n_rows` (default: the rows from `row_start` to the end), checked
+    to lie inside ``[0, n)``."""
+    n_rows = n - row_start if n_rows is None else n_rows
+    if not 0 <= row_start <= n - n_rows or n_rows < 0:
+        raise ValueError(f"row range [{row_start}, {row_start + n_rows}) "
+                         f"outside the {n} atoms")
+    return n_rows
+
+
+def _plane_rows(y, n, row_start, n_rows):
+    """Rows ``row_start`` ... ``row_start + n_rows - 1`` of each plane of
+    `y` ``(3n, k)``, as ``(3 n_rows, k)``."""
+    k = y.shape[-1]
+    return y.reshape(3, n, k)[:, row_start:row_start + n_rows]\
+        .reshape(3 * n_rows, k)
+
+
+def hessian_apply_dense_plain(coord, x, params, tile=256, row_start=0,
+                              n_rows=None):
     """Plain version of K12: :func:`hessian_apply_sparse_plain` over the
-    dense grid of tiles with ids ``arange(n)``."""
-    return hessian_apply_sparse_plain(
-        coord, x, params, _dense_csr(coord.shape[0], tile, coord.device),
-        tile)
+    dense grid of tiles with ids ``arange(n)``; with a row range only the
+    rows ``row_start`` ... ``row_start + n_rows - 1`` of each plane,
+    ``(3 n_rows, k)``, against every column atom."""
+    n = coord.shape[0]
+    n_rows = _row_range(n, row_start, n_rows)
+    return _sparse_plain_rows(coord, x, params,
+                              _dense_csr(n, tile, coord.device), tile,
+                              row_start, n_rows)
 
 
 def kirchhoff_apply_sparse_plain(coord, x, params, csr, tile):
@@ -1003,23 +1059,29 @@ def _sparse_apply(wrapper, coord, x, params, csr, tile):
         coord, params, csr.ids)(x)
 
 
-def _launch_dense(coord, x, params, tile):
-    """Route one dense-grid Hessian apply (x ``(3n, k)``): the plain
-    version on the CPU, K12 on CUDA.  Patch overlays follow the
-    base-family apply as a sparse correction."""
+def _launch_dense(coord, x, params, tile, row_start=0, n_rows=None):
+    """Route one dense-grid Hessian apply (x ``(3n, k)``) over the rows
+    ``row_start`` ... ``row_start + n_rows - 1`` of each plane (default:
+    all), ``(3 n_rows, k)``: the plain version on the CPU, K12 on CUDA.
+    Patch overlays follow the base-family apply as a sparse correction,
+    of which the range keeps its rows."""
+    n = coord.shape[0]
+    n_rows = _row_range(n, row_start, n_rows)
     if params.overlays:
-        return _with_overlay_apply(
-            lambda v: _launch_dense(coord, v, strip_overlays(params), tile),
-            overlay_apply_hessian, coord, params, None)(x)
+        base = _launch_dense(coord, x, strip_overlays(params), tile,
+                             row_start, n_rows)
+        delta = overlay_apply_hessian(coord, x, params, dtype=coord.dtype)
+        return base + _plane_rows(delta, n, row_start, n_rows)
     name = "hessian_apply_dense"
     if _build.route(name, coord, x) == "cpu":
-        return hessian_apply_dense_plain(coord, x, params, tile)
+        return hessian_apply_dense_plain(coord, x, params, tile, row_start,
+                                         n_rows)
     _build.require_cuda_f32(name, coord=coord, x=x)
     _check_kernel_shape(name, coord, x, _DENSE_COLS)
-    n, k = coord.shape[0], x.shape[1]
-    out = torch.empty_like(x)
+    k = x.shape[1]
+    out = x.new_empty((3 * n_rows, k))
     _build.launch("sc_hessian_apply_dense", coord.device, coord.data_ptr(),
-                  x.data_ptr(), out.data_ptr(), n, k,
+                  x.data_ptr(), out.data_ptr(), n, k, row_start, n_rows,
                   *_kernel_args(params, n, coord.device))
     hessian_apply_dense.launches += 1
     hessian_apply_dense.table_launches += params.kind == "table_compact"

@@ -180,16 +180,25 @@ def lowest_modes(matrix, k, null_basis=None, n_iter=200, seed=0):
     m = matrix.shape[0]
     if 5 * k >= m:
         return _dense_lowest(matrix, k, null_basis)
-    t = None if null_basis is None else null_basis.to(matrix.dtype)
-    upper = matrix.abs().sum(dim=1).max()
+    return _lobpcg_lowest(lambda x: matrix @ x, matrix.abs().sum(dim=1).max(),
+                          m, k, null_basis, n_iter, seed)
+
+
+def _lobpcg_lowest(matvec, upper, m, k, null_basis, n_iter, seed):
+    """The LOBPCG core of :func:`lowest_modes` over an operator:
+    `matvec` ``x -> H @ x`` for x ``(m, p)``, `upper` the Gershgorin
+    bound of ``H`` (a 0-d tensor of its dtype on its device) — so that a
+    row-sharded matrix need not be gathered
+    (:func:`..parallel.sharded.sharded_lowest_modes`)."""
+    t = None if null_basis is None else null_basis.to(upper.dtype)
     c = 2.0 * upper
     deflate = _project_out_of(t)
 
     def reflected(x):
-        y = c * x - matrix @ x
+        y = c * x - matvec(x)
         return y if t is None else y - upper * (t @ (t.T @ x))
 
-    x0, _ = torch.linalg.qr(deflate(_start_block(m, k, seed, matrix)))
+    x0, _ = torch.linalg.qr(deflate(_start_block(m, k, seed, upper)))
     mu, vecs = _lobpcg_standard(reflected, x0, n_iter)
     vals = c - mu
     order = torch.argsort(vals)

@@ -2409,3 +2409,199 @@ def test_model_file_round_trip_on_cuda(cuda, tmp_path):
     assert np.array_equal(restored.dcc(), gnm.dcc())
     with pytest.raises(RuntimeError, match="force_field="):
         restored.lowest_modes(4, matrix_free=True)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: K12 over a row range, the sharded paths on meshes
+# over cuda:0 (one entry, and four with the row axis 2), and a mesh over two
+# cards
+# ---------------------------------------------------------------------------
+
+def _k12_case(cuda, n=1000, k=48, family="pfenm"):
+    rng = np.random.RandomState(21)
+    c = torch.as_tensor(rng.rand(n, 3) * 60.0, dtype=torch.float32,
+                        device=cuda)
+    x = torch.as_tensor(rng.randn(3 * n, k), dtype=torch.float32,
+                        device=cuda)
+    params = (sct.pfenm_params(None) if family == "pfenm"
+              else sct.invariant_params(13.0))
+    return c, x, params
+
+
+@pytest.mark.parametrize("family", ["pfenm", "invariant"])
+@pytest.mark.parametrize("start, rows", [(0, 250), (13, 300), (990, 10),
+                                         (31, 33), (0, 1000), (500, 0)])
+def test_k12_row_range_matches_plain_and_full_call(cuda, family, start,
+                                                   rows):
+    """K12 over a row range: bit for bit the same rows of the full
+    launch, and within 1e-5 of max of its plain version's."""
+    c, x, params = _k12_case(cuda, family=family)
+    full = matfree.hessian_apply_dense(c, x, params)
+    before = matfree.hessian_apply_dense.launches
+    part = matfree._launch_dense(c, x, params, 256, start, rows)
+    assert matfree.hessian_apply_dense.launches == before + 1
+    want = full.reshape(3, 1000, -1)[:, start:start + rows].reshape(-1, 48)
+    assert torch.equal(part, want)
+    if rows:
+        plain = matfree.hessian_apply_dense_plain(c, x, params,
+                                                  row_start=start,
+                                                  n_rows=rows)
+        assert _rel(part, plain) <= 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 7, 48, 100])
+def test_k12_row_range_column_widths(cuda, k):
+    """Odd widths (4-byte copies), 48 and two column chunks."""
+    c, x, params = _k12_case(cuda, n=333, k=k, family="invariant")
+    full = matfree.hessian_apply_dense(c, x, params)
+    part = matfree._launch_dense(c, x, params, 256, 45, 111)
+    assert torch.equal(part, full.reshape(3, 333, k)[:, 45:156]
+                       .reshape(-1, k))
+
+
+def test_k12_full_range_is_the_full_call(cuda):
+    """The full range through the row-range entry is the wrapper's call,
+    byte for byte (one SHA-256)."""
+    import hashlib
+
+    c, x, params = _k12_case(cuda)
+    full = matfree.hessian_apply_dense(c, x, params)
+    ranged = matfree._launch_dense(c, x, params, 256, 0, 1000)
+    digest = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+              for t in (full, ranged)]
+    assert digest[0] == digest[1]
+
+
+def _cuda_meshes():
+    from springcraft_tpu_torch import parallel
+
+    card = torch.device("cuda", 0)
+    return {"one": parallel.make_mesh(1, devices=[card]),
+            "four": parallel.make_mesh(4, row_axis=2, devices=[card] * 4)}
+
+
+@pytest.mark.parametrize("mesh_name", ["one", "four"])
+def test_sharded_paths_on_cuda(cuda, mesh_name):
+    """Every sharded path on a mesh over cuda:0, float32 on the kernels,
+    against the unsharded call or the float64 engine, with its kernels'
+    launches."""
+    from springcraft_tpu_torch import parallel
+
+    mesh = _cuda_meshes()[mesh_name]
+    coords = _coords(8, 40, 5, spread=10.0)
+    params = sct.invariant_params(9.0)
+
+    def launched(fn, *names):
+        wrappers = sct.kernel_wrappers()
+        before = {name: wrappers[name].launches for name in names}
+        out = fn()
+        torch.cuda.synchronize()
+        for name in names:
+            assert wrappers[name].launches > before[name], name
+        return out
+
+    got = launched(lambda: parallel.sharded_ensemble_anm_fluctuations(
+        coords, params, mesh, inverse="blocked", with_covariance=False,
+        use_pallas=True), "hessian_planes", "regularize_stitch",
+        "panel_inverse")
+    ref = pipeline.ensemble_anm_fluctuations(
+        coords, params, inverse="blocked", with_covariance=False)
+    for key in ref:
+        assert got[key].device == mesh.flat[0]
+        assert _rel(got[key], ref[key]) <= 1e-6, key
+    launched(lambda: parallel.sharded_ensemble_anm(coords, params, mesh),
+             "hessian_xyz")
+    launched(lambda: parallel.sharded_ensemble_gnm(coords, params, mesh),
+             "kirchhoff")
+    launched(lambda: parallel.sharded_ensemble_anm_banded(
+        coords, params, mesh, bandwidth=4), "banded_bisect",
+        "banded_eigvec")
+    launched(lambda: parallel.sharded_ensemble_gnm_banded(
+        coords, params, mesh, bandwidth=4), "banded_bisect")
+    mean = launched(lambda: parallel.ensemble_mean_msf(coords, params,
+                                                       mesh), "hessian_xyz")
+    assert mean.shape == (40,)
+
+    coord = coords[0]
+    c64 = torch.as_tensor(coord, dtype=torch.float64, device=cuda)
+    x = torch.randn(120, 6, device=cuda)
+    y = launched(lambda: parallel.sharded_hessian_apply(coord, x, params,
+                                                        mesh),
+                 "hessian_apply_dense")
+    assert torch.equal(y, matfree.hessian_apply_dense(
+        torch.as_tensor(coord, device=cuda), x, params))
+    y64 = parallel.sharded_hessian_apply(coord, x.double(), params, mesh,
+                                         dtype=torch.float64)
+    assert _rel(y64, matfree.hessian_apply(c64, x.double(), params,
+                                           dtype=torch.float64)) <= 1e-12
+    vals, vecs, res = launched(lambda: parallel.sharded_lowest_modes_matfree(
+        coord, params, mesh, 4, degree=48, n_outer=8, oversample=8),
+        "hessian_apply_dense")
+    ref_vals, _, _ = sct.lowest_modes_matfree(
+        coord, params, 4, degree=48, n_outer=8, oversample=8, sparse=False)
+    assert torch.equal(vals, ref_vals)
+
+    hessian = parallel.sharded_hessian(coord, params, mesh,
+                                       dtype=torch.float64)
+    assert all(s.device == mesh.flat[0] for s in hessian.shards)
+    dense = hessian.full().cpu().numpy()
+    truth = np.linalg.eigvalsh(dense)
+    vals, _ = parallel.sharded_lowest_modes(coord, params, mesh, 4,
+                                            dtype=torch.float64,
+                                            n_iter=300)
+    assert np.allclose(vals.cpu().numpy(), truth[6:10], rtol=1e-6)
+    pinv = np.linalg.pinv(dense, hermitian=True, rcond=1e-6)
+    cov = parallel.sharded_covariance(coord, params, mesh,
+                                      dtype=torch.float64)
+    assert np.allclose(cov.full().cpu().numpy(), pinv, atol=1e-8)
+    cov = parallel.sharded_covariance_blocked(coord, params, mesh, block=24,
+                                              dtype=torch.float64)
+    assert np.allclose(cov.full().cpu().numpy(), pinv, atol=1e-8)
+    msf = parallel.sharded_all_mode_msf(coord, params, mesh, block=24,
+                                        dtype=torch.float64)["msf"]
+    assert np.allclose(msf.cpu().numpy(), np.einsum(
+        "iaia->i", pinv.reshape(40, 3, 40, 3)), atol=1e-8)
+    out = parallel.sharded_anm_pipeline(coord, params, mesh,
+                                        dtype=torch.float64)
+    assert np.allclose(out["eig_values"].cpu().numpy(), truth, atol=1e-9)
+
+
+def test_mesh_over_two_cards():
+    """A mesh over cuda:0 and cuda:1: shards on both cards, copies between
+    them explicit, the results on the first card and equal to the one-card
+    mesh's."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from springcraft_tpu_torch import parallel
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    two = parallel.make_mesh(2, row_axis=2, devices=cards)
+    one = parallel.make_mesh(2, row_axis=2, devices=cards[:1] * 2)
+    coords = _coords(4, 40, 5, spread=10.0)
+    params = sct.invariant_params(9.0)
+    got = parallel.sharded_ensemble_anm_fluctuations(
+        coords, params, two, inverse="blocked", with_covariance=False)
+    ref = parallel.sharded_ensemble_anm_fluctuations(
+        coords, params, one, inverse="blocked", with_covariance=False)
+    for key in ref:
+        assert got[key].device == cards[0]
+        assert torch.equal(got[key], ref[key]), key
+    hessian = parallel.sharded_hessian(coords[0], params, two)
+    assert [s.device for s in hessian.shards] == cards
+    x = torch.randn(120, 6, device=cards[0])
+    assert torch.equal(
+        parallel.sharded_hessian_apply(coords[0], x, params, two),
+        parallel.sharded_hessian_apply(coords[0], x, params, one))
+    msf = parallel.sharded_all_mode_msf(coords[0], params, two, block=24,
+                                        dtype=torch.float64)["msf"]
+    ref = parallel.sharded_all_mode_msf(coords[0], params, one, block=24,
+                                        dtype=torch.float64)["msf"]
+    assert msf.device == cards[0] and torch.allclose(msf, ref, atol=1e-12)
+
+
+def test_make_mesh_defaults_to_every_card(cuda):
+    from springcraft_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(dev.type == "cuda" for dev in mesh.flat)

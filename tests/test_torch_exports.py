@@ -20,18 +20,8 @@ pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_LATER_DEVICES = "multi-device module still to port (ROADMAP.md queue 1 " \
-    "item 4)"
-_SHARDED = ("sharded_ensemble_anm", "sharded_ensemble_gnm",
-            "sharded_ensemble_anm_banded",
-            "sharded_ensemble_anm_fluctuations",
-            "sharded_ensemble_gnm_banded", "sharded_hessian",
-            "sharded_hessian_apply", "sharded_lowest_modes",
-            "sharded_lowest_modes_matfree", "sharded_covariance",
-            "sharded_anm_pipeline", "ensemble_mean_msf")
-_BLOCKED = ("blocked_cholesky", "blocked_solve_lower",
-            "blocked_solve_lower_t", "sharded_covariance_blocked",
-            "sharded_all_mode_msf")
+_JAX_SHARDING = "JAX sharding types; the port's Sharding/ShardedTensor " \
+    "take their place"
 
 #: Qualified JAX name (a module, or a module's attribute) -> why the port
 #: does not export it.
@@ -62,14 +52,9 @@ NOT_PORTED = {
     "springcraft_tpu._native":
         "the native C++ cell list; the port's numpy structure/celllist.py "
         "gives the same adjacency",
-    # still to come
-    "springcraft_tpu.parallel.mesh": _LATER_DEVICES,
-    "springcraft_tpu.parallel.sharded": _LATER_DEVICES,
-    "springcraft_tpu.parallel.blocked": _LATER_DEVICES,
-    "springcraft_tpu.parallel.make_mesh": _LATER_DEVICES,
-    "springcraft_tpu.parallel.ensemble_sharding": _LATER_DEVICES,
-    **{f"springcraft_tpu.parallel.{name}": _LATER_DEVICES
-       for name in _SHARDED + _BLOCKED},
+    # the multi-device layer's JAX types
+    "springcraft_tpu.parallel.mesh.P": _JAX_SHARDING,
+    "springcraft_tpu.parallel.mesh.NamedSharding": _JAX_SHARDING,
 }
 
 
@@ -92,6 +77,20 @@ PORTED_HOST = (
     "springcraft_tpu.utils.resumable_loop",
     "springcraft_tpu.utils.retry_on_failure",
 )
+
+
+#: The multi-device layer, ported from ``NOT_PORTED``: each function keeps
+#: the JAX parameters in the JAX order and the JAX defaults, but for the
+#: dtypes (``torch.float32`` for ``jnp.float32``).
+PORTED_PARALLEL = (
+    "make_mesh", "ensemble_sharding", "sharded_ensemble_anm",
+    "sharded_ensemble_gnm", "sharded_ensemble_anm_banded",
+    "sharded_ensemble_anm_fluctuations", "sharded_ensemble_gnm_banded",
+    "sharded_hessian", "sharded_hessian_apply", "sharded_lowest_modes",
+    "sharded_lowest_modes_matfree", "sharded_covariance",
+    "sharded_anm_pipeline", "ensemble_mean_msf", "blocked_cholesky",
+    "blocked_solve_lower", "blocked_solve_lower_t",
+    "sharded_covariance_blocked", "sharded_all_mode_msf")
 
 
 def _jax_modules():
@@ -208,3 +207,19 @@ def test_ported_host_name_keeps_the_jax_signature(qualified):
     for name in names:
         assert _signatures(getattr(port, name)) == \
             _signatures(getattr(jax_module, name)), f"{qualified}.{name}"
+
+
+@pytest.mark.parametrize("name", PORTED_PARALLEL)
+def test_ported_parallel_name_keeps_the_jax_signature(name):
+    jax_parallel = importlib.import_module("springcraft_tpu.parallel")
+    port = importlib.import_module("springcraft_tpu_torch.parallel")
+    import torch
+
+    def dtypes_as_names(signature):
+        return [(p, str(getattr(d, "__name__", d)).rpartition(".")[2], k)
+                for p, d, k in signature]
+
+    want = _signatures(getattr(jax_parallel, name))[""]
+    got = _signatures(getattr(port, name))[""]
+    assert dtypes_as_names(got) == dtypes_as_names(want)
+    assert all(d is torch.float32 for p, d, _ in got if p == "dtype")

@@ -48,6 +48,9 @@ def test_import_leaves_jax_out():
                  "springcraft_tpu_torch.interaction, "
                  "springcraft_tpu_torch.forcefield, "
                  "springcraft_tpu_torch.parallel.pipeline, "
+                 "springcraft_tpu_torch.parallel.mesh, "
+                 "springcraft_tpu_torch.parallel.sharded, "
+                 "springcraft_tpu_torch.parallel.blocked, "
                  "springcraft_tpu_torch.ops.pallas_kernels, "
                  "springcraft_tpu_torch.ops.pallas_linalg, "
                  "springcraft_tpu_torch.utils.profiling, "
