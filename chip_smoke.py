@@ -171,7 +171,17 @@ Phases:
      GNM and chain A's eANM ANM, observables bit for bit, rebuilding
      refused without a force field; a normal-mode trajectory through
      ``write_pdb`` and ``load_ensemble``; the write, read, solve and
-     snapshot seconds and bytes.
+     snapshot seconds and bytes;
+   * after the multi-device phase, the port's ten example scripts
+     (``examples_torch/``, ``example_paths``), each run in this process as
+     ``python script --device cuda`` would run it (under
+     ``build/examples/``) and held global by global to its ``--device
+     cpu`` run (``EXAMPLE_GLOBALS``; its PDB trajectories and checkpoint
+     too); then ``mega_assembly.py 10000`` (30,000 dimensions) and
+     ``matrix_free_modes.py 30000`` on the card, held to the examples' own
+     checks, with their stage seconds and peak memory; the CPU runs come
+     last, from two worker processes, so that no time the script prints
+     was taken beside them.
 
 Then one JSON line with the kernels' numbers (each kernel's time beside
 its bound — the larger of the bytes it must move over 3.35 TB/s and its
@@ -376,6 +386,25 @@ PATH_KERNELS.update({
         ("sharded_matfree_modes", ("hessian_apply_dense",)),
         *((f"dryrun_{block}", kernels)
           for block, kernels in DRYRUN_KERNELS.items()))})
+#: The port's examples (``example_paths``): the model API runs float64
+#: ``torch.linalg`` and launches no kernel; so do the matrix-free solves
+#: in float64 (the kernel route is float32); the ensembles run the
+#: pipelines' kernels; mega_assembly K5 (``hessian_pallas``) and, up to
+#: 8,192 dimensions, K3 in the ``"invfactor"`` shift-invert; the
+#: float32 Chebyshev solve the pair CSR and K13.
+PATH_KERNELS.update({
+    **{f"example_{script}": () for script in (
+        "basic_nma", "normal_mode", "analysis_gallery", "mode_arrows_3d",
+        "checkpoint_resume", "perturbation_scan",
+        "stochastic_observables")},
+    "example_ensemble_nma": ("hessian_xyz", "hessian_planes",
+                             "regularize_stitch", "panel_inverse",
+                             "kirchhoff", "banded_bisect"),
+    "example_mega_assembly": ("hessian_xyz", "panel_inverse"),
+    "example_matrix_free_modes": ("pair_csr", "hessian_apply_sparse"),
+    "example_mega_assembly_large": ("hessian_xyz",),
+    "example_matrix_free_modes_large": ("pair_csr", "hessian_apply_sparse"),
+})
 #: The wrappers that also count their table branch.
 TABLE_KERNELS = ("hessian_planes", "hessian_xyz", "kirchhoff",
                  "hessian_apply_dense", "pair_csr")
@@ -576,6 +605,120 @@ EIGVEC_RESIDUAL_TOL = 1e-3
 EIGVEC_MAX_RESIDUAL = 1e-4
 EIGVEC_OVERLAP_TOL = 1e-3
 EIGVEC_GAP = 1e-3
+#: The port's example scripts (``examples_torch/``, the counterparts of
+#: ``examples/``): ``example_paths`` runs each at its default size on the
+#: card and on the CPU, and two also at the size users bring them for,
+#: on the card only (the north star's 30,000 dimensions; the matrix-free
+#: cells' 30,000 atoms).
+EXAMPLES_DIR = "examples_torch"
+EXAMPLES = ("basic_nma", "normal_mode", "analysis_gallery", "mode_arrows_3d",
+            "checkpoint_resume", "ensemble_nma", "mega_assembly",
+            "matrix_free_modes", "perturbation_scan",
+            "stochastic_observables")
+EXAMPLE_LARGE = {"mega_assembly": N_MEGA, "matrix_free_modes": N_MATFREE}
+#: The CPU runs go to two processes, ``(threads, scripts)``, started after
+#: the card's last timed run: the matrix-free example's plain O(n^2)
+#: operator takes most of the time there, on most of the cores.
+EXAMPLE_WORKERS = ((6, ("matrix_free_modes",)),
+                   (2, tuple(s for s in EXAMPLES
+                             if s != "matrix_free_modes")))
+#: Float64 outputs of two runs of one example: max|x - ref| / max|ref|.
+EXAMPLE_F64_TOL = 1e-8
+#: Coordinates of the examples' PDB trajectories, A: one unit of the
+#: format's last digit, plus the float32 rounding of the coordinates they
+#: were written from.
+PDB_COORD_TOL = 1e-3 + 1e-6
+#: The ensemble example's three GNM mode shapes (``ensemble_gnm_spectral``
+#: stops its subspace iteration at 16 steps): on 1l2y's jittered
+#: conformers the third mode value lies up to 2.2e-4 of itself off the
+#: converged eigenvalue in float32 (1.5e-4 from the same 16 steps in
+#: float64), and moves by that much with the rounding of the covariance it
+#: iterates on (the JAX package's and the port's agree to 4.9e-5, or
+#: 1.7e-4 under other XLA flags; the H100's run and the CPU's to 1.1e-4,
+#: the vectors' overlap to 1 - 1.4e-4); the mode values and the overlap
+#: of the mode vectors are held to this instead of SLICE_TOL.
+EXAMPLE_MODE_SHAPE_TOL = 1e-3
+F64_CLOSE = ("close", EXAMPLE_F64_TOL)
+F32_CLOSE = ("close", SLICE_TOL)
+#: Each example's module globals held between two runs, by name (a dict
+#: holds a dict global's entries; a kind given for a dict global holds
+#: every entry):
+#:
+#: * ``("close", tol, opts)``: max|x - ref| <= tol max|ref|; ``skip``
+#:   leaves out the first entries of the last axis (the frequencies of
+#:   the trivial modes, square roots of rounding noise), ``first`` keeps
+#:   the first entries of the first axis (the wanted modes of a solve with
+#:   a buffer);
+#: * ``("rtol", tol, opts)``: max|x - ref| / |ref|, ``first`` as above;
+#: * ``("mode", tol)``: as "close" up to the sign of the one eigenvector
+#:   the array is made from;
+#: * ``("vectors", tol, opts)``: eigenvectors in rows (a leading batch
+#:   axis allowed) under the eigenvalues named by ``values``: the
+#:   subspace overlap (least singular value of ``U U_ref^T``) > 1 - tol
+#:   over each cluster of eigenvalues within EIGVEC_GAP of the span of
+#:   each other, for a single mode its sign-aligned product (float32
+#:   mode shapes of a subspace iteration that stops at 16 steps, the
+#:   ensemble's, differ between two roundings by 1e-3 where the modes
+#:   themselves are 5e-3 off: the angle is what both hold);
+#: * ``("span", tol)``: the column spaces of two orthonormal bases, as
+#:   the clusters of "vectors";
+#: * ``("exact",)``: equal.
+EXAMPLE_GLOBALS = {
+    "basic_nma": {
+        "eigenval": F64_CLOSE,
+        "eigenvec": ("vectors", EXAMPLE_F64_TOL, {"values": "eigenval"}),
+        "freq": ("close", EXAMPLE_F64_TOL, {"skip": 6}),
+        "msqf": F64_CLOSE, "bfac": F64_CLOSE, "dcc": F64_CLOSE},
+    "normal_mode": {"displacements": ("mode", EXAMPLE_F64_TOL)},
+    "analysis_gallery": {
+        **{name: F64_CLOSE for name in ("msf", "bfac", "dcc", "prs",
+                                        "effector", "sensor")},
+        "freq": ("close", EXAMPLE_F64_TOL, {"skip": 6}),
+        "disp": ("mode", EXAMPLE_F64_TOL)},
+    # "_" holds the eigenvalues, as in the script
+    "mode_arrows_3d": {
+        "_": F64_CLOSE,
+        "vectors": ("vectors", EXAMPLE_F64_TOL, {"values": "_"}),
+        "disp": ("mode", EXAMPLE_F64_TOL), "mag": F64_CLOSE,
+        "msf": F64_CLOSE},
+    "checkpoint_resume": {name: F64_CLOSE
+                          for name in ("msf", "prs", "eff", "sens")},
+    "ensemble_nma": {
+        "out": {"eig_values": F32_CLOSE,
+                "eig_vectors": ("vectors", SLICE_TOL,
+                                {"values": "eig_values"}),
+                "frequencies": ("close", SLICE_TOL, {"skip": 6}),
+                "msf": F32_CLOSE, "bfactor": F32_CLOSE},
+        "fluc": F32_CLOSE,
+        "gnm": {**{key: F32_CLOSE for key in (
+            "eig_values", "covariance", "msf", "bfactor", "dcc")},
+                "frequencies": ("close", SLICE_TOL, {"skip": 1}),
+                "mode_values": ("close", EXAMPLE_MODE_SHAPE_TOL),
+                "mode_vectors": ("vectors", EXAMPLE_MODE_SHAPE_TOL,
+                                 {"values": "mode_values"})}},
+    "mega_assembly": {
+        "hessian": F32_CLOSE,
+        "vals": ("close", SLICE_TOL, {"first": N_MODES}),
+        "vecs": ("vectors", SLICE_TOL, {"values": "vals", "first": N_MODES}),
+        "ref_vals": ("rtol", REFINED_RTOL, {"first": N_MODES}),
+        "basis": ("span", SLICE_TOL), "cov": F32_CLOSE, "msf": F32_CLOSE},
+    "matrix_free_modes": {
+        "vals": F32_CLOSE, "vecs": ("vectors", SLICE_TOL, {"values": "vals"}),
+        "msf": F32_CLOSE},
+    "perturbation_scan": {
+        **{name: F64_CLOSE for name in ("disp", "dense", "rows", "prs_full",
+                                        "effector")},
+        "best": ("exact",)},
+    "stochastic_observables": {
+        **{name: F64_CLOSE for name in (
+            "msf_true", "prs_raw", "eff_true", "sens_true", "prs_diag",
+            "vals", "modesum", "msf", "msf_sem", "eff", "sens", "eff_sem",
+            "sens_sem")},
+        "vecs": ("vectors", EXAMPLE_F64_TOL, {"values": "vals"})},
+}
+#: The PDB trajectories each example writes, held between two runs.
+EXAMPLE_PDBS = {"normal_mode": "normal_mode.pdb",
+                "analysis_gallery": "gallery_mode7.pdb"}
 
 
 def check(cond, message):
@@ -4523,6 +4666,383 @@ def multi_device_paths(allmode_msf, card):
     return launches
 
 
+def run_example(script, args=()):
+    """Run the example `script` in this process, as ``python script
+    *args`` would run it from the working directory, and return its module
+    globals.  Like ``runpy.run_path(script, run_name="__main__")`` with
+    ``sys.argv`` set, except that a ``sys.exit(0)`` (an example that stops
+    before rendering without matplotlib) keeps the globals."""
+    import builtins
+
+    with open(script) as f:
+        code = compile(f.read(), script, "exec")
+    scope = {"__name__": "__main__", "__file__": script,
+             "__builtins__": builtins}
+    argv, sys.argv = sys.argv, [script, *args]
+    try:
+        exec(code, scope)
+    except SystemExit as exc:
+        if exc.code not in (None, 0):
+            raise
+    finally:
+        sys.argv = argv
+    return scope
+
+
+def _host(x):
+    """An example's global on the host: numpy for tensors (any device)
+    and arrays of either package, dicts entry by entry, anything else as
+    it is."""
+    import numpy as np
+
+    if isinstance(x, dict):
+        return {key: _host(value) for key, value in x.items()}
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "__array__"):
+        return np.asarray(x)
+    return x
+
+
+def example_globals(script, scope):
+    """The globals of one run of `script` that EXAMPLE_GLOBALS holds, on
+    the host, with the CA coordinates of the examples that write PDB
+    trajectories (``"ca_coord"``)."""
+    out = {name: _host(scope[name]) for name in EXAMPLE_GLOBALS[script]}
+    if script in EXAMPLE_PDBS:
+        out["ca_coord"] = _host(scope["ca"].coord)
+    return out
+
+
+def _overlap_deficit(a, b):
+    """``1 - least singular value of a b^T`` for orthonormal rows."""
+    import numpy as np
+
+    return float(1.0 - np.linalg.svd(a @ b.T, compute_uv=False).min())
+
+
+def _vector_error(vecs, ref, values):
+    """The largest overlap deficit over the clusters of eigenvectors
+    (rows) whose eigenvalues lie within EIGVEC_GAP of the span of each
+    other: a single mode's is ``1 - |u . u_ref|``, the sign-aligned
+    product."""
+    import numpy as np
+
+    values = np.asarray(values, np.float64)
+    span = float(values.max() - values.min()) or 1.0
+    edges = [0] + [i + 1 for i in range(len(values) - 1)
+                   if values[i + 1] - values[i] > EIGVEC_GAP * span] \
+        + [len(values)]
+    return max(_overlap_deficit(vecs[lo:hi].astype(np.float64),
+                                ref[lo:hi].astype(np.float64))
+               for lo, hi in zip(edges, edges[1:]))
+
+
+def held_error(kind, got, ref, got_scope, ref_scope):
+    """The error of `got` against `ref` under one EXAMPLE_GLOBALS `kind`
+    (the scopes resolve a ``values`` name); infinite where either holds a
+    value that is not finite, or the shapes differ."""
+    import numpy as np
+
+    name, opts = kind[0], (kind[2] if len(kind) > 2 else {})
+    if name == "exact":
+        return 0.0 if np.array_equal(got, ref) else float("inf")
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    if got.shape != ref.shape:
+        return float("inf")
+    first = opts.get("first")
+    got, ref = got[:first], ref[:first]
+    if "skip" in opts:
+        got, ref = got[..., opts["skip"]:], ref[..., opts["skip"]:]
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        return float("inf")
+    if name == "close":
+        return float(np.abs(got - ref).max() / np.abs(ref).max())
+    if name == "rtol":
+        return float((np.abs(got - ref) / np.abs(ref)).max())
+    if name == "mode":
+        return float(min(np.abs(got - ref).max(), np.abs(got + ref).max())
+                     / np.abs(ref).max())
+    if name == "span":
+        return _overlap_deficit(got.T, ref.T)
+    if name == "vectors":
+        values = np.asarray(ref_scope[opts["values"]], np.float64)[:first]
+        if got.ndim == 2:
+            return _vector_error(got, ref, values)
+        return max(_vector_error(g, r, v)
+                   for g, r, v in zip(got, ref, values))
+    raise ValueError(f"unknown kind {name!r}")
+
+
+def compare_example(script, got, ref):
+    """Hold the globals `got` of one run of `script` to `ref`'s (both
+    from :func:`example_globals`) by EXAMPLE_GLOBALS; returns ``{name:
+    (error, tolerance)}`` and fails, naming every error, if one is over
+    its tolerance."""
+    errors = {}
+    for name, kinds in EXAMPLE_GLOBALS[script].items():
+        if isinstance(kinds, tuple) and isinstance(ref[name], dict):
+            kinds = dict.fromkeys(ref[name], kinds)
+        if isinstance(kinds, dict):
+            check(set(got[name]) == set(ref[name]),
+                  f"{script} {name}: entries {sorted(got[name])}")
+            items = [(f"{name}[{key}]", kind, got[name][key], ref[name][key],
+                      got[name], ref[name]) for key, kind in kinds.items()]
+        else:
+            items = [(name, kinds, got[name], ref[name], got, ref)]
+        for label, kind, g, r, g_scope, r_scope in items:
+            tol = kind[1] if len(kind) > 1 else 0.0
+            errors[label] = (held_error(kind, g, r, g_scope, r_scope), tol)
+    over = [label for label, (err, tol) in errors.items()
+            if not err <= tol]
+    check(not over, f"{script}: {over} over their tolerances; all: "
+          + ", ".join(f"{label} {err:.3e} (tol {tol:g})"
+                      for label, (err, tol) in errors.items()))
+    return errors
+
+
+def _pdb_records(path):
+    """Lines of a PDB file, and the coordinates of its ATOM / HETATM
+    records ``(records, 3)``."""
+    import numpy as np
+
+    with open(path) as f:
+        lines = f.read().splitlines()
+    coords = [[float(line[c:c + 8]) for c in (30, 38, 46)] for line in lines
+              if line.startswith(("ATOM", "HETATM"))]
+    return lines, np.array(coords)
+
+
+def compare_pdb(label, path, ref_path, base):
+    """Two PDB trajectories of the same mode written from the CA
+    coordinates `base` ``(n, 3)``: every character outside the coordinate
+    columns equal, the displacements from `base` within PDB_COORD_TOL up
+    to the mode's sign.  Returns the coordinate error."""
+    import numpy as np
+
+    lines, xyz = _pdb_records(path)
+    ref_lines, ref_xyz = _pdb_records(ref_path)
+    check(len(lines) == len(ref_lines) and xyz.shape == ref_xyz.shape,
+          f"{label}: {len(lines)} lines against {len(ref_lines)}")
+    check(all(a[:30] + a[54:] == b[:30] + b[54:]
+              for a, b in zip(lines, ref_lines)),
+          f"{label}: a column other than the coordinates differs")
+    tiled = np.tile(np.asarray(base, np.float64), (len(xyz) // len(base), 1))
+    disp, ref_disp = xyz - tiled, ref_xyz - tiled
+    err = float(min(np.abs(disp - ref_disp).max(),
+                    np.abs(disp + ref_disp).max()))
+    check(err <= PDB_COORD_TOL, f"{label}: coordinates {err:.3e} A apart")
+    return err
+
+
+def example_dir(*parts):
+    """``build/examples/<parts>`` (listed in ``.gitignore``), made: the
+    working directory of one run of an example, ``(script, run)``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "examples", *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def example_script(script):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        EXAMPLES_DIR, script + ".py")
+
+
+def dump_example(script, path, args, out):
+    """Run one example (:func:`run_example`) with matplotlib unimportable,
+    so that it renders nothing, and pickle the globals that
+    :func:`example_globals` keeps to `out`: one run in a process of its
+    own, from its working directory."""
+    import pickle
+
+    sys.modules["matplotlib"] = None
+    scope = run_example(path, args)
+    with open(out, "wb") as f:
+        pickle.dump(example_globals(script, scope), f)
+
+
+def cpu_examples(scripts):
+    """Run `scripts` with ``--device cpu`` one after another, each in its
+    working directory, with its held globals in ``globals.pkl`` there:
+    the body of one CPU worker."""
+    for script in scripts:
+        cwd = example_dir(script, "cpu")
+        with contextlib.chdir(cwd):
+            t0 = time.perf_counter()
+            dump_example(script, example_script(script), ["--device", "cpu"],
+                         "globals.pkl")
+            print(f"cpu example {script}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+
+def start_cpu_examples():
+    """Start EXAMPLE_WORKERS, each a process with its number of threads,
+    output to ``build/examples/worker<i>.log``.  Returns the processes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    workers = []
+    for i, (threads, scripts) in enumerate(EXAMPLE_WORKERS):
+        env = {**os.environ, "OMP_NUM_THREADS": str(threads),
+               "MKL_NUM_THREADS": str(threads), "CUDA_VISIBLE_DEVICES": ""}
+        log = open(os.path.join(example_dir(), f"worker{i}.log"), "w")
+        workers.append(subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.cpu_examples({scripts!r})"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    return workers
+
+
+def cpu_example_globals(workers):
+    """Wait for the CPU workers, print their logs, and return
+    ``{script: globals}`` of every example's CPU run."""
+    import pickle
+
+    for i, worker in enumerate(workers):
+        code = worker.wait()
+        with open(os.path.join(example_dir(), f"worker{i}.log")) as f:
+            print(f"--- CPU worker {i} (exit {code}) ---\n{f.read()}"
+                  f"--- end of CPU worker {i} ---", flush=True)
+        check(code == 0, f"CPU worker {i} exited with {code}")
+    refs = {}
+    for script in EXAMPLES:
+        with open(os.path.join(example_dir(script, "cpu"), "globals.pkl"),
+                  "rb") as f:
+            refs[script] = pickle.load(f)
+    return refs
+
+
+def example_paths(card):
+    """The port's examples (``examples_torch/``) through its public names:
+    each at its default size with ``--device cuda`` from zero launch
+    counts (path ``example_<script>``), held to its ``--device cpu`` run
+    (EXAMPLE_GLOBALS; the PDB trajectories; the card's checkpoint read
+    back on the CPU); then mega_assembly and matrix_free_modes at
+    EXAMPLE_LARGE on the card (path ``example_<script>_large``), held to
+    the examples' own checks, with their stage seconds (printed by the
+    scripts) and peak memory.  The ``--device cpu`` runs come after these,
+    from the CPU workers (:func:`start_cpu_examples`).  Returns ``{path:
+    launches}``."""
+    import numpy as np
+    import torch
+
+    from springcraft_tpu_torch.io import load_model
+
+    launches, card_globals = {}, {}
+    for script in EXAMPLES:
+        path = f"example_{script}"
+        print(f"{path}: python {EXAMPLES_DIR}/{script}.py --device cuda",
+              flush=True)
+        with contextlib.chdir(example_dir(script, "cuda")):
+            scope, seconds, launches[path] = drive(path, lambda: run_example(
+                example_script(script), ["--device", "cuda"]))
+        card_globals[script] = example_globals(script, scope)
+        del scope
+        torch.cuda.empty_cache()
+        print(f"{path}: {seconds:.3f} s on [{card}]", flush=True)
+
+    for script, n in EXAMPLE_LARGE.items():
+        path = f"example_{script}_large"
+        print(f"{path}: python {EXAMPLES_DIR}/{script}.py --device cuda {n}",
+              flush=True)
+        with contextlib.chdir(example_dir(script, "cuda_large")):
+            scope, seconds, launches[path] = drive(path, lambda: run_example(
+                example_script(script), ["--device", "cuda", str(n)]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if script == "mega_assembly":
+            large_mega_checks(path, scope, seconds, peak, card)
+        else:
+            large_matfree_checks(path, scope, seconds, peak, card)
+        del scope
+        torch.cuda.empty_cache()
+
+    workers = start_cpu_examples()
+    try:
+        refs = cpu_example_globals(workers)
+    finally:
+        for worker in workers:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+    for script in EXAMPLES:
+        errors = compare_example(script, card_globals[script], refs[script])
+        if script in EXAMPLE_PDBS:
+            name = EXAMPLE_PDBS[script]
+            err = compare_pdb(f"example_{script} {name}",
+                              os.path.join(example_dir(script, "cuda"), name),
+                              os.path.join(example_dir(script, "cpu"), name),
+                              refs[script]["ca_coord"])
+            errors[name] = (err, PDB_COORD_TOL)
+        if script == "checkpoint_resume":
+            restored = load_model(os.path.join(
+                example_dir(script, "cuda"), "anm_checkpoint.npz"),
+                device="cpu")
+            msf = restored.mean_square_fluctuation()
+            ref = refs[script]["msf"]
+            errors["checkpoint read on the CPU"] = (
+                float(np.abs(msf - ref).max() / np.abs(ref).max()),
+                EXAMPLE_F64_TOL)
+            check(errors["checkpoint read on the CPU"][0] <= EXAMPLE_F64_TOL,
+                  "the card's checkpoint read back on the CPU")
+        print(f"example_{script} on the card against --device cpu: "
+              + ", ".join(f"{label} {err:.3e} (tol {tol:g})"
+                          for label, (err, tol) in errors.items()),
+              flush=True)
+    return launches
+
+
+def large_mega_checks(path, scope, seconds, peak, card):
+    """mega_assembly at EXAMPLE_LARGE: the raw float32 eigenvalues of the
+    wanted modes against their float64 refinement (ANCHOR_RTOL), the
+    refined residuals within REFINED_RESIDUAL_FLOORS rounding floors of
+    the float32 basis (``eps_f32 ||H||_2 / theta``, ``||H||_2`` from below
+    by ``power_norm``), the MSF finite and positive."""
+    import numpy as np
+
+    k = scope["K_MODES"]
+    vals, theta = scope["vals"][:k], scope["ref_vals"][:k]
+    ref_res = scope["ref_res"][:k]
+    norm = power_norm(scope["hessian"])
+    floors = ref_res / (np.finfo(np.float32).eps * norm / theta)
+    rtol = float((np.abs(vals - theta) / theta).max())
+    msf = scope["msf"]
+    print(f"{path}: n={scope['N']} ({3 * scope['N']} dimensions) invariant "
+          f"13 A, {seconds:.3f} s in all, peak device memory {peak:.2f} GiB; "
+          f"raw-vs-refined eigenvalue rtol {rtol:.3e} (tol "
+          f"{ANCHOR_RTOL:g}); refined float64 residuals max "
+          f"{float(ref_res.max()):.3e}, {float(floors.max()):.2f} floors "
+          f"(tol {REFINED_RESIDUAL_FLOORS}; ||H||_2 >= {norm:.6g}); MSF "
+          f"{float(msf.min()):.4g} .. {float(msf.max()):.4g} on [{card}]",
+          flush=True)
+    check(rtol <= ANCHOR_RTOL, f"{path}: raw-vs-refined rtol {rtol:.3e}")
+    check(float(floors.max()) <= REFINED_RESIDUAL_FLOORS,
+          f"{path}: refined residuals {float(floors.max()):.2f} floors")
+    check(bool(np.isfinite(msf).all() and (msf > 0).all()),
+          f"{path}: MSF not finite and positive")
+
+
+def large_matfree_checks(path, scope, seconds, peak, card):
+    """matrix_free_modes at EXAMPLE_LARGE: the solver's max residual within
+    MATFREE_RESIDUAL_TOL, the independent check through the plain operator
+    within twice it, the low-mode MSF finite and positive."""
+    import numpy as np
+
+    res, res2 = float(scope["res"].max()), float(scope["res2"].max())
+    msf = scope["msf"]
+    print(f"{path}: n={scope['N']} ({3 * scope['N']} dimensions) invariant "
+          f"13 A, {seconds:.3f} s in all, peak device memory {peak:.2f} GiB; "
+          f"max residual {res:.3e} (tol {MATFREE_RESIDUAL_TOL:g}), "
+          f"independent check {res2:.3e} (tol {2 * MATFREE_RESIDUAL_TOL:g}); "
+          f"low-mode MSF {float(msf.min()):.4g} .. {float(msf.max()):.4g} "
+          f"on [{card}]", flush=True)
+    check(res <= MATFREE_RESIDUAL_TOL, f"{path}: residual {res:.3e}")
+    check(res2 <= 2 * MATFREE_RESIDUAL_TOL,
+          f"{path}: independent residual {res2:.3e}")
+    check(bool(np.isfinite(msf).all() and (msf > 0).all()),
+          f"{path}: MSF not finite and positive")
+
+
 def main():
     import torch
 
@@ -4594,6 +5114,8 @@ def main():
     phase("mega_allmode_msf")
     launches.update(multi_device_paths(allmode_msf, card))
     phase("multi_device_paths")
+    launches.update(example_paths(card))
+    phase("example_paths")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

@@ -2605,3 +2605,41 @@ def test_make_mesh_defaults_to_every_card(cuda):
     mesh = parallel.make_mesh()
     assert mesh.size == torch.cuda.device_count()
     assert all(dev.type == "cuda" for dev in mesh.flat)
+
+
+# ---------------------------------------------------------------------------
+# The port's examples (examples_torch/) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("script", [
+    "basic_nma", "normal_mode", "analysis_gallery", "mode_arrows_3d",
+    "checkpoint_resume", "ensemble_nma", "mega_assembly",
+    "matrix_free_modes", "perturbation_scan", "stochastic_observables"])
+def test_example_on_the_card_matches_its_cpu_run(cuda, script, tmp_path,
+                                                 monkeypatch):
+    """Each port example at its default size with ``--device cuda`` runs
+    to its end and gives its ``--device cpu`` run's globals at
+    ``chip_smoke.EXAMPLE_GLOBALS``' tolerances, launching the kernels of
+    its path in ``chip_smoke.PATH_KERNELS``."""
+    import sys
+
+    smoke = _chip_smoke()
+    path = smoke.example_script(script)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    wrappers = sct.kernel_wrappers()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        (tmp_path / device).mkdir()
+        monkeypatch.chdir(tmp_path / device)
+        before = {name: w.launches for name, w in wrappers.items()}
+        runs[device] = smoke.example_globals(
+            script, smoke.run_example(path, ["--device", device]))
+        if device == "cuda":
+            for name in smoke.PATH_KERNELS[f"example_{script}"]:
+                assert wrappers[name].launches > before[name], name
+    smoke.compare_example(script, runs["cuda"], runs["cpu"])
+    if script in smoke.EXAMPLE_PDBS:
+        name = smoke.EXAMPLE_PDBS[script]
+        smoke.compare_pdb(name, str(tmp_path / "cuda" / name),
+                          str(tmp_path / "cpu" / name),
+                          runs["cpu"]["ca_coord"])
