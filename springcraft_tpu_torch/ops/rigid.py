@@ -37,6 +37,12 @@ and DCC consume (:func:`covariance_plane_traces`):
 A network with a null space beyond ``T`` (disconnected, collinear) makes
 the regularized matrix singular; both engines then give non-finite
 output by design.
+
+The covariance functions name their three stages for a running
+profiler (:func:`..utils.profiling.span`): ``springcraft::prep`` (the
+regularized, equilibrated factor input), ``springcraft::inverse_factor``
+(the inverse factor, or the Cholesky factor and its solve) and
+``springcraft::grams`` (the Grams and the null-space term).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import spd_linalg
 from .assembly import _pair_geometry
 from .assembly_kernels import (MAX_ATOMS_STITCH, assembly_row_sums,
@@ -343,10 +350,13 @@ def covariance_plane_traces_from_planes(planes, n, null_basis, sigma=None,
     the main path.  Optional `masses` fold into the stitch's scale;
     `sigma` as in :func:`covariance_cholesky`."""
     t = null_basis.to(planes.dtype)
-    reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, masses=masses, sigma=sigma)
-    parts = _w_parts_from_reg_blocked(reg, scale)
-    return _plane_traces_from_w_parts(parts, t, sigma, n)
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated_planes(
+            planes, n, t, masses=masses, sigma=sigma)
+    with span("inverse_factor"):
+        parts = _w_parts_from_reg_blocked(reg, scale)
+    with span("grams"):
+        return _plane_traces_from_w_parts(parts, t, sigma, n)
 
 
 def covariance_cholesky_from_planes(planes, n, null_basis, sigma=None,
@@ -355,11 +365,14 @@ def covariance_cholesky_from_planes(planes, n, null_basis, sigma=None,
     layout) straight from the raw Hessian planes ``(9, B, n, n)``.
     Optional `masses` fold into the stitch's scale."""
     t = null_basis.to(planes.dtype)
-    reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, masses=masses, sigma=sigma)
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated_planes(
+            planes, n, t, masses=masses, sigma=sigma)
     m = 3 * n
-    w = _w_from_reg_blocked(reg, scale)
-    return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
+    with span("inverse_factor"):
+        w = _w_from_reg_blocked(reg, scale)
+    with span("grams"):
+        return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
 
 
 def covariance_plane_traces_direct(coords, params, null_basis, sigma=None,
@@ -368,10 +381,13 @@ def covariance_plane_traces_direct(coords, params, null_basis, sigma=None,
     coordinates ``(B, n, 3)`` through the assembly-fused prep."""
     n = coords.shape[1]
     t = null_basis.to(coords.dtype)
-    reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, masses=masses, sigma=sigma)
-    parts = _w_parts_from_reg_blocked(reg, scale)
-    return _plane_traces_from_w_parts(parts, t, sigma, n)
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated_direct(
+            coords, params, t, masses=masses, sigma=sigma)
+    with span("inverse_factor"):
+        parts = _w_parts_from_reg_blocked(reg, scale)
+    with span("grams"):
+        return _plane_traces_from_w_parts(parts, t, sigma, n)
 
 
 def covariance_cholesky_direct(coords, params, null_basis, sigma=None,
@@ -380,10 +396,13 @@ def covariance_cholesky_direct(coords, params, null_basis, sigma=None,
     coordinates ``(B, n, 3)`` through the assembly-fused prep."""
     m = 3 * coords.shape[1]
     t = null_basis.to(coords.dtype)
-    reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, masses=masses, sigma=sigma)
-    w = _w_from_reg_blocked(reg, scale)
-    return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated_direct(
+            coords, params, t, masses=masses, sigma=sigma)
+    with span("inverse_factor"):
+        w = _w_from_reg_blocked(reg, scale)
+    with span("grams"):
+        return _gram_lower(w)[..., :m, :m] - _null_projector(t, sigma)
 
 
 def _cholesky_factor(reg):
@@ -443,12 +462,19 @@ def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
                 "memory-lean cho_solve path) is incompatible with "
                 "inverse='blocked', which materializes dense (m, m) "
                 "factor/inverse temporaries")
-        reg, scale, sigma = _regularize_equilibrated(
-            matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
-        inv = _gram_lower(_w_from_reg_blocked(reg, scale))[..., :m, :m]
-    elif inverse == "cho_solve":
-        reg, scale, sigma = _regularize_equilibrated(matrix, t,
-                                                     sigma=sigma)
+        with span("prep"):
+            reg, scale, sigma = _regularize_equilibrated(
+                matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
+        with span("inverse_factor"):
+            w = _w_from_reg_blocked(reg, scale)
+        with span("grams"):
+            return (_gram_lower(w)[..., :m, :m]
+                    - _null_projector(t, sigma)).to(out_dtype)
+    if inverse != "cho_solve":
+        raise ValueError(f"unknown inverse engine {inverse!r}")
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated(matrix, t, sigma=sigma)
+    with span("inverse_factor"):
         chol = _cholesky_factor(reg)
         if block_size is None or matrix.ndim > 2:
             eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
@@ -461,10 +487,9 @@ def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
                 torch.cholesky_solve(
                     _identity_columns(m, start, block_size, chol), chol)
                 for start in range(0, m, block_size)], dim=1)
+    with span("grams"):
         inv = inv * scale[..., :, None] * scale[..., None, :]
-    else:
-        raise ValueError(f"unknown inverse engine {inverse!r}")
-    return (inv - _null_projector(t, sigma)).to(out_dtype)
+        return (inv - _null_projector(t, sigma)).to(out_dtype)
 
 
 def covariance_plane_traces(matrix, null_basis, sigma=None,
@@ -487,18 +512,25 @@ def covariance_plane_traces(matrix, null_basis, sigma=None,
     n = m // 3
     t = null_basis.to(matrix.dtype)
     if inverse == "blocked":
-        reg, scale, sigma = _regularize_equilibrated(
-            matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
-        parts = _w_parts_from_reg_blocked(reg, scale)
-        return _plane_traces_from_w_parts(parts, t, sigma, n)
+        with span("prep"):
+            reg, scale, sigma = _regularize_equilibrated(
+                matrix, t, pad_to=spd_linalg.padded_size(m), sigma=sigma)
+        with span("inverse_factor"):
+            parts = _w_parts_from_reg_blocked(reg, scale)
+        with span("grams"):
+            return _plane_traces_from_w_parts(parts, t, sigma, n)
     if inverse != "cho_solve":
         raise ValueError(f"unknown inverse engine {inverse!r}")
-    reg, scale, sigma = _regularize_equilibrated(matrix, t, sigma=sigma)
-    chol = _cholesky_factor(reg)
-    eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
-    w = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
-    w = w * scale[..., None, :]
-    return _plane_traces_from_w(w, t, sigma, n).to(out_dtype)
+    with span("prep"):
+        reg, scale, sigma = _regularize_equilibrated(matrix, t, sigma=sigma)
+    with span("inverse_factor"):
+        chol = _cholesky_factor(reg)
+        eye = torch.eye(m, dtype=matrix.dtype, device=matrix.device)
+        w = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                          upper=False)
+        w = w * scale[..., None, :]
+    with span("grams"):
+        return _plane_traces_from_w(w, t, sigma, n).to(out_dtype)
 
 
 def pinv_diagonal(matrix, null_basis, sigma=None, block_size=1024,

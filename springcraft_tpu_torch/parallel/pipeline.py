@@ -25,6 +25,12 @@ The ANM blocked engine runs per chunk of conformers:
    the whole column-scaled factor (``torch.matmul``);
 6. observables.
 
+With a ``torch.profiler`` running, each of these stages lies in a
+``springcraft::`` span (:func:`..utils.profiling.span`: ``rigid_bases``,
+``assembly``, ``prep``, ``inverse_factor``, ``grams``, ``observables``),
+each chunk in ``springcraft::chunk`` and each call of the two ensemble
+fluctuation entry points in a span of its own name.
+
 The GNM blocked engine assembles Kirchhoff matrices (kernel
 ``kirchhoff.cu``), regularizes them with the shared constant null mode in
 plain PyTorch (the JAX package has no stitch kernel for GNM) and runs
@@ -88,6 +94,7 @@ from ..ops.assembly_kernels import (hessian_planes_ensemble,
                                     kirchhoff_ensemble)
 from ..ops.ffparams import KERNEL_KINDS, FFParams
 from ..utils.config import as_tensor, check_use_pallas
+from ..utils.profiling import span
 
 __all__ = [
     "anm_fluctuations",
@@ -175,49 +182,62 @@ def _gnm_cov_observables(cov, with_dcc):
 
 def _anm_chunk(coords, params, masses, inverse, with_covariance,
                with_dcc, with_prs, prep="planes", factor_dtype=None):
+    """One chunk of the ANM fluctuation pipeline, each stage in its
+    :func:`span`; the covariance functions of :mod:`..ops.rigid` name
+    their prep, inverse factor and Grams themselves."""
     n = coords.shape[1]
-    bases = rigid.rigid_modes_anm(coords, masses=masses)
+    with span("rigid_bases"):
+        bases = rigid.rigid_modes_anm(coords, masses=masses)
     if inverse == "blocked" and prep == "direct" \
             and rigid.direct_prep_applies(params, n):
         # assembly-fused prep (opt-in): coordinates to factor input in
         # one kernel, the planes never reach device memory
         if not with_covariance:
-            return _anm_trace_observables(
-                rigid.covariance_plane_traces_direct(
-                    coords, params, bases, masses=masses), with_dcc)
-        cov = rigid.covariance_cholesky_direct(coords, params, bases,
-                                               masses=masses)
+            traces = rigid.covariance_plane_traces_direct(
+                coords, params, bases, masses=masses)
+        else:
+            cov = rigid.covariance_cholesky_direct(coords, params, bases,
+                                                   masses=masses)
     elif inverse == "blocked" and params.kind in KERNEL_KINDS \
             and not params.overlays:
-        planes = hessian_planes_ensemble(coords, params)
+        with span("assembly"):
+            planes = hessian_planes_ensemble(coords, params)
         if not with_covariance:
-            return _anm_trace_observables(
-                rigid.covariance_plane_traces_from_planes(
-                    planes, n, bases, masses=masses), with_dcc)
-        cov = rigid.covariance_cholesky_from_planes(planes, n, bases,
-                                                    masses=masses)
+            traces = rigid.covariance_plane_traces_from_planes(
+                planes, n, bases, masses=masses)
+        else:
+            cov = rigid.covariance_cholesky_from_planes(planes, n, bases,
+                                                        masses=masses)
     else:
         # cho_solve, or the blocked engine on dense Hessians for what
         # the planes kernel does not take (table_pair, patch overlays)
-        hessians = _build_hessians_batched(coords, params, masses)
+        with span("assembly"):
+            hessians = _build_hessians_batched(coords, params, masses)
         if not with_covariance:
-            return _anm_trace_observables(
-                rigid.covariance_plane_traces(
-                    hessians, bases, inverse=inverse,
-                    factor_dtype=factor_dtype), with_dcc)
-        cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse,
-                                        factor_dtype=factor_dtype)
-    return _anm_cov_observables(cov, n, with_dcc, with_prs)
+            traces = rigid.covariance_plane_traces(
+                hessians, bases, inverse=inverse, factor_dtype=factor_dtype)
+        else:
+            cov = rigid.covariance_cholesky(hessians, bases, inverse=inverse,
+                                            factor_dtype=factor_dtype)
+    with span("observables"):
+        if not with_covariance:
+            return _anm_trace_observables(traces, with_dcc)
+        return _anm_cov_observables(cov, n, with_dcc, with_prs)
 
 
 def _gnm_chunk(coords, params, masses, inverse, with_dcc,
                factor_dtype=None):
-    kirchhoffs = _build_kirchhoffs_batched(coords, params, masses)
-    basis = rigid.null_mode_gnm(coords.shape[1], masses=masses,
-                                dtype=coords.dtype, device=coords.device)
+    """One chunk of the GNM fluctuation pipeline, each stage in its
+    :func:`span`."""
+    with span("assembly"):
+        kirchhoffs = _build_kirchhoffs_batched(coords, params, masses)
+    with span("rigid_bases"):
+        basis = rigid.null_mode_gnm(coords.shape[1], masses=masses,
+                                    dtype=coords.dtype, device=coords.device)
     cov = rigid.covariance_cholesky(kirchhoffs, basis, inverse=inverse,
                                     factor_dtype=factor_dtype)
-    return _gnm_cov_observables(cov, with_dcc)
+    with span("observables"):
+        return _gnm_cov_observables(cov, with_dcc)
 
 
 def _resolve_inverse(inverse, coords):
@@ -279,17 +299,20 @@ def _prepare(coords, params, masses, dtype, device, ndim):
 
 
 def _run_chunked(run, coords, chunk):
-    """``run`` over chunks of `chunk` conformers, its outputs written
-    into tensors preallocated from the first chunk's."""
+    """``run`` over chunks of `chunk` conformers, each in a ``chunk``
+    :func:`span`, its outputs written into tensors preallocated from the
+    first chunk's."""
     batch = coords.shape[0]
     if chunk is None or batch <= chunk:
-        return run(coords)
+        with span("chunk"):
+            return run(coords)
     if batch % chunk:
         raise ValueError(f"ensemble of {batch} conformers must divide "
                          f"into chunks of {chunk}")
     out = None
     for start in range(0, batch, chunk):
-        part = run(coords[start:start + chunk])
+        with span("chunk"):
+            part = run(coords[start:start + chunk])
         if out is None:
             out = {key: value.new_empty((batch,) + value.shape[1:])
                    for key, value in part.items()}
@@ -368,13 +391,14 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
     if prep not in ("planes", "direct"):
         raise ValueError(f"prep must be 'planes' or 'direct', got {prep!r}")
     _check_prs(with_covariance, with_prs)
-    coords, params, masses = _prepare(coords, params, masses, dtype, device,
-                                      3)
-    check_use_pallas(use_pallas, coords.device)
-    inverse = _resolve_inverse(inverse, coords)
-    return _run_chunked(
-        lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
-                             with_dcc, with_prs, prep), coords, chunk)
+    with span("ensemble_anm_fluctuations"):
+        coords, params, masses = _prepare(coords, params, masses, dtype,
+                                          device, 3)
+        check_use_pallas(use_pallas, coords.device)
+        inverse = _resolve_inverse(inverse, coords)
+        return _run_chunked(
+            lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
+                                 with_dcc, with_prs, prep), coords, chunk)
 
 
 def ensemble_gnm_fluctuations(coords, params, masses=None, *,
@@ -387,13 +411,14 @@ def ensemble_gnm_fluctuations(coords, params, masses=None, *,
     (mass-scaled) constant mode.  ``inverse="blocked"`` runs the kernels
     (float32 on CUDA); ``"cho_solve"`` runs in any dtype; ``"auto"``
     picks as :func:`ensemble_anm_fluctuations` does."""
-    coords, params, masses = _prepare(coords, params, masses, dtype, device,
-                                      3)
-    check_use_pallas(use_pallas, coords.device)
-    inverse = _resolve_inverse(inverse, coords)
-    return _run_chunked(
-        lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc), coords,
-        chunk)
+    with span("ensemble_gnm_fluctuations"):
+        coords, params, masses = _prepare(coords, params, masses, dtype,
+                                          device, 3)
+        check_use_pallas(use_pallas, coords.device)
+        inverse = _resolve_inverse(inverse, coords)
+        return _run_chunked(
+            lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc),
+            coords, chunk)
 
 
 def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,

@@ -4,7 +4,8 @@ Wall-clock timing that waits for the card, and a profiler trace.
 The port's own copy of ``springcraft_tpu/utils/profiling.py``.  CUDA
 launches return before the device finishes, so a host clock stops only
 after :func:`synchronize`; :func:`trace` records a ``torch.profiler``
-Chrome trace (host and, on a card, device activity).
+Chrome trace (host and, on a card, device activity), in which
+:func:`span` names the program's stages.
 """
 
 from __future__ import annotations
@@ -16,11 +17,16 @@ import time
 
 import torch
 
-__all__ = ["synchronize", "Timer", "timed", "trace"]
+__all__ = ["synchronize", "Timer", "timed", "trace", "span"]
 
 #: Where :func:`trace` writes by default: ``build/profile/`` at the root
 #: of the checkout (``.gitignore`` lists it).
 TRACE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "profile"
+
+#: The prefix of every span the program records.
+SPAN_PREFIX = "springcraft::"
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _tensors(tree):
@@ -118,3 +124,17 @@ def trace(log_dir=None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def span(name):
+    """
+    A context that names a stage of the program ``springcraft::<name>``
+    in a running ``torch.profiler`` trace: a ``record_function`` span on
+    the profiler's host timeline, which the profiler aligns with the
+    device's, so the kernels launched inside it lie under it.  Without a
+    running profiler it is one shared no-op context, and no
+    ``record_function`` operator is called.
+    """
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
