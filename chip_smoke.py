@@ -1457,10 +1457,13 @@ def banded_parity(coords, single, params, results):
 def drive(path, fn):
     """Run `fn` once from zero launch counts and check that it launched
     every kernel of `path`; returns ``(out, seconds, launches)``.  Prints
-    the launches and the run's peak device memory."""
+    the launches, apart from them the chunks that replayed a CUDA graph
+    (``pipeline._run_graphed``) and the launches those replays ran as
+    recorded at capture, and the run's peak device memory."""
     import torch
 
     import springcraft_tpu_torch as sct
+    from springcraft_tpu_torch.parallel import pipeline
 
     wrappers = sct.kernel_wrappers()
     for wrapper in wrappers.values():
@@ -1468,6 +1471,8 @@ def drive(path, fn):
     for name in TABLE_KERNELS:
         wrappers[name].table_launches = 0
     wrappers["assembly_stitch"].row_sum_launches = 0
+    pipeline._run_graphed.replayed_launches.clear()
+    replays = pipeline._run_graphed.replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1478,11 +1483,21 @@ def drive(path, fn):
     table = {name: wrappers[name].table_launches for name in TABLE_KERNELS}
     row_sums = wrappers["assembly_stitch"].row_sum_launches
     peak = torch.cuda.max_memory_allocated() / 2**20
+    replays = pipeline._run_graphed.replays - replays
+    replayed = {f"{name}.{counter}": count for (name, counter), count
+                in pipeline._run_graphed.replayed_launches.items()}
     print(f"{path} launches: {json.dumps(launches)}; of these through the "
           f"table branch: {json.dumps(table)}; K7 row-sum passes "
           f"{row_sums}; peak device memory {peak:.1f} MiB", flush=True)
+    if replays:
+        print(f"{path} graph replays: {replays} chunks, running the "
+              f"launches recorded at capture (not counted above): "
+              f"{json.dumps(replayed)}", flush=True)
     for name in PATH_KERNELS[path]:
-        check(launches[name] > 0, f"{path} never launched kernel {name}")
+        # a call whose every chunk replayed a graph captured by an
+        # earlier call launches its kernels through the replays alone
+        check(launches[name] + replayed.get(f"{name}.launches", 0) > 0,
+              f"{path} never launched kernel {name}")
         if name == "assembly_stitch":
             check(row_sums == launches[name], f"{path}: {row_sums} row-sum "
                   f"passes of K7 for {launches[name]} store passes")
@@ -1552,19 +1567,39 @@ def timed(fn):
 def ensemble_path(path, run, conformers, shapes, card, repeats):
     """Drive an ensemble path over all conformers in chunks (blocked
     engine, float32), hold its first chunk against the float64
-    ``cho_solve`` engine and print its rate; returns the launches."""
+    ``cho_solve`` engine and, where chunks replayed a CUDA graph, its last
+    (replayed) chunk bit for bit to a call on that chunk alone (one chunk:
+    the eager loop), and print its rate; returns the launches."""
     import torch
+
+    from springcraft_tpu_torch.parallel import pipeline
 
     def blocked():
         return run(conformers, inverse="blocked", dtype=torch.float32,
                    chunk=CHUNK)
 
+    replays = pipeline._run_graphed.replays
     out, seconds, launches = drive(path, blocked)
+    replayed = pipeline._run_graphed.replays > replays
     check_outputs(path, out, shapes)
     ref = run(conformers[:CHUNK].astype("float64"), inverse="cho_solve",
               dtype=torch.float64, chunk=None)
     compare(f"{path} (first chunk)",
             {key: value[:CHUNK] for key, value in out.items()}, ref, {})
+    if replayed:
+        alone = run(conformers[-CHUNK:], inverse="blocked",
+                    dtype=torch.float32, chunk=None)
+        for key, value in alone.items():
+            check(torch.equal(out[key][-CHUNK:], value), f"{path} (last "
+                  f"chunk) {key}: not bit for bit a call on the chunk alone")
+        ref = run(conformers[-CHUNK:].astype("float64"), inverse="cho_solve",
+                  dtype=torch.float64, chunk=None)
+        print(f"{path} (last chunk, replayed): bit for bit a call on the "
+              f"chunk alone; vs float64 cho_solve (not checked): "
+              + ", ".join(f"{key} max rel err "
+                          f"{max_errors(alone[key], ref[key])[1]:.3e}"
+                          for key in ref), flush=True)
+        del alone
     del out, ref
     rates = [len(conformers) / s
              for s in [seconds] + [timed(blocked) for _ in range(repeats)]]

@@ -80,14 +80,31 @@ Hessians or Kirchhoff matrices from the same assembly:
 The JAX package maps chunks inside one device program to pay a relay's
 per-call dispatch floor once; here chunks exist only to bound device
 memory, and a Python loop writes each chunk's results into preallocated
-outputs.
+outputs.  On CUDA in float32 the blocked engines of the two ensemble
+fluctuation entry points run that loop on a CUDA graph
+(:func:`_run_graphed`): a chunk issues about 2,000 launches of a few
+microseconds each, more than eager PyTorch issues in the time the card
+runs them, and every chunk of a call runs the same launches on buffers of
+the same shapes without a host readback.  In a call of more than one
+chunk, the first chunk of a configuration runs eagerly, the second is
+captured on its device and every later one copies its conformers into
+the graph's inputs and replays it, each replay in a
+``springcraft::graph_replay`` span; the outputs are bit for bit the
+eager loop's.  The gain needs the configuration to repeat from chunk to
+chunk and from call to call: one that changes every call captures every
+call.  The routes beside the main one (patch overlays,
+``prep="direct"``, ``table_pair``'s plain assembly), a GNM whose
+Kirchhoff matrices the factor pads, and the other entry points keep the
+eager loop.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-from ..ops import modes, nma_core, rigid, spectrum
+from ..ops import modes, nma_core, rigid, spd_linalg, spectrum
 from ..ops.assembly import hessian_xyz_plain, kirchhoff_plain
 from ..ops.assembly_kernels import (hessian_planes_ensemble,
                                     hessian_xyz_ensemble,
@@ -180,6 +197,33 @@ def _gnm_cov_observables(cov, with_dcc):
     return {"covariance": cov, **_anm_trace_observables(cov, with_dcc)}
 
 
+def _kernel_assembled(params):
+    """Whether the assembly kernels build the whole matrix of `params`:
+    a family they take and no patch overlay, whose sparse correction
+    runs on the host between launches."""
+    return params.kind in KERNEL_KINDS and not params.overlays
+
+
+def _gnm_graphable(params, n):
+    """Whether a blocked GNM chunk can be captured: its family
+    kernel-assembled and its Kirchhoff matrices the factor's padded size
+    (``_regularize_equilibrated`` writes a padded diagonal through a host
+    scalar, which a capture refuses)."""
+    return _kernel_assembled(params) and spd_linalg.padded_size(n) == n
+
+
+def _anm_route(params, inverse, prep, n):
+    """The route of :func:`_anm_chunk`: ``"direct"`` (the
+    assembly-fused prep), ``"planes"`` (the raw planes kernel, then the
+    stitch) or ``"dense"`` (dense Hessians: ``cho_solve``, or the
+    blocked engine on what the planes kernel does not take)."""
+    if inverse != "blocked":
+        return "dense"
+    if prep == "direct" and rigid.direct_prep_applies(params, n):
+        return "direct"
+    return "planes" if _kernel_assembled(params) else "dense"
+
+
 def _anm_chunk(coords, params, masses, inverse, with_covariance,
                with_dcc, with_prs, prep="planes", factor_dtype=None):
     """One chunk of the ANM fluctuation pipeline, each stage in its
@@ -188,8 +232,8 @@ def _anm_chunk(coords, params, masses, inverse, with_covariance,
     n = coords.shape[1]
     with span("rigid_bases"):
         bases = rigid.rigid_modes_anm(coords, masses=masses)
-    if inverse == "blocked" and prep == "direct" \
-            and rigid.direct_prep_applies(params, n):
+    route = _anm_route(params, inverse, prep, n)
+    if route == "direct":
         # assembly-fused prep (opt-in): coordinates to factor input in
         # one kernel, the planes never reach device memory
         if not with_covariance:
@@ -198,8 +242,7 @@ def _anm_chunk(coords, params, masses, inverse, with_covariance,
         else:
             cov = rigid.covariance_cholesky_direct(coords, params, bases,
                                                    masses=masses)
-    elif inverse == "blocked" and params.kind in KERNEL_KINDS \
-            and not params.overlays:
+    elif route == "planes":
         with span("assembly"):
             planes = hessian_planes_ensemble(coords, params)
         if not with_covariance:
@@ -321,6 +364,149 @@ def _run_chunked(run, coords, chunk):
     return out
 
 
+class _ChunkGraph:
+    """The chunk of one entry point on one device as a CUDA graph: the
+    configuration it was captured for (`key`, and `refs`, what the key
+    names by identity, kept alive), its static inputs and outputs, and
+    the kernel launch counts of one chunk, recorded while capturing."""
+
+    def __init__(self, key, refs):
+        self.key, self.refs = key, refs
+        self.graph = self.coords = self.masses = self.out = None
+        self.launches = {}
+
+
+#: The chunk graph of each graphed entry point on each device,
+#: ``{(entry, device index): graph}``: a new configuration frees the
+#: slot's old graph and its memory pool first.
+_CHUNK_GRAPHS = {}
+#: A lock a slot of ``_CHUNK_GRAPHS``, held through a graphed call: the
+#: slot's static tensors are shared by every caller in the process.
+_GRAPH_LOCKS = {}
+
+
+def _launch_counters():
+    """``{(wrapper, counter): count}`` of every kernel wrapper's launch
+    counters (``.launches``, ``.table_launches``, ...), by name."""
+    from .. import kernel_wrappers
+
+    return {(name, counter): count
+            for name, wrapper in kernel_wrappers().items()
+            for counter, count in vars(wrapper).items()
+            if counter.endswith("launches")}
+
+
+def _graph_key(entry, shape, dtype, device, stream, params, with_masses,
+               options):
+    """Everything a captured chunk bakes in: the entry point, the chunk's
+    shape, dtype, device and stream (a call on another stream must not
+    share the static tensors of one still running), the family's scalars
+    and (``table_compact``) the identity of its device tables, whether
+    masses weigh the Hessian, the entry point's `options`, and the
+    float32 matmul precision and linear-algebra library in force.
+    Returns ``(key, refs)``, `refs` what the key names by identity."""
+    refs = ()
+    if params.kind == "table_compact":
+        refs = (params.device_tables(device, torch.float32),)
+    key = (entry, tuple(shape), dtype, device.type, device.index, stream,
+           params._scalars(), len(params.overlays),
+           tuple(map(id, refs)), with_masses, options,
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.get_float32_matmul_precision(),
+           torch.backends.cuda.preferred_linalg_library())
+    return key, refs
+
+
+def _graphs_apply(coords, inverse, chunk):
+    """Whether an ensemble fluctuation call runs its chunks on a CUDA
+    graph: the blocked engine on CUDA in float32, over more than one
+    chunk (a single chunk would only hold the graph's memory)."""
+    return (inverse == "blocked" and coords.device.type == "cuda"
+            and coords.dtype == torch.float32 and chunk is not None
+            and coords.shape[0] > chunk)
+
+
+def _capture(graph, run, coords, masses):
+    """Capture ``run`` on static copies of `coords` and `masses` into
+    `graph` (a :class:`_ChunkGraph`) on a stream of their own device,
+    and replay it once."""
+    graph.coords = coords.clone()
+    graph.masses = None if masses is None else masses.clone()
+    before = _launch_counters()
+    cuda_graph = torch.cuda.CUDAGraph()
+    # thread_local: CUDA calls of other threads do not void the capture
+    with torch.cuda.graph(cuda_graph, stream=torch.cuda.Stream(coords.device),
+                          capture_error_mode="thread_local"):
+        graph.out = run(graph.coords, graph.masses)
+    graph.launches = {counter: count - before[counter]
+                      for counter, count in _launch_counters().items()
+                      if count != before[counter]}
+    cuda_graph.replay()
+    graph.graph = cuda_graph
+    _run_graphed.captures += 1
+    return graph.out
+
+
+def _replay(graph, coords):
+    """Copy `coords` into `graph`'s static input and replay it.  The
+    kernel wrappers count no launch: ``_run_graphed.replayed_launches``
+    adds the counts recorded at capture."""
+    graph.coords.copy_(coords)
+    with span("graph_replay"):
+        graph.graph.replay()
+    replayed = _run_graphed.replayed_launches
+    for counter, count in graph.launches.items():
+        replayed[counter] = replayed.get(counter, 0) + count
+    _run_graphed.replays += 1
+    return graph.out
+
+
+def _run_graphed(run, coords, masses, chunk, entry, params, options):
+    """:func:`_run_chunked` on a CUDA graph, ``run(coords, masses)`` a
+    chunk, for a call of more than one chunk.  The first chunk of a
+    configuration (:func:`_graph_key`) runs eagerly, which loads every
+    kernel and library it launches; the next is captured
+    (``_run_graphed.captures``) and every later one replays the graph
+    (``_run_graphed.replays``, each in a ``graph_replay`` :func:`span`).
+    One graph an entry point and device (``_CHUNK_GRAPHS``)."""
+    device = coords.device
+    slot = (entry, device.index)
+    with torch.cuda.device(device):
+        key, refs = _graph_key(
+            entry, (chunk,) + coords.shape[1:], coords.dtype, device,
+            torch.cuda.current_stream(device).cuda_stream, params,
+            masses is not None, options)
+
+        def step(part_coords):
+            graph = _CHUNK_GRAPHS.get(slot)
+            if graph is None:
+                part = run(part_coords, masses)
+                _CHUNK_GRAPHS[slot] = _ChunkGraph(key, refs)
+                return part
+            if graph.graph is None:
+                try:
+                    return _capture(graph, run, part_coords, masses)
+                except BaseException:
+                    del _CHUNK_GRAPHS[slot]
+                    raise
+            return _replay(graph, part_coords)
+
+        with _GRAPH_LOCKS.setdefault(slot, threading.Lock()):
+            graph = _CHUNK_GRAPHS.get(slot)
+            if graph is not None and graph.key != key:
+                del _CHUNK_GRAPHS[slot]
+            elif graph is not None and graph.masses is not None:
+                graph.masses.copy_(masses)
+            return _run_chunked(step, coords, chunk)
+
+
+_run_graphed.captures = 0
+_run_graphed.replays = 0
+#: ``{(wrapper, counter): count}``: the kernel launches that replays ran,
+#: as recorded at capture; the wrappers' own counters leave them out.
+_run_graphed.replayed_launches = {}
+
+
 def _single(run, coord):
     """``run`` on one structure ``(n, 3)`` as a batch of one, without the
     batch axis in its outputs."""
@@ -396,9 +582,17 @@ def ensemble_anm_fluctuations(coords, params, masses=None, *,
                                           device, 3)
         check_use_pallas(use_pallas, coords.device)
         inverse = _resolve_inverse(inverse, coords)
-        return _run_chunked(
-            lambda c: _anm_chunk(c, params, masses, inverse, with_covariance,
-                                 with_dcc, with_prs, prep), coords, chunk)
+
+        def run(c, m):
+            return _anm_chunk(c, params, m, inverse, with_covariance,
+                              with_dcc, with_prs, prep)
+
+        if _graphs_apply(coords, inverse, chunk) and _anm_route(
+                params, inverse, prep, coords.shape[1]) == "planes":
+            return _run_graphed(
+                run, coords, masses, chunk, "ensemble_anm_fluctuations",
+                params, (with_covariance, with_dcc, with_prs, prep, chunk))
+        return _run_chunked(lambda c: run(c, masses), coords, chunk)
 
 
 def ensemble_gnm_fluctuations(coords, params, masses=None, *,
@@ -416,9 +610,16 @@ def ensemble_gnm_fluctuations(coords, params, masses=None, *,
                                           device, 3)
         check_use_pallas(use_pallas, coords.device)
         inverse = _resolve_inverse(inverse, coords)
-        return _run_chunked(
-            lambda c: _gnm_chunk(c, params, masses, inverse, with_dcc),
-            coords, chunk)
+
+        def run(c, m):
+            return _gnm_chunk(c, params, m, inverse, with_dcc)
+
+        if _graphs_apply(coords, inverse, chunk) \
+                and _gnm_graphable(params, coords.shape[1]):
+            return _run_graphed(run, coords, masses, chunk,
+                                "ensemble_gnm_fluctuations", params,
+                                (with_dcc, chunk))
+        return _run_chunked(lambda c: run(c, masses), coords, chunk)
 
 
 def anm_fluctuations(coord, params, masses=None, *, with_dcc=True,
