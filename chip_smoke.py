@@ -2144,12 +2144,15 @@ def mode_paths(ca_7cal, e_anm, card):
         return (kirchhoff, vals, vecs,
                 sct.refine_modes_f64_gnm(c, e_anm, vecs))
 
-    c64 = c.double()
+    # float64 matrices of the float32 network (pairs and bins decided on
+    # float32 squared distances): the network K5 and K6 assembled, the
+    # one that the refinement of float32 modes applies
+    f64 = {"dtype": torch.float64, "network": torch.float32}
     for path, run, trivial, exact in (
-            ("anm_7cal_modes", anm, 6, lambda: assembly.hessian_matrix(
-                c64, e_anm, layout="xyz")),
-            ("gnm_7cal_modes", gnm, 1, lambda: assembly.kirchhoff_matrix(
-                c64, e_anm))):
+            ("anm_7cal_modes", anm, 6, lambda: assembly.hessian_rows(
+                c, e_anm, 0, n, **f64)),
+            ("gnm_7cal_modes", gnm, 1, lambda: assembly.kirchhoff_rows(
+                c, e_anm, 0, n, **f64))):
         (matrix, vals, vecs, (theta, _, res)), seconds, launches[path] = \
             drive(path, run)
         again = timed(run)
@@ -4216,7 +4219,8 @@ def mega_north_star(results, card):
     each stage timed by :class:`Timer` to a synchronize on its first and
     second call; the raw residuals, the mode-sum MSF and DCC block of the
     raw modes against the refined ones; the proof at N_PROOF atoms
-    against float64 ``eigvalsh``.  Returns ``{path: launches}``."""
+    against float64 ``eigvalsh`` of the float32 network (the one K5
+    assembled).  Returns ``{path: launches}``."""
     import torch
 
     import springcraft_tpu_torch as sct
@@ -4320,8 +4324,9 @@ def mega_north_star(results, card):
         raw_p, vecs_p = modes_ops.lowest_modes_anm(h_p, coord_p, k)
         theta_p = modes_ops.refine_modes_f64(coord_p, params_p, vecs_p,
                                              layout="xyz", block=512)[0]
-        truth = synchronize(torch.linalg.eigvalsh(assembly.hessian_matrix(
-            coord_p.double(), params_p, layout="xyz"))[6:6 + N_MODES])
+        truth = synchronize(torch.linalg.eigvalsh(assembly.hessian_rows(
+            coord_p, params_p, 0, N_PROOF, dtype=torch.float64,
+            network=torch.float32))[6:6 + N_MODES])
     raw_rtol = float(((raw_p[:N_MODES].double() - truth).abs()
                       / truth).max())
     ref_rtol = float(((theta_p[:N_MODES] - truth).abs() / truth).max())

@@ -31,10 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from .ffparams import (_bin_indices, _within_cutoff, force_constant_matrix,
-                       force_constants, overlay_pair_delta,
-                       pairwise_sq_distance, rect_base_constants,
-                       squared_norm)
+from .ffparams import (_network_bins, _within_cutoff,
+                       force_constant_matrix, force_constants,
+                       overlay_pair_delta, pairwise_sq_distance,
+                       rect_base_constants, squared_norm)
 
 __all__ = [
     "kirchhoff_matrix",
@@ -169,10 +169,11 @@ def kirchhoff_matrix(coord, params, dtype=None):
     return torch.diag(k.sum(dim=0)) - k
 
 
-def _row_force_constants(sq, params, row_start, block):
+def _row_force_constants(sq, params, row_start, block, net_sq=None):
     """Masked spring constants ``(block, n)`` of the rows ``row_start``
     ... ``row_start + block - 1``: an analytic family or a table, no
-    overlays (their O(n^2) masks go through the dense functions)."""
+    overlays (their O(n^2) masks go through the dense functions).  The
+    cutoff and the bins are decided on `net_sq` (default `sq`)."""
     if params.overlays:
         raise NotImplementedError(
             "Blocked assembly does not support patch overlays; use the "
@@ -184,14 +185,14 @@ def _row_force_constants(sq, params, row_start, block):
     if params.kind == "table_pair":
         dev = params.device_tables(sq.device, sq.dtype)
         table = dev["pair_table"][row_start:row_start + block]
-        bins = _bin_indices(sq, params, dev["edges"])
+        bins = _network_bins(params, sq, net_sq)
         k = table[..., 0] if bins is None else torch.gather(
             table, -1, bins[..., None])[..., 0]
     else:
-        k = rect_base_constants(params, sq, rows, cols)
+        k = rect_base_constants(params, sq, rows, cols, net_sq=net_sq)
     adj = rows[:, None] != cols[None, :]
     if params.has_cutoff:
-        adj = adj & _within_cutoff(sq, params)
+        adj = adj & _within_cutoff(sq if net_sq is None else net_sq, params)
     return torch.where(adj, k, torch.zeros_like(k))
 
 
@@ -201,18 +202,30 @@ def _row_geometry(coord, row_start, block):
     return disp, squared_norm(disp)
 
 
+def _row_network_sq(coord, row_start, block, network):
+    """The squared distances of the rows that decide the network: in the
+    dtype `network` (``None``: none apart from those of `coord`)."""
+    if network is None or network == coord.dtype:
+        return None
+    return _row_geometry(coord.to(network), row_start, block)[1]
+
+
 def _row_diagonal_mask(row_start, block, n, device):
     rows = torch.arange(row_start, row_start + block, device=device)
     return rows[:, None] == torch.arange(n, device=device)[None, :]
 
 
-def kirchhoff_rows(coord, params, row_start, block, dtype=None):
+def kirchhoff_rows(coord, params, row_start, block, dtype=None,
+                   network=None):
     """Rows ``row_start`` ... ``row_start + block - 1`` ``(block, n)`` of
     the Kirchhoff matrix without the rest of it: each row's diagonal is
-    its own row sum of spring constants."""
+    its own row sum of spring constants.  `network` is the dtype whose
+    squared distances decide which pairs interact and in which bin
+    (default: that of the coordinates)."""
     coord = _as_coord(coord, dtype)
     _, sq = _row_geometry(coord, row_start, block)
-    k = _row_force_constants(sq, params, row_start, block)
+    k = _row_force_constants(sq, params, row_start, block, _row_network_sq(
+        coord, row_start, block, network))
     eye = _row_diagonal_mask(row_start, block, coord.shape[0], coord.device)
     return torch.where(eye, k.sum(dim=1)[:, None], -k)
 
@@ -243,15 +256,18 @@ def hessian_matrix(coord, params, dtype=None, layout="atom"):
     return full.permute(perm).reshape(3 * n, 3 * n)
 
 
-def hessian_rows(coord, params, row_start, block, dtype=None):
+def hessian_rows(coord, params, row_start, block, dtype=None,
+                 network=None):
     """Atom rows ``row_start`` ... ``row_start + block - 1`` of the
     atom-layout Hessian, ``(3 block, 3n)``, without the rest of it: the
     diagonal superelement of a row is the negated sum of its own row's
-    superelements (equal to the column sum by symmetry)."""
+    superelements (equal to the column sum by symmetry).  `network` as
+    in :func:`kirchhoff_rows`."""
     coord = _as_coord(coord, dtype)
     n = coord.shape[0]
     disp, sq = _row_geometry(coord, row_start, block)
-    k = _row_force_constants(sq, params, row_start, block)
+    k = _row_force_constants(sq, params, row_start, block, _row_network_sq(
+        coord, row_start, block, network))
     off = _superelements(-k / torch.where(sq == 0, torch.ones_like(sq), sq),
                          disp)
     eye = _row_diagonal_mask(row_start, block, n, coord.device)

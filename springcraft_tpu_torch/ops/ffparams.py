@@ -412,9 +412,20 @@ def _compact_offsets(code_p, code_q, pos_p, pos_q):
         + (code_q & 31).long()
 
 
-def _compact_lookup(params, sq, dev, offsets):
-    """The stacked tables at `offsets` in the distance bin of `sq`."""
-    bins = _bin_indices(sq, params, dev["edges"])
+def _network_bins(params, sq, net_sq):
+    """Distance bin of every pair at squared distances `sq`, decided on
+    `net_sq` (``None``: on `sq`) against the edges in its own dtype: the
+    bins of the network that a matrix was assembled on, where the values
+    are wanted in another precision."""
+    decide = sq if net_sq is None else net_sq
+    return _bin_indices(decide, params, params.device_tables(
+        decide.device, decide.dtype)["edges"])
+
+
+def _compact_lookup(params, sq, dev, offsets, net_sq=None):
+    """The stacked tables at `offsets` in the distance bin of `sq` (of
+    `net_sq`, if given)."""
+    bins = _network_bins(params, sq, net_sq)
     if bins is not None:
         offsets = offsets + bins * (3 * N_TYPES * N_TYPES)
     return dev["tables"].reshape(-1)[offsets.expand(sq.shape)]
@@ -442,14 +453,16 @@ def base_constants(params, sq):
     return dev["pair_table"].reshape(-1)[index]
 
 
-def rect_base_constants(params, sq, rows, cols, row_pos=None, col_pos=None):
+def rect_base_constants(params, sq, rows, cols, row_pos=None, col_pos=None,
+                        net_sq=None):
     """Unmasked spring constants ``(R, C)`` of an analytic or
     ``table_compact`` base family for a rectangular block of pairs: `sq`
     ``(R, C)``, `rows` ``(R,)`` and `cols` ``(C,)`` the slots of the
     atoms (index into the per-atom codes; slots past the last atom read
     atom 0 and must be masked by the caller), `row_pos` / `col_pos`
     their original array positions for the bonded test where the atoms
-    were reordered (default: the slots)."""
+    were reordered (default: the slots), `net_sq` the squared distances
+    that decide the bins (default `sq`)."""
     if params.kind in ANALYTIC_KINDS:
         return analytic_constants(params.kind, sq)
     if params.kind != "table_compact":
@@ -462,7 +475,7 @@ def rect_base_constants(params, sq, rows, cols, row_pos=None, col_pos=None):
     col_pos = cols if col_pos is None else col_pos
     return _compact_lookup(params, sq, dev, _compact_offsets(
         code_r[:, None], code_c[None, :], row_pos[:, None],
-        col_pos[None, :]))
+        col_pos[None, :]), net_sq)
 
 
 # ---------------------------------------------------------------------------
@@ -504,12 +517,14 @@ def overlay_candidate_pairs(params):
     return params._cache["pairs"]
 
 
-def pair_base_constants(ii, jj, sq, params, pos_i=None, pos_j=None):
+def pair_base_constants(ii, jj, sq, params, pos_i=None, pos_j=None,
+                        net_sq=None):
     """Unmasked spring constants of the base family for 1-D pair index
     tensors `ii`, `jj` and their squared distances `sq` ``(..., P)`` —
     the sparse counterpart of :func:`base_constants`.  `pos_i` / `pos_j`
     are the original array positions for the bonded test of
-    ``table_compact`` where the atoms were reordered."""
+    ``table_compact`` where the atoms were reordered; `net_sq` the
+    squared distances that decide the bins (default `sq`)."""
     if params.kind in ANALYTIC_KINDS:
         return analytic_constants(params.kind, sq)
     dev = params.device_tables(sq.device, sq.dtype)
@@ -517,8 +532,8 @@ def pair_base_constants(ii, jj, sq, params, pos_i=None, pos_j=None):
         code = dev["code"]
         return _compact_lookup(params, sq, dev, _compact_offsets(
             code[ii], code[jj], ii if pos_i is None else pos_i,
-            jj if pos_j is None else pos_j))
-    bins = _bin_indices(sq, params, dev["edges"])
+            jj if pos_j is None else pos_j), net_sq)
+    bins = _network_bins(params, sq, net_sq)
     table = dev["pair_table"]
     return table[ii, jj, 0].expand(sq.shape) if bins is None \
         else table[ii, jj, bins]

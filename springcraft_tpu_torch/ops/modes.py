@@ -28,20 +28,33 @@ Counterpart of ``springcraft_tpu/ops/modes.py``:
   operator applied from the pair list of :mod:`.pairs` (``"sparse"``,
   families with a cutoff) or from streamed row panels of
   :func:`.assembly.hessian_rows` / :func:`.assembly.kirchhoff_rows`
-  (``"dense"``), never a resident float64 matrix;
+  (``"dense"``), never a resident float64 matrix, on the network that
+  the modes' matrix was assembled on (:func:`_network_dtype`);
 * :func:`lowest_modes_anm` — the six rigid-body modes deflated
   analytically, by shift-invert or LOBPCG.
 
 Modes come back in rows, ``(k, m)``, as in the JAX package.
+
+Spans (:func:`..utils.profiling.span`): ``lowest_modes_anm`` around
+that call; ``prep`` (the regularization), ``cholesky`` (the factor) and
+``sweeps`` (the iterations and their Rayleigh-Ritz) inside the
+shift-invert solvers; ``refine`` around each refinement, whose host pair
+search is ``pair_search`` (:func:`.pairs.pair_list`).  Counters:
+``lowest_modes_shift_invert.sweeps``, the shift-invert iterations run
+(by every solver here), and
+``refine_modes_f64.listed_pairs`` / ``refine_modes_f64_gnm.listed_pairs``,
+the pairs of the refinements' pair lists.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..utils import elastic
 from ..utils.config import as_tensor
+from ..utils.profiling import span
 from . import assembly, pairs, rigid, spd_linalg
 from .ffparams import squared_norm
 
@@ -242,13 +255,15 @@ def _shift_invert_iterate(matrix, inv_apply, t, *, k, n_iter, oversample,
     def step(_, state):
         x = elastic._restore(state["x"], (m, p), matrix.dtype,
                              matrix.device)
+        lowest_modes_shift_invert.sweeps += 1
         return {"x": _shift_invert_step(inv_apply, t, x)}
 
-    state, _ = elastic.resumable_loop(
-        step, {"x": _shift_invert_start(matrix, t, p, seed)}, n_iter,
-        checkpoint=checkpoint, **retry)
-    return elastic.retry_on_failure(_shift_invert_finish, matrix,
-                                    state["x"], k, **retry)
+    with span("sweeps"):
+        state, _ = elastic.resumable_loop(
+            step, {"x": _shift_invert_start(matrix, t, p, seed)}, n_iter,
+            checkpoint=checkpoint, **retry)
+        return elastic.retry_on_failure(_shift_invert_finish, matrix,
+                                        state["x"], k, **retry)
 
 
 def _resolve_engine(engine, matrix):
@@ -292,11 +307,14 @@ def lowest_modes_shift_invert(matrix, t, *, k, n_iter=24, oversample=None,
     engine = _resolve_engine(engine, matrix)
     t = t.to(matrix.dtype)
     m = matrix.shape[0]
-    reg, scale, _ = rigid._regularize_equilibrated(matrix, t)
+    with span("prep"):
+        reg, scale, _ = rigid._regularize_equilibrated(matrix, t)
     if engine == "chol":
+        with span("cholesky"):
+            chol = rigid._cholesky_factor(reg)
         return shift_invert_from_chol(
-            matrix, rigid._cholesky_factor(reg), scale, t, k=k,
-            n_iter=n_iter, oversample=oversample, seed=seed)
+            matrix, chol, scale, t, k=k, n_iter=n_iter,
+            oversample=oversample, seed=seed)
     g = spd_linalg.spd_inverse_factor(reg[None])[0]
     mp = g.shape[-1]
     # the equilibration folded into the factor's columns (zero past m):
@@ -308,6 +326,10 @@ def lowest_modes_shift_invert(matrix, t, *, k, n_iter=24, oversample=None,
 
     return _shift_invert_iterate(matrix, inv_apply, t, k=k, n_iter=n_iter,
                                  oversample=oversample, seed=seed)
+
+
+#: Shift-invert iterations run, by every solver of this module.
+lowest_modes_shift_invert.sweeps = 0
 
 
 def _chol_inverse(chol, scale):
@@ -353,8 +375,10 @@ def lowest_modes_shift_invert_staged(matrix, t, *, k, n_iter=24,
     t = t.to(matrix.dtype)
 
     def factor():
-        reg, scale, _ = rigid._regularize_equilibrated(matrix, t)
-        return rigid._cholesky_factor(reg), scale
+        with span("prep"):
+            reg, scale, _ = rigid._regularize_equilibrated(matrix, t)
+        with span("cholesky"):
+            return rigid._cholesky_factor(reg), scale
 
     chol, scale = elastic.retry_on_failure(factor, retries=retries,
                                            wait=wait, probe=matrix.device)
@@ -422,6 +446,25 @@ def mode_residuals(matrix, eig_values, eig_vectors):
 # ---------------------------------------------------------------------------
 # Float64 refinement
 # ---------------------------------------------------------------------------
+
+def _is_float32(x):
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch.float32
+    return np.asarray(x).dtype == np.float32
+
+
+def _network_dtype(coord, eig_vectors):
+    """The dtype whose squared distances decide which pairs the
+    refinement couples and in which distance bin: float32 where both the
+    coordinates and the modes are float32, the one case in which the
+    modes come from a float32 assembly of float32 coordinates (the
+    assembly kernels decide on the float32 squared distances), so that
+    the refinement applies the network its modes were solved on; float64
+    otherwise (a float64 assembly, or float64 coordinates)."""
+    if _is_float32(coord) and _is_float32(eig_vectors):
+        return torch.float32
+    return torch.float64
+
 
 def _refine_inputs(coord, eig_vectors, masses, dim_per_atom):
     """``(coord, u, masses, weights)`` in float64 on the device of the
@@ -497,6 +540,13 @@ def refine_modes_f64(coord, params, eig_vectors, *, masses=None,
     block to the basis (one more sweep); a few buffer modes beyond the
     ones needed do more for the last mode.
 
+    The operator is that of the network the modes were solved on: with
+    float32 coordinates and float32 modes (a float32 assembly), which
+    pairs interact and in which distance bin is decided on the float32
+    squared distances, as the assembly kernels decide it; otherwise on
+    the float64 ones.  Spring constants, distances and all that follows
+    are float64 either way.
+
     Parameters
     ----------
     coord : Tensor or ndarray, shape=(n, 3)
@@ -517,41 +567,45 @@ def refine_modes_f64(coord, params, eig_vectors, *, masses=None,
     """
     if layout not in ("xyz", "atom"):
         raise ValueError(f"Unknown layout '{layout}'")
-    coord, u, masses, w3 = _refine_inputs(coord, eig_vectors, masses, 3)
-    n = coord.shape[0]
-    m = 3 * n
-    perm = None
-    if layout == "xyz":
-        # xyz plane layout -> atom-interleaved
-        perm = (torch.arange(n, device=coord.device)[:, None]
-                + n * torch.arange(3, device=coord.device)[None, :]
-                ).reshape(-1)
-        u = u[perm]
-    method = _resolve_method(method, params)
-    if method == "sparse":
-        pi, pj, kvals = pairs.pair_list(coord, params)
-        sq = squared_norm(coord[pi] - coord[pj])
-        g = kvals / torch.where(sq == 0, torch.ones_like(sq), sq)
+    with span("refine"):
+        network = _network_dtype(coord, eig_vectors)
+        coord, u, masses, w3 = _refine_inputs(coord, eig_vectors, masses, 3)
+        n = coord.shape[0]
+        m = 3 * n
+        perm = None
+        if layout == "xyz":
+            # xyz plane layout -> atom-interleaved
+            perm = (torch.arange(n, device=coord.device)[:, None]
+                    + n * torch.arange(3, device=coord.device)[None, :]
+                    ).reshape(-1)
+            u = u[perm]
+        method = _resolve_method(method, params)
+        if method == "sparse":
+            pi, pj, kvals = pairs.pair_list(coord, params, network=network)
+            refine_modes_f64.listed_pairs += pi.numel()
+            sq = squared_norm(coord[pi] - coord[pj])
+            g = kvals / torch.where(sq == 0, torch.ones_like(sq), sq)
 
-        def apply(x):
-            return pairs.hessian_apply_pairs(
-                coord, pi, pj, g, x.reshape(n, 3, -1)).reshape(m, -1)
-    else:
-        def apply(x):
-            hx = torch.empty((m, x.shape[1]), dtype=x.dtype,
-                             device=x.device)
-            for rs in range(0, n, block):
-                b = min(block, n - rs)
-                hx[3 * rs:3 * (rs + b)] = assembly.hessian_rows(
-                    coord, params, rs, b) @ x
-            return hx
+            def apply(x):
+                return pairs.hessian_apply_pairs(
+                    coord, pi, pj, g, x.reshape(n, 3, -1)).reshape(m, -1)
+        else:
+            def apply(x):
+                hx = torch.empty((m, x.shape[1]), dtype=x.dtype,
+                                 device=x.device)
+                for rs in range(0, n, block):
+                    b = min(block, n - rs)
+                    hx[3 * rs:3 * (rs + b)] = assembly.hessian_rows(
+                        coord, params, rs, b, network=network) @ x
+                return hx
 
-    t = rigid.rigid_modes_anm(coord, masses=masses, layout="atom")
-    theta, vecs, res = _rayleigh_ritz_f64(_weighted(apply, w3), t, u,
-                                          augment=augment)
-    if perm is not None:
-        vecs = vecs[torch.argsort(perm)]
-    return theta, vecs.T, res
+        t = rigid.rigid_modes_anm(coord, masses=masses, layout="atom")
+        theta, vecs, res = _rayleigh_ritz_f64(_weighted(apply, w3), t, u,
+                                              augment=augment)
+        if perm is not None:
+            vecs = vecs[torch.argsort(perm)]
+        return theta, vecs.T, res
+
 
 
 def refine_modes_f64_gnm(coord, params, eig_vectors, *, masses=None,
@@ -564,32 +618,40 @@ def refine_modes_f64_gnm(coord, params, eig_vectors, *, masses=None,
     (``sqrt(m)``-scaled) constant mode deflated.
 
     Returns ``(eig_values (k,), eig_vectors (k, n), residuals (k,))``,
-    float64 on the device of `eig_vectors`.
+    float64 on the device of `eig_vectors`; the network as in
+    :func:`refine_modes_f64`.
     """
-    coord, u, _, w = _refine_inputs(coord, eig_vectors, masses, 1)
-    n = coord.shape[0]
-    method = _resolve_method(method, params)
-    if method == "sparse":
-        pi, pj, kvals = pairs.pair_list(coord, params)
+    with span("refine"):
+        network = _network_dtype(coord, eig_vectors)
+        coord, u, _, w = _refine_inputs(coord, eig_vectors, masses, 1)
+        n = coord.shape[0]
+        method = _resolve_method(method, params)
+        if method == "sparse":
+            pi, pj, kvals = pairs.pair_list(coord, params, network=network)
+            refine_modes_f64_gnm.listed_pairs += pi.numel()
 
-        def apply(x):
-            return pairs.kirchhoff_apply_pairs(pi, pj, kvals, n, x)
-    else:
-        def apply(x):
-            kx = torch.empty((n, x.shape[1]), dtype=x.dtype,
-                             device=x.device)
-            for rs in range(0, n, block):
-                b = min(block, n - rs)
-                kx[rs:rs + b] = assembly.kirchhoff_rows(coord, params, rs,
-                                                        b) @ x
-            return kx
+            def apply(x):
+                return pairs.kirchhoff_apply_pairs(pi, pj, kvals, n, x)
+        else:
+            def apply(x):
+                kx = torch.empty((n, x.shape[1]), dtype=x.dtype,
+                                 device=x.device)
+                for rs in range(0, n, block):
+                    b = min(block, n - rs)
+                    kx[rs:rs + b] = assembly.kirchhoff_rows(
+                        coord, params, rs, b, network=network) @ x
+                return kx
 
-    null = torch.ones(n, dtype=torch.float64, device=coord.device) \
-        if w is None else 1.0 / w
-    t = (null / torch.linalg.vector_norm(null))[:, None]
-    theta, vecs, res = _rayleigh_ritz_f64(_weighted(apply, w), t, u,
-                                          augment=augment)
-    return theta, vecs.T, res
+        null = torch.ones(n, dtype=torch.float64, device=coord.device) \
+            if w is None else 1.0 / w
+        t = (null / torch.linalg.vector_norm(null))[:, None]
+        theta, vecs, res = _rayleigh_ritz_f64(_weighted(apply, w), t, u,
+                                              augment=augment)
+        return theta, vecs.T, res
+
+
+refine_modes_f64.listed_pairs = 0
+refine_modes_f64_gnm.listed_pairs = 0
 
 
 def lowest_modes_anm(hessian_xyz, coord, k, masses=None, n_iter=24,
@@ -605,19 +667,21 @@ def lowest_modes_anm(hessian_xyz, coord, k, masses=None, n_iter=24,
 
     Returns ``(eig_values (k,), eig_vectors (k, 3n))``, xyz layout.
     """
-    matrix = hessian_xyz
-    coord = as_tensor(coord, matrix.dtype, matrix.device)
-    if masses is not None:
-        masses = as_tensor(masses, matrix.dtype, matrix.device)
-    basis = rigid.rigid_modes_anm(coord, masses=masses, layout="xyz")
-    if method == "shift_invert":
-        if 2 * max(k, 8) + 2 * k >= matrix.shape[0]:
-            return _dense_lowest(matrix, k, basis)
-        return lowest_modes_shift_invert(matrix, basis, k=k, n_iter=n_iter,
-                                         engine=engine, **solver_options)
-    if method != "lobpcg":
-        raise ValueError(f"Unknown method '{method}'")
-    if solver_options:
-        raise TypeError(f"options {sorted(solver_options)} are only valid "
-                        f"with method='shift_invert'")
-    return lowest_modes(matrix, k, null_basis=basis, n_iter=n_iter)
+    with span("lowest_modes_anm"):
+        matrix = hessian_xyz
+        coord = as_tensor(coord, matrix.dtype, matrix.device)
+        if masses is not None:
+            masses = as_tensor(masses, matrix.dtype, matrix.device)
+        basis = rigid.rigid_modes_anm(coord, masses=masses, layout="xyz")
+        if method == "shift_invert":
+            if 2 * max(k, 8) + 2 * k >= matrix.shape[0]:
+                return _dense_lowest(matrix, k, basis)
+            return lowest_modes_shift_invert(matrix, basis, k=k,
+                                             n_iter=n_iter, engine=engine,
+                                             **solver_options)
+        if method != "lobpcg":
+            raise ValueError(f"Unknown method '{method}'")
+        if solver_options:
+            raise TypeError(f"options {sorted(solver_options)} are only "
+                            f"valid with method='shift_invert'")
+        return lowest_modes(matrix, k, null_basis=basis, n_iter=n_iter)

@@ -12,7 +12,9 @@ instead of streaming dense row panels.
 * :func:`pair_force_constants` — final per-pair constants, the patch
   overlays' value pipeline included;
 * :func:`pair_list` — the cutoff pairs with the overlays' switched-on
-  pairs added and switched-off pairs removed, and their constants;
+  pairs added and switched-off pairs removed, and their constants, on
+  the network of a chosen precision (which pairs interact, and in which
+  distance bin, decided on the squared distances in that dtype);
 * :func:`hessian_apply_pairs` / :func:`kirchhoff_apply_pairs` — ``H @ V``
   and ``K @ V`` as ``index_add_`` scatters over the pairs, on the device
   of their tensors.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils.config import as_tensor
+from ..utils.profiling import span
 from .ffparams import (_within_cutoff, pair_base_constants, squared_norm,
                        strip_overlays)
 
@@ -37,6 +40,12 @@ __all__ = [
     "hessian_apply_pairs",
     "kirchhoff_apply_pairs",
 ]
+
+#: Relative widening of the host search radius where the network is
+#: decided in float32: a pair within the float32 cutoff lies at most a
+#: few float32 roundings (about 3e-7 of the distance) beyond the float64
+#: one, far inside 2^-20.
+NETWORK_SLACK = 2.0 ** -20
 
 
 def neighbor_pairs(coord, cutoff):
@@ -57,29 +66,39 @@ def neighbor_pairs(coord, cutoff):
     return i[order], j[order]
 
 
-def pair_force_constants(i, j, sq, params):
+def pair_force_constants(i, j, sq, params, net_sq=None):
     """Final constants of the pairs `i`, `j` (int64 tensors ``(P,)``) at
     squared distances `sq` ``(P,)``: the base family, then each overlay's
     value pipeline (reference ``forcefield.py:188-223``).  The caller
-    owns the pair set (see :func:`pair_list`)."""
-    k = pair_base_constants(i, j, sq, strip_overlays(params))
+    owns the pair set (see :func:`pair_list`).  Bins and the overlays'
+    cutoff test are decided on `net_sq` (default `sq`)."""
+    decide = sq if net_sq is None else net_sq
+    k = pair_base_constants(i, j, sq, strip_overlays(params), net_sq=net_sq)
     if params.overlays:
         dev = params.device_overlays(sq.device, sq.dtype)
         for has_value, values in dev["layers"]:
-            k = torch.where(_within_cutoff(sq, params), k,
+            k = torch.where(_within_cutoff(decide, params), k,
                             torch.zeros_like(k))
             k = torch.where(has_value[i, j], values[i, j], k)
     return k
 
 
-def pair_list(coord, params, pairs=None, device=None):
+def pair_list(coord, params, pairs=None, device=None,
+              network=torch.float64):
     """The sparse interaction set of a force field with a cutoff: pair
     indices ``(i, j)``, ``i < j``, and their float64 constants, as
     tensors on the device of `coord` (a numpy `coord` goes to `device`,
     by default the current CUDA device).  The overlays apply in the
     reference order: all switched-off pairs out, then all switched-on
     pairs in, even beyond the cutoff (``interaction.py:193-213``).
-    `pairs` injects a precomputed cutoff pair set."""
+    `pairs` injects a precomputed cutoff pair set.
+
+    `network` is the dtype in which the squared distances (summed as
+    :func:`.ffparams.squared_norm` sums them, from the coordinates cast
+    to it) decide which pairs lie within the cutoff and in which distance
+    bin: ``torch.float32`` gives the network that the float32 assembly
+    kernels build from float32 coordinates.  The constants are float64
+    either way."""
     if not params.has_cutoff:
         raise ValueError(
             "pair_list needs a force field with a finite cutoff; "
@@ -87,8 +106,19 @@ def pair_list(coord, params, pairs=None, device=None):
     coord = as_tensor(coord, torch.float64, device)
     n = coord.shape[0]
     params._check_atoms(n)
+    narrow = network != torch.float64
+    net_coord = coord.to(network) if narrow else None
     if pairs is None:
-        i, j = neighbor_pairs(coord, float(np.sqrt(params.cutoff_sq)))
+        radius = float(np.sqrt(params.cutoff_sq))
+        with span("pair_search"):
+            i, j = neighbor_pairs(
+                coord, radius * (1 + NETWORK_SLACK) if narrow else radius)
+        if narrow:
+            keep = _within_cutoff(squared_norm(
+                net_coord[torch.as_tensor(i, device=coord.device)]
+                - net_coord[torch.as_tensor(j, device=coord.device)]),
+                params).cpu().numpy()
+            i, j = i[keep], j[keep]
     else:
         i, j = (np.asarray(torch.as_tensor(p).cpu(), np.int64)
                 for p in pairs)
@@ -107,7 +137,8 @@ def pair_list(coord, params, pairs=None, device=None):
     i = torch.as_tensor(i, device=coord.device)
     j = torch.as_tensor(j, device=coord.device)
     sq = squared_norm(coord[i] - coord[j])
-    return i, j, pair_force_constants(i, j, sq, params)
+    net_sq = squared_norm(net_coord[i] - net_coord[j]) if narrow else None
+    return i, j, pair_force_constants(i, j, sq, params, net_sq)
 
 
 def hessian_apply_pairs(coord, i, j, g, v):

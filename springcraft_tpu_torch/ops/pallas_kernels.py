@@ -12,7 +12,8 @@ port's kernels tile by warps and read column atoms from device memory at
 any number of atoms.
 
 * :func:`hessian_pallas` — one structure's xyz Hessian (K5,
-  ``csrc/hessian_planes.cu`` through ``hessian_xyz_ensemble``).
+  ``csrc/hessian_planes.cu`` through ``hessian_xyz_ensemble``), in an
+  ``assembly`` span (:func:`..utils.profiling.span`).
 * :func:`kirchhoff_pallas` — one structure's Kirchhoff matrix (K6,
   ``csrc/kirchhoff.cu`` through ``kirchhoff_ensemble``).
 * :func:`hessian_pallas_ensemble` — a batch's xyz Hessians (K5) or, with
@@ -34,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import as_tensor
+from ..utils.profiling import span
 from .assembly_kernels import (hessian_planes_ensemble, hessian_xyz_ensemble,
                                kirchhoff_ensemble)
 from .ffparams import KERNEL_KINDS
@@ -107,7 +109,8 @@ def hessian_pallas(coord, params, dtype=torch.float32, device=None):
     """
     _check(params)
     coord = _coords(coord, dtype, device, 2)
-    return hessian_xyz_ensemble(coord[None], params)[0]
+    with span("assembly"):
+        return hessian_xyz_ensemble(coord[None], params)[0]
 
 
 def kirchhoff_pallas(coord, params, dtype=torch.float32, device=None):

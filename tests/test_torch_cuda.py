@@ -2643,3 +2643,33 @@ def test_example_on_the_card_matches_its_cpu_run(cuda, script, tmp_path,
         smoke.compare_pdb(name, str(tmp_path / "cuda" / name),
                           str(tmp_path / "cpu" / name),
                           runs["cpu"]["ca_coord"])
+
+
+# ---------------------------------------------------------------------------
+# The refinement on the network K5 assembled
+# ---------------------------------------------------------------------------
+
+def test_refinement_of_k5_modes_is_on_k5s_network(cuda):
+    """An sdENM structure with a pair astride a bin edge and one astride
+    the cutoff (in float32 and float64): K5 on the card, float32
+    ``lowest_modes_anm`` and ``refine_modes_f64`` from the float32
+    coordinates, within 1e-9 of float64 ``eigvalsh`` of the float32
+    network; from float64 coordinates, the float64 network's refinement,
+    at least 1e-3 off it."""
+    from springcraft_tpu_torch.ops import pallas_kernels
+    from tests.test_torch_network_rule import (K, edge_system,
+                                               network_hessian)
+
+    c32, params = edge_system()
+    coord = c32.to(cuda)
+    h = pallas_kernels.hessian_pallas(coord, params)
+    _, vecs = sct.lowest_modes_anm(h, coord, K)
+    truth = torch.linalg.eigvalsh(network_hessian(c32, params,
+                                                  torch.float32))[6:K + 4]
+    for method in ("sparse", "dense"):
+        theta = sct.refine_modes_f64(coord, params, vecs, method=method,
+                                     block=16)[0]
+        assert theta.device.type == "cuda"
+        assert _rel(theta[:K - 2].cpu(), truth) <= 1e-9
+    old = sct.refine_modes_f64(coord.double(), params, vecs)[0]
+    assert _rel(old[:K - 2].cpu(), truth) >= 1e-3
