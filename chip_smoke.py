@@ -39,7 +39,11 @@ Phases:
    299 atoms, one structure of 1777), timed by replaying a CUDA graph,
    beside their time per eager call; the pair-CSR build, whose rows and
    slots must equal its plain version's, and K13 / K14 over its list,
-   timed in turns with ``torch.sparse.mm``);
+   timed in turns with ``torch.sparse.mm``; the Cholesky solve pair
+   ``chol_solve`` at (30,000, 48), (29,997, 48), (5,328, 48), (5,331, 48),
+   (900, 48) float32 and (5,328, 48) float64 in turns with
+   ``torch.cholesky_solve``, both against a float64 solve, bit for bit
+   over repeated calls);
 4. the paths, each driven once from zero launch counts and required to
    have launched its own kernels (``PATH_KERNELS``), with finiteness
    checks and a float32 result held against the port's float64 engines
@@ -273,6 +277,21 @@ KERNELS.update({
         "springcraft_tpu_torch/csrc/panel_inverse.cu",
         "springcraft_tpu/ops/pallas_linalg.py:92", 1e-4),
 })
+#: Not a TPU kernel: the Cholesky shift-invert engine's solve pair (the
+#: JAX package's cho_solve there).
+KERNELS["chol_solve"] = (
+    "springcraft_tpu_torch/csrc/chol_solve.cu",
+    "none (springcraft_tpu/ops/modes.py:253 cho_solve)", 1e-4)
+#: (m, dtype) of the solve pair's parity and timing: the north star's
+#: 30,000 dimensions, 7cal's 5,328 and the headline conformer's 900, at
+#: the north-star sweeps' block of 48 columns; at 29,997 and 5,331 the
+#: factor's leading dimension is no multiple of 16 bytes, so it is padded
+#: once (``spd_linalg.chol_solve_factor``, as the shift-invert engine
+#: does).
+CHOL_SOLVE_SHAPES = ((30000, "float32"), (29997, "float32"),
+                     (5328, "float32"), (5331, "float32"), (900, "float32"),
+                     (5328, "float64"))
+CHOL_SOLVE_COLUMNS = 48
 #: Path -> the kernels it must launch.
 PATH_KERNELS = {
     "anm_traces": ("hessian_planes", "regularize_stitch", "panel_inverse"),
@@ -331,7 +350,7 @@ PATH_KERNELS = {
     # factor of "invfactor" (7cal), the chol engine at 8,192 atoms
     "anm_7cal_modes": ("hessian_xyz", "panel_inverse"),
     "gnm_7cal_modes": ("kirchhoff", "panel_inverse"),
-    "anm_modes_8192": ("hessian_xyz",),
+    "anm_modes_8192": ("hessian_xyz", "chol_solve"),
     # the second matrix-free slice at 30,000 atoms: the CG-based estimators
     # (one CG call each, the pair CSR once), the model-API routes on 7cal
     "anm_effector_sensor_sites": ("pair_csr", "hessian_apply_sparse"),
@@ -350,7 +369,7 @@ PATH_KERNELS = {
     "model_gnm_modes": ("panel_inverse",),
     "model_gnm_modes_matfree": ("pair_csr", "kirchhoff_apply_sparse"),
     # the mega-assembly north star through pallas_kernels.hessian_pallas
-    "mega_north_star": ("hessian_xyz",),
+    "mega_north_star": ("hessian_xyz", "chol_solve"),
     "mega_allmode_msf": ("hessian_xyz",),
     # the large structure read from BinaryCIF: the xl solves plain, again,
     # checkpointed, interrupted, resumed and retried
@@ -2721,6 +2740,79 @@ def matfree_parity(results):
     sparse_parity(results, sd_enm_compact(N_MATFREE), " sdENM")
     dense_parity(results, sct.pfenm_params(None), " pfenm")
     dense_parity(results, sd_enm_compact(N_MATFREE_DENSE), " sdENM")
+
+
+def chol_solve_parity(results):
+    """The solve pair ``S (L L^T)^-1 S B`` (``spd_linalg.chol_solve``) at
+    ``CHOL_SOLVE_SHAPES`` against its plain version, in turns with
+    ``torch.cholesky_solve``; both held against a float64 solve (the
+    kernel at most twice the library's error), the kernel bit for bit
+    over repeated calls.  The factor: a unit lower triangle with entries
+    of 0.3 / sqrt(m) below the diagonal, column-major as
+    ``torch.linalg.cholesky_ex`` stores it, then as
+    ``spd_linalg.chol_solve_factor`` leaves it; the times are the pair's
+    (two triangular solves), the bound the triangle read twice and 2 m^2 b
+    operations."""
+    import torch
+
+    from springcraft_tpu_torch.ops import spd_linalg
+
+    dev = torch.device("cuda")
+    for m, name in CHOL_SOLVE_SHAPES:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(m)
+        chol = torch.randn(m, m, device=dev, dtype=torch.float64,
+                           generator=gen).tril_(-1).mul_(0.3 / m ** 0.5)
+        chol.diagonal().fill_(1.0)
+        chol = chol.T.contiguous().T
+        x = torch.linalg.qr(torch.randn(m, CHOL_SOLVE_COLUMNS, device=dev,
+                                        dtype=torch.float64,
+                                        generator=gen))[0]
+        scale = 0.5 + torch.rand(m, device=dev, dtype=torch.float64,
+                                 generator=gen)
+        exact = scale[:, None] * torch.cholesky_solve(scale[:, None] * x,
+                                                      chol)
+        chol, x, scale = chol.to(dtype), x.to(dtype), scale.to(dtype)
+        check(chol.stride(0) == 1, "chol_solve: the factor column-major")
+        chol = spd_linalg.chol_solve_factor(chol)
+
+        def kernel():
+            return spd_linalg.chol_solve(x, chol, scale)
+
+        def plain():
+            return spd_linalg.chol_solve_plain(x, chol, scale)
+
+        def library():
+            return scale[:, None] * torch.cholesky_solve(scale[:, None] * x,
+                                                         chol)
+
+        first = kernel()
+        for _ in range(3):
+            check(torch.equal(kernel(), first),
+                  f"chol_solve ({m}, {name}): two calls differ")
+        err = max_errors(first, exact)[1]
+        lib_err = max_errors(library(), exact)[1]
+        check(err <= 2 * max(lib_err, 64 * torch.finfo(dtype).eps),
+              f"chol_solve ({m}, {name}): error {err:.3e} against float64, "
+              f"cholesky_solve's {lib_err:.3e}")
+        size = torch.finfo(dtype).bits // 8
+        rate = F64_FLOPS if dtype == torch.float64 else F32_FLOPS
+        work = (2 * size * m * (m + 1) // 2, 2 * m * m * CHOL_SOLVE_COLUMNS,
+                rate)
+        reps = 5 if m >= 10000 else TIMING_REPS
+        record(results, "chol_solve", kernel, plain, work, library,
+               reps=reps, plain_reps=1 if m >= 10000 else 3,
+               label=f" {name}, error against float64 {err:.3e} "
+               f"(cholesky_solve {lib_err:.3e})", turns=True)
+        rec = results["chol_solve"][-1]
+        rec.update(dtype=name, err_f64=err, library_err_f64=lib_err)
+        print(f"chol_solve ({m}, {CHOL_SOLVE_COLUMNS}) {name}: a triangular "
+              f"solve {rec['ms'] / 2:.4f} ms, bound {rec['bound_ms'] / 2:.4f}"
+              f" ms, cholesky_solve {rec['library_ms'] / 2:.4f} ms a solve",
+              flush=True)
+        del chol, x, scale, exact, first
+        torch.cuda.empty_cache()
 
 
 def dense_hessian(c, params):
@@ -5123,6 +5215,7 @@ def main():
                  torch.as_tensor(ca_7cal.coord[None], device="cuda"), e_anm)
     del chunk
     matfree_parity(parity)
+    chol_solve_parity(parity)
     phase("kernel parity")
     launches = paths(conformers, single, params, card)
     launches.update(tabulated_paths(conformers, sd_enm, ca_7cal.coord, e_anm,

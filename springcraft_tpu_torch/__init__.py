@@ -197,8 +197,8 @@ def kernel_wrappers():
                                        kirchhoff_ensemble, regularize_stitch)
     from .ops.matfree import (hessian_apply_dense, hessian_apply_sparse,
                               kirchhoff_apply_sparse, pair_csr)
-    from .ops.spd_linalg import (panel_cholesky, panel_inverse_batched,
-                                 panel_inverse_full)
+    from .ops.spd_linalg import (chol_solve, panel_cholesky,
+                                 panel_inverse_batched, panel_inverse_full)
     from .ops.spectrum import banded_bisect, banded_eigvec
 
     return {
@@ -216,4 +216,5 @@ def kernel_wrappers():
         "assembly_stitch": assembly_stitch,
         "panel_cholesky": panel_cholesky,
         "panel_inverse_full": panel_inverse_full,
+        "chol_solve": chol_solve,
     }

@@ -91,6 +91,10 @@ _SIGNATURES = {
     # tables, edges_sq, atom_code, n_bins, n_edges, stream
     "sc_hessian_apply_dense": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P,
                                _P, _I, _I, _P),
+    # l, ldl, m, src, src row stride, src column stride, b, scale, part,
+    # work, dst, dst row stride, ws, forward, f64, stream
+    "sc_chol_solve": (_P, _L, _I, _P, _L, _L, _I, _P, _P, _P, _P, _L, _P, _I,
+                      _I, _P),
     # error code -> message
     "sc_error_string": (_I,),
 }

@@ -9,7 +9,9 @@ Counterpart of ``springcraft_tpu/ops/modes.py``:
   ``lobpcg_standard`` run for a fixed number of iterations;
 * :func:`lowest_modes_shift_invert` — Cholesky-preconditioned subspace
   iteration on ``H + sigma T T^t``, with a final Rayleigh-Ritz on ``H``.
-  Engine ``"chol"`` solves with ``torch.linalg`` Cholesky factors;
+  Engine ``"chol"`` solves with ``torch.linalg`` Cholesky factors
+  through the solve pair :func:`.spd_linalg.chol_solve` (on CUDA the
+  kernel ``csrc/chol_solve.cu``);
   ``"invfactor"`` builds the explicit inverse factor once
   (:func:`.spd_linalg.spd_inverse_factor`, kernel K3 at its leaves), so
   that every iteration's solve is two products; ``"auto"`` takes
@@ -288,7 +290,8 @@ def lowest_modes_shift_invert(matrix, t, *, k, n_iter=24, oversample=None,
     Rayleigh-Ritz on `matrix` gives the pairs.
 
     `engine`: ``"chol"`` (``torch.linalg.cholesky`` and two triangular
-    solves a step), ``"invfactor"`` (the explicit inverse factor of
+    solves a step, :func:`.spd_linalg.chol_solve`), ``"invfactor"`` (the
+    explicit inverse factor of
     :func:`.spd_linalg.spd_inverse_factor`, float32 on CUDA through
     kernel K3, then two products a step), ``"auto"`` (``"invfactor"``
     for float32 on CUDA up to ``m = 8192``, else ``"chol"``) or
@@ -334,10 +337,15 @@ lowest_modes_shift_invert.sweeps = 0
 
 def _chol_inverse(chol, scale):
     """``x -> S (S A S)^-1 S x`` through the equilibrated Cholesky factor
-    ``chol`` of ``S A S``, ``S = diag(scale)``."""
+    ``chol`` of ``S A S``, ``S = diag(scale)``: the solve pair of
+    :func:`.spd_linalg.chol_solve`, which reads the factor in place
+    (column-major, as ``torch.linalg.cholesky_ex`` returns it; a factor
+    in another layout, or with a leading dimension that is no multiple of
+    16 bytes, is copied to it once here)."""
+    chol = spd_linalg.chol_solve_factor(chol)
+
     def inv_apply(x):
-        return scale[:, None] * torch.cholesky_solve(scale[:, None] * x,
-                                                     chol)
+        return spd_linalg.chol_solve(x, chol, scale)
 
     return inv_apply
 

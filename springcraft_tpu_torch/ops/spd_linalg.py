@@ -24,6 +24,11 @@ entry, reached through ``panel_inverse_batched(shrink_block=None)``, the
 default) and the panel Cholesky
 factor (:func:`panel_cholesky_batched`, kernel
 ``csrc/panel_cholesky.cu``, plain version :func:`panel_cholesky_plain`).
+
+Beside them, the solve pair of a Cholesky factor, ``S (L L^T)^-1 S B``
+(:func:`chol_solve`, kernel ``csrc/chol_solve.cu``, plain version
+:func:`chol_solve_plain`): the inverse apply of the Cholesky
+shift-invert engine, which reads the factor in place.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ __all__ = [
     "panel_cholesky",
     "panel_cholesky_batched",
     "panel_cholesky_plain",
+    "chol_solve",
+    "chol_solve_factor",
+    "chol_solve_plain",
     "spd_inverse_blocked",
     "spd_inverse_factor",
     "spd_inverse_factor_parts",
@@ -57,6 +65,10 @@ MAX_LEAF = 128
 #: Largest panel the Cholesky kernel takes (16 warps, the state in
 #: registers).
 MAX_CHOLESKY_PANEL = 128
+#: Rows of a row block of the solve pair (``csrc/chol_solve.cu``).
+CHOL_SOLVE_BLOCK = 64
+#: Right-hand-side columns one launch pair takes; wider blocks go in turns.
+CHOL_SOLVE_COLUMNS = 48
 
 
 def _round_up(x, m):
@@ -175,6 +187,130 @@ def panel_cholesky(panels):
 panel_inverse_batched.launches = 0
 panel_inverse_full.launches = 0
 panel_cholesky.launches = 0
+
+
+def chol_solve_plain(x, chol, scale):
+    """Plain version of :func:`chol_solve`, in the kernel's blocked
+    order: row blocks of ``CHOL_SOLVE_BLOCK`` in solve order, each
+    block's right-hand side less its products with the blocks solved
+    before it, then its diagonal block solved."""
+    m, block = chol.shape[-1], CHOL_SOLVE_BLOCK
+    rhs = scale[:, None] * x
+    y = torch.empty_like(rhs)
+    for s in range(0, m, block):
+        e = min(s + block, m)
+        y[s:e] = torch.linalg.solve_triangular(
+            chol[s:e, s:e], rhs[s:e] - chol[s:e, :s] @ y[:s], upper=False)
+    out = torch.empty_like(rhs)
+    for s in reversed(range(0, m, block)):
+        e = min(s + block, m)
+        out[s:e] = torch.linalg.solve_triangular(
+            chol[s:e, s:e].mT, y[s:e] - chol[e:, s:e].mT @ out[e:],
+            upper=True)
+    return scale[:, None] * out
+
+
+def _chol_solve_reads(chol):
+    """Whether `chol` lies as :func:`chol_solve`'s kernel reads it."""
+    return (chol.stride(0) == 1 and chol.stride(1) >= chol.shape[0]
+            and chol.stride(1) * chol.element_size() % 16 == 0
+            and chol.data_ptr() % 16 == 0)
+
+
+def chol_solve_factor(chol):
+    """The factor `chol` ``(m, m)`` as :func:`chol_solve` reads it:
+    column-major, its address and leading dimension multiples of 16 bytes
+    (the kernel's copies).  ``torch.linalg.cholesky_ex``'s factor is
+    returned as it is when m is a multiple of 4 (float32) or 2 (float64);
+    another is copied once into that layout, its leading dimension padded,
+    so that every solve with it streams the triangle in 16-byte copies."""
+    if _chol_solve_reads(chol):
+        return chol
+    m, align = chol.shape[0], 16 // chol.element_size()
+    ld = -(-m // align) * align
+    return chol.new_empty((m, ld))[:, :m].mT.copy_(chol)
+
+
+#: Per (card, stream): the kernel's counters and two flags a row block,
+#: zeroed once; each launch leaves them zero.
+_CHOL_SOLVE_STATE = {}
+
+
+def _chol_solve_state(device, n_blocks):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    state = _CHOL_SOLVE_STATE.get(key)
+    if state is None or state.numel() < 2 * n_blocks + 4:
+        state = torch.zeros(2 * n_blocks + 4, dtype=torch.int32,
+                            device=device)
+        _CHOL_SOLVE_STATE[key] = state
+    return state
+
+
+def chol_solve(x, chol, scale):
+    """``S (L L^T)^-1 S x`` for a lower Cholesky factor `chol` ``(m, m)``,
+    a right-hand side `x` ``(m, b)`` and ``S = diag(scale)``: a forward
+    and a backward triangular solve, ``torch.cholesky_solve`` with the
+    scaling folded in.
+
+    On CUDA (float32 or float64) each solve is one launch of
+    ``csrc/chol_solve.cu`` (two a call, in turns of
+    ``CHOL_SOLVE_COLUMNS`` columns past them), which reads the factor
+    where it lies: column-major, ``chol.stride() == (1, ld)``, ``ld`` and
+    the address multiples of 16 bytes, as :func:`chol_solve_factor`
+    leaves it (another layout raises); `x` may have any strides.  The
+    result is the same bit for bit on every call.  On the CPU,
+    :func:`chol_solve_plain`.  Returns a new contiguous ``(m, b)``
+    tensor."""
+    name = "chol_solve"
+    if chol.ndim != 2 or chol.shape[0] != chol.shape[1] or x.ndim != 2 \
+            or x.shape[0] != chol.shape[0]:
+        raise ValueError(f"{name}: expected chol (m, m) and x (m, b), got "
+                         f"{tuple(chol.shape)} and {tuple(x.shape)}")
+    m, b = x.shape
+    if tuple(scale.shape) != (m,):
+        raise ValueError(f"{name}: scale must be ({m},), got "
+                         f"{tuple(scale.shape)}")
+    if _build.route(name, x, chol, scale) == "cpu":
+        return chol_solve_plain(x, chol, scale)
+    if chol.dtype not in (torch.float32, torch.float64) \
+            or any(t.dtype != chol.dtype for t in (x, scale)):
+        raise TypeError(f"{name}: x, chol and scale must share float32 or "
+                        f"float64 on CUDA, got "
+                        f"{[str(t.dtype) for t in (x, chol, scale)]}")
+    out = torch.empty((m, b), dtype=x.dtype, device=x.device)
+    if m == 0 or b == 0:
+        return out
+    if not _chol_solve_reads(chol):
+        raise ValueError(f"{name}: chol must be column-major, its leading "
+                         f"dimension >= {m} and a multiple of 16 bytes, as "
+                         f"chol_solve_factor leaves it, got strides "
+                         f"{chol.stride()}")
+    if not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous")
+    n_blocks = -(-m // CHOL_SOLVE_BLOCK)
+    state = _chol_solve_state(x.device, n_blocks)
+    f64 = int(x.dtype == torch.float64)
+    ld = chol.stride(1)
+    # the partial sums, then Y, then X
+    work = torch.empty((3, n_blocks * CHOL_SOLVE_BLOCK, CHOL_SOLVE_COLUMNS),
+                       dtype=x.dtype, device=x.device)
+    for c0 in range(0, b, CHOL_SOLVE_COLUMNS):
+        cols = min(CHOL_SOLVE_COLUMNS, b - c0)
+        part = x[:, c0:c0 + cols]
+        _build.launch("sc_chol_solve", x.device, chol.data_ptr(), ld, m,
+                      part.data_ptr(), part.stride(0), part.stride(1), cols,
+                      scale.data_ptr(), work[0].data_ptr(),
+                      work[1].data_ptr(), None, 0, state.data_ptr(), 1, f64)
+        _build.launch("sc_chol_solve", x.device, chol.data_ptr(), ld, m,
+                      work[1].data_ptr(), CHOL_SOLVE_COLUMNS, 1, cols,
+                      scale.data_ptr(), work[0].data_ptr(),
+                      work[2].data_ptr(), out[:, c0:].data_ptr(), b,
+                      state.data_ptr(), 0, f64)
+        chol_solve.launches += 2
+    return out
+
+
+chol_solve.launches = 0
 
 
 def _tri_inverse_newton(l):

@@ -472,6 +472,7 @@ def test_spd_inverse_blocked_matches_jax(m):
 
 def test_kernel_wrappers_lists_the_new_kernels():
     wrappers = sct.kernel_wrappers()
-    assert len(wrappers) == 14
-    for name in ("assembly_stitch", "panel_cholesky", "panel_inverse_full"):
+    assert len(wrappers) == 15
+    for name in ("assembly_stitch", "panel_cholesky", "panel_inverse_full",
+                 "chol_solve"):
         assert wrappers[name].launches == 0

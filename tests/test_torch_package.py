@@ -130,7 +130,8 @@ def test_every_c_entry_point_has_a_wrapper():
                        "sc_banded_bisect",
                        "sc_banded_eigvec", "sc_pair_csr_count",
                        "sc_pair_csr_fill", "sc_hessian_apply_pairs",
-                       "sc_hessian_apply_dense", "sc_kirchhoff_apply_pairs"}
+                       "sc_hessian_apply_dense", "sc_kirchhoff_apply_pairs",
+                       "sc_chol_solve"}
     sources = "".join(p.read_text() for p in _build.SOURCES)
     for entry in entries:
         assert f'extern "C" int {entry}(' in sources, entry
@@ -162,7 +163,7 @@ def test_kernel_library_is_named_by_its_sources():
         "hessian_planes.cu", "regularize_stitch.cu", "panel_inverse.cu",
         "kirchhoff.cu", "banded_bisect.cu", "banded_eigvec.cu",
         "matfree_hessian.cu", "matfree_kirchhoff.cu", "matfree_pairs.cu",
-        "assembly_stitch.cu", "panel_cholesky.cu"}
+        "assembly_stitch.cu", "panel_cholesky.cu", "chol_solve.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(sct.kernel_wrappers()) == {"hessian_planes",
@@ -176,7 +177,7 @@ def test_kernel_library_is_named_by_its_sources():
                                           "assembly_stitch",
                                           "panel_cholesky",
                                           "panel_inverse_full",
-                                          "pair_csr"}
+                                          "pair_csr", "chol_solve"}
     for wrapper in sct.kernel_wrappers().values():
         assert isinstance(wrapper.launches, int)
     for name in ("hessian_planes", "hessian_xyz", "kirchhoff",
